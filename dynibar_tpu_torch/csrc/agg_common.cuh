@@ -4,7 +4,7 @@
 //
 // Math from dynibar_tpu/ops/pallas_agg.py (_vis_pooling, _attention and the
 // two kernel bodies); layout from the GPU.  Matmul operands are bf16 with
-// f32 accumulation (nvcuda::wmma 16x16x16 fragments); reductions, softmaxes
+// f32 accumulation (mma.sync m16n8k16 tensor-core instructions); reductions, softmaxes
 // and the layer norm run in f32, as pallas_agg.py:27-30 states for the TPU
 // kernels.  Weights come packed by ops/agg.py: each layer zero-padded to
 // [ceil16(out), ceil16(in)] bf16, biases f32, one slot table (Net).
@@ -26,18 +26,18 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace agg {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 // layer slots; ops/agg.py fills the same ids
 enum Layer {
   RAYDIR0, RAYDIR1, BASE0, BASE1, VIS0, VIS1, VIS20, VIS21, GEO0, GEO1,
-  WQ, WK, WV, WFC, LN, OG0, OG1, RGB0, RGB1, RGB2, REFPTS0, REFPTS1, NLAYERS
+  WQ, WK, WV, WFC, LN, OG0, OG1, RGB0, RGB1, RGB2, REFPTS0, REFPTS1,
+  AA_S,          // bias slot only: the static anti-alias scalar s
+  NLAYERS
 };
 
 struct Lin { int w, b, k, n; };     // weight/bias offsets, padded in/out
@@ -51,7 +51,6 @@ constexpr int SMAX = 128;
 constexpr int CMAX = 40;            // 3 + feature channels
 constexpr int LDA = 280;            // bf16 row strides (multiples of 8)
 constexpr int LDH = 264;
-constexpr int LDMV = 168;
 constexpr int LDG = 136;
 constexpr int LD64 = 72;
 
@@ -76,77 +75,106 @@ __device__ __forceinline__ float pe_geo(const float* x, int nch, int nfreq,
   return is_sin ? sinf(a) : cosf(a);
 }
 
+// ldmatrix / mma.sync helpers (bf16 m16n8k16, f32 accumulate).  Fragment
+// layouts are the PTX ISA's: with g = lane / 4 and t = lane % 4, A holds
+// rows g and g+8 at columns 2t, 2t+1 (+8); B holds k = 2t, 2t+1 (+8) of
+// column g; C holds rows g and g+8 at columns 2t and 2t+1.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Y = X @ W^T + b over `rows` rows (a multiple of 16) of X [rows, L.k]
-// (bf16 in shared memory, row stride ldx), W [L.n, L.k] bf16 in global
-// memory (L2-resident), calling ep(row, col, value) for every (padded)
-// output column.  A warp owns one 16-column tile and up to four 16-row
-// tiles, so one B fragment feeds four MMAs; narrow layers drop to one row
-// tile per warp so that every warp has work.  B fragments are loaded KC
-// k-steps ahead into a second register buffer, so the L2 latency of the
-// weights overlaps the MMAs of the previous chunk.  Ends without a block
-// barrier.
-constexpr int KC = 4;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                             wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+// (bf16 in shared memory, row stride ldx, 16-byte aligned rows), W
+// [L.n, L.k] bf16 in global memory (L2-resident), calling
+// ep(row, col, value) for every (padded) output column straight from the
+// accumulator registers.  A warp owns one 16-column tile and up to four
+// 16-row tiles, so each B fragment feeds eight MMAs; narrow layers drop
+// to one row tile per warp so that every warp has work.  B fragments for
+// the next KR k-steps are in flight while the current step's MMAs run.
+// Ends without a block barrier.
+constexpr int KR = 8;   // k-steps of weights in flight per warp
 
 template <typename EP>
 __device__ void dense(const bf16* X, int ldx, int rows, const bf16* W,
-                      const float* B, const Lin L, float* scratch, EP ep) {
+                      const float* B, const Lin L, EP ep) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* mine = scratch + warp * 256;
+  const int g = lane >> 2, t = lane & 3;
   const int ntile = L.n >> 4, rtiles = rows >> 4, nk = L.k >> 4;
   const int rpu = ntile * ((rtiles + 3) >> 2) >= NW ? 4 : 1;
   const int units = ntile * ((rtiles + rpu - 1) / rpu);
-  for (int t = warp; t < units; t += NW) {
-    const int nt = t % ntile, rt0 = (t / ntile) * rpu;
+  for (int u = warp; u < units; u += NW) {
+    const int nt = u % ntile, rt0 = (u / ntile) * rpu;
     const int nrt = min(rpu, rtiles - rt0);
-    const bf16* wt = W + L.w + (size_t)nt * 16 * L.k;
-    const bf16* xt = X + (size_t)rt0 * 16 * ldx;
-    FragC acc[4];
+    // this lane's weight words: rows nt*16+g and +8, k pair 2t (+8)
+    const uint32_t* w0 =
+        (const uint32_t*)(W + L.w + (size_t)(nt * 16 + g) * L.k) + t;
+    const uint32_t* w1 = w0 + 4 * L.k;
+    const bf16* xa = X + (size_t)(rt0 * 16 + (lane & 15)) * ldx +
+                     (lane >> 4) * 8;
+    float acc[4][2][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0.f);
-    FragB b0[KC], b1[KC];
-    auto load = [&](FragB (&bq)[KC], int kc) {
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < KC; ++j)
-        if (kc + j < nk) wmma::load_matrix_sync(bq[j], wt + 16 * (kc + j), L.k);
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][h][j] = 0.f;
+    auto ldb = [&](uint32_t (&b)[4], int kk) {
+      b[0] = __ldg(w0 + 8 * kk);
+      b[1] = __ldg(w0 + 8 * kk + 4);
+      b[2] = __ldg(w1 + 8 * kk);
+      b[3] = __ldg(w1 + 8 * kk + 4);
     };
-    auto mma = [&](FragB (&bq)[KC], int kc) {
+    auto step = [&](const uint32_t (&b)[4], int kk) {
 #pragma unroll
-      for (int j = 0; j < KC; ++j) {
-        if (kc + j < nk) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            if (i < nrt) {
-              FragA afr;
-              wmma::load_matrix_sync(afr, xt + (size_t)i * 16 * ldx +
-                                              16 * (kc + j), ldx);
-              wmma::mma_sync(acc[i], afr, bq[j], acc[i]);
-            }
-          }
+      for (int i = 0; i < 4; ++i) {
+        if (i < nrt) {
+          uint32_t a[4];
+          ldsm_x4(a, xa + (size_t)i * 16 * ldx + 16 * kk);
+          mma16816(acc[i][0], a, b[0], b[1]);
+          mma16816(acc[i][1], a, b[2], b[3]);
         }
       }
     };
-    load(b0, 0);
-    for (int kc = 0; kc < nk; kc += 2 * KC) {
-      load(b1, kc + KC);
-      mma(b0, kc);
-      load(b0, kc + 2 * KC);
-      mma(b1, kc + KC);
+    // ring of KR k-steps of B in registers: the load for step kk + KR is
+    // issued as soon as step kk has consumed its slot
+    uint32_t br[KR][4];
+#pragma unroll
+    for (int j = 0; j < KR; ++j)
+      if (j < nk) ldb(br[j], j);
+    for (int k0 = 0; k0 < nk; k0 += KR) {
+#pragma unroll
+      for (int j = 0; j < KR; ++j) {
+        const int kk = k0 + j;
+        if (kk < nk) {
+          step(br[j], kk);
+          if (kk + KR < nk) ldb(br[j], kk + KR);
+        }
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (i < nrt) {
-        wmma::store_matrix_sync(mine, acc[i], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int c = nt * 16 + (e & 15);
-          ep((rt0 + i) * 16 + (e >> 4), c, mine[e] + B[L.b + c]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = nt * 16 + h * 8 + 2 * t, r = (rt0 + i) * 16 + g;
+          const float b0 = B[L.b + c], b1 = B[L.b + c + 1];
+          ep(r, c, acc[i][h][0] + b0);
+          ep(r, c + 1, acc[i][h][1] + b1);
+          ep(r + 8, c, acc[i][h][2] + b0);
+          ep(r + 8, c + 1, acc[i][h][3] + b1);
         }
-        __syncwarp();
       }
     }
   }
@@ -172,7 +200,6 @@ struct TrunkArgs {
   const float* reffeat;  // [R, C]  ref_feature_fc(ref Plücker PE)
   const float* raydiff;  // [P, V, 4]
   const float* srcpl;    // [P, V, 6]
-  float s_abs;
   int anti_alias, mask_rgb;
   bf16* ws_rf;           // [V, P, 2C]
   // dynamic aggregator
@@ -186,23 +213,34 @@ struct TrunkArgs {
 };
 
 constexpr size_t kTrunkSmem =
-    (size_t)PT * LDA * 2 + (size_t)PT * LDH * 2 + (size_t)PT * 128 * 4 +
-    (size_t)PT * LDMV * 2 + 4 * (size_t)VMAX * PT * 4 + PT * 4 +
-    (size_t)NW * 256 * 4;
+    (size_t)PT * LDA * 2 + (size_t)PT * LDH * 2 + (size_t)PT * LDG * 2 +
+    (size_t)PT * 128 * 4 + 4 * (size_t)VMAX * PT * 4 + PT * 4;
+
+// x and its sin/cos(2^f x) for f < 5 into an encoded row laid out as
+// core/posenc.periodic_embed: [raw (n), cos (5n), sin (5n)], channel ch.
+__device__ __forceinline__ void pe5(bf16* row, int n, int ch, float x) {
+  row[ch] = f2b(x);
+#pragma unroll
+  for (int f = 0; f < 5; ++f) {
+    float sn, cs;
+    sincosf((float)(1 << f) * x, &sn, &cs);
+    row[n + f * n + ch] = f2b(cs);
+    row[6 * n + f * n + ch] = f2b(sn);
+  }
+}
 
 template <bool STATIC>
 __global__ void __launch_bounds__(NT) trunk_kernel(TrunkArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* buf0 = (bf16*)smem;                        // [PT][LDA]
-  bf16* buf1 = buf0 + PT * LDA;                    // [PT][LDH]
-  float* xf = (float*)(buf1 + PT * LDH);           // [PT][128]
-  bf16* mv = (bf16*)(xf + PT * 128);               // [PT][LDMV]
-  float* sm_m = (float*)(mv + PT * LDMV);          // [VMAX][PT]
+  bf16* buf0 = (bf16*)smem;                        // [PT][LDA] layer inputs
+  bf16* buf1 = buf0 + PT * LDA;                    // [PT][LDH] hidden
+  bf16* buf2 = buf1 + PT * LDH;                    // [PT][LDG] x*w, x*vis
+  float* xf = (float*)(buf2 + PT * LDG);           // [PT][128] x in f32
+  float* sm_m = xf + PT * 128;                     // [VMAX][PT] masks
   float* sm_w = sm_m + VMAX * PT;                  // pooling weights
   float* sm_vis = sm_w + VMAX * PT;
   float* sm_e = sm_vis + VMAX * PT;                // anti-alias scores
   float* sm_row = sm_e + VMAX * PT;                // [PT]
-  float* scratch = sm_row + PT;                    // [NW][256]
 
   const Net& net = a.net;
   const int tid = threadIdx.x, p0 = blockIdx.x * PT;
@@ -211,17 +249,23 @@ __global__ void __launch_bounds__(NT) trunk_kernel(TrunkArgs a) {
   // ---- per-view input features rf, masks and anti-alias scores ----
   if (STATIC) {
     const int kin = net.l[RAYDIR0].k;
+    const float s_abs = a.anti_alias ? fabsf(a.B[net.l[AA_S].b]) : 0.f;
+    // ray_dir_fc input [pts PE (33) | src Plücker PE (66) | ray_diff (4)]:
+    // the point encoding is the same for every view
+    for (int e = tid; e < PT * 3; e += NT) {
+      const int r = e / 3, ch = e % 3, p = p0 + r;
+      pe5(buf0 + r * LDA, 3, ch, p < P ? a.pts[3 * (size_t)p + ch] : 0.f);
+    }
     for (int v = 0; v < V; ++v) {
-      for (int e = tid; e < PT * kin; e += NT) {
-        const int r = e / kin, col = e % kin, p = p0 + r;
-        float val = 0.f;
-        if (p < P) {
-          const size_t pv = (size_t)p * V + v;
-          if (col < 33) val = pe_geo(a.pts + 3 * (size_t)p, 3, 5, col);
-          else if (col < 99) val = pe_geo(a.srcpl + 6 * pv, 6, 5, col - 33);
-          else if (col < 103) val = a.raydiff[4 * pv + col - 99];
-        }
-        buf0[r * LDA + col] = f2b(val);
+      for (int e = tid; e < PT * 6; e += NT) {
+        const int r = e / 6, ch = e % 6, p = p0 + r;
+        pe5(buf0 + r * LDA + 33, 6, ch,
+            p < P ? a.srcpl[((size_t)p * V + v) * 6 + ch] : 0.f);
+      }
+      for (int e = tid; e < PT * (kin - 99); e += NT) {
+        const int r = e / (kin - 99), j = e % (kin - 99), p = p0 + r;
+        buf0[r * LDA + 99 + j] =
+            f2b(j < 4 && p < P ? a.raydiff[((size_t)p * V + v) * 4 + j] : 0.f);
       }
       for (int r = tid; r < PT; r += NT) {
         const int p = p0 + r;
@@ -234,7 +278,7 @@ __global__ void __launch_bounds__(NT) trunk_kernel(TrunkArgs a) {
             const float sum = b2f(rgb[0]) + b2f(rgb[1]) + b2f(rgb[2]);
             m = sum > 1e-3f ? m : 0.f;
           }
-          ex = expf(a.s_abs * (a.raydiff[4 * pv + 3] - 1.f));
+          ex = expf(s_abs * (a.raydiff[4 * pv + 3] - 1.f));
         }
         sm_m[v * PT + r] = m;
         sm_e[v * PT + r] = ex;
@@ -246,10 +290,10 @@ __global__ void __launch_bounds__(NT) trunk_kernel(TrunkArgs a) {
               a.rgbfeat[((size_t)p * V + v) * C + c];
       }
       __syncthreads();
-      dense(buf0, LDA, PT, a.W, a.B, net.l[RAYDIR0], scratch,
+      dense(buf0, LDA, PT, a.W, a.B, net.l[RAYDIR0],
             [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
-      dense(buf1, LDH, PT, a.W, a.B, net.l[RAYDIR1], scratch,
+      dense(buf1, LDH, PT, a.W, a.B, net.l[RAYDIR1],
             [&](int r, int c, float x) {
               const int p = p0 + r;
               if (c < C && p < P)
@@ -296,6 +340,8 @@ __global__ void __launch_bounds__(NT) trunk_kernel(TrunkArgs a) {
     if (p0 + r < P) a.ws_nv[p0 + r] = nv;
   }
   __syncthreads();
+  // base_fc input [mean (CR) | var (CR) | rf_v (CR)]: the pooled columns
+  // stay in buf0 for every view, only rf_v is rewritten per view
   for (int e = tid; e < PT * CR; e += NT) {
     const int r = e / CR, c = e % CR;
     float mean = 0.f, var = 0.f;
@@ -304,39 +350,34 @@ __global__ void __launch_bounds__(NT) trunk_kernel(TrunkArgs a) {
       const float d = rf_val(r, v, c) - mean;
       var += sm_w[v * PT + r] * d * d;
     }
-    mv[r * LDMV + c] = f2b(mean);
-    mv[r * LDMV + CR + c] = f2b(var);
+    buf0[r * LDA + c] = f2b(mean);
+    buf0[r * LDA + CR + c] = f2b(var);
   }
-  __syncthreads();
 
   // ---- per-view trunk: base_fc, vis_fc, vis_fc2 ----
   const int kb = net.l[BASE0].k;
   for (int v = 0; v < V; ++v) {
     const float* wv = sm_w + v * PT;
     const float* mk = sm_m + v * PT;
-    for (int e = tid; e < PT * kb; e += NT) {
-      const int r = e / kb, col = e % kb;
-      bf16 val;
-      if (col < 2 * CR) val = mv[r * LDMV + col];
-      else if (col < 3 * CR) val = f2b(rf_val(r, v, col - 2 * CR));
-      else val = f2b(0.f);
-      buf0[r * LDA + col] = val;
+    for (int e = tid; e < PT * (kb - 2 * CR); e += NT) {
+      const int r = e / (kb - 2 * CR), c = e % (kb - 2 * CR);
+      buf0[r * LDA + 2 * CR + c] = f2b(c < CR ? rf_val(r, v, c) : 0.f);
     }
     __syncthreads();
-    dense(buf0, LDA, PT, a.W, a.B, net.l[BASE0], scratch,
+    dense(buf0, LDA, PT, a.W, a.B, net.l[BASE0],
           [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
     __syncthreads();
-    dense(buf1, LDH, PT, a.W, a.B, net.l[BASE1], scratch,
+    dense(buf1, LDH, PT, a.W, a.B, net.l[BASE1],
           [&](int r, int c, float x) {
             const float y = elu(x);
             xf[r * 128 + c] = y;
-            buf0[r * LDA + c] = f2b(y * wv[r]);
+            buf2[r * LDG + c] = f2b(y * wv[r]);
           });
     __syncthreads();
-    dense(buf0, LDA, PT, a.W, a.B, net.l[VIS0], scratch,
+    dense(buf2, LDG, PT, a.W, a.B, net.l[VIS0],
           [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
     __syncthreads();
-    dense(buf1, LDH, PT, a.W, a.B, net.l[VIS1], scratch,
+    dense(buf1, LDH, PT, a.W, a.B, net.l[VIS1],
           [&](int r, int c, float x) {
             const float t = elu(x);
             if (c < 128) xf[r * 128 + c] += t;
@@ -345,13 +386,13 @@ __global__ void __launch_bounds__(NT) trunk_kernel(TrunkArgs a) {
     __syncthreads();
     for (int e = tid; e < PT * 128; e += NT) {
       const int r = e >> 7, c = e & 127;
-      buf0[r * LDA + c] = f2b(xf[e] * sm_row[r]);
+      buf2[r * LDG + c] = f2b(xf[e] * sm_row[r]);
     }
     __syncthreads();
-    dense(buf0, LDA, PT, a.W, a.B, net.l[VIS20], scratch,
+    dense(buf2, LDG, PT, a.W, a.B, net.l[VIS20],
           [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
     __syncthreads();
-    dense(buf1, LDH, PT, a.W, a.B, net.l[VIS21], scratch,
+    dense(buf1, LDH, PT, a.W, a.B, net.l[VIS21],
           [&](int r, int c, float x) {
             if (c == 0) sm_vis[v * PT + r] = sigm(x) * mk[r];
           });
@@ -384,20 +425,32 @@ __global__ void __launch_bounds__(NT) trunk_kernel(TrunkArgs a) {
     sm_row[r] = wmean / (float)V;
   }
   __syncthreads();
-  for (int e = tid; e < PT * 128; e += NT) {
-    const int r = e >> 7, c = e & 127, p = p0 + r;
-    float mean = 0.f, var = 0.f;
+  // mean/var of x over views, 8 channels per thread (16-byte loads)
+  for (int e = tid; e < PT * 16; e += NT) {
+    const int r = e >> 4, c0 = (e & 15) * 8, p = p0 + r;
+    float mean[8], var[8], xv[8];
+    for (int j = 0; j < 8; ++j) mean[j] = var[j] = 0.f;
     if (p < P) {
-      for (int v = 0; v < V; ++v)
-        mean += sm_w[v * PT + r] *
-                b2f(a.ws_x[((size_t)v * P + p) * 128 + c]);
-      for (int v = 0; v < V; ++v) {
-        const float d = b2f(a.ws_x[((size_t)v * P + p) * 128 + c]) - mean;
-        var += sm_w[v * PT + r] * d * d;
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int v = 0; v < V; ++v) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              a.ws_x + ((size_t)v * P + p) * 128 + c0);
+          const bf16* xb = reinterpret_cast<const bf16*>(&raw);
+          const float w = sm_w[v * PT + r];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            xv[j] = b2f(xb[j]);
+            if (pass == 0) mean[j] += w * xv[j];
+            else var[j] += w * (xv[j] - mean[j]) * (xv[j] - mean[j]);
+          }
+        }
       }
     }
-    buf0[r * LDA + c] = f2b(mean);
-    buf0[r * LDA + 128 + c] = f2b(var);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      buf0[r * LDA + c0 + j] = f2b(mean[j]);
+      buf0[r * LDA + 128 + c0 + j] = f2b(var[j]);
+    }
   }
   const int kg = net.l[GEO0].k;
   for (int e = tid; e < PT * (kg - 256); e += NT) {
@@ -405,10 +458,10 @@ __global__ void __launch_bounds__(NT) trunk_kernel(TrunkArgs a) {
     buf0[r * LDA + 256 + j] = f2b(j == 0 ? sm_row[r] : 0.f);
   }
   __syncthreads();
-  dense(buf0, LDA, PT, a.W, a.B, net.l[GEO0], scratch,
+  dense(buf0, LDA, PT, a.W, a.B, net.l[GEO0],
         [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
   __syncthreads();
-  dense(buf1, LDH, PT, a.W, a.B, net.l[GEO1], scratch,
+  dense(buf1, LDH, PT, a.W, a.B, net.l[GEO1],
         [&](int r, int c, float x) {
           const int p = p0 + r;
           if (p < P) a.ws_gf[(size_t)p * 128 + c] = elu(x);
@@ -439,7 +492,7 @@ struct RayArgs {
 constexpr size_t kRegion2 = 3 * (size_t)SMAX * 128 * 2;
 constexpr size_t kRaySmem = (size_t)SMAX * LDG * 2 + kRegion2 +
                             (size_t)SMAX * LDG * 2 + (size_t)VMAX * 64 * 4 +
-                            SMAX * 4 + (size_t)NW * 256 * 4;
+                            SMAX * 4;
 
 template <bool STATIC>
 __global__ void __launch_bounds__(NT) ray_kernel(RayArgs a) {
@@ -449,7 +502,6 @@ __global__ void __launch_bounds__(NT) ray_kernel(RayArgs a) {
   bf16* ob = (bf16*)(r2 + kRegion2);               // [SMAX][LDG]
   float* lg = (float*)(ob + SMAX * LDG);           // [VMAX][64]
   float* snv = lg + VMAX * 64;                     // [SMAX]
-  float* scratch = snv + SMAX;                     // [NW][256]
 
   const Net& net = a.net;
   const int tid = threadIdx.x, ray = blockIdx.x;
@@ -470,11 +522,11 @@ __global__ void __launch_bounds__(NT) ray_kernel(RayArgs a) {
   bf16* q = (bf16*)r2;
   bf16* k = q + SMAX * 128;
   bf16* vv = k + SMAX * 128;
-  dense(gfb, LDG, Sp, a.W, a.B, net.l[WQ], scratch,
+  dense(gfb, LDG, Sp, a.W, a.B, net.l[WQ],
         [&](int r, int c, float x) { q[r * 128 + c] = f2b(x); });
-  dense(gfb, LDG, Sp, a.W, a.B, net.l[WK], scratch,
+  dense(gfb, LDG, Sp, a.W, a.B, net.l[WK],
         [&](int r, int c, float x) { k[r * 128 + c] = f2b(x); });
-  dense(gfb, LDG, Sp, a.W, a.B, net.l[WV], scratch,
+  dense(gfb, LDG, Sp, a.W, a.B, net.l[WV],
         [&](int r, int c, float x) { vv[r * 128 + c] = f2b(x); });
   __syncthreads();
   const float scale = 0.17677669529663687f;       // 1 / sqrt(32)
@@ -522,7 +574,7 @@ __global__ void __launch_bounds__(NT) ray_kernel(RayArgs a) {
   }
   __syncthreads();
   float* fo = (float*)r2;                          // [SMAX][128] f32
-  dense(ob, LDG, Sp, a.W, a.B, net.l[WFC], scratch,
+  dense(ob, LDG, Sp, a.W, a.B, net.l[WFC],
         [&](int r, int c, float x) { fo[r * 128 + c] = x + gf_in(r, c); });
   __syncthreads();
   {
@@ -554,10 +606,10 @@ __global__ void __launch_bounds__(NT) ray_kernel(RayArgs a) {
       bf16* hin = (bf16*)r2;                       // [64][LDA]
       bf16* h1 = hin + 64 * LDA;                   // [64][LDG]
       bf16* h2 = h1 + 64 * LDG;                    // [64][LD64]
-      dense(g, LDG, rows, a.W, a.B, net.l[OG0], scratch,
+      dense(g, LDG, rows, a.W, a.B, net.l[OG0],
             [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
-      dense(h1, LDG, rows, a.W, a.B, net.l[OG1], scratch,
+      dense(h1, LDG, rows, a.W, a.B, net.l[OG1],
             [&](int r, int c, float x) {
               const int i = r0 + r;
               if (c == 0 && i < S)
@@ -566,27 +618,36 @@ __global__ void __launch_bounds__(NT) ray_kernel(RayArgs a) {
       __syncthreads();
       const int kr = net.l[RGB0].k;
       for (int v = 0; v < V; ++v) {
-        for (int e = tid; e < rows * kr; e += NT) {
-          const int r = e / kr, col = e % kr, i = r0 + r;
+        // [gf' (128) | x_v (128)] as 16-byte copies, then vis, ray_diff
+        for (int e = tid; e < rows * 32; e += NT) {
+          const int r = e >> 5, q = e & 31, i = r0 + r;
+          uint4 val = make_uint4(0u, 0u, 0u, 0u);
+          if (q < 16)
+            val = *reinterpret_cast<const uint4*>(g + r * LDG + q * 8);
+          else if (i < S)
+            val = *reinterpret_cast<const uint4*>(
+                a.ws_x + ((size_t)v * P + p0 + i) * 128 + (q - 16) * 8);
+          *reinterpret_cast<uint4*>(hin + r * LDA + q * 8) = val;
+        }
+        for (int e = tid; e < rows * (kr - 256); e += NT) {
+          const int r = e / (kr - 256), col = 256 + e % (kr - 256);
+          const int i = r0 + r;
           const size_t p = p0 + i;
-          bf16 val = f2b(0.f);
-          if (col < 128) val = g[r * LDG + col];
-          else if (i < S) {
-            if (col < 256) val = a.ws_x[((size_t)v * P + p) * 128 + col - 128];
-            else if (col == 256) val = f2b(a.ws_vis[(size_t)v * P + p]);
-            else if (col < 261)
-              val = f2b(a.raydiff[(p * V + v) * 4 + col - 257]);
+          float val = 0.f;
+          if (i < S) {
+            if (col == 256) val = a.ws_vis[(size_t)v * P + p];
+            else if (col < 261) val = a.raydiff[(p * V + v) * 4 + col - 257];
           }
-          hin[r * LDA + col] = val;
+          hin[r * LDA + col] = f2b(val);
         }
         __syncthreads();
-        dense(hin, LDA, rows, a.W, a.B, net.l[RGB0], scratch,
+        dense(hin, LDA, rows, a.W, a.B, net.l[RGB0],
               [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
         __syncthreads();
-        dense(h1, LDG, rows, a.W, a.B, net.l[RGB1], scratch,
+        dense(h1, LDG, rows, a.W, a.B, net.l[RGB1],
               [&](int r, int c, float x) { h2[r * LD64 + c] = f2b(elu(x)); });
         __syncthreads();
-        dense(h2, LD64, rows, a.W, a.B, net.l[RGB2], scratch,
+        dense(h2, LD64, rows, a.W, a.B, net.l[RGB2],
               [&](int r, int c, float x) {
                 const int i = r0 + r;
                 if (c == 0)
@@ -630,13 +691,13 @@ __global__ void __launch_bounds__(NT) ray_kernel(RayArgs a) {
         in1[r * LD1 + col] = val;
       }
       __syncthreads();
-      dense(in1, LD1, rows, a.W, a.B, net.l[REFPTS0], scratch,
+      dense(in1, LD1, rows, a.W, a.B, net.l[REFPTS0],
             [&](int r, int c, float x) { h256[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
-      dense(h256, LDH, rows, a.W, a.B, net.l[REFPTS1], scratch,
+      dense(h256, LDH, rows, a.W, a.B, net.l[REFPTS1],
             [&](int r, int c, float x) { g2[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
-      dense(g2, LDG, rows, a.W, a.B, net.l[OG0], scratch,
+      dense(g2, LDG, rows, a.W, a.B, net.l[OG0],
             [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
       for (int e = tid; e < rows * k2; e += NT) {
         const int r = e / k2, col = e % k2, i = r0 + r;
@@ -647,7 +708,7 @@ __global__ void __launch_bounds__(NT) ray_kernel(RayArgs a) {
         in2[r * LD2 + col] = val;
       }
       __syncthreads();
-      dense(h1, LDG, rows, a.W, a.B, net.l[OG1], scratch,
+      dense(h1, LDG, rows, a.W, a.B, net.l[OG1],
             [&](int r, int c, float x) {
               const int i = r0 + r;
               if (c == 0 && i < S)
@@ -655,13 +716,13 @@ __global__ void __launch_bounds__(NT) ray_kernel(RayArgs a) {
                     snv[i] < 1.f ? -1e9f : x - a.shift;
             });
       __syncthreads();
-      dense(in2, LD2, rows, a.W, a.B, net.l[RGB0], scratch,
+      dense(in2, LD2, rows, a.W, a.B, net.l[RGB0],
             [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
-      dense(h1, LDG, rows, a.W, a.B, net.l[RGB1], scratch,
+      dense(h1, LDG, rows, a.W, a.B, net.l[RGB1],
             [&](int r, int c, float x) { h2[r * LD64 + c] = f2b(elu(x)); });
       __syncthreads();
-      dense(h2, LD64, rows, a.W, a.B, net.l[RGB2], scratch,
+      dense(h2, LD64, rows, a.W, a.B, net.l[RGB2],
             [&](int r, int c, float x) {
               const int i = r0 + r;
               if (c < 3 && i < S)

@@ -15,7 +15,7 @@
 // V=11 (the per-view MLPs), against ~0.8 KB of input per point; it sits far
 // above the card's ~295 flop/byte ridge, so only tensor-core rate matters.
 //
-// Design (agg_common.cuh): bf16 wmma tiles with f32 accumulation for every
+// Design (agg_common.cuh): bf16 mma.sync tiles with f32 accumulation for every
 // dense layer, f32 reductions; 64-point trunk blocks keep one view's
 // activations in shared memory and stash the per-view trunk output in a
 // global workspace (L2-resident while the block re-reads it); one block
@@ -27,7 +27,7 @@
 extern "C" int dyn_static_agg(
     const void* W, const void* B, const void* meta, const void* pts,
     const void* reffeat, const void* rgbfeat, const void* raydiff,
-    const void* mask, const void* srcpl, float s_abs, int anti_alias,
+    const void* mask, const void* srcpl, int anti_alias,
     int mask_rgb, void* ws_rf, void* ws_x, void* ws_vis, void* ws_m,
     void* ws_gf, void* ws_nv, void* out, int R, int S, int V, int C,
     void* stream) {
@@ -46,7 +46,6 @@ extern "C" int dyn_static_agg(
   ta.reffeat = (const float*)reffeat;
   ta.raydiff = (const float*)raydiff;
   ta.srcpl = (const float*)srcpl;
-  ta.s_abs = s_abs;
   ta.anti_alias = anti_alias;
   ta.mask_rgb = mask_rgb;
   ta.ws_rf = (bf16*)ws_rf;

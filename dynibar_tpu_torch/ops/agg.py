@@ -29,12 +29,11 @@ from dynibar_tpu_torch.models.nn_layers import linear_layers
 from dynibar_tpu_torch.ops import build
 
 # layer slots of the packed weights; csrc/agg_common.cuh names the same ids
-N_LAYERS = 22
+N_LAYERS = 23
 _MAX_VIEWS, _MAX_SAMPLES, _MAX_CH = 16, 128, 40
 
 _P = ctypes.c_void_p
-_STATIC_ARGS = ([_P] * 3 + [_P] * 6 + [ctypes.c_float, ctypes.c_int,
-                                       ctypes.c_int] + [_P] * 7
+_STATIC_ARGS = ([_P] * 3 + [_P] * 6 + [ctypes.c_int, ctypes.c_int] + [_P] * 7
                 + [ctypes.c_int] * 4 + [_P])
 _DYNAMIC_ARGS = ([_P] * 3 + [_P] * 6 + [ctypes.c_float] + [_P] * 6
                  + [ctypes.c_int] * 4 + [_P])
@@ -46,7 +45,8 @@ def _ceil16(n: int) -> int:
 
 def _layer_list(net: nn.Module, static: bool):
   """(weight [out,in], bias [out] or None) per slot; None = empty slot;
-  slot 14 carries the LayerNorm (scale, bias)."""
+  slot 14 carries the LayerNorm (scale, bias), slot 22 the static
+  anti-alias scalar s (read on the device: no host sync per call)."""
   slots: List[Optional[Tuple[torch.Tensor, ...]]] = [None] * N_LAYERS
 
   def put(first, seq):
@@ -62,11 +62,13 @@ def _layer_list(net: nn.Module, static: bool):
   att = net.ray_attention
   for i, lin in enumerate((att.w_qs, att.w_ks, att.w_vs, att.fc)):
     slots[10 + i] = (lin.weight, None)
-  slots[14] = ("ln", att.layer_norm.weight, att.layer_norm.bias)
+  slots[14] = ("bias_only", att.layer_norm.weight, att.layer_norm.bias)
   put(15, net.out_geometry_fc)
   put(17, net.rgb_fc)
   if not static:
     put(20, net.ref_pts_fc)
+  elif net.anti_alias_pooling:
+    slots[22] = ("bias_only", net.s.reshape(1))
   return slots
 
 
@@ -91,10 +93,11 @@ def pack_weights(net: nn.Module, static: bool):
   for i, slot in enumerate(_layer_list(net, static)):
     if slot is None:
       continue
-    if slot[0] == "ln":
-      b_parts += [slot[1].detach().float(), slot[2].detach().float()]
+    if isinstance(slot[0], str):           # LayerNorm or the scalar s
+      extra = [t.detach().float() for t in slot[1:]]
+      b_parts += extra
       meta[i] = (-1, b_off, 0, 0)
-      b_off += slot[1].numel() * 2
+      b_off += sum(t.numel() for t in extra)
       continue
     w, b = slot
     n, k = w.shape
@@ -153,7 +156,6 @@ def fused_static_aggregator(net: nn.Module, pts, ref_pl, src_pl, rgb_feat,
   for name, (t, shape) in args.items():
     _check(t, name, shape, torch.bfloat16 if name == "rgb_feat"
            else torch.float32, dev)
-  s_abs = float(net.s.detach().abs()) if net.anti_alias_pooling else 0.0
   ws_rf = torch.empty((v, p, 2 * c), dtype=torch.bfloat16, device=dev)
   ws_x = torch.empty((v, p, 128), dtype=torch.bfloat16, device=dev)
   ws_vm = torch.empty((2, v, p), dtype=torch.float32, device=dev)
@@ -165,7 +167,7 @@ def fused_static_aggregator(net: nn.Module, pts, ref_pl, src_pl, rgb_feat,
   stream = torch.cuda.current_stream(dev).cuda_stream
   ins = [t for t, _ in args.values()]
   build.check(fn(w.data_ptr(), b.data_ptr(), _meta_ptr(meta),
-                 *(t.data_ptr() for t in ins), s_abs,
+                 *(t.data_ptr() for t in ins),
                  int(net.anti_alias_pooling), int(net.mask_rgb),
                  ws_rf.data_ptr(), ws_x.data_ptr(), ws_vm[0].data_ptr(),
                  ws_vm[1].data_ptr(), ws_gf.data_ptr(), ws_nv.data_ptr(),
