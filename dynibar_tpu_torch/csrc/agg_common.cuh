@@ -10,7 +10,7 @@
 // [ceil16(out), ceil16(in)] bf16, biases f32, one slot table (Net).
 //
 // Each aggregator is two launches on the caller's stream:
-//   1. trunk_kernel, 64 points per block, all views of those points:
+//   1. trunk_kernel, 32 points per block, all views of those points:
 //      per-view input features and pooling weights, mean/var pooling, the
 //      base/vis/vis2 trunk view by view, the visibility re-pooling and
 //      geometry_fc.  The per-view trunk output x [V, P, 128] bf16 and
@@ -45,7 +45,7 @@ struct Net { Lin l[NLAYERS]; };
 
 constexpr int NT = 256;             // threads per block
 constexpr int NW = NT / 32;
-constexpr int PT = 64;              // points per trunk block
+constexpr int PT = 32;              // points per trunk block (2 per SM)
 constexpr int VMAX = 16;
 constexpr int SMAX = 128;
 constexpr int CMAX = 40;            // 3 + feature channels
@@ -104,7 +104,7 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
 // to one row tile per warp so that every warp has work.  B fragments for
 // the next KR k-steps are in flight while the current step's MMAs run.
 // Ends without a block barrier.
-constexpr int KR = 8;   // k-steps of weights in flight per warp
+constexpr int KR = 2;   // k-steps of weights in flight per warp
 
 template <typename EP>
 __device__ void dense(const bf16* X, int ldx, int rows, const bf16* W,
@@ -230,7 +230,7 @@ __device__ __forceinline__ void pe5(bf16* row, int n, int ch, float x) {
 }
 
 template <bool STATIC>
-__global__ void __launch_bounds__(NT) trunk_kernel(TrunkArgs a) {
+__global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* buf0 = (bf16*)smem;                        // [PT][LDA] layer inputs
   bf16* buf1 = buf0 + PT * LDA;                    // [PT][LDH] hidden
