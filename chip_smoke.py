@@ -207,17 +207,17 @@ def main() -> int:
           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
           bound_by=by, library_ms=None)
   for key, res in results.items():
-    print(f"{key} {res['name']}: {res['ms']:.3f} ms (plain {res['plain_ms']:.3f}"
-          f" ms, library {res['library_ms']}, bound {res['bound_ms']:.4f} ms "
-          f"by {res['bound_by']}), max abs err {res['max_abs_err']:.3g} "
-          f"[{card}]", flush=True)
+    print(f"{key} {res['name']}: {res['ms']:.3f} ms "
+          f"(plain {res['plain_ms']:.3f} ms, library {res['library_ms']}, "
+          f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}), "
+          f"max abs err {res['max_abs_err']:.3g} [{card}]", flush=True)
 
   # ---- 3: one chunk through the main path ---------------------------------
   counters = (sample.sample_views, agg.fused_static_aggregator,
               agg.fused_dynamic_aggregator)
   for f in counters:
     f.launches = 0
-  ret = rr.render_rays_mv(model, rb, coarse, fine, cfg, det=True)
+  ret = rr.render_rays_mv(model, rb, coarse, fine, cfg)
   torch.cuda.synchronize()
   launches = {"K1": sample.sample_views.launches,
               "K2": agg.fused_static_aggregator.launches,
@@ -226,8 +226,7 @@ def main() -> int:
     raise AssertionError(f"main-path launches per chunk {launches}, "
                          "want 8/2/2")
   print(f"chunk launches: {launches}", flush=True)
-  plain = rr.render_rays_mv(model, rb, coarse, fine, cfg, det=True,
-                            kernels=False)
+  plain = rr.render_rays_mv(model, rb, coarse, fine, cfg, kernels=False)
   rgb_k = ret["outputs_fine_ref"]["rgb"]
   rgb_p = plain["outputs_fine_ref"]["rgb"]
   if not torch.isfinite(rgb_k).all() or rgb_k.shape != (chunk, 3):

@@ -4,10 +4,11 @@
 //
 // Math from dynibar_tpu/ops/pallas_agg.py (_vis_pooling, _attention and the
 // two kernel bodies); layout from the GPU.  Matmul operands are bf16 with
-// f32 accumulation (mma.sync m16n8k16 tensor-core instructions); reductions, softmaxes
-// and the layer norm run in f32, as pallas_agg.py:27-30 states for the TPU
-// kernels.  Weights come packed by ops/agg.py: each layer zero-padded to
-// [ceil16(out), ceil16(in)] bf16, biases f32, one slot table (Net).
+// f32 accumulation (mma.sync m16n8k16 tensor-core instructions);
+// reductions, softmaxes and the layer norm run in f32, as
+// pallas_agg.py:27-30 states for the TPU kernels.  Weights come packed by
+// ops/agg.py: each layer zero-padded to [ceil16(out), ceil16(in)] bf16,
+// biases f32, one slot table (Net).
 //
 // Each aggregator is two launches on the caller's stream:
 //   1. trunk_kernel, 32 points per block, all views of those points:
@@ -79,103 +80,105 @@ __device__ __forceinline__ float pe_geo(const float* x, int nch, int nfreq,
 // layouts are the PTX ISA's: with g = lane / 4 and t = lane % 4, A holds
 // rows g and g+8 at columns 2t, 2t+1 (+8); B holds k = 2t, 2t+1 (+8) of
 // column g; C holds rows g and g+8 at columns 2t and 2t+1.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+               : "r"(addr));
 }
 
 __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// One warp's unit of a dense layer: a 16-column tile times NRT 16-row
+// tiles.  A (ldmatrix from shared memory) and B (32-bit weight words from
+// global memory, L2-resident) for k-step kk+1 are loaded while the MMAs
+// of step kk run.
+template <int NRT, typename EP>
+__device__ __forceinline__ void dense_unit(const bf16* X, int ldx,
+                                           const bf16* W, const float* B,
+                                           const Lin& L, int nt, int rt0,
+                                           EP& ep) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nk = L.k >> 4;
+  // this lane's weight words: rows nt*16+g and +8, k pair 2t (+8)
+  const uint32_t* w0 =
+      (const uint32_t*)(W + L.w + (size_t)(nt * 16 + g) * L.k) + t;
+  const uint32_t* w1 = w0 + 4 * L.k;
+  const uint32_t xs = (uint32_t)__cvta_generic_to_shared(
+      X + (size_t)(rt0 * 16 + (lane & 15)) * ldx + (lane >> 4) * 8);
+  const uint32_t tile = 16 * ldx * 2;       // bytes between row tiles
+  float acc[NRT][2][4];
+#pragma unroll
+  for (int i = 0; i < NRT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][h][j] = 0.f;
+  uint32_t a0[NRT][4], a1[NRT][4], b0[4], b1[4];
+  auto load = [&](uint32_t (&a)[NRT][4], uint32_t (&b)[4], int kk) {
+    b[0] = __ldg(w0 + 8 * kk);
+    b[1] = __ldg(w0 + 8 * kk + 4);
+    b[2] = __ldg(w1 + 8 * kk);
+    b[3] = __ldg(w1 + 8 * kk + 4);
+#pragma unroll
+    for (int i = 0; i < NRT; ++i) ldsm_x4(a[i], xs + i * tile + 32 * kk);
+  };
+  auto mma = [&](const uint32_t (&a)[NRT][4], const uint32_t (&b)[4]) {
+#pragma unroll
+    for (int i = 0; i < NRT; ++i) {
+      mma16816(acc[i][0], a[i], b[0], b[1]);
+      mma16816(acc[i][1], a[i], b[2], b[3]);
+    }
+  };
+  load(a0, b0, 0);
+  for (int kk = 0; kk < nk; kk += 2) {
+    if (kk + 1 < nk) load(a1, b1, kk + 1);
+    mma(a0, b0);
+    if (kk + 1 < nk) {
+      if (kk + 2 < nk) load(a0, b0, kk + 2);
+      mma(a1, b1);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NRT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = nt * 16 + h * 8 + 2 * t, r = (rt0 + i) * 16 + g;
+      const float bias0 = B[L.b + c], bias1 = B[L.b + c + 1];
+      ep(r, c, acc[i][h][0] + bias0);
+      ep(r, c + 1, acc[i][h][1] + bias1);
+      ep(r + 8, c, acc[i][h][2] + bias0);
+      ep(r + 8, c + 1, acc[i][h][3] + bias1);
+    }
+  }
+}
+
 // Y = X @ W^T + b over `rows` rows (a multiple of 16) of X [rows, L.k]
 // (bf16 in shared memory, row stride ldx, 16-byte aligned rows), W
-// [L.n, L.k] bf16 in global memory (L2-resident), calling
-// ep(row, col, value) for every (padded) output column straight from the
-// accumulator registers.  A warp owns one 16-column tile and up to four
-// 16-row tiles, so each B fragment feeds eight MMAs; narrow layers drop
-// to one row tile per warp so that every warp has work.  B fragments for
-// the next KR k-steps are in flight while the current step's MMAs run.
-// Ends without a block barrier.
-constexpr int KR = 2;   // k-steps of weights in flight per warp
-
+// [L.n, L.k] bf16 in global memory, calling ep(row, col, value) for every
+// (padded) output column straight from the accumulator registers.  A warp
+// owns one 16-column tile and up to four 16-row tiles, so each B fragment
+// feeds up to eight MMAs; narrow layers drop to one row tile per warp so
+// that every warp has work.  Ends without a block barrier.
 template <typename EP>
 __device__ void dense(const bf16* X, int ldx, int rows, const bf16* W,
                       const float* B, const Lin L, EP ep) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ntile = L.n >> 4, rtiles = rows >> 4, nk = L.k >> 4;
+  const int warp = threadIdx.x >> 5;
+  const int ntile = L.n >> 4, rtiles = rows >> 4;
   const int rpu = ntile * ((rtiles + 3) >> 2) >= NW ? 4 : 1;
   const int units = ntile * ((rtiles + rpu - 1) / rpu);
   for (int u = warp; u < units; u += NW) {
     const int nt = u % ntile, rt0 = (u / ntile) * rpu;
-    const int nrt = min(rpu, rtiles - rt0);
-    // this lane's weight words: rows nt*16+g and +8, k pair 2t (+8)
-    const uint32_t* w0 =
-        (const uint32_t*)(W + L.w + (size_t)(nt * 16 + g) * L.k) + t;
-    const uint32_t* w1 = w0 + 4 * L.k;
-    const bf16* xa = X + (size_t)(rt0 * 16 + (lane & 15)) * ldx +
-                     (lane >> 4) * 8;
-    float acc[4][2][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][h][j] = 0.f;
-    auto ldb = [&](uint32_t (&b)[4], int kk) {
-      b[0] = __ldg(w0 + 8 * kk);
-      b[1] = __ldg(w0 + 8 * kk + 4);
-      b[2] = __ldg(w1 + 8 * kk);
-      b[3] = __ldg(w1 + 8 * kk + 4);
-    };
-    auto step = [&](const uint32_t (&b)[4], int kk) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (i < nrt) {
-          uint32_t a[4];
-          ldsm_x4(a, xa + (size_t)i * 16 * ldx + 16 * kk);
-          mma16816(acc[i][0], a, b[0], b[1]);
-          mma16816(acc[i][1], a, b[2], b[3]);
-        }
-      }
-    };
-    // ring of KR k-steps of B in registers: the load for step kk + KR is
-    // issued as soon as step kk has consumed its slot
-    uint32_t br[KR][4];
-#pragma unroll
-    for (int j = 0; j < KR; ++j)
-      if (j < nk) ldb(br[j], j);
-    for (int k0 = 0; k0 < nk; k0 += KR) {
-#pragma unroll
-      for (int j = 0; j < KR; ++j) {
-        const int kk = k0 + j;
-        if (kk < nk) {
-          step(br[j], kk);
-          if (kk + KR < nk) ldb(br[j], kk + KR);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (i < nrt) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int c = nt * 16 + h * 8 + 2 * t, r = (rt0 + i) * 16 + g;
-          const float b0 = B[L.b + c], b1 = B[L.b + c + 1];
-          ep(r, c, acc[i][h][0] + b0);
-          ep(r, c + 1, acc[i][h][1] + b1);
-          ep(r + 8, c, acc[i][h][2] + b0);
-          ep(r + 8, c + 1, acc[i][h][3] + b1);
-        }
-      }
+    switch (min(rpu, rtiles - rt0)) {
+      case 4: dense_unit<4>(X, ldx, W, B, L, nt, rt0, ep); break;
+      case 3: dense_unit<3>(X, ldx, W, B, L, nt, rt0, ep); break;
+      case 2: dense_unit<2>(X, ldx, W, B, L, nt, rt0, ep); break;
+      default: dense_unit<1>(X, ldx, W, B, L, nt, rt0, ep); break;
     }
   }
 }
@@ -583,12 +586,20 @@ __global__ void __launch_bounds__(NT) ray_kernel(RayArgs a) {
     const float* ln_b = ln_s + 128;
     for (int i = warp; i < Sp; i += NW) {
       float x[4], s = 0.f;
-      for (int j = 0; j < 4; ++j) { x[j] = fo[i * 128 + lane + 32 * j]; s += x[j]; }
-      for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      for (int j = 0; j < 4; ++j) {
+        x[j] = fo[i * 128 + lane + 32 * j];
+        s += x[j];
+      }
+      for (int off = 16; off; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
       const float mu = s / 128.f;
       float var = 0.f;
-      for (int j = 0; j < 4; ++j) { const float d = x[j] - mu; var += d * d; }
-      for (int off = 16; off; off >>= 1) var += __shfl_xor_sync(0xffffffffu, var, off);
+      for (int j = 0; j < 4; ++j) {
+        const float d = x[j] - mu;
+        var += d * d;
+      }
+      for (int off = 16; off; off >>= 1)
+        var += __shfl_xor_sync(0xffffffffu, var, off);
       const float rs = rsqrtf(var / 128.f + 1e-6f);
       for (int j = 0; j < 4; ++j) {
         const int c = lane + 32 * j;

@@ -1,8 +1,8 @@
 """2D feature extractor: the live path of the reference ``ResNet``
 (ibrnet/feature_network.py:179-311).
 
-conv1(7×7, s2, reflect) → IN → ReLU → layer1 (three BasicBlocks, the first
-strided with a 1×1 downsample) → 1×1 out_conv → channel split into
+conv1 (7×7, s2, reflect) → IN → ReLU → layer1 (three BasicBlocks, the
+first strided with a 1×1 downsample) → 1×1 out_conv → channel split into
 (coarse, fine) maps at 1/4 resolution.  The reference's layer2/3 and
 decoder never run and are not built.  Public layout is NHWC like the JAX
 package; the convolutions run NCHW through cuDNN with TF32 off.

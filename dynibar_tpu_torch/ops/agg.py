@@ -33,10 +33,10 @@ N_LAYERS = 23
 _MAX_VIEWS, _MAX_SAMPLES, _MAX_CH = 16, 128, 40
 
 _P = ctypes.c_void_p
-_STATIC_ARGS = ([_P] * 3 + [_P] * 6 + [ctypes.c_int, ctypes.c_int] + [_P] * 7
-                + [ctypes.c_int] * 4 + [_P])
-_DYNAMIC_ARGS = ([_P] * 3 + [_P] * 6 + [ctypes.c_float] + [_P] * 6
-                 + [ctypes.c_int] * 4 + [_P])
+_STATIC_ARGS = ([_P] * 9 + [ctypes.c_int] * 2 + [_P] * 7 + [ctypes.c_int] * 4
+                + [_P])
+_DYNAMIC_ARGS = ([_P] * 9 + [ctypes.c_float] + [_P] * 6 + [ctypes.c_int] * 4
+                 + [_P])
 
 
 def _ceil16(n: int) -> int:

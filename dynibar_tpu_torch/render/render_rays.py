@@ -9,7 +9,7 @@ instead, which is how the kernels are held against them on the card.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import torch
 
@@ -91,16 +91,15 @@ def _render_stage_ff(model, rb, featmaps, cfg: RenderSettings, stage: str,
 
 @torch.no_grad()
 def render_rays_mv(model, rb: Dict[str, Any], coarse_featmaps,
-                   fine_featmaps, cfg: RenderSettings, *, det: bool = True,
-                   generator: Optional[torch.Generator] = None,
+                   fine_featmaps, cfg: RenderSettings, *,
                    device: DeviceLike = None, kernels: bool = True
                    ) -> Dict[str, Any]:
   """Coarse->fine forward of the forward-facing model for one ray chunk
-  (reference render_rays_mv, render_ray.py:600-867), eval only.
+  (reference render_rays_mv, render_ray.py:600-867), eval only: the
+  deterministic sample placement (det=True) of the eval render.
 
   rb: ray-batch dict (numpy or tensors, see data/ray_batch.py);
   featmaps: (dynamic, None, static) per stage, [V, Hf, Wf, C].
-  det=False draws the stratified and importance uniforms from `generator`.
   """
   dev = resolve_device(device)
   if model.device != dev:
@@ -108,13 +107,13 @@ def render_rays_mv(model, rb: Dict[str, Any], coarse_featmaps,
   rb = to_device(rb, dev)
   pts, z_vals, _ = sampling.sample_along_ray(
       rb["ray_o"], rb["ray_d"], rb["depth_range"], cfg.n_samples,
-      inv_uniform=cfg.inv_uniform, det=det, generator=generator)
+      inv_uniform=cfg.inv_uniform, det=True)
   outputs_coarse, _, _, _ = _render_stage_ff(
       model, rb, coarse_featmaps, cfg, "coarse", pts, z_vals, kernels)
 
   z_all = sampling.importance_resample_z(
       z_vals, outputs_coarse["weights"], cfg.n_importance,
-      inv_uniform=cfg.inv_uniform, det=det, generator=generator)
+      inv_uniform=cfg.inv_uniform, det=True)
   near, far = rb["depth_range"][0], rb["depth_range"][1]
   pts_fine = z_all[..., None] * rb["ray_d"][:, None, :] + rb["ray_o"][:, None]
   outputs_fine, outputs_fine_dy, traj_fine, pts_seq_fine = _render_stage_ff(

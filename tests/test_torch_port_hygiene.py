@@ -14,7 +14,6 @@ import pathlib
 import subprocess
 import sys
 
-import numpy as np
 import pytest
 import torch
 

@@ -78,7 +78,7 @@ def rendered(setup):
 
   jc, jf, want = run(jp, {k: jnp.asarray(v) for k, v in rb.items()})
   c, f = _port_featmaps(model, rb)
-  got = render_rays_mv(model, rb, c, f, cfg, det=True, device="cpu")
+  got = render_rays_mv(model, rb, c, f, cfg, device="cpu")
   return got, want, (c, f), (jc, jf)
 
 
