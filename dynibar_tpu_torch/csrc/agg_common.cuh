@@ -11,7 +11,7 @@
 // biases f32, one slot table (Net).
 //
 // Each aggregator is two launches on the caller's stream:
-//   1. trunk_kernel, 32 points per block, all views of those points:
+//   1. trunk_kernel, 64 points per block, all views of those points:
 //      per-view input features and pooling weights, mean/var pooling, the
 //      base/vis/vis2 trunk view by view, the visibility re-pooling and
 //      geometry_fc.  The per-view trunk output x [V, P, 128] bf16 and
@@ -46,8 +46,8 @@ struct Net { Lin l[NLAYERS]; };
 
 constexpr int NT = 256;             // threads per block
 constexpr int NW = NT / 32;
-constexpr int PT = 32;              // points per trunk block (2 per SM)
-constexpr int VMAX = 16;
+constexpr int PT = 64;              // points per trunk block (2 per SM)
+constexpr int VMAX = 12;
 constexpr int SMAX = 128;
 constexpr int CMAX = 40;            // 3 + feature channels
 constexpr int LDA = 280;            // bf16 row strides (multiples of 8)
@@ -215,9 +215,10 @@ struct TrunkArgs {
   float* ws_nv;          // [P] number of valid views
 };
 
+// 113,920 bytes at PT = 64: two blocks fit an SM's shared memory
 constexpr size_t kTrunkSmem =
-    (size_t)PT * LDA * 2 + (size_t)PT * LDH * 2 + (size_t)PT * LDG * 2 +
-    (size_t)PT * 128 * 4 + 4 * (size_t)VMAX * PT * 4 + PT * 4;
+    (size_t)PT * (LDA + LDH + 2 * LDG) * 2 + 3 * (size_t)VMAX * PT * 4 +
+    PT * 4;
 
 // x and its sin/cos(2^f x) for f < 5 into an encoded row laid out as
 // core/posenc.periodic_embed: [raw (n), cos (5n), sin (5n)], channel ch.
@@ -238,12 +239,12 @@ __global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
   bf16* buf0 = (bf16*)smem;                        // [PT][LDA] layer inputs
   bf16* buf1 = buf0 + PT * LDA;                    // [PT][LDH] hidden
   bf16* buf2 = buf1 + PT * LDH;                    // [PT][LDG] x*w, x*vis
-  float* xf = (float*)(buf2 + PT * LDG);           // [PT][128] x in f32
-  float* sm_m = xf + PT * 128;                     // [VMAX][PT] masks
+  bf16* xb = buf2 + PT * LDG;                      // [PT][LDG] trunk x
+  float* sm_m = (float*)(xb + PT * LDG);           // [VMAX][PT] masks
   float* sm_w = sm_m + VMAX * PT;                  // pooling weights
-  float* sm_vis = sm_w + VMAX * PT;
-  float* sm_e = sm_vis + VMAX * PT;                // anti-alias scores
-  float* sm_row = sm_e + VMAX * PT;                // [PT]
+  float* sm_vis = sm_w + VMAX * PT;                // visibility (trunk)
+  float* sm_e = sm_vis;                            // AA scores (pooling 1)
+  float* sm_row = sm_vis + VMAX * PT;              // [PT]
 
   const Net& net = a.net;
   const int tid = threadIdx.x, p0 = blockIdx.x * PT;
@@ -373,7 +374,7 @@ __global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
     dense(buf1, LDH, PT, a.W, a.B, net.l[BASE1],
           [&](int r, int c, float x) {
             const float y = elu(x);
-            xf[r * 128 + c] = y;
+            xb[r * LDG + c] = f2b(y);
             buf2[r * LDG + c] = f2b(y * wv[r]);
           });
     __syncthreads();
@@ -383,13 +384,13 @@ __global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
     dense(buf1, LDH, PT, a.W, a.B, net.l[VIS1],
           [&](int r, int c, float x) {
             const float t = elu(x);
-            if (c < 128) xf[r * 128 + c] += t;
+            if (c < 128) xb[r * LDG + c] = f2b(b2f(xb[r * LDG + c]) + t);
             else if (c == 128) sm_row[r] = sigm(t) * mk[r];
           });
     __syncthreads();
     for (int e = tid; e < PT * 128; e += NT) {
       const int r = e >> 7, c = e & 127;
-      buf2[r * LDG + c] = f2b(xf[e] * sm_row[r]);
+      buf2[r * LDG + c] = f2b(b2f(xb[r * LDG + c]) * sm_row[r]);
     }
     __syncthreads();
     dense(buf2, LDG, PT, a.W, a.B, net.l[VIS20],
@@ -400,9 +401,11 @@ __global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
             if (c == 0) sm_vis[v * PT + r] = sigm(x) * mk[r];
           });
     __syncthreads();
-    for (int e = tid; e < PT * 128; e += NT) {
-      const int r = e >> 7, p = p0 + r;
-      if (p < P) a.ws_x[((size_t)v * P + p) * 128 + (e & 127)] = f2b(xf[e]);
+    for (int e = tid; e < PT * 16; e += NT) {      // 16-byte row pieces
+      const int r = e >> 4, q = (e & 15) * 8, p = p0 + r;
+      if (p < P)
+        *reinterpret_cast<uint4*>(a.ws_x + ((size_t)v * P + p) * 128 + q) =
+            *reinterpret_cast<const uint4*>(xb + r * LDG + q);
     }
     for (int r = tid; r < PT; r += NT) {
       const int p = p0 + r;

@@ -16,7 +16,7 @@
 // above the card's ~295 flop/byte ridge, so only tensor-core rate matters.
 //
 // Design (agg_common.cuh): bf16 mma.sync tiles with f32 accumulation for every
-// dense layer, f32 reductions; 32-point trunk blocks (two per SM) keep one
+// dense layer, f32 reductions; 64-point trunk blocks (two per SM) keep one
 // view's activations in shared memory and stash the per-view trunk output
 // in a global workspace (L2-resident while the block re-reads it); one
 // block per ray runs attention and the heads.  Simple and correct first:

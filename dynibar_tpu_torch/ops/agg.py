@@ -30,7 +30,7 @@ from dynibar_tpu_torch.ops import build
 
 # layer slots of the packed weights; csrc/agg_common.cuh names the same ids
 N_LAYERS = 23
-_MAX_VIEWS, _MAX_SAMPLES, _MAX_CH = 16, 128, 40
+_MAX_VIEWS, _MAX_SAMPLES, _MAX_CH = 12, 128, 40
 
 _P = ctypes.c_void_p
 _STATIC_ARGS = ([_P] * 9 + [ctypes.c_int] * 2 + [_P] * 7 + [ctypes.c_int] * 4
