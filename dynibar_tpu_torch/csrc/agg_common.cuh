@@ -57,11 +57,14 @@ constexpr int LD64 = 72;
 
 __device__ __forceinline__ bf16 f2b(float x) { return __float2bfloat16(x); }
 __device__ __forceinline__ float b2f(bf16 x) { return __bfloat162float(x); }
+// ELU and sigmoid on the fast exp: exp(x) - 1 as the TPU kernels compute
+// it (pallas_agg.py:72-79); the error is far below the bf16 rounding the
+// results go through.
 __device__ __forceinline__ float elu(float x) {
-  return x > 0.f ? x : expm1f(x);
+  return x > 0.f ? x : __expf(x) - 1.f;
 }
 __device__ __forceinline__ float sigm(float x) {
-  return 1.f / (1.f + expf(-x));
+  return __fdividef(1.f, 1.f + __expf(-x));
 }
 
 // Periodic embedding column `col` of x[0..nch): [x, cos(2^f x), sin(2^f x)]
@@ -501,7 +504,7 @@ constexpr size_t kRaySmem = (size_t)SMAX * LDG * 2 + kRegion2 +
                             SMAX * 4;
 
 template <bool STATIC>
-__global__ void __launch_bounds__(NT) ray_kernel(RayArgs a) {
+__global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* gfb = (bf16*)smem;                         // [SMAX][LDG]
   unsigned char* r2 = smem + (size_t)SMAX * LDG * 2;
