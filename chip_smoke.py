@@ -8,11 +8,14 @@ is non-zero and the last line below is never printed):
   0. the card's name and power limit (nvidia-smi); TF32 off;
   1. build the three CUDA kernels from csrc/ (one nvcc each, in parallel);
   2. hold each kernel against its plain PyTorch twin at the main path's
-     shapes and time kernel, twin and (K1) the library call;
+     shapes (K2/K3 at both the coarse and the fine stage) and time kernel,
+     twin and (K1) the library call;
   3. render one 1024-ray chunk (64+64 samples, 7+11 views, 288×512
      sources, bf16) with launch counters zeroed just before and read just
-     after, compare it with the plain path, and time it;
-  4. render one full 288×512 frame (featmap encode included, chunk 4096);
+     after, compare its coarse and fine rgb with the plain path, and time
+     it;
+  4. render full 288×512 frames (featmap encode included, chunk 4096): one
+     warm-up, then the mean and spread of three;
   5. print the kernels line, then the result line.
 
 Weights are random, from a seed.  Needs one card and no network.
@@ -123,12 +126,15 @@ def main() -> int:
     coarse, fine = model.encode_featmaps(rb["src_rgbs"], rb["static_src_rgbs"])
 
   # ---- 2: each kernel vs its plain twin at the main path's shapes ---------
-  # the fine stage's inputs: importance-resampled depths from a plain
-  # coarse pass, then the stage's own projections and gathers
+  # both stages' inputs, from the plain path: the coarse stage's projections
+  # and gathers, then importance-resampled depths from the plain coarse pass
+  # and the fine stage's own projections and gathers
   with torch.no_grad():
     pts, z_vals, _ = rr.sampling.sample_along_ray(
         rb["ray_o"], rb["ray_d"], rb["depth_range"], cfg.n_samples,
         cfg.inv_uniform, det=True)
+    ins_c = rr.stage_inputs(model, rb, coarse, cfg, "coarse", pts,
+                            kernels=False)
     out_c, _, _, _ = rr._render_stage_ff(model, rb, coarse, cfg, "coarse",
                                          pts, z_vals, kernels=False)
     z_all = rr.sampling.importance_resample_z(
@@ -176,19 +182,26 @@ def main() -> int:
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by=by, library_ms=lib_ms)
 
-  # K2 / K3 at the fine stage (S=128): bf16 kernel vs the f32 module, at
-  # the bars the JAX package holds its Pallas kernels to
-  # (tests/test_pallas_agg.py:80,90)
-  for key, static, net, args, atol in (
-      ("K2", True, model.net_fine_st, ins["st"], 2e-2),
-      ("K3", False, model.net_fine_dy, ins["dy"], 1e-2)):
+  # K2 / K3 at both stages (coarse S=64, fine S=128): bf16 kernel vs the
+  # f32 module, at the bars the JAX package holds its Pallas kernels to
+  # (tests/test_pallas_agg.py:80,90); timed at the fine stage
+  for key, static, nets, stage_args, atol in (
+      ("K2", True, (model.net_coarse_st, model.net_fine_st),
+       (ins_c["st"], ins["st"]), 2e-2),
+      ("K3", False, (model.net_coarse_dy, model.net_fine_dy),
+       (ins_c["dy"], ins["dy"]), 1e-2)):
     with torch.no_grad():
       fused = (agg.fused_static_aggregator if static
                else agg.fused_dynamic_aggregator)
-      got = fused(net, *args)
-      want = net(*args)
-      torch.cuda.synchronize()
-      err = _compare_raw(key, got, want, atol, 2e-2)
+      errs = []
+      for stage, net, args in zip(("coarse", "fine"), nets, stage_args):
+        got = fused(net, *args)
+        want = net(*args)
+        torch.cuda.synchronize()
+        errs.append(_compare_raw(f"{key} {stage}", got, want, atol, 2e-2))
+      print(f"{key} max abs err coarse {errs[0]:.3g}, fine {errs[1]:.3g}",
+            flush=True)
+      err = max(errs)
       ms = _time_ms(lambda: fused(net, *args), iters=5)
       plain_ms = _time_ms(lambda: net(*args), iters=3, warmup=1)
       r, s, v, c = args[3 if static else 1].shape
@@ -227,18 +240,21 @@ def main() -> int:
                          "want 8/2/2")
   print(f"chunk launches: {launches}", flush=True)
   plain = rr.render_rays_mv(model, rb, coarse, fine, cfg, kernels=False)
-  rgb_k = ret["outputs_fine_ref"]["rgb"]
-  rgb_p = plain["outputs_fine_ref"]["rgb"]
-  if not torch.isfinite(rgb_k).all() or rgb_k.shape != (chunk, 3):
-    raise AssertionError("chunk: fine rgb not finite or misshapen")
-  chunk_err = float((rgb_k - rgb_p).abs().max())
-  if chunk_err > 3e-2:          # the bar of tests/test_pallas_agg.py:177
-    raise AssertionError(f"chunk: kernel vs plain fine rgb {chunk_err}")
+  chunk_errs = {}
+  for name in ("outputs_coarse_ref", "outputs_fine_ref"):
+    rgb_k, rgb_p = ret[name]["rgb"], plain[name]["rgb"]
+    if not torch.isfinite(rgb_k).all() or rgb_k.shape != (chunk, 3):
+      raise AssertionError(f"chunk: {name} rgb not finite or misshapen")
+    chunk_errs[name] = float((rgb_k - rgb_p).abs().max())
+    if chunk_errs[name] > 3e-2:   # the bar of tests/test_pallas_agg.py:177
+      raise AssertionError(f"chunk: kernel vs plain {name} rgb "
+                           f"{chunk_errs[name]}")
   chunk_ms = _time_ms(lambda: rr.render_rays_mv(model, rb, coarse, fine, cfg),
                       iters=5)
   print(f"chunk: {chunk_ms:.2f} ms/chunk = {chunk * 1e3 / chunk_ms:.1f} rays/s,"
-        f" fine rgb kernel vs plain max abs {chunk_err:.3g} [{card}]",
-        flush=True)
+        f" rgb kernel vs plain max abs coarse "
+        f"{chunk_errs['outputs_coarse_ref']:.3g}, fine "
+        f"{chunk_errs['outputs_fine_ref']:.3g} [{card}]", flush=True)
 
   # ---- 4: one full frame --------------------------------------------------
   frame_rb = full_image_ray_batch(rb, rb["camera"])
@@ -251,13 +267,17 @@ def main() -> int:
 
   one_frame()                                  # warm-up
   torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  out = one_frame()
-  sec_frame = time.perf_counter() - t0
-  rgb = out["outputs_fine_ref"]["rgb"]
-  if rgb.shape != (h, w, 3) or not np.isfinite(rgb).all():
-    raise AssertionError("frame: fine rgb not finite or misshapen")
-  print(f"frame: {sec_frame:.3f} s/frame at {h}x{w}, chunk 4096, "
+  secs_frame = []
+  for _ in range(3):
+    t0 = time.perf_counter()
+    out = one_frame()
+    secs_frame.append(time.perf_counter() - t0)
+    rgb = out["outputs_fine_ref"]["rgb"]
+    if rgb.shape != (h, w, 3) or not np.isfinite(rgb).all():
+      raise AssertionError("frame: fine rgb not finite or misshapen")
+  print(f"frame: {np.mean(secs_frame):.3f} s/frame at {h}x{w}, chunk 4096, "
+        f"mean of {len(secs_frame)} after a warm-up (min "
+        f"{min(secs_frame):.3f}, max {max(secs_frame):.3f}), "
         f"mask mean {float(out['outputs_fine_ref']['mask'].mean()):.3f} "
         f"[{card}]", flush=True)
 

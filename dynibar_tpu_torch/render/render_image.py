@@ -45,7 +45,7 @@ def full_image_ray_batch(rb_template: Dict[str, Any], camera,
 def render_image_ff(model, rb: Dict[str, Any], coarse_featmaps,
                     fine_featmaps, cfg: RenderSettings, chunk_size: int,
                     height: int, width: int,
-                    device: DeviceLike = None, kernels: bool = True
+                    device: DeviceLike = None
                     ) -> Dict[str, Dict[str, np.ndarray]]:
   """Render a full target view with the forward-facing model.
 
@@ -61,7 +61,7 @@ def render_image_ff(model, rb: Dict[str, Any], coarse_featmaps,
     chunk = {k: (v[start:start + chunk_size] if k in _PER_RAY_KEYS else v)
              for k, v in rb.items()}
     ret = render_rays_mv(model, chunk, coarse_featmaps, fine_featmaps, cfg,
-                         device=dev, kernels=kernels)
+                         device=dev)
     for name, fields in parts.items():
       for k in _KEEP:
         fields[k].append(ret[name][k].float())
