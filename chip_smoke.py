@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's FF eval render on one CUDA card.
+"""Drive the PyTorch/CUDA port on one CUDA card: the FF eval render and
+the FF fine-stage train step.
 
     python3 chip_smoke.py
 
@@ -6,23 +7,37 @@ Phases (each prints its own lines; any failure raises, so the exit code
 is non-zero and the last line below is never printed):
 
   0. the card's name and power limit (nvidia-smi); TF32 off;
-  1. build the three CUDA kernels from csrc/ (one nvcc each, in parallel);
-  2. hold each kernel against its plain PyTorch twin at the main path's
-     shapes (K2/K3 at both the coarse and the fine stage) and time kernel,
-     twin and (K1) the library call;
+  1. build the five CUDA libraries from csrc/ (one nvcc each, in parallel);
+  2. hold each eval kernel against its plain PyTorch twin at the main
+     path's shapes (K2/K3 at both the coarse and the fine stage) and time
+     kernel, twin and (K1) the library call;
+  2b. hold the training kernels against their twins at the train step's
+     fine-stage shapes, N_rand = 3072 rays: K2r/K3r forwards and the
+     K5a/K5b, K4a/K4b backwards (V = 11 static, 7 and 6 dynamic) through
+     the autograd Functions vs the f32 modules under autograd (run in
+     512-ray slices), per tensor within twice the bf16 twin's error plus
+     0.02, the anti-alias scalar per point and as a sum scaled by its
+     terms; time fwd+bwd and each launch;
   3. render one 1024-ray chunk (64+64 samples, 7+11 views, 288×512
      sources, bf16) with launch counters zeroed just before and read just
      after, compare its coarse and fine rgb with the plain path, and time
      it;
   4. render full 288×512 frames (featmap encode included, chunk 4096): one
      warm-up, then the mean and spread of three;
-  5. print the kernels line, then the result line.
+  5. the fine-stage train step at N_rand 3072 (7 dynamic, 6 anchor, 11
+     static views): launch counts of one step; kernel vs plain gradients
+     per trainable group and the loss of the next step on the same batch
+     (the plain fine aggregators in checkpointed 512-ray slices); s/step
+     over 5 steps after 2 warm-ups and peak memory; 10 steps on one batch
+     with a falling loss;
+  6. print the kernels line, the card line, then the result line.
 
 Weights are random, from a seed.  Needs one card and no network.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -36,6 +51,24 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 PEAK_BF16_FLOPS = 989e12        # dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12          # f32 outside the tensor cores
 SEED = 0
+RAY_SIDE_LAYERS = ("geometry_fc", "ray_attention", "out_geometry_fc",
+                   "rgb_fc", "ref_pts_fc")
+TRAIN_SOURCES = {
+    "K2r": "dynibar_tpu_torch/csrc/static_agg.cu",
+    "K3r": "dynibar_tpu_torch/csrc/dynamic_agg.cu",
+    "K5a": "dynibar_tpu_torch/csrc/static_agg_bwd.cu",
+    "K5b": "dynibar_tpu_torch/csrc/static_agg_bwd.cu",
+    "K4a": "dynibar_tpu_torch/csrc/dynamic_agg_bwd.cu",
+    "K4b": "dynibar_tpu_torch/csrc/dynamic_agg_bwd.cu"}
+REPLACES = {
+    "K2r": "dynibar_tpu/ops/pallas_agg.py:225",
+    "K3r": "dynibar_tpu/ops/pallas_agg.py:325",
+    "K5a": "dynibar_tpu/ops/pallas_agg_bwd.py:879",
+    "K5b": "dynibar_tpu/ops/pallas_agg_bwd.py:1109",
+    "K4a": "dynibar_tpu/ops/pallas_agg_bwd.py:514",
+    "K4b": "dynibar_tpu/ops/pallas_agg_bwd.py:733"}
+TRAIN_LAUNCHES = {"K1": 4, "K2": 1, "K3": 1, "K2r": 1, "K5a": 1, "K5b": 1,
+                  "K3r": 2, "K4a": 2, "K4b": 2}
 
 
 def _card() -> str:
@@ -102,6 +135,7 @@ def main() -> int:
   from dynibar_tpu_torch.render.render_image import (full_image_ray_batch,
                                                      render_image_ff)
   from dynibar_tpu_torch.utils.device import resolve_device, to_device
+  t_start = time.perf_counter()
 
   # ---- 0: the card --------------------------------------------------------
   card = _card()
@@ -116,8 +150,8 @@ def main() -> int:
 
   h, w, chunk = 288, 512, 1024
   cfg = RenderSettings(n_samples=64, n_importance=64, num_views_dy=7,
-                       num_views_static=11, num_basis=6, inv_uniform=True,
-                       compute_dtype="bfloat16")
+                       num_views_anchor=0, num_views_static=11, num_basis=6,
+                       inv_uniform=True, compute_dtype="bfloat16")
   model = FFModel(cfg, num_frames=48, seed=SEED)
   rb = to_device(synthetic_ff_batch(cfg, n_rays=chunk, h=h, w=w,
                                     num_frames=48, seed=SEED,
@@ -125,22 +159,29 @@ def main() -> int:
   with torch.no_grad():
     coarse, fine = model.encode_featmaps(rb["src_rgbs"], rb["static_src_rgbs"])
 
-  # ---- 2: each kernel vs its plain twin at the main path's shapes ---------
-  # both stages' inputs, from the plain path: the coarse stage's projections
-  # and gathers, then importance-resampled depths from the plain coarse pass
-  # and the fine stage's own projections and gathers
-  with torch.no_grad():
-    pts, z_vals, _ = rr.sampling.sample_along_ray(
-        rb["ray_o"], rb["ray_d"], rb["depth_range"], cfg.n_samples,
-        cfg.inv_uniform, det=True)
-    ins_c = rr.stage_inputs(model, rb, coarse, cfg, "coarse", pts,
+  def stage_ins(rb, coarse, fine):
+    """Both stages' aggregator inputs, from the plain path: the coarse
+    stage's projections and gathers, then importance-resampled depths from
+    the plain coarse pass and the fine stage's own projections and
+    gathers."""
+    with torch.no_grad():
+      pts, z_vals, _ = rr.sampling.sample_along_ray(
+          rb["ray_o"], rb["ray_d"], rb["depth_range"], cfg.n_samples,
+          cfg.inv_uniform, det=True)
+      ins_c = rr.stage_inputs(model, rb, coarse, cfg, "coarse", pts,
+                              kernels=False)
+      out_c = rr._render_stage_ff(model, rb, coarse, cfg, "coarse", pts,
+                                  z_vals, kernels=False)["outputs"]
+      z_all = rr.sampling.importance_resample_z(
+          z_vals, out_c["weights"], cfg.n_importance, cfg.inv_uniform,
+          det=True)
+      pts_f = z_all[..., None] * rb["ray_d"][:, None] + rb["ray_o"][:, None]
+      ins = rr.stage_inputs(model, rb, fine, cfg, "fine", pts_f,
                             kernels=False)
-    out_c, _, _, _ = rr._render_stage_ff(model, rb, coarse, cfg, "coarse",
-                                         pts, z_vals, kernels=False)
-    z_all = rr.sampling.importance_resample_z(
-        z_vals, out_c["weights"], cfg.n_importance, cfg.inv_uniform, det=True)
-    pts_f = z_all[..., None] * rb["ray_d"][:, None] + rb["ray_o"][:, None]
-    ins = rr.stage_inputs(model, rb, fine, cfg, "fine", pts_f, kernels=False)
+    return ins_c, ins, pts_f
+
+  # ---- 2: each kernel vs its plain twin at the main path's shapes ---------
+  ins_c, ins, pts_f = stage_ins(rb, coarse, fine)
   results = {}
 
   # K1 at the fine stage's static feature gather: [11,72,128,32] bf16 maps
@@ -225,6 +266,144 @@ def main() -> int:
           f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}), "
           f"max abs err {res['max_abs_err']:.3g} [{card}]", flush=True)
 
+  # ---- 2b: the training kernels vs their twins (fine stage, N_rand) ------
+  # the train step's fine-stage shapes: N_rand rays at once through the
+  # kernels; the twins in slices of kc.TWIN_RAYS rays (weight gradients
+  # summed over the slices), which hold the same function at the memory of
+  # one slice
+  from dynibar_tpu_torch.utils import kernel_check as kc
+  n_rand = 3072
+  rb_t = to_device(synthetic_ff_batch(cfg, n_rays=n_rand, h=h, w=w,
+                                      num_frames=48, seed=SEED + 1), dev)
+  with torch.no_grad():
+    maps_t = model.encode_featmaps(rb_t["src_rgbs"],
+                                   rb_t["static_src_rgbs"])
+  ins_t = stage_ins(rb_t, *maps_t)[1]
+  del rb_t, maps_t
+  g_cot = torch.Generator(device=dev).manual_seed(SEED + 1)
+  st_args, dy_args = ins_t["st"], ins_t["dy"]
+  dy6_args = list(dy_args)                 # the anchor pass: 6 views
+  dy6_args[1] = dy_args[1][:, :, :6].contiguous()
+  dy6_args[3] = dy_args[3][:, :, :6].contiguous()
+  train_results = {}
+  for label, static, net, args, keys in (
+      ("static V=11", True, model.net_fine_st, st_args, ("K2r", "K5a", "K5b")),
+      ("dynamic V=7", False, model.net_fine_dy, dy_args,
+       ("K3r", "K4a", "K4b")),
+      ("dynamic V=6", False, model.net_fine_dy, dy6_args,
+       ("K3r", "K4a", "K4b"))):
+    r, s_, v, c = args[3 if static else 1].shape
+    cot = torch.randn(r, s_, 4, generator=g_cot, device=dev)
+    out_k, out_f, g_k, g_f, g_b = kc.all_grads(net, static, args, cot)
+    torch.cuda.synchronize()
+    fwd_err = _compare_raw(f"{keys[0]} ({label})", out_k, out_f,
+                           2e-2 if static else 1e-2, 2e-2)
+    errs = kc.grad_errors(g_k, g_f, g_b)
+    kc.check_grad_errors(errs, f"{label} backward")
+    fb_ms = _time_ms(lambda: kc.aggregator_grads(net, static, args, cot,
+                                                 "kernel"), iters=3, warmup=1)
+    plain_fb_ms = _time_ms(lambda: kc.aggregator_grads(
+        net, static, args, cot, "f32"), iters=2, warmup=1)
+
+    def plain_fwd():                 # the twin's forward under autograd
+      for i in range(0, r, kc.TWIN_RAYS):
+        net(*[a[i:i + kc.TWIN_RAYS] for a in args])
+
+    with torch.enable_grad():
+      net.requires_grad_(True)
+      plain_fwd_ms = _time_ms(plain_fwd, iters=2, warmup=1)
+      net.requires_grad_(False)
+    # each launch on its own, CUDA events around the wrapper
+    with torch.no_grad():
+      if static:
+        reffeat = agg._reffeat(net, args[1])
+        fwd = lambda: agg.static_forward_residuals(
+            net, args[0], reffeat, args[2], args[3], args[4], args[5])
+        ray, trunk = agg.static_backward_ray, agg.static_backward_trunk
+      else:
+        dirfeat, dirpe = agg._dir_inputs(net, args[2], args[4])
+        fwd = lambda: agg.dynamic_forward_residuals(
+            net, args[0], dirfeat, dirpe, args[1], args[3])
+        ray, trunk = agg.dynamic_backward_ray, agg.dynamic_backward_trunk
+      t_fwd = _time_ms(fwd, iters=5)
+      _, ws = fwd()
+      slabs, nblk, w_total = agg._slabs(dev, agg.pack_weights(net, static))
+      t_ray = _time_ms(lambda: ray(net, ws, cot, slabs, nblk, w_total),
+                       iters=5)
+      r_out = ray(net, ws, cot, slabs, nblk, w_total)
+      t_trunk = _time_ms(lambda: trunk(net, ws, r_out[0], r_out[1], slabs,
+                                       nblk, w_total), iters=5)
+    p = r * s_
+    f_trunk, f_ray = agg.aggregator_flop_parts(static, r, s_, v, c)
+    wts = agg.pack_weights(net, static)
+    w_bytes = _nbytes(*wts[:2])
+    res_bytes = _nbytes(*[ws[k] for k in ("x", "vm", "gf")]) + (
+        _nbytes(ws["rf"]) if static else 0)
+    in_bytes = _nbytes(*[t for k, t in ws.items()
+                         if k not in ("x", "vm", "gf", "rf", "nv")])
+    bounds = {
+        keys[0]: _bound_ms(in_bytes + w_bytes + res_bytes + p * 16,
+                           f_trunk + f_ray, PEAK_BF16_FLOPS),
+        keys[1]: _bound_ms(res_bytes - (_nbytes(ws["rf"]) if static else 0)
+                           + p * 16 + w_bytes + v * p * (256 + 32),
+                           3 * f_ray, PEAK_BF16_FLOPS),
+        keys[2]: _bound_ms(in_bytes + v * p * (256 + 32) + w_bytes
+                           + (_nbytes(ws["rf"]) if static else 0)
+                           + p * v * 4 * (c + 10) + p * 4 * (3 + c + 1),
+                           3 * f_trunk, PEAK_BF16_FLOPS)}
+
+    def side(name):             # which launch produced this gradient
+      if name.startswith("input."):
+        return 1 if not static and name in ("input.ray_dir",
+                                            "input.pts") else 2
+      return 1 if name.split(".")[0] in RAY_SIDE_LAYERS else 2
+
+    print(f"{label}: fwd+bwd {fb_ms:.3f} ms (plain f32 {plain_fb_ms:.3f} ms, "
+          f"plain fwd {plain_fwd_ms:.3f} ms); {keys[0]} {t_fwd:.3f} ms, "
+          f"{keys[1]} {t_ray:.3f} ms, {keys[2]} {t_trunk:.3f} ms; forward "
+          f"max abs err {fwd_err:.3g} [{card}]", flush=True)
+    worst = sorted(errs.items(), key=lambda kv: kv[1][0] - kv[1][2])[-3:]
+    print(f"{label}: gradient ratios closest to their bars (kernel, bf16 "
+          f"twin, bar): {[(n, [round(x, 4) for x in e]) for n, e in worst]}",
+          flush=True)
+    if "s" in errs:
+      print(f"{label}: anti-alias s (kernel, bf16 twin, bar): sum scaled by "
+            f"its terms {[round(x, 5) for x in errs['s']]}, per point "
+            f"{[round(x, 4) for x in errs['s.per_point']]}; per-point error "
+            f"coherence kernel "
+            f"{kc.error_coherence(g_k['s.per_point'], g_f['s.per_point']):.3f}"
+            f", twin "
+            f"{kc.error_coherence(g_b['s.per_point'], g_f['s.per_point']):.3f}",
+            flush=True)
+    abs_err = {n: float((g_k[n].float() - g_f[n]).abs().max()) for n in errs}
+    del ws, slabs, r_out, g_k, g_f, g_b, out_k, out_f
+    if label == "dynamic V=6":
+      continue
+    for idx, key, ms in ((0, keys[0], t_fwd), (1, keys[1], t_ray),
+                         (2, keys[2], t_trunk)):
+      mine = {n: e for n, e in errs.items() if side(n) == idx}
+      res = dict(
+          name={"K2r": "static_forward_residuals",
+                "K5a": "static_backward_ray", "K5b": "static_backward_trunk",
+                "K3r": "dynamic_forward_residuals",
+                "K4a": "dynamic_backward_ray",
+                "K4b": "dynamic_backward_trunk"}[key],
+          route="cuda", source=TRAIN_SOURCES[key], replaces=REPLACES[key],
+          ms=ms, bound_ms=bounds[key][0], bound_by=bounds[key][1],
+          library_ms=None, rays=r, views=v)
+      if idx == 0:
+        res.update(max_abs_err=fwd_err, plain_ms=plain_fwd_ms)
+      else:
+        # the gradient closest to its bar: (kernel, bf16 twin, bar) ratios
+        name = max(mine, key=lambda n: mine[n][0] / mine[n][2])
+        res.update(
+            max_abs_err=max(abs_err[n] for n in mine),
+            worst_grad=[name] + list(mine[name]),
+            plain_ms=plain_fb_ms - plain_fwd_ms)
+      train_results[key] = res
+  del ins_t, st_args, dy_args, dy6_args, args
+  torch.cuda.empty_cache()
+
   # ---- 3: one chunk through the main path ---------------------------------
   counters = (sample.sample_views, agg.fused_static_aggregator,
               agg.fused_dynamic_aggregator)
@@ -281,11 +460,125 @@ def main() -> int:
         f"mask mean {float(out['outputs_fine_ref']['mask'].mean()):.3f} "
         f"[{card}]", flush=True)
 
-  # ---- 5: result ----------------------------------------------------------
+  # ---- 5: the fine-stage train step at N_rand 3072 -----------------------
+  from dynibar_tpu_torch.config import TrainSettings
+  from dynibar_tpu_torch.train import losses as ff_losses
+  from dynibar_tpu_torch.train import trainer
+  del model, rb, frame_rb, ins, ins_c, coarse, fine, out, ret, plain, one_frame
+  del stage_ins, net, fwd, plain_fwd, reffeat, dirfeat, dirpe
+  torch.cuda.empty_cache()
+  tr_cfg = RenderSettings(n_samples=64, n_importance=64, num_views_dy=7,
+                          num_views_anchor=6, num_views_static=11,
+                          num_basis=6, inv_uniform=True,
+                          compute_dtype="bfloat16")
+  t_cfg = TrainSettings()
+  weights = ff_losses.schedule_weights(t_cfg, 0)
+  tmodel = FFModel(tr_cfg, num_frames=48, seed=SEED).train_fine()
+  opt = trainer.make_ff_optimizer(tmodel, t_cfg)
+  batch = to_device(synthetic_ff_batch(tr_cfg, n_rays=n_rand, h=h, w=w,
+                                       num_frames=48, seed=SEED), dev)
+
+  def step(b, seed):
+    gen = torch.Generator(dev).manual_seed(seed)
+    return trainer.ff_train_step(tmodel, opt, b, weights, tr_cfg, t_cfg,
+                                 generator=gen)
+
+  counters = {"K1": sample.sample_views, "K2": agg.fused_static_aggregator,
+              "K3": agg.fused_dynamic_aggregator,
+              "K2r": agg.static_forward_residuals,
+              "K5a": agg.static_backward_ray,
+              "K5b": agg.static_backward_trunk,
+              "K3r": agg.dynamic_forward_residuals,
+              "K4a": agg.dynamic_backward_ray,
+              "K4b": agg.dynamic_backward_trunk}
+  for f in counters.values():
+    f.launches = 0
+  t0 = time.perf_counter()
+  loss, metrics, _ = step(batch, SEED)
+  torch.cuda.synchronize()
+  first_s = time.perf_counter() - t0
+  step_launches = {k: f.launches for k, f in counters.items()}
+  if step_launches != TRAIN_LAUNCHES:
+    raise AssertionError(f"train-step launches {step_launches}, want "
+                         f"{TRAIN_LAUNCHES}")
+  if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+    raise AssertionError(f"train step: non-finite metrics {metrics}")
+  print(f"train step launches: {step_launches}; first step {first_s:.2f} s, "
+        f"loss {float(loss):.5f}, psnr {float(metrics['psnr']):.3f}, "
+        f"grad_norm {float(metrics['grad_norm']):.4g}", flush=True)
+
+  # kernel vs plain gradients of the second step's loss on the step's
+  # batch, from the same weights and generator seed (after one update, so
+  # the motion coefficients, zero at init, pass a gradient to the
+  # trajectory basis).  The plain run's fine aggregators run in
+  # checkpointed ray slices (kc.sliced_twin): the same loss over all
+  # N_rand rays, with the twins' activations of one slice
+  grads = {}
+  for kernels in (True, False):
+    tmodel.zero_grad(set_to_none=True)
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    with contextlib.ExitStack() as stack:
+      if not kernels:
+        stack.enter_context(kc.sliced_twin(tmodel.net_fine_st))
+        stack.enter_context(kc.sliced_twin(tmodel.net_fine_dy))
+      l, _ = trainer.ff_loss(tmodel, batch, weights, tr_cfg, kernels=kernels,
+                             generator=gen)
+      l.backward()
+    grads[kernels] = (float(l.detach()), {
+        k: torch.cat([p.grad.reshape(-1) for p in ps])
+        for k, ps in tmodel.param_groups().items()})
+    del l
+  tmodel.zero_grad(set_to_none=True)
+  loss_rel = abs(grads[True][0] - grads[False][0]) / abs(grads[False][0])
+  group_rel = {k: float((g - grads[False][1][k]).norm()
+                        / grads[False][1][k].norm())
+               for k, g in grads[True][1].items()}
+  print(f"train step kernel vs plain (N_rand {n_rand}): loss "
+        f"{grads[True][0]:.6f} vs {grads[False][0]:.6f} (rel "
+        f"{loss_rel:.2e}); gradient rel-norm per group "
+        f"{({k: round(v, 5) for k, v in group_rel.items()})}", flush=True)
+  if not (loss_rel <= 1e-2 and all(v <= 5e-2 for v in group_rel.values())):
+    raise AssertionError("train step: kernel and plain gradients disagree")
+  del grads
+  torch.cuda.empty_cache()
+
+  for i in range(2):                                      # warm-up
+    step(batch, SEED + 10 + i)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  held_gib = torch.cuda.memory_allocated() / 2 ** 30   # weights, batch, Adam
+  secs_step = []
+  for i in range(5):
+    t0 = time.perf_counter()
+    loss, metrics, _ = step(batch, SEED + 20 + i)
+    torch.cuda.synchronize()
+    secs_step.append(time.perf_counter() - t0)
+  peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+  print(f"train step: {np.mean(secs_step):.4f} s/step at N_rand {n_rand}, "
+        f"mean of {len(secs_step)} after 2 warm-ups (min "
+        f"{min(secs_step):.4f}, max {max(secs_step):.4f}), peak memory "
+        f"{peak_gib:.2f} GiB ({held_gib:.2f} GiB held before the steps) "
+        f"[{card}]", flush=True)
+
+  curve = []
+  for _ in range(10):                   # one batch, one sample placement
+    loss, _, _ = step(batch, SEED + 30)
+    curve.append(float(loss))
+  print(f"train loss over 10 steps on one batch: "
+        f"{[round(x, 5) for x in curve]}", flush=True)
+  if not (np.isfinite(curve).all() and curve[-1] < curve[0]):
+    raise AssertionError("train step: the loss did not fall")
+  print(f"phases done in {time.perf_counter() - t_start:.1f} s", flush=True)
+
+  # ---- 6: result ----------------------------------------------------------
   kernels = []
   for key in ("K1", "K2", "K3"):
     res = dict(results[key])
     res["launches"] = launches[key]
+    kernels.append(res)
+  for key in ("K2r", "K5a", "K5b", "K3r", "K4a", "K4b"):
+    res = dict(train_results[key])
+    res["launches"] = step_launches[key]
     kernels.append(res)
   print(json.dumps({"kernels": kernels}), flush=True)
   print(card, flush=True)

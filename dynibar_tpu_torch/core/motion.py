@@ -66,6 +66,12 @@ def displaced_points(pts: torch.Tensor, traj_win: torch.Tensor,
   return disp.permute(2, 0, 1, 3) + pts[None]
 
 
+def scene_flow_seq(traj_win: torch.Tensor) -> torch.Tensor:
+  """Consecutive-offset scene flows [O-1, R, S, 3] for the trajectory
+  regularizer (reference render_ray.py:1101-1105)."""
+  return (traj_win[:, :, 1:, :] - traj_win[:, :, :-1, :]).permute(2, 0, 1, 3)
+
+
 def expected_scene_flow(weights: torch.Tensor, traj_win: torch.Tensor,
                         step: int, window: int = 3) -> torch.Tensor:
   """max(E[traj(+step)-traj(0)], E[traj(-step)-traj(0)]) under the render

@@ -1,0 +1,160 @@
+// Shared device code of the aggregator backwards K4a/K4b (dynamic_agg_bwd.cu)
+// and K5a/K5b (static_agg_bwd.cu): the transposed dense layer, the
+// weight-gradient product and the per-block gradient slabs.
+//
+// Math from dynibar_tpu/ops/pallas_agg_bwd.py (module docstring :12-37):
+//   y = W x + b  =>  dX = W^T dY, dW += dY^T X, db += sum_rows dY;
+//   ELU'(pre) from the post-activation y: 1 if y > 0 else y + 1.
+// dX reuses the forward's `dense` on a transposed copy of the packed
+// weights (ops/agg.py packs W^T at the same offsets), so every product
+// is bf16 mma.sync with f32 accumulation.  dW runs on the same tensor-core
+// instruction with both operands read transposed by ldmatrix.trans from
+// shared memory.
+//
+// Weight gradients: the persistent blocks add every tile they compute into
+// one of kSlabs f32 slabs of the whole packed layout ([weights | biases]),
+// block b into slab b % kSlabs, with vector reductions (red.global.add on
+// float2) that the L2 performs: the warp does not wait for them, and 16
+// slabs of the largest layout (1.7 MB each) stay in the 50 MB L2.  A small
+// reduce kernel sums the slabs afterwards.  No library GEMM.
+#pragma once
+
+#include "agg_common.cuh"
+
+namespace agg {
+
+constexpr int LDS = 24;             // row stride of 16-column cotangents
+constexpr int kSlabs = 16;          // weight-gradient slabs (ops/agg.py)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// ELU' recovered from the post-activation (pallas_agg_bwd.py:61)
+__device__ __forceinline__ float elu_d(float y) { return y > 0.f ? 1.f : y + 1.f; }
+
+// The slot of W^T: same offset in the transposed pack, in/out swapped,
+// bias read from a zero buffer.
+__device__ __forceinline__ Lin tr(const Lin& L) { return Lin{L.w, 0, L.n, L.k}; }
+
+// gw[L.w + o*L.k + i] += sum_r dY[r][o] X[r][i] over `rows` rows (a multiple
+// of 16).  dY [rows][>= L.n] and X [rows][>= L.k] are bf16 in shared memory
+// with 16-byte aligned rows.  A warp owns a 16x16 tile of dW: A = dY^T and
+// B = X both come from ldmatrix.trans (PTX fragment layouts: A[m][k] =
+// dY[k][m], B[k][n] = X[k][n]).  Ends without a block barrier.
+__device__ void dw_accum(const bf16* dY, int ldy, const bf16* X, int ldx,
+                         int rows, float* gw, const Lin L) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, j = lane >> 3, r8 = lane & 7;
+  const int mt = L.n >> 4, units = mt * (L.k >> 4);
+  const uint32_t a_base =
+      smem_u32(dY + (size_t)(r8 + ((j >> 1) & 1) * 8) * ldy + (j & 1) * 8);
+  const uint32_t b_base =
+      smem_u32(X + (size_t)(r8 + (j & 1) * 8) * ldx + (j >> 1) * 8);
+  for (int u = warp; u < units; u += NW) {
+    const int m0 = (u % mt) * 16, n0 = (u / mt) * 16;
+    float acc[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[h][e] = 0.f;
+    for (int k0 = 0; k0 < rows; k0 += 16) {
+      uint32_t a[4], b[4];
+      ldsm_x4_t(a, a_base + (uint32_t)(k0 * ldy + m0) * 2u);
+      ldsm_x4_t(b, b_base + (uint32_t)(k0 * ldx + n0) * 2u);
+      mma16816(acc[0], a, b[0], b[1]);
+      mma16816(acc[1], a, b[2], b[3]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* p0 = gw + L.w + (size_t)(m0 + g) * L.k + n0 + h * 8 + 2 * t;
+      atomicAdd(reinterpret_cast<float2*>(p0),
+                make_float2(acc[h][0], acc[h][1]));
+      atomicAdd(reinterpret_cast<float2*>(p0 + 8 * L.k),
+                make_float2(acc[h][2], acc[h][3]));
+    }
+  }
+}
+
+// gb[boff + c] += sum_r dY[r][c] for c < ncols (bias gradient).
+__device__ void db_accum(const bf16* dY, int ldy, int rows, float* gb,
+                         int boff, int ncols) {
+  for (int c = threadIdx.x; c < ncols; c += NT) {
+    float s = 0.f;
+    for (int r = 0; r < rows; ++r) s += b2f(dY[r * ldy + c]);
+    atomicAdd(gb + boff + c, s);
+  }
+}
+
+// Both halves of one layer's weight gradient.
+__device__ __forceinline__ void grad_layer(const bf16* dY, int ldy,
+                                           const bf16* X, int ldx, int rows,
+                                           float* slab, int w_total,
+                                           const Lin L) {
+  dw_accum(dY, ldy, X, ldx, rows, slab, L);
+  db_accum(dY, ldy, rows, slab + w_total, L.b, L.n);
+}
+
+// out[i] = sum_b slabs[b * len + i]
+__global__ void reduce_slabs(const float* slabs, int nslab, int len,
+                             float* out) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < len;
+       i += gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int b = 0; b < nslab; ++b) s += slabs[(size_t)b * len + i];
+    out[i] = s;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// d/dx of the periodic-embedding column `col` (pe_geo's layout) for a
+// cotangent d on it: returns the channel and the contribution.
+__device__ __forceinline__ float pe_geo_bwd(const float* x, int nch,
+                                            int nfreq, int col, float d,
+                                            int* ch) {
+  if (col < nch) {
+    *ch = col;
+    return d;
+  }
+  int j = col - nch;
+  const bool is_sin = j >= nfreq * nch;
+  if (is_sin) j -= nfreq * nch;
+  *ch = j % nch;
+  const float f = (float)(1 << (j / nch));
+  const float a = f * x[*ch];
+  return is_sin ? d * f * cosf(a) : -d * f * sinf(a);
+}
+
+// Set the kernel's shared-memory size and launch min(nblocks, work)
+// persistent blocks on `s`; returns the cudaError_t.
+template <typename Kern, typename Args>
+int launch_persistent(Kern kernel, size_t smem, const Args& args, int work,
+                      int nblocks, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (work <= 0) return 0;
+  kernel<<<work < nblocks ? work : nblocks, NT, smem, s>>>(args);
+  return (int)cudaGetLastError();
+}
+
+inline int launch_reduce(const float* slabs, int nslab, int len, float* out,
+                         cudaStream_t s) {
+  const int grid = (len + 255) / 256 < 1024 ? (len + 255) / 256 : 1024;
+  reduce_slabs<<<grid, 256, 0, s>>>(slabs, nslab, len, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace agg

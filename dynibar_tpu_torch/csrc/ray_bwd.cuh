@@ -1,0 +1,813 @@
+// Ray-side aggregator backward (K4a dynamic, K5a static): pooling-2 ->
+// geometry_fc -> 4-head ray transformer -> heads, recomputed from the
+// forward's residuals and transposed, one ray (S <= 128 samples) per
+// block, persistent blocks over the rays.
+//
+// Math of dynibar_tpu/ops/pallas_agg_bwd.py:514 dynamic_bwd_ray_kernel and
+// :879 static_bwd_ray_kernel; layout of the forward's ray_kernel
+// (agg_common.cuh).  Phases per ray:
+//   A. geometry feature from the forward's workspace (ws_gf), q/k/v,
+//      attention, fc and layer norm (y_hat kept in a per-block f32 scratch);
+//   B. the heads in 64-row chunks, forward then transpose; the layer-norm
+//      backward of each chunk gives d_o3;
+//   C. attention backward: probabilities recomputed from q/k and the row
+//      statistics, in f32, one thread per (query, head) for d_q and one per
+//      (key, head) for d_k/d_v.  A query with <= 1 valid view had all its
+//      logits replaced by -1e9, so it attends uniformly and its logit
+//      cotangents are dropped (pallas_agg_bwd.py:28-31);
+//   D. geometry_fc backward from the recomputed pooling-2 input, then the
+//      pooling-2 backward per view: d_mean_eff = d_mean - 2 d_var s2,
+//      d_x (bf16) and d_vis (f32).
+// Weight gradients go to the block's slab (agg_bwd_common.cuh).
+#pragma once
+
+#include "agg_bwd_common.cuh"
+
+namespace agg {
+
+struct RayBwdArgs {
+  const bf16* W;
+  const bf16* WT;
+  const float* B;
+  const float* Z;
+  Net net;
+  const float* gf;       // [P, 128] geometry_fc output (forward workspace)
+  const bf16* ws_x;      // [V, P, 128]
+  const float* ws_vis;   // [V, P]
+  const float* ws_m;     // [V, P]
+  const float* cot;      // [P, 4] cotangent of raw
+  int P, S, V, C, R;
+  // static aggregator
+  const float* raydiff;  // [P, V, 4]
+  const bf16* rgbfeat;   // [P, V, C]
+  // dynamic aggregator
+  const float* posenc;   // [S, 128]
+  const float* pts;      // [P, 3]
+  const float* dirpe;    // [R, 27]
+  // outputs
+  bf16* dx;              // [V, P, 128]
+  float* dmisc;          // [V, P, 8]: d_vis, static d_rgb (1:4), d_raydiff (4:8)
+  float* d_pts;          // [P, 3] dynamic
+  float* d_dirpe;        // [R, 27] dynamic
+  float* scratch;        // [gridDim.x, SMAX, kScratchLd] f32
+  float* slabs;          // [kSlabs, slab_len] weight gradients
+  int slab_len, w_total;
+};
+
+constexpr int LD1 = 184, LD2 = 168;   // dynamic ref_pts_fc / rgb_fc inputs
+constexpr int kScratchLd = 128 + 128 + 272;
+constexpr size_t kReg1 = 81920, kDo3Off = 47104, kReg2 = 133120;
+constexpr size_t kRayBwdSmem =
+    kReg1 + kReg2 + (3 * SMAX + 12 * SMAX + 256 + 32 + 64 * 3) * 4;
+
+// One head's 32 channels of a q/k/v/o row (64-byte aligned in shared
+// memory), read as four 16-byte words.
+__device__ __forceinline__ void load32(float (&x)[32], const bf16* p) {
+  const uint4* w = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint4 u = w[i];
+    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(b[j]);
+      x[8 * i + 2 * j] = f.x;
+      x[8 * i + 2 * j + 1] = f.y;
+    }
+  }
+}
+
+__device__ __forceinline__ float dot32(const float (&a)[32], const bf16* p) {
+  const uint4* w = reinterpret_cast<const uint4*>(p);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint4 u = w[i];
+    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(b[j]);
+      s += a[8 * i + 2 * j] * f.x + a[8 * i + 2 * j + 1] * f.y;
+    }
+  }
+  return s;
+}
+
+__device__ __forceinline__ void axpy32(float (&acc)[32], float c,
+                                       const bf16* p) {
+  const uint4* w = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint4 u = w[i];
+    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(b[j]);
+      acc[8 * i + 2 * j] += c * f.x;
+      acc[8 * i + 2 * j + 1] += c * f.y;
+    }
+  }
+}
+
+__device__ __forceinline__ void store32(bf16* p, const float (&x)[32],
+                                        float scale) {
+  uint4* w = reinterpret_cast<uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint4 u;
+    __nv_bfloat162* b = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = __floats2bfloat162_rn(x[8 * i + 2 * j] * scale,
+                                   x[8 * i + 2 * j + 1] * scale);
+    w[i] = u;
+  }
+}
+
+// Softmax attention of every (query, head) over the ray's own samples, as
+// the forward; row statistics (max, sum) kept for the backward if asked.
+__device__ void attn_fwd(const bf16* q, const bf16* k, const bf16* vv,
+                         bf16* ob, const float* snv, int S, int Sp,
+                         float* st_m, float* st_l) {
+  const float scale = 0.17677669529663687f;
+  for (int pr = threadIdx.x; pr < 4 * Sp; pr += NT) {
+    const int h = pr / Sp, i = pr % Sp;
+    float qv[32], acc[32];
+#pragma unroll
+    for (int d = 0; d < 32; ++d) acc[d] = 0.f;
+    if (i >= S) {
+      store32(ob + i * LDG + h * 32, acc, 0.f);
+      continue;
+    }
+    load32(qv, q + i * 128 + h * 32);
+#pragma unroll
+    for (int d = 0; d < 32; ++d) qv[d] *= scale;
+    const bool masked = snv[i] <= 1.f;
+    float mx = 0.f;
+    if (!masked) {
+      mx = -INFINITY;
+      for (int j = 0; j < S; ++j)
+        mx = fmaxf(mx, dot32(qv, k + j * 128 + h * 32));
+    }
+    float sum = 0.f;
+    for (int j = 0; j < S; ++j) {
+      const float l = masked ? 0.f : dot32(qv, k + j * 128 + h * 32) - mx;
+      const float pj = expf(l);
+      sum += pj;
+      axpy32(acc, pj, vv + j * 128 + h * 32);
+    }
+    store32(ob + i * LDG + h * 32, acc, 1.f / sum);
+    if (st_m) {
+      st_m[h * SMAX + i] = mx;
+      st_l[h * SMAX + i] = sum;
+    }
+  }
+}
+
+template <bool STATIC>
+__global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* reg2 = smem + kReg1;
+  bf16* GA = (bf16*)smem;                      // gf_attn (dynamic: | pts PE)
+  bf16* DO3 = (bf16*)(smem + kDo3Off);         // [SMAX][LDG] d_o3, then d_q
+  bf16* Q = (bf16*)reg2;                       // [SMAX][128]
+  bf16* K = Q + SMAX * 128;
+  bf16* Vv = K + SMAX * 128;
+  bf16* O = Vv + SMAX * 128;                   // [SMAX][LDG]
+  float* snv = (float*)(reg2 + kReg2);
+  float* sinv = snv + SMAX;
+  float* rstd = sinv + SMAX;
+  float* st_m = rstd + SMAX;                   // [4][SMAX]
+  float* st_l = st_m + 4 * SMAX;
+  float* st_d = st_l + 4 * SMAX;
+  float* lng = st_d + 4 * SMAX;                // [256] LN scale | bias grads
+  float* sdp = lng + 256;                      // [32] d_dirpe
+  float* spp = sdp + 32;                       // [64][3] d_pts
+
+  const Net& net = a.net;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int S = a.S, V = a.V, P = a.P, Sp = (S + 15) & ~15;
+  const int GLD = STATIC ? LDG : LD1;
+  float* slab = a.slabs + (size_t)(blockIdx.x % kSlabs) * a.slab_len;
+  const int wt = a.w_total;
+  float* SY = a.scratch + (size_t)blockIdx.x * SMAX * kScratchLd;  // y_hat
+  float* SD = SY + SMAX * 128;                 // d_o3, then d_gf1
+  float* SG = SD + SMAX * 128;                 // [SMAX][272] d_gin
+  const float scale = 0.17677669529663687f;
+  const float* ln_s = a.B + net.l[LN].b;
+  const float* ln_b = ln_s + 128;
+
+  for (int ray = blockIdx.x; ray < a.R; ray += gridDim.x) {
+    const size_t p0 = (size_t)ray * S;
+    auto gf_in = [&](int i, int c) -> float {
+      if (i >= S) return 0.f;
+      const float g = a.gf[(p0 + i) * 128 + c];
+      return STATIC ? g : g + a.posenc[i * 128 + c];
+    };
+    auto load_gf = [&]() {
+      for (int e = tid; e < Sp * 128; e += NT)
+        O[(e >> 7) * LDG + (e & 127)] = f2b(gf_in(e >> 7, e & 127));
+    };
+    auto qkv = [&]() {
+      dense(O, LDG, Sp, a.W, a.B, net.l[WQ],
+            [&](int r, int c, float x) { Q[r * 128 + c] = f2b(x); });
+      dense(O, LDG, Sp, a.W, a.B, net.l[WK],
+            [&](int r, int c, float x) { K[r * 128 + c] = f2b(x); });
+      dense(O, LDG, Sp, a.W, a.B, net.l[WV],
+            [&](int r, int c, float x) { Vv[r * 128 + c] = f2b(x); });
+    };
+    // layer-norm backward of rows r0..r0+rows from d_gf_attn (DF, f32)
+    auto ln_bwd = [&](int r0, int rows, const float* DF) {
+      for (int r = warp; r < rows; r += NW) {
+        const int i = r0 + r;
+        float dy[4], yh[4], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = lane + 32 * j;
+          const float dga = DF[r * 128 + c];
+          yh[j] = SY[i * 128 + c];
+          atomicAdd(&lng[c], dga * yh[j]);
+          atomicAdd(&lng[128 + c], dga);
+          dy[j] = dga * ln_s[c];
+          s1 += dy[j];
+          s2 += dy[j] * yh[j];
+        }
+        s1 = warp_sum(s1) * (1.f / 128.f);
+        s2 = warp_sum(s2) * (1.f / 128.f);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = lane + 32 * j;
+          const float d = i < S ? rstd[i] * (dy[j] - s1 - yh[j] * s2) : 0.f;
+          SD[i * 128 + c] = d;
+          DO3[i * LDG + c] = f2b(d);
+        }
+      }
+    };
+
+    // ---- A: forward recompute up to the layer norm ----
+    for (int i = tid; i < Sp; i += NT) {
+      float nv = 0.f, vs = 0.f;
+      if (i < S)
+        for (int v = 0; v < V; ++v) {
+          nv += a.ws_m[(size_t)v * P + p0 + i];
+          vs += a.ws_vis[(size_t)v * P + p0 + i];
+        }
+      snv[i] = nv;
+      sinv[i] = 1.f / (vs + 1e-8f);
+    }
+    for (int e = tid; e < 256 + 32; e += NT) lng[e] = 0.f;   // lng, sdp
+    load_gf();
+    __syncthreads();
+    qkv();
+    __syncthreads();
+    attn_fwd(Q, K, Vv, O, snv, S, Sp, nullptr, nullptr);
+    __syncthreads();
+    dense(O, LDG, Sp, a.W, a.B, net.l[WFC], [&](int r, int c, float x) {
+      SY[r * 128 + c] = x + gf_in(r, c);
+    });
+    __syncthreads();
+    for (int i = warp; i < Sp; i += NW) {
+      float x[4], s = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        x[j] = SY[i * 128 + lane + 32 * j];
+        s += x[j];
+      }
+      const float mu = warp_sum(s) / 128.f;
+      float var = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) var += (x[j] - mu) * (x[j] - mu);
+      const float rs = rsqrtf(warp_sum(var) / 128.f + 1e-6f);
+      if (lane == 0) rstd[i] = rs;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = lane + 32 * j;
+        const float yh = (x[j] - mu) * rs;
+        SY[i * 128 + c] = yh;
+        GA[i * GLD + c] = f2b(yh * ln_s[c] + ln_b[c]);
+      }
+    }
+    if (!STATIC) {
+      const int k1 = net.l[REFPTS0].k;
+      for (int e = tid; e < Sp * (k1 - 128); e += NT) {
+        const int i = e / (k1 - 128), col = e % (k1 - 128);
+        GA[i * LD1 + 128 + col] =
+            f2b(col < 33 && i < S ? pe_geo(a.pts + (p0 + i) * 3, 3, 5, col)
+                                  : 0.f);
+      }
+    }
+    __syncthreads();
+
+    // ---- B: heads, 64 rows at a time: forward, transpose, LN backward ----
+    for (int r0 = 0; r0 < Sp; r0 += 64) {
+      const int rows = min(64, Sp - r0);
+      if (!STATIC) {
+        bf16* RH = (bf16*)reg2;                // [64][LDH]
+        bf16* HIN = RH + 64 * LDH;             // [64][LD2] gf2 | dir PE
+        bf16* H1 = HIN + 64 * LD2;             // [64][LDG]
+        bf16* H2 = H1 + 64 * LDG;              // [64][LD64]
+        bf16* D3 = H2 + 64 * LD64;             // [64][LDS]
+        float* DF = (float*)(D3 + 64 * LDS);   // [64][128]
+        const bf16* rp = GA + r0 * LD1;
+        const int k2 = net.l[RGB0].k;
+        for (int e = tid; e < 64 * 3; e += NT) spp[e] = 0.f;
+        dense(rp, LD1, rows, a.W, a.B, net.l[REFPTS0],
+              [&](int r, int c, float x) { RH[r * LDH + c] = f2b(elu(x)); });
+        __syncthreads();
+        dense(RH, LDH, rows, a.W, a.B, net.l[REFPTS1],
+              [&](int r, int c, float x) { HIN[r * LD2 + c] = f2b(elu(x)); });
+        for (int e = tid; e < rows * (k2 - 128); e += NT) {
+          const int r = e / (k2 - 128), col = 128 + e % (k2 - 128);
+          HIN[r * LD2 + col] =
+              f2b(col < 155 && r0 + r < S ? a.dirpe[(size_t)ray * 27 + col - 128]
+                                          : 0.f);
+        }
+        __syncthreads();
+        // sigma head: sigma - shift, -1e9 (no gradient) where no view is valid
+        dense(HIN, LD2, rows, a.W, a.B, net.l[OG0],
+              [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
+        for (int e = tid; e < rows * LDS; e += NT) {
+          const int r = e / LDS, c = e % LDS, i = r0 + r;
+          const float d = c == 0 && i < S && snv[i] >= 1.f
+                              ? a.cot[(p0 + i) * 4 + 3] : 0.f;
+          if (d != 0.f) atomicAdd(slab + wt + net.l[OG1].b, d);
+          D3[e] = f2b(d);
+        }
+        __syncthreads();
+        dw_accum(D3, LDS, H1, LDG, rows, slab, net.l[OG1]);
+        __syncthreads();
+        dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[OG1]),
+              [&](int r, int c, float x) {
+                H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
+              });
+        __syncthreads();
+        grad_layer(H1, LDG, HIN, LD2, rows, slab, wt, net.l[OG0]);
+        __syncthreads();
+        dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[OG0]),
+              [&](int r, int c, float x) { DF[r * 128 + c] = x; });
+        __syncthreads();
+        // rgb head: sigmoid MLP on [gf2 | dir PE], 0 where no view is valid
+        dense(HIN, LD2, rows, a.W, a.B, net.l[RGB0],
+              [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
+        __syncthreads();
+        dense(H1, LDG, rows, a.W, a.B, net.l[RGB1],
+              [&](int r, int c, float x) { H2[r * LD64 + c] = f2b(elu(x)); });
+        __syncthreads();
+        dense(H2, LD64, rows, a.W, a.B, net.l[RGB2],
+              [&](int r, int c, float x) {
+                const int i = r0 + r;
+                float d = 0.f;
+                if (c < 3 && i < S && snv[i] > 0.f) {
+                  const float rg = sigm(x);
+                  d = a.cot[(p0 + i) * 4 + c] * rg * (1.f - rg);
+                  atomicAdd(slab + wt + net.l[RGB2].b + c, d);
+                }
+                D3[r * LDS + c] = f2b(d);
+              });
+        __syncthreads();
+        dw_accum(D3, LDS, H2, LD64, rows, slab, net.l[RGB2]);
+        __syncthreads();
+        dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[RGB2]),
+              [&](int r, int c, float x) {
+                H2[r * LD64 + c] = f2b(x * elu_d(b2f(H2[r * LD64 + c])));
+              });
+        __syncthreads();
+        grad_layer(H2, LD64, H1, LDG, rows, slab, wt, net.l[RGB1]);
+        __syncthreads();
+        dense(H2, LD64, rows, a.WT, a.Z, tr(net.l[RGB1]),
+              [&](int r, int c, float x) {
+                H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
+              });
+        __syncthreads();
+        grad_layer(H1, LDG, HIN, LD2, rows, slab, wt, net.l[RGB0]);
+        __syncthreads();
+        dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[RGB0]),
+              [&](int r, int c, float x) {
+                if (c < 128)
+                  DF[r * 128 + c] += x;
+                else if (c < 155 && r0 + r < S)
+                  atomicAdd(&sdp[c - 128], x);
+              });
+        __syncthreads();
+        // ref_pts_fc (ELU output gf2, then its hidden layer)
+        for (int e = tid; e < rows * 128; e += NT) {
+          const int r = e >> 7, c = e & 127;
+          HIN[r * LD2 + c] = f2b(DF[e] * elu_d(b2f(HIN[r * LD2 + c])));
+        }
+        __syncthreads();
+        grad_layer(HIN, LD2, RH, LDH, rows, slab, wt, net.l[REFPTS1]);
+        __syncthreads();
+        dense(HIN, LD2, rows, a.WT, a.Z, tr(net.l[REFPTS1]),
+              [&](int r, int c, float x) {
+                RH[r * LDH + c] = f2b(x * elu_d(b2f(RH[r * LDH + c])));
+              });
+        __syncthreads();
+        grad_layer(RH, LDH, rp, LD1, rows, slab, wt, net.l[REFPTS0]);
+        __syncthreads();
+        dense(RH, LDH, rows, a.WT, a.Z, tr(net.l[REFPTS0]),
+              [&](int r, int c, float x) {
+                const int i = r0 + r;
+                if (c < 128) {
+                  DF[r * 128 + c] = x;
+                } else if (c < 161 && i < S) {
+                  int chn;
+                  const float d =
+                      pe_geo_bwd(a.pts + (p0 + i) * 3, 3, 5, c - 128, x, &chn);
+                  atomicAdd(&spp[r * 3 + chn], d);
+                }
+              });
+        __syncthreads();
+        for (int e = tid; e < rows * 3; e += NT) {
+          const int i = r0 + e / 3;
+          if (i < S) a.d_pts[(p0 + i) * 3 + e % 3] = spp[e];
+        }
+        ln_bwd(r0, rows, DF);
+        __syncthreads();
+      } else {
+        bf16* HIN = (bf16*)reg2;               // [64][LDA]
+        bf16* H1 = HIN + 64 * LDA;             // [64][LDG]
+        bf16* H2 = H1 + 64 * LDG;              // [64][LD64]
+        bf16* D3 = H2 + 64 * LD64;             // [64][LDS]
+        float* DF = (float*)(D3 + 64 * LDS);   // [64][128]
+        float* LG = DF + 64 * 128;             // [VMAX][64]
+        float* PB = LG + VMAX * 64;            // [VMAX][64]
+        const bf16* g = GA + r0 * LDG;
+        const int kr = net.l[RGB0].k;
+        // sigma head: -1e9 (no gradient) where no view is valid
+        dense(g, LDG, rows, a.W, a.B, net.l[OG0],
+              [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
+        for (int e = tid; e < rows * LDS; e += NT) {
+          const int r = e / LDS, c = e % LDS, i = r0 + r;
+          const float d = c == 0 && i < S && snv[i] >= 1.f
+                              ? a.cot[(p0 + i) * 4 + 3] : 0.f;
+          if (d != 0.f) atomicAdd(slab + wt + net.l[OG1].b, d);
+          D3[e] = f2b(d);
+        }
+        __syncthreads();
+        dw_accum(D3, LDS, H1, LDG, rows, slab, net.l[OG1]);
+        __syncthreads();
+        dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[OG1]),
+              [&](int r, int c, float x) {
+                H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
+              });
+        __syncthreads();
+        grad_layer(H1, LDG, g, LDG, rows, slab, wt, net.l[OG0]);
+        __syncthreads();
+        dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[OG0]),
+              [&](int r, int c, float x) { DF[r * 128 + c] = x; });
+        __syncthreads();
+        // per-view blend-logit head: [gf' | x_v | vis_v | ray_diff_v]
+        auto head_fwd = [&](int v) {
+          for (int e = tid; e < rows * 32; e += NT) {
+            const int r = e >> 5, q = e & 31, i = r0 + r;
+            uint4 val = make_uint4(0u, 0u, 0u, 0u);
+            if (q < 16)
+              val = *reinterpret_cast<const uint4*>(g + r * LDG + q * 8);
+            else if (i < S)
+              val = *reinterpret_cast<const uint4*>(
+                  a.ws_x + ((size_t)v * P + p0 + i) * 128 + (q - 16) * 8);
+            *reinterpret_cast<uint4*>(HIN + r * LDA + q * 8) = val;
+          }
+          for (int e = tid; e < rows * (kr - 256); e += NT) {
+            const int r = e / (kr - 256), col = 256 + e % (kr - 256);
+            const int i = r0 + r;
+            const size_t p = p0 + i;
+            float val = 0.f;
+            if (i < S) {
+              if (col == 256) val = a.ws_vis[(size_t)v * P + p];
+              else if (col < 261) val = a.raydiff[(p * V + v) * 4 + col - 257];
+            }
+            HIN[r * LDA + col] = f2b(val);
+          }
+          __syncthreads();
+          dense(HIN, LDA, rows, a.W, a.B, net.l[RGB0],
+                [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
+          __syncthreads();
+          dense(H1, LDG, rows, a.W, a.B, net.l[RGB1],
+                [&](int r, int c, float x) { H2[r * LD64 + c] = f2b(elu(x)); });
+          __syncthreads();
+        };
+        for (int v = 0; v < V; ++v) {
+          head_fwd(v);
+          dense(H2, LD64, rows, a.W, a.B, net.l[RGB2],
+                [&](int r, int c, float x) {
+                  const int i = r0 + r;
+                  if (c == 0)
+                    LG[v * 64 + r] =
+                        (i < S && a.ws_m[(size_t)v * P + p0 + i] == 0.f) ? -1e9f
+                                                                         : x;
+                });
+          __syncthreads();
+        }
+        // softmax over views; d_logit = p (dp - sum_u p_u dp_u) on valid views
+        for (int r = tid; r < rows; r += NT) {
+          const int i = r0 + r;
+          if (i >= S) {
+            for (int v = 0; v < V; ++v) LG[v * 64 + r] = 0.f;
+            continue;
+          }
+          const size_t p = p0 + i;
+          float lmax = -INFINITY, bsum = 0.f, sb = 0.f;
+          for (int v = 0; v < V; ++v) lmax = fmaxf(lmax, LG[v * 64 + r]);
+          for (int v = 0; v < V; ++v) {
+            PB[v * 64 + r] = expf(LG[v * 64 + r] - lmax);
+            bsum += PB[v * 64 + r];
+          }
+          const float drgb[3] = {a.cot[p * 4], a.cot[p * 4 + 1],
+                                 a.cot[p * 4 + 2]};
+          for (int v = 0; v < V; ++v) {
+            const bf16* src = a.rgbfeat + (p * V + v) * a.C;
+            const float pv = PB[v * 64 + r] / bsum;
+            const float dp = b2f(src[0]) * drgb[0] + b2f(src[1]) * drgb[1] +
+                             b2f(src[2]) * drgb[2];
+            PB[v * 64 + r] = pv;
+            LG[v * 64 + r] = dp;
+            sb += pv * dp;
+            for (int c = 0; c < 3; ++c)
+              a.dmisc[((size_t)v * P + p) * 8 + 1 + c] = pv * drgb[c];
+          }
+          for (int v = 0; v < V; ++v)
+            LG[v * 64 + r] = a.ws_m[(size_t)v * P + p] > 0.f
+                                 ? PB[v * 64 + r] * (LG[v * 64 + r] - sb)
+                                 : 0.f;
+        }
+        __syncthreads();
+        for (int v = 0; v < V; ++v) {
+          head_fwd(v);
+          for (int e = tid; e < rows * LDS; e += NT)
+            D3[e] = f2b(e % LDS == 0 ? LG[v * 64 + e / LDS] : 0.f);
+          // no bias gradient: the blend-logit bias cancels in the softmax
+          // over views, so its gradient is identically zero
+          __syncthreads();
+          dw_accum(D3, LDS, H2, LD64, rows, slab, net.l[RGB2]);
+          __syncthreads();
+          dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[RGB2]),
+                [&](int r, int c, float x) {
+                  H2[r * LD64 + c] = f2b(x * elu_d(b2f(H2[r * LD64 + c])));
+                });
+          __syncthreads();
+          grad_layer(H2, LD64, H1, LDG, rows, slab, wt, net.l[RGB1]);
+          __syncthreads();
+          dense(H2, LD64, rows, a.WT, a.Z, tr(net.l[RGB1]),
+                [&](int r, int c, float x) {
+                  H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
+                });
+          __syncthreads();
+          grad_layer(H1, LDG, HIN, LDA, rows, slab, wt, net.l[RGB0]);
+          __syncthreads();
+          dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[RGB0]),
+                [&](int r, int c, float x) {
+                  const int i = r0 + r;
+                  if (c < 128) {
+                    DF[r * 128 + c] += x;
+                  } else if (i < S) {
+                    const size_t pv = (size_t)v * P + p0 + i;
+                    if (c < 256) a.dx[pv * 128 + c - 128] = f2b(x);
+                    else if (c == 256) a.dmisc[pv * 8] = x;
+                    else if (c < 261) a.dmisc[pv * 8 + 4 + c - 257] = x;
+                  }
+                });
+          __syncthreads();
+        }
+        ln_bwd(r0, rows, DF);
+        __syncthreads();
+      }
+    }
+
+    // ---- C: attention backward ----
+    load_gf();
+    __syncthreads();
+    qkv();
+    __syncthreads();
+    attn_fwd(Q, K, Vv, O, snv, S, Sp, st_m, st_l);
+    __syncthreads();
+    dw_accum(DO3, LDG, O, LDG, Sp, slab, net.l[WFC]);
+    __syncthreads();
+    dense(DO3, LDG, Sp, a.WT, a.Z, tr(net.l[WFC]),
+          [&](int r, int c, float x) { O[r * LDG + c] = f2b(x); });   // d_o
+    __syncthreads();
+    for (int pr = tid; pr < 4 * Sp; pr += NT) {     // d_q, one (query, head)
+      const int h = pr / Sp, i = pr % Sp;
+      float qv[32], dov[32], acc[32];
+#pragma unroll
+      for (int d = 0; d < 32; ++d) acc[d] = 0.f;
+      if (i >= S || snv[i] <= 1.f) {
+        store32(DO3 + i * LDG + h * 32, acc, 0.f);
+        continue;
+      }
+      load32(qv, Q + i * 128 + h * 32);
+      load32(dov, O + i * LDG + h * 32);
+#pragma unroll
+      for (int d = 0; d < 32; ++d) qv[d] *= scale;
+      const float mx = st_m[h * SMAX + i], inv = 1.f / st_l[h * SMAX + i];
+      float D = 0.f;
+      for (int j = 0; j < S; ++j) {
+        const float l = dot32(qv, K + j * 128 + h * 32);
+        const float dp = dot32(dov, Vv + j * 128 + h * 32);
+        D += expf(l - mx) * inv * dp;
+      }
+      st_d[h * SMAX + i] = D;
+      for (int j = 0; j < S; ++j) {
+        const bf16* kj = K + j * 128 + h * 32;
+        const float l = dot32(qv, kj);
+        const float dp = dot32(dov, Vv + j * 128 + h * 32);
+        axpy32(acc, expf(l - mx) * inv * (dp - D) * scale, kj);
+      }
+      store32(DO3 + i * LDG + h * 32, acc, 1.f);
+    }
+    __syncthreads();
+    for (int pr = tid; pr < 4 * Sp; pr += NT) {     // d_k, d_v: (key, head)
+      const int h = pr / Sp, j = pr % Sp;
+      bf16* ko = K + j * 128 + h * 32;
+      bf16* vo = Vv + j * 128 + h * 32;
+      float kj[32], vj[32], acc[32];
+#pragma unroll
+      for (int d = 0; d < 32; ++d) acc[d] = 0.f;
+      if (j >= S) {
+        store32(ko, acc, 0.f);
+        store32(vo, acc, 0.f);
+        continue;
+      }
+      load32(kj, ko);
+      load32(vj, vo);
+      for (int i = 0; i < S; ++i) {
+        if (snv[i] <= 1.f) continue;
+        const bf16* qi = Q + i * 128 + h * 32;
+        const float l = dot32(kj, qi);
+        const float dp = dot32(vj, O + i * LDG + h * 32);
+        const float pij =
+            expf(l * scale - st_m[h * SMAX + i]) / st_l[h * SMAX + i];
+        axpy32(acc, pij * (dp - st_d[h * SMAX + i]) * scale, qi);
+      }
+      store32(ko, acc, 1.f);
+#pragma unroll
+      for (int d = 0; d < 32; ++d) acc[d] = 0.f;
+      for (int i = 0; i < S; ++i) {
+        float pij = 1.f / (float)S;               // masked query: uniform
+        if (snv[i] > 1.f)
+          pij = expf(dot32(kj, Q + i * 128 + h * 32) * scale -
+                     st_m[h * SMAX + i]) / st_l[h * SMAX + i];
+        axpy32(acc, pij, O + i * LDG + h * 32);
+      }
+      store32(vo, acc, 1.f);
+    }
+    __syncthreads();
+    load_gf();                                       // gf1, the q/k/v input
+    __syncthreads();
+    dw_accum(DO3, LDG, O, LDG, Sp, slab, net.l[WQ]);
+    dw_accum(K, 128, O, LDG, Sp, slab, net.l[WK]);
+    dw_accum(Vv, 128, O, LDG, Sp, slab, net.l[WV]);
+    dense(DO3, LDG, Sp, a.WT, a.Z, tr(net.l[WQ]),
+          [&](int r, int c, float x) { SD[r * 128 + c] += x; });
+    __syncthreads();
+    dense(K, 128, Sp, a.WT, a.Z, tr(net.l[WK]),
+          [&](int r, int c, float x) { SD[r * 128 + c] += x; });
+    __syncthreads();
+    dense(Vv, 128, Sp, a.WT, a.Z, tr(net.l[WV]),
+          [&](int r, int c, float x) { SD[r * 128 + c] += x; });
+    __syncthreads();
+
+    // ---- D: geometry_fc and pooling-2 backward ----
+    {
+      bf16* G = (bf16*)smem;                   // [SMAX][LDA] pooling-2 out
+      bf16* H = (bf16*)reg2;                   // [SMAX][LDH]
+      bf16* DG = H + SMAX * LDH;               // [SMAX][LDG]
+      for (int e = tid; e < Sp * 128; e += NT) {
+        const int i = e >> 7, c = e & 127;
+        DG[i * LDG + c] = f2b(
+            i < S ? SD[e] * elu_d(a.gf[(p0 + i) * 128 + c]) : 0.f);
+      }
+      // pooling-2 of x over views with the visibility weights (as forward)
+      for (int e = tid; e < Sp * 16; e += NT) {
+        const int i = e >> 4, c0 = (e & 15) * 8;
+        float mean[8], var[8];
+        for (int j = 0; j < 8; ++j) mean[j] = var[j] = 0.f;
+        if (i < S) {
+          const size_t p = p0 + i;
+          for (int pass = 0; pass < 2; ++pass)
+            for (int v = 0; v < V; ++v) {
+              const uint4 raw = *reinterpret_cast<const uint4*>(
+                  a.ws_x + ((size_t)v * P + p) * 128 + c0);
+              const bf16* xb = reinterpret_cast<const bf16*>(&raw);
+              const float w = a.ws_vis[(size_t)v * P + p] * sinv[i];
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const float xv = b2f(xb[j]);
+                if (pass == 0) mean[j] += w * xv;
+                else var[j] += w * (xv - mean[j]) * (xv - mean[j]);
+              }
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          G[i * LDA + c0 + j] = f2b(mean[j]);
+          G[i * LDA + 128 + c0 + j] = f2b(var[j]);
+        }
+      }
+      const int kg = net.l[GEO0].k;
+      for (int e = tid; e < Sp * (kg - 256); e += NT) {
+        const int i = e / (kg - 256), j = e % (kg - 256);
+        float val = 0.f;
+        if (j == 0 && i < S) {
+          for (int v = 0; v < V; ++v)
+            val += a.ws_vis[(size_t)v * P + p0 + i] * sinv[i];
+          val /= (float)V;
+        }
+        G[i * LDA + 256 + j] = f2b(val);
+      }
+      __syncthreads();
+      dense(G, LDA, Sp, a.W, a.B, net.l[GEO0],
+            [&](int r, int c, float x) { H[r * LDH + c] = f2b(elu(x)); });
+      __syncthreads();
+      grad_layer(DG, LDG, H, LDH, Sp, slab, wt, net.l[GEO1]);
+      __syncthreads();
+      dense(DG, LDG, Sp, a.WT, a.Z, tr(net.l[GEO1]),
+            [&](int r, int c, float x) {
+              H[r * LDH + c] = f2b(x * elu_d(b2f(H[r * LDH + c])));
+            });
+      __syncthreads();
+      grad_layer(H, LDH, G, LDA, Sp, slab, wt, net.l[GEO0]);
+      __syncthreads();
+      dense(H, LDH, Sp, a.WT, a.Z, tr(net.l[GEO0]),
+            [&](int r, int c, float x) {
+              if (c < 257) SG[r * 272 + c] = x;
+            });
+      __syncthreads();
+      // pooling-2 backward, one warp per sample, 4 channels per lane
+      for (int i = warp; i < S; i += NW) {
+        const size_t p = p0 + i;
+        const float inv = sinv[i];
+        const int c0 = lane * 4;
+        auto load4 = [&](int v, float (&x)[4]) {
+          const uint2 raw = *reinterpret_cast<const uint2*>(
+              a.ws_x + ((size_t)v * P + p) * 128 + c0);
+          const bf16* xb = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) x[j] = b2f(xb[j]);
+        };
+        float mean[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+        float x[4], dme[4], dvr[4];
+        for (int v = 0; v < V; ++v) {
+          load4(v, x);
+          const float w = a.ws_vis[(size_t)v * P + p] * inv;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mean[j] += w * x[j];
+        }
+        for (int v = 0; v < V; ++v) {
+          load4(v, x);
+          const float w = a.ws_vis[(size_t)v * P + p] * inv;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s2[j] += w * (x[j] - mean[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dvr[j] = SG[i * 272 + 128 + c0 + j];
+          dme[j] = SG[i * 272 + c0 + j] - 2.f * dvr[j] * s2[j];
+        }
+        const float dws = SG[i * 272 + 256] / (float)V;
+        float dw2[VMAX], dvsum = 0.f;
+#pragma unroll
+        for (int v = 0; v < VMAX; ++v) {
+          dw2[v] = 0.f;
+          if (v < V) {
+            load4(v, x);
+            float part = 0.f;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              part += x[j] * dme[j] + (x[j] - mean[j]) * (x[j] - mean[j]) * dvr[j];
+            dw2[v] = warp_sum(part) + dws;
+            dvsum -= inv * inv * a.ws_vis[(size_t)v * P + p] * dw2[v];
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < VMAX; ++v) {
+          if (v < V) {
+            load4(v, x);
+            const size_t pv = (size_t)v * P + p;
+            const float w = a.ws_vis[pv] * inv;
+            bf16* dxo = a.dx + pv * 128 + c0;
+            __align__(8) bf16 outv[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float d = w * (dme[j] + 2.f * (x[j] - mean[j]) * dvr[j]);
+              if (STATIC) d += b2f(dxo[j]);
+              outv[j] = f2b(d);
+            }
+            *reinterpret_cast<uint2*>(dxo) = *reinterpret_cast<uint2*>(outv);
+            if (lane == 0)
+              a.dmisc[pv * 8] =
+                  (STATIC ? a.dmisc[pv * 8] : 0.f) + inv * dw2[v] + dvsum;
+          }
+        }
+      }
+      for (int c = tid; c < 256; c += NT)
+        atomicAdd(slab + wt + net.l[LN].b + c, lng[c]);
+      if (!STATIC)
+        for (int c = tid; c < 27; c += NT)
+          a.d_dirpe[(size_t)ray * 27 + c] = sdp[c];
+      __syncthreads();
+    }
+  }
+}
+
+}  // namespace agg

@@ -1,0 +1,478 @@
+// Trunk-side aggregator backward (K4b dynamic, K5b static): pooling-1 and
+// the per-view base/vis/vis2 trunk, recomputed and transposed one view at
+// a time over 64-point blocks, plus (static) the per-view input MLP
+// ray_dir_fc and the anti-alias weight chain.
+//
+// Math of dynibar_tpu/ops/pallas_agg_bwd.py:733 dynamic_bwd_trunk_kernel and
+// :1109 static_bwd_trunk_kernel; layout of the forward's trunk_kernel
+// (agg_common.cuh).  A block recomputes the pooled [mean | var] columns
+// once, then per view: the trunk forward from rf (static: the rf residual
+// of K2r; dynamic: bf16(rgb_feat + dirfeat)), and its transpose from the
+// ray kernel's d_x / d_vis.  Each layer's input cotangent overwrites its
+// input activation in place (ELU' from the post-activation), so one view's
+// activations and cotangents fit the block's shared memory together.  The
+// per-view d_rf goes to a workspace; after the view loop, pooling-1's
+// backward (d_mean_eff = d_mean - 2 d_var sum_v w_v (rf_v - mean)) adds
+// its part and (static) the input MLP is recomputed and transposed.
+// Mask cotangents are never formed.
+#pragma once
+
+#include "agg_bwd_common.cuh"
+
+namespace agg {
+
+struct TrunkBwdArgs {
+  const bf16* W;
+  const bf16* WT;
+  const float* B;
+  const float* Z;        // zeros: the bias of every transposed layer
+  Net net;
+  const bf16* rgbfeat;   // [P, V, C]
+  const float* mask;     // [P, V]
+  int P, S, V, C;
+  // static aggregator
+  const float* pts;      // [P, 3]
+  const float* reffeat;  // [R, C]
+  const float* raydiff;  // [P, V, 4]
+  const float* srcpl;    // [P, V, 6]
+  int anti_alias, mask_rgb;
+  const bf16* ws_rf;     // [V, P, 2C] K2r residual
+  // dynamic aggregator
+  const float* dirfeat;  // [P, C]
+  // from the ray-side backward
+  const bf16* dx;        // [V, P, 128]
+  const float* dmisc;    // [V, P, 8]: d_vis, static d_rgb (1:4), d_raydiff (4:8)
+  // outputs
+  float* drf;            // [V, P, CR] workspace
+  float* d_rgbfeat;      // [P, V, C]
+  float* d_dirfeat;      // [P, C]
+  float* d_raydiff;      // [P, V, 4]
+  float* d_srcpl;        // [P, V, 6]
+  float* d_pts;          // [P, 3]
+  float* d_reffeat;      // [P, C]
+  float* d_s;            // [P]
+  float* slabs;          // [kSlabs, slab_len] weight gradients
+  int slab_len, w_total;
+};
+
+constexpr int LDT = 152;            // trunk vis_fc output (129 -> 144 cols)
+constexpr int LDF = 144;            // f32 d_[mean | var] of pooling-1
+constexpr int CRMAX = LDF / 2;
+
+// 230,400 bytes at PT = 64: one block per SM
+constexpr size_t kTrunkBwdSmem =
+    (size_t)PT * (LDA + LDH + 5 * LDG + LDT + LDS) * 2 +
+    (size_t)PT * LDF * 4 + 4 * (size_t)VMAX * PT * 4 + 8 * (size_t)PT * 4;
+
+template <bool STATIC>
+__global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xin = (bf16*)smem;                 // [PT][LDA] trunk input
+  bf16* ah = xin + PT * LDA;               // [PT][LDH] base_fc hidden
+  bf16* x0 = ah + PT * LDH;                // [PT][LDG] base_fc output
+  bf16* ch = x0 + PT * LDG;                // vis_fc hidden
+  bf16* xw = ch + PT * LDG;                // x0 * w
+  bf16* xv = xw + PT * LDG;                // x * vis0
+  bf16* eh = xv + PT * LDG;                // vis_fc2 hidden
+  bf16* tb = eh + PT * LDG;                // [PT][LDT] vis_fc output
+  bf16* ds = tb + PT * LDT;                // [PT][LDS]
+  float* dgf = (float*)(ds + PT * LDS);    // [PT][LDF]
+  float* sm_m = dgf + PT * LDF;            // [VMAX][PT] effective masks
+  float* sm_w = sm_m + VMAX * PT;          // pooling-1 weights
+  float* sm_dw = sm_w + VMAX * PT;         // their cotangents (static AA)
+  float* sm_ed = sm_dw + VMAX * PT;        // AA scores exp(|s|(dot-1))
+  float* r_vis0 = sm_ed + VMAX * PT;       // [PT]
+  float* r_sg0 = r_vis0 + PT;
+  float* r_sg = r_sg0 + PT;
+  float* r_winv = r_sg + PT;
+  float* r_pts = r_winv + PT;              // [PT][3]
+
+  const Net& net = a.net;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int P = a.P, V = a.V, C = a.C, CR = STATIC ? 2 * a.C : a.C;
+  float* slab = a.slabs + (size_t)(blockIdx.x % kSlabs) * a.slab_len;
+  const int wt = a.w_total;
+  const float s_val = (STATIC && a.anti_alias) ? a.B[net.l[AA_S].b] : 0.f;
+  const float s_abs = fabsf(s_val);
+  const int nblk = (P + PT - 1) / PT;
+
+  for (int blk = blockIdx.x; blk < nblk; blk += gridDim.x) {
+    const int p0 = blk * PT;
+    auto rf_val = [&](int r, int v, int c) -> float {
+      const int p = p0 + r;
+      if (p >= P) return 0.f;
+      if (STATIC) return b2f(a.ws_rf[((size_t)v * P + p) * CR + c]);
+      return b2f(f2b(b2f(a.rgbfeat[((size_t)p * V + v) * C + c]) +
+                     a.dirfeat[(size_t)p * C + c]));
+    };
+
+    // ---- masks and pooling-1 weights (as the forward) ----
+    for (int r = tid; r < PT; r += NT) {
+      const int p = p0 + r;
+      float msum = 0.f;
+      for (int v = 0; v < V; ++v) {
+        float m = 0.f, ex = 0.f;
+        if (p < P) {
+          const size_t pv = (size_t)p * V + v;
+          m = a.mask[pv];
+          if (STATIC && a.mask_rgb) {
+            const bf16* rgb = a.rgbfeat + pv * C;
+            m = (b2f(rgb[0]) + b2f(rgb[1]) + b2f(rgb[2])) > 1e-3f ? m : 0.f;
+          }
+          if (STATIC) ex = expf(s_abs * (a.raydiff[4 * pv + 3] - 1.f));
+        }
+        sm_m[v * PT + r] = m;
+        sm_ed[v * PT + r] = ex;
+        sm_dw[v * PT + r] = 0.f;
+        msum += m;
+      }
+      if (STATIC && a.anti_alias) {
+        float emin = sm_ed[r];
+        for (int v = 1; v < V; ++v) emin = fminf(emin, sm_ed[v * PT + r]);
+        float wsum = 0.f;
+        for (int v = 0; v < V; ++v) {
+          const float w = (sm_ed[v * PT + r] - emin) * sm_m[v * PT + r];
+          sm_w[v * PT + r] = w;
+          wsum += w;
+        }
+        const float inv = 1.f / (wsum + 1e-8f);
+        r_winv[r] = inv;
+        for (int v = 0; v < V; ++v) sm_w[v * PT + r] *= inv;
+      } else {
+        const float inv = 1.f / (msum + 1e-8f);
+        for (int v = 0; v < V; ++v) sm_w[v * PT + r] = sm_m[v * PT + r] * inv;
+      }
+    }
+    for (int e = tid; e < PT * LDF; e += NT) dgf[e] = 0.f;
+    __syncthreads();
+    for (int e = tid; e < PT * CR; e += NT) {
+      const int r = e / CR, c = e % CR;
+      float mean = 0.f, var = 0.f;
+      for (int v = 0; v < V; ++v) mean += sm_w[v * PT + r] * rf_val(r, v, c);
+      for (int v = 0; v < V; ++v) {
+        const float d = rf_val(r, v, c) - mean;
+        var += sm_w[v * PT + r] * d * d;
+      }
+      xin[r * LDA + c] = f2b(mean);
+      xin[r * LDA + CR + c] = f2b(var);
+    }
+
+    // ---- per view: trunk recompute, then its transpose ----
+    const int kb = net.l[BASE0].k;
+    for (int v = 0; v < V; ++v) {
+      const float* wv = sm_w + v * PT;
+      const float* mk = sm_m + v * PT;
+      for (int e = tid; e < PT * (kb - 2 * CR); e += NT) {
+        const int r = e / (kb - 2 * CR), c = e % (kb - 2 * CR);
+        xin[r * LDA + 2 * CR + c] = f2b(c < CR ? rf_val(r, v, c) : 0.f);
+      }
+      __syncthreads();
+      dense(xin, LDA, PT, a.W, a.B, net.l[BASE0],
+            [&](int r, int c, float x) { ah[r * LDH + c] = f2b(elu(x)); });
+      __syncthreads();
+      dense(ah, LDH, PT, a.W, a.B, net.l[BASE1], [&](int r, int c, float x) {
+        const float y = elu(x);
+        x0[r * LDG + c] = f2b(y);
+        xw[r * LDG + c] = f2b(y * wv[r]);
+      });
+      __syncthreads();
+      dense(xw, LDG, PT, a.W, a.B, net.l[VIS0],
+            [&](int r, int c, float x) { ch[r * LDG + c] = f2b(elu(x)); });
+      __syncthreads();
+      dense(ch, LDG, PT, a.W, a.B, net.l[VIS1], [&](int r, int c, float x) {
+        const float t = elu(x);
+        tb[r * LDT + c] = f2b(t);
+        if (c == 128) {
+          const float sg0 = sigm(t);
+          r_sg0[r] = sg0;
+          r_vis0[r] = sg0 * mk[r];
+        }
+      });
+      __syncthreads();
+      for (int e = tid; e < PT * 128; e += NT) {
+        const int r = e >> 7, c = e & 127;
+        const float x = b2f(f2b(b2f(x0[r * LDG + c]) + b2f(tb[r * LDT + c])));
+        xv[r * LDG + c] = f2b(x * r_vis0[r]);
+      }
+      __syncthreads();
+      dense(xv, LDG, PT, a.W, a.B, net.l[VIS20],
+            [&](int r, int c, float x) { eh[r * LDG + c] = f2b(elu(x)); });
+      __syncthreads();
+      dense(eh, LDG, PT, a.W, a.B, net.l[VIS21], [&](int r, int c, float x) {
+        if (c == 0) r_sg[r] = sigm(x);
+      });
+      __syncthreads();
+
+      // vis = sigmoid(vh) * m
+      for (int e = tid; e < PT * LDS; e += NT) {
+        const int r = e / LDS, c = e % LDS, p = p0 + r;
+        float d = 0.f;
+        if (c == 0 && p < P) {
+          const float sg = r_sg[r];
+          d = sg * (1.f - sg) * mk[r] * a.dmisc[((size_t)v * P + p) * 8];
+          // one-column bias: summed from the f32 values (bf16 terms of
+          // mixed sign lose the sum)
+          atomicAdd(slab + wt + net.l[VIS21].b, d);
+        }
+        ds[e] = f2b(d);
+      }
+      __syncthreads();
+      dw_accum(ds, LDS, eh, LDG, PT, slab, net.l[VIS21]);
+      __syncthreads();
+      dense(ds, LDS, PT, a.WT, a.Z, tr(net.l[VIS21]),
+            [&](int r, int c, float x) {
+              eh[r * LDG + c] = f2b(x * elu_d(b2f(eh[r * LDG + c])));
+            });
+      __syncthreads();
+      grad_layer(eh, LDG, xv, LDG, PT, slab, wt, net.l[VIS20]);
+      __syncthreads();
+      dense(eh, LDG, PT, a.WT, a.Z, tr(net.l[VIS20]),
+            [&](int r, int c, float x) { xv[r * LDG + c] = f2b(x); });
+      __syncthreads();
+      // xv = x * vis0, x = x0 + t[:128]: d_x and d_t, one warp per point
+      for (int r = warp; r < PT; r += NW) {
+        const int p = p0 + r;
+        float dxx[4], tt[4], part = 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = lane + 32 * q;
+          tt[q] = b2f(tb[r * LDT + c]);
+          const float x = b2f(f2b(b2f(x0[r * LDG + c]) + tt[q]));
+          const float dv = b2f(xv[r * LDG + c]);
+          const float din =
+              p < P ? b2f(a.dx[((size_t)v * P + p) * 128 + c]) : 0.f;
+          dxx[q] = din + r_vis0[r] * dv;
+          part += x * dv;
+        }
+        const float dvis0 = warp_sum(part);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          tb[r * LDT + lane + 32 * q] = f2b(dxx[q] * elu_d(tt[q]));
+        if (lane < 16) {
+          float val = 0.f;
+          if (lane == 0) {
+            const float sg0 = r_sg0[r];
+            val = sg0 * (1.f - sg0) * mk[r] * dvis0 *
+                  elu_d(b2f(tb[r * LDT + 128]));
+          }
+          tb[r * LDT + 128 + lane] = f2b(val);
+        }
+      }
+      __syncthreads();
+      grad_layer(tb, LDT, ch, LDG, PT, slab, wt, net.l[VIS1]);
+      __syncthreads();
+      dense(tb, LDT, PT, a.WT, a.Z, tr(net.l[VIS1]),
+            [&](int r, int c, float x) {
+              ch[r * LDG + c] = f2b(x * elu_d(b2f(ch[r * LDG + c])));
+            });
+      __syncthreads();
+      grad_layer(ch, LDG, xw, LDG, PT, slab, wt, net.l[VIS0]);
+      __syncthreads();
+      dense(ch, LDG, PT, a.WT, a.Z, tr(net.l[VIS0]),
+            [&](int r, int c, float x) { xw[r * LDG + c] = f2b(x); });
+      __syncthreads();
+      // xw = x0 * w_v; d_x0 = d_x + w_v d_xw, through base_fc's last ELU
+      for (int r = warp; r < PT; r += NW) {
+        const int p = p0 + r;
+        float part = 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = lane + 32 * q;
+          const float din =
+              p < P ? b2f(a.dx[((size_t)v * P + p) * 128 + c]) : 0.f;
+          const float dxx = din + r_vis0[r] * b2f(xv[r * LDG + c]);
+          const float dxw = b2f(xw[r * LDG + c]);
+          const float y0 = b2f(x0[r * LDG + c]);
+          part += y0 * dxw;
+          x0[r * LDG + c] = f2b((dxx + wv[r] * dxw) * elu_d(y0));
+        }
+        if (STATIC) {
+          const float s = warp_sum(part);
+          if (lane == 0) sm_dw[v * PT + r] += s;
+        }
+      }
+      __syncthreads();
+      grad_layer(x0, LDG, ah, LDH, PT, slab, wt, net.l[BASE1]);
+      __syncthreads();
+      dense(x0, LDG, PT, a.WT, a.Z, tr(net.l[BASE1]),
+            [&](int r, int c, float x) {
+              ah[r * LDH + c] = f2b(x * elu_d(b2f(ah[r * LDH + c])));
+            });
+      __syncthreads();
+      grad_layer(ah, LDH, xin, LDA, PT, slab, wt, net.l[BASE0]);
+      __syncthreads();
+      dense(ah, LDH, PT, a.WT, a.Z, tr(net.l[BASE0]),
+            [&](int r, int c, float x) {
+              const int p = p0 + r;
+              if (c < 2 * CR)
+                dgf[r * LDF + c] += x;
+              else if (c < 3 * CR && p < P)
+                a.drf[((size_t)v * P + p) * CR + c - 2 * CR] = x;
+            });
+      __syncthreads();
+    }
+
+    // ---- pooling-1 backward ----
+    for (int e = tid; e < PT * CR; e += NT) {
+      const int r = e / CR, c = e % CR, p = p0 + r;
+      if (p >= P) continue;
+      float mean = 0.f, s0 = 0.f, dsum = 0.f;
+      for (int v = 0; v < V; ++v) mean += sm_w[v * PT + r] * rf_val(r, v, c);
+      for (int v = 0; v < V; ++v)
+        s0 += sm_w[v * PT + r] * (rf_val(r, v, c) - mean);
+      const float dm = dgf[r * LDF + c], dvr = dgf[r * LDF + CR + c];
+      const float dme = dm - 2.f * dvr * s0;
+      for (int v = 0; v < V; ++v) {
+        const float rf = rf_val(r, v, c), w = sm_w[v * PT + r];
+        const size_t iv = ((size_t)v * P + p) * CR + c;
+        const float dt = a.drf[iv] + w * (dme + 2.f * (rf - mean) * dvr);
+        const size_t ig = ((size_t)p * V + v) * C + c;
+        if (STATIC) {
+          if (a.anti_alias)
+            atomicAdd(&sm_dw[v * PT + r],
+                      rf * dme + (rf - mean) * (rf - mean) * dvr);
+          if (c < C)
+            a.d_rgbfeat[ig] =
+                dt + (c < 3 ? a.dmisc[((size_t)v * P + p) * 8 + 1 + c] : 0.f);
+          else
+            a.drf[iv] = dt;
+        } else {
+          a.d_rgbfeat[ig] = dt;
+          dsum += dt;
+        }
+      }
+      if (!STATIC) a.d_dirfeat[(size_t)p * C + c] = dsum;
+    }
+    __syncthreads();
+    if (!STATIC) continue;
+
+    // ---- static: input MLP (ray_dir_fc) recompute + transpose ----
+    float* dh = (float*)xw;                 // [PT][72] f32 over xw, xv
+    const int kin = net.l[RAYDIR0].k;
+    for (int e = tid; e < PT * LDF; e += NT) dgf[e] = 0.f;  // d_reffeat | d_ptspe
+    for (int e = tid; e < PT * 3; e += NT) {
+      const int r = e / 3, c = e % 3, p = p0 + r;
+      const float x = p < P ? a.pts[3 * (size_t)p + c] : 0.f;
+      r_pts[e] = x;
+      pe5(xin + r * LDA, 3, c, x);
+    }
+    for (int v = 0; v < V; ++v) {
+      for (int e = tid; e < PT * 6; e += NT) {
+        const int r = e / 6, c = e % 6, p = p0 + r;
+        pe5(xin + r * LDA + 33, 6, c,
+            p < P ? a.srcpl[((size_t)p * V + v) * 6 + c] : 0.f);
+      }
+      for (int e = tid; e < PT * (kin - 99); e += NT) {
+        const int r = e / (kin - 99), j = e % (kin - 99), p = p0 + r;
+        xin[r * LDA + 99 + j] = f2b(
+            j < 4 && p < P ? a.raydiff[((size_t)p * V + v) * 4 + j] : 0.f);
+      }
+      __syncthreads();
+      dense(xin, LDA, PT, a.W, a.B, net.l[RAYDIR0],
+            [&](int r, int c, float x) { ah[r * LDH + c] = f2b(elu(x)); });
+      __syncthreads();
+      // sf = ray_dir_fc(.); rf[C:] = sf * reffeat
+      dense(ah, LDH, PT, a.W, a.B, net.l[RAYDIR1], [&](int r, int c, float x) {
+        const int p = p0 + r;
+        float dsf = 0.f;
+        if (c < C && p < P) {
+          const float dc = a.drf[((size_t)v * P + p) * CR + C + c];
+          dsf = dc * a.reffeat[(size_t)(p / a.S) * C + c];
+          dgf[r * LDF + c] += dc * x;
+        }
+        x0[r * LDG + c] = f2b(dsf);
+      });
+      __syncthreads();
+      grad_layer(x0, LDG, ah, LDH, PT, slab, wt, net.l[RAYDIR1]);
+      __syncthreads();
+      dense(x0, LDG, PT, a.WT, a.Z, tr(net.l[RAYDIR1]),
+            [&](int r, int c, float x) {
+              ah[r * LDH + c] = f2b(x * elu_d(b2f(ah[r * LDH + c])));
+            });
+      __syncthreads();
+      grad_layer(ah, LDH, xin, LDA, PT, slab, wt, net.l[RAYDIR0]);
+      __syncthreads();
+      dense(ah, LDH, PT, a.WT, a.Z, tr(net.l[RAYDIR0]),
+            [&](int r, int c, float x) {
+              if (c < 33) {
+                int chn;
+                const float d = pe_geo_bwd(r_pts + 3 * r, 3, 5, c, x, &chn);
+                atomicAdd(&dgf[r * LDF + 48 + chn], d);
+              } else if (c < 103) {
+                dh[r * 72 + c - 33] = x;
+              }
+            });
+      __syncthreads();
+      for (int e = tid; e < PT * 10; e += NT) {
+        const int r = e / 10, j = e % 10, p = p0 + r;
+        if (p >= P) continue;
+        const size_t pv = (size_t)p * V + v;
+        const float* d = dh + r * 72;
+        if (j < 6) {           // source Plücker coordinate j, through its PE
+          const float x = a.srcpl[pv * 6 + j];
+          float g = d[j];
+          for (int f = 0; f < 5; ++f) {
+            const float fr = (float)(1 << f);
+            float sn, cs;
+            sincosf(fr * x, &sn, &cs);
+            g += fr * (d[36 + 6 * f + j] * cs - d[6 + 6 * f + j] * sn);
+          }
+          a.d_srcpl[pv * 6 + j] = g;
+        } else {
+          const int k = j - 6;
+          a.d_raydiff[pv * 4 + k] =
+              d[66 + k] + a.dmisc[((size_t)v * P + p) * 8 + 4 + k];
+        }
+      }
+      __syncthreads();
+    }
+    for (int e = tid; e < PT * C; e += NT) {
+      const int r = e / C, c = e % C, p = p0 + r;
+      if (p < P) a.d_reffeat[(size_t)p * C + c] = dgf[r * LDF + c];
+    }
+    for (int e = tid; e < PT * 3; e += NT) {
+      const int r = e / 3, p = p0 + r;
+      if (p < P) a.d_pts[3 * (size_t)p + e % 3] = dgf[r * LDF + 48 + e % 3];
+    }
+
+    // ---- anti-alias weight chain -> d_dot (ray_diff[..., 3]) and d_s ----
+    for (int r = tid; r < PT; r += NT) {
+      const int p = p0 + r;
+      if (p >= P) continue;
+      if (!a.anti_alias) {
+        a.d_s[p] = 0.f;
+        continue;
+      }
+      float sw = 0.f, emin = sm_ed[r];
+      for (int v = 0; v < V; ++v) {
+        sw += sm_w[v * PT + r] * sm_dw[v * PT + r];
+        emin = fminf(emin, sm_ed[v * PT + r]);
+      }
+      // d_wp, computed once per view: where every valid view's weight is 0
+      // (the only valid view is the argmin, wsum = 0, winv = 1e8) the two
+      // paths into ed (direct and through the min) must cancel exactly
+      const float winv = r_winv[r];
+      float dem = 0.f, cnt = 0.f;
+      for (int v = 0; v < V; ++v) {
+        const float dwp = sm_m[v * PT + r] * winv * (sm_dw[v * PT + r] - sw);
+        sm_dw[v * PT + r] = dwp;
+        dem -= dwp;
+        cnt += sm_ed[v * PT + r] == emin ? 1.f : 0.f;
+      }
+      float dsl = 0.f;
+      for (int v = 0; v < V; ++v) {
+        const size_t pv = (size_t)p * V + v;
+        const float ed = sm_ed[v * PT + r];
+        // the min over views splits its cotangent evenly among ties
+        const float ded =
+            sm_dw[v * PT + r] + (ed == emin ? dem / cnt : 0.f);
+        a.d_raydiff[pv * 4 + 3] += ded * ed * s_abs;
+        dsl += ded * ed * (a.raydiff[pv * 4 + 3] - 1.f);
+      }
+      a.d_s[p] = dsl * (s_val > 0.f ? 1.f : (s_val < 0.f ? -1.f : 0.f));
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace agg

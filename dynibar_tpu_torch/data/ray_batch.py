@@ -149,11 +149,12 @@ def synthetic_ff_batch(cfg: RenderSettings, n_rays: int, h: int = 64,
                        w: int = 96, num_frames: int = 48, ref_idx: int = 10,
                        seed: int = 0, scanline: bool = False
                        ) -> Dict[str, np.ndarray]:
-  """Fixed-shape forward-facing (Nvidia-benchmark style) eval ray batch:
-  7 temporal source views (offsets -3..3, no virtual views)."""
+  """Fixed-shape forward-facing (Nvidia-benchmark style) ray batch: 7
+  temporal source views (offsets -3..3, no virtual views) and
+  ``cfg.num_views_anchor`` padded anchor views."""
   mono = synthetic_mono_batch(
       n_rays, h, w, num_frames, ref_idx, anchor_delta=1, seed=seed,
-      num_views_dy=7, num_views_anchor=0,
+      num_views_dy=7, num_views_anchor=cfg.num_views_anchor,
       num_views_static=cfg.num_views_static, num_vv=0, scanline=scanline)
   poses = synthetic_poses(num_frames, seed)
   k = intrinsics_from_hwf(h, w, 0.9 * w)

@@ -132,10 +132,10 @@ class StaticAggregator(_Trunk):
       mask = mask * (torch.sum(rgb_in, dim=-1, keepdim=True) > 1e-3).float()
     rgb_feat = torch.cat([rgb_feat, src_feat * ref_feat], dim=-1)
     if self.anti_alias_pooling:
-      # reference mlp_network.py:461-467: the min runs over all views
+      # reference mlp_network.py:461-467: the min runs over all views;
+      # amin splits its gradient evenly among ties, as jnp.min does
       exp_dot = torch.exp(torch.abs(self.s) * (ray_diff[..., 3:4] - 1.0))
-      weight = (exp_dot - torch.min(exp_dot, dim=2, keepdim=True).values
-                ) * mask
+      weight = (exp_dot - torch.amin(exp_dot, dim=2, keepdim=True)) * mask
     else:
       weight = mask
     weight = weight / (torch.sum(weight, dim=2, keepdim=True) + 1e-8)

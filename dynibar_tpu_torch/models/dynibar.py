@@ -6,12 +6,15 @@ model.py:33-159).  Its state_dict keys are the JAX params pytree's
 top-level names (``net_coarse_st``, ``feature_net_fine``, ``traj_basis``,
 ...), so ``utils/convert.py`` maps one onto the other.  ``apply_*`` go
 through the kernel wrappers (CUDA kernels for CUDA tensors, plain twins on
-CPU) unless ``kernels=False`` asks for the plain modules.
+CPU; with grad enabled the kernels' autograd Functions) unless
+``kernels=False`` asks for the plain modules.  ``train_fine()`` is the
+fine-stage training mode: only the fine groups require grad, the coarse
+stage stays frozen (reference model.py:106-118).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -25,6 +28,13 @@ from dynibar_tpu_torch.models.motion_mlp import MotionMLP
 from dynibar_tpu_torch.ops.agg import (fused_dynamic_aggregator,
                                        fused_static_aggregator)
 from dynibar_tpu_torch.utils.device import DeviceLike, resolve_device
+
+# the groups the fine-stage train step updates, and the frozen coarse stage
+# (dynibar_tpu/train/trainer.py:94-120, :189-190)
+FF_FINE_KEYS = ("net_fine_st", "net_fine_dy", "feature_net_fine",
+                "motion_mlp_fine", "traj_basis_fine")
+FF_COARSE_KEYS = ("net_coarse_st", "net_coarse_dy", "feature_net",
+                  "motion_mlp", "traj_basis")
 
 
 class FFModel(nn.Module):
@@ -79,12 +89,35 @@ class FFModel(nn.Module):
   def basis(self, stage: str) -> torch.Tensor:
     return self.traj_basis_fine if stage == "fine" else self.traj_basis
 
+  def train_fine(self) -> "FFModel":
+    """Fine-stage training mode: the fine groups require grad, the coarse
+    groups stay frozen."""
+    self.requires_grad_(False)
+    for key in FF_FINE_KEYS:
+      getattr(self, key).requires_grad_(True)
+    return self
+
+  def param_groups(self) -> Dict[str, List[nn.Parameter]]:
+    """The fine groups' parameters, by group name."""
+    return {key: ([self.traj_basis_fine] if key == "traj_basis_fine"
+                  else list(getattr(self, key).parameters()))
+            for key in FF_FINE_KEYS}
+
   def encode_featmaps(self, src_rgbs: torch.Tensor,
-                      static_src_rgbs: torch.Tensor) -> Tuple[tuple, tuple]:
-    """(coarse, fine) featmap triples (dynamic, anchor=None, static) as the
+                      static_src_rgbs: torch.Tensor,
+                      anchor_src_rgbs: Optional[torch.Tensor] = None
+                      ) -> Tuple[tuple, tuple]:
+    """(coarse, fine) featmap triples (dynamic, anchor, static) as the
     reference eval routes them (eval_nvidia.py:335-358): dynamic <- coarse
-    channels, static <- fine channels of each stage's feature net."""
-    out = []
-    for net in (self.feature_net, self.feature_net_fine):
-      out.append((net(src_rgbs)[0], None, net(static_src_rgbs)[1]))
-    return out[0], out[1]
+    channels, static <- fine channels of each stage's feature net; no
+    anchor maps.  With ``anchor_src_rgbs`` the training routing of
+    ``compute_ff_featmaps`` (trainer.py:291-310): the coarse maps without
+    autograd, and fine anchor maps from feature_net_fine's coarse
+    channels."""
+    with torch.set_grad_enabled(anchor_src_rgbs is None
+                                and torch.is_grad_enabled()):
+      net = self.feature_net
+      coarse = (net(src_rgbs)[0], None, net(static_src_rgbs)[1])
+    net = self.feature_net_fine
+    anchor = None if anchor_src_rgbs is None else net(anchor_src_rgbs)[0]
+    return coarse, (net(src_rgbs)[0], anchor, net(static_src_rgbs)[1])

@@ -1,24 +1,37 @@
-"""K2/K3: the fused static and dynamic aggregators.
+"""K2-K5: the fused static and dynamic aggregators and their backwards.
 
-``fused_static_aggregator`` replaces ``dynibar_tpu/ops/pallas_agg.py:225
-_static_kernel`` (launched by ``fused_static_aggregator`` :783) and
-``fused_dynamic_aggregator`` replaces ``:325 _dynamic_kernel`` (launched by
-``fused_dynamic_aggregator`` :1148).  Both take the inputs of the
-matching module's ``forward`` ([R,S,V,·] layout) and return raw [R,S,4].
+Forward kernels (take the inputs of the matching module's ``forward``,
+[R,S,V,·] layout, and return raw [R,S,4]):
 
-For CPU tensors they run the module's forward (the plain f32 twin).  For
-CUDA tensors they launch the CUDA kernels (csrc/static_agg.cu,
-csrc/dynamic_agg.cu): bf16 operands, f32 accumulation, and every
-reduction, softmax and normalization in f32.  The per-ray work that the
-JAX wrapper also runs outside its kernel stays torch ops here:
-``ref_feature_fc`` (pallas_agg.py:814-820), the time-PE ``ray_dir_fc``
-(:1187-1194) and ``dir_pe`` (:1196-1199).
+  * K2 ``fused_static_aggregator`` replaces ``dynibar_tpu/ops/pallas_agg.py
+    :225 _static_kernel`` and K3 ``fused_dynamic_aggregator`` replaces
+    ``:325 _dynamic_kernel`` (csrc/static_agg.cu, csrc/dynamic_agg.cu);
+  * K2r / K3r are the same launches with their workspaces kept as the
+    residuals of the backward, as ``_static_kernel(emit_residuals=True)``
+    (pallas_agg.py:587) and ``_dynamic_kernel(emit_residuals=True)``
+    (:1033) keep theirs.
+
+Backward kernels (csrc/static_agg_bwd.cu, csrc/dynamic_agg_bwd.cu), each a
+ray-side and a trunk-side launch as in ``pallas_agg_bwd.py``: K4a/K4b
+(dynamic, :514/:733) and K5a/K5b (static, :879/:1109).  The trunk wrapper
+also launches the small kernel that sums the per-block weight-gradient
+slabs.
+
+Dispatch: CPU tensors run the module's forward (the plain f32 twin, under
+autograd when grad is enabled).  CUDA tensors launch the kernels: under
+``torch.no_grad()`` K2/K3; with grad enabled the autograd Functions
+(K2r/K3r forward, K5a+K5b / K4a+K4b backward), so a CUDA call never
+returns a tensor without a graph.  The per-ray pieces the JAX wrappers
+also run outside their kernels stay torch ops and get their gradients from
+autograd through the returned input cotangents: ``ref_feature_fc``
+(pallas_agg.py:814-820), the time-PE ``ray_dir_fc`` (:1187-1194) and
+``dir_pe`` (:1196-1199).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,13 +43,20 @@ from dynibar_tpu_torch.ops import build
 
 # layer slots of the packed weights; csrc/agg_common.cuh names the same ids
 N_LAYERS = 23
+_LN, _AA_S = 14, 22
 _MAX_VIEWS, _MAX_SAMPLES, _MAX_CH = 12, 128, 40
+_MAX_CH_STATIC_BWD = 36          # 2·(3+C) <= 72 f32 columns in K5b
+_SCRATCH_LD = 128 + 128 + 272    # csrc/ray_bwd.cuh kScratchLd
+_N_SLABS = 16                    # csrc/agg_bwd_common.cuh kSlabs
 
-_P = ctypes.c_void_p
-_STATIC_ARGS = ([_P] * 9 + [ctypes.c_int] * 2 + [_P] * 7 + [ctypes.c_int] * 4
-                + [_P])
-_DYNAMIC_ARGS = ([_P] * 9 + [ctypes.c_float] + [_P] * 6 + [ctypes.c_int] * 4
-                 + [_P])
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STATIC_ARGS = [_P] * 9 + [_I] * 2 + [_P] * 7 + [_I] * 4 + [_P]
+_DYNAMIC_ARGS = [_P] * 9 + [_F] + [_P] * 6 + [_I] * 4 + [_P]
+_DYN_RAY_ARGS = [_P] * 19 + [_I] * 7 + [_P]
+_DYN_TRUNK_ARGS = [_P] * 14 + [_I] * 7 + [_P]
+_ST_RAY_ARGS = [_P] * 16 + [_I] * 7 + [_P]
+_ST_TRUNK_ARGS = [_P] * 12 + [_I] * 2 + [_P] * 10 + [_I] * 7 + [_P]
+_REDUCE_ARGS = [_P, _I, _I, _P, _P]
 
 
 def _ceil16(n: int) -> int:
@@ -62,24 +82,35 @@ def _layer_list(net: nn.Module, static: bool):
   att = net.ray_attention
   for i, lin in enumerate((att.w_qs, att.w_ks, att.w_vs, att.fc)):
     slots[10 + i] = (lin.weight, None)
-  slots[14] = ("bias_only", att.layer_norm.weight, att.layer_norm.bias)
+  slots[_LN] = ("bias_only", att.layer_norm.weight, att.layer_norm.bias)
   put(15, net.out_geometry_fc)
   put(17, net.rgb_fc)
   if not static:
     put(20, net.ref_pts_fc)
   elif net.anti_alias_pooling:
-    slots[22] = ("bias_only", net.s.reshape(1))
+    slots[_AA_S] = ("bias_only", net.s)
   return slots
 
 
+def kernel_params(net: nn.Module, static: bool) -> List[torch.Tensor]:
+  """The parameters the kernels read, in slot order (weight, then bias)."""
+  out = []
+  for slot in _layer_list(net, static):
+    if slot is not None:
+      out += [t for t in slot if isinstance(t, torch.Tensor)]
+  return out
+
+
 def pack_weights(net: nn.Module, static: bool):
-  """Packed bf16 weights, f32 biases and the [N_LAYERS, 4] slot table
-  (weight offset, bias offset, padded in, padded out).
+  """Packed bf16 weights, f32 biases, the [N_LAYERS, 4] slot table (weight
+  offset, bias offset, padded in, padded out) and the bf16 transposes.
 
   Each weight is zero-padded to [ceil16(out), ceil16(in)] so the kernels'
   16×16×16 tensor-core tiles need no edge cases; offsets stay multiples of
-  256 elements, which keeps every tile 32-byte aligned.  Cached on the
-  module until a parameter changes."""
+  256 elements, which keeps every tile 32-byte aligned.  The transposed
+  pack holds each padded W^T at the same offset: the backward's dX = W^T dY
+  runs on the forward's layer routine.  Cached on the module until a
+  parameter changes (an optimizer step bumps every ``_version``)."""
   params = list(net.parameters())
   key = (params[0].device, tuple(p._version for p in params),
          tuple(p.data_ptr() for p in params))
@@ -87,14 +118,14 @@ def pack_weights(net: nn.Module, static: bool):
   if cached is not None and cached[0] == key:
     return cached[1]
   dev = params[0].device
-  w_parts, b_parts = [], []
+  w_parts, wt_parts, b_parts = [], [], []
   meta = np.zeros((N_LAYERS, 4), np.int32)
   w_off = b_off = 0
   for i, slot in enumerate(_layer_list(net, static)):
     if slot is None:
       continue
     if isinstance(slot[0], str):           # LayerNorm or the scalar s
-      extra = [t.detach().float() for t in slot[1:]]
+      extra = [t.detach().float().reshape(-1) for t in slot[1:]]
       b_parts += extra
       meta[i] = (-1, b_off, 0, 0)
       b_off += sum(t.numel() for t in extra)
@@ -108,14 +139,41 @@ def pack_weights(net: nn.Module, static: bool):
     if b is not None:
       bp[:n] = b.detach()
     w_parts.append(wp.reshape(-1))
+    wt_parts.append(wp.t().reshape(-1))
     b_parts.append(bp)
     meta[i] = (w_off, b_off, kp, np_)
     w_off += np_ * kp
     b_off += np_
   packed = (torch.cat(w_parts).to(torch.bfloat16).contiguous(),
-            torch.cat(b_parts).contiguous(), np.ascontiguousarray(meta))
+            torch.cat(b_parts).contiguous(), np.ascontiguousarray(meta),
+            torch.cat(wt_parts).to(torch.bfloat16).contiguous())
   net._kernel_pack = (key, packed)
   return packed
+
+
+def unpack_grads(net: nn.Module, static: bool, meta: np.ndarray,
+                 grads: torch.Tensor, w_total: int,
+                 d_s: Optional[torch.Tensor]) -> List[torch.Tensor]:
+  """Packed f32 gradients [weights | biases] -> one tensor per
+  ``kernel_params`` entry (padding cut away)."""
+  gw, gb = grads[:w_total], grads[w_total:]
+  out = []
+  for i, slot in enumerate(_layer_list(net, static)):
+    if slot is None:
+      continue
+    w_off, b_off, kp, np_ = (int(x) for x in meta[i])
+    if i == _AA_S:
+      out.append(d_s.reshape(slot[1].shape))
+    elif i == _LN:
+      out += [gb[b_off:b_off + 128], gb[b_off + 128:b_off + 256]]
+    else:
+      w, b = slot
+      n, k = w.shape
+      g = gw[w_off:w_off + np_ * kp].view(np_, kp)
+      out.append(g[:n, :k].contiguous())
+      if b is not None:
+        out.append(gb[b_off:b_off + n])
+  return out
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device):
@@ -135,107 +193,404 @@ def _meta_ptr(meta: np.ndarray) -> int:
   return meta.ctypes.data_as(ctypes.c_void_p).value
 
 
-def fused_static_aggregator(net: nn.Module, pts, ref_pl, src_pl, rgb_feat,
-                            ray_diff, mask) -> torch.Tensor:
-  """K2 wrapper; arguments as StaticAggregator.forward."""
-  if not rgb_feat.is_cuda:
-    return net(pts, ref_pl, src_pl, rgb_feat, ray_diff, mask)
+def _fn(lib: str, name: str, argtypes):
+  fn = getattr(build.load(lib), name)
+  fn.argtypes, fn.restype = argtypes, ctypes.c_int
+  return fn
+
+
+def _stream(dev) -> int:
+  return torch.cuda.current_stream(dev).cuda_stream
+
+
+_ZEROS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _zeros(dev) -> torch.Tensor:
+  """The zero bias of every transposed layer (>= the widest padded in)."""
+  if dev not in _ZEROS:
+    _ZEROS[dev] = torch.zeros(512, dtype=torch.float32, device=dev)
+  return _ZEROS[dev]
+
+
+def _slabs(dev, packed) -> Tuple[torch.Tensor, int, int]:
+  """Zeroed weight-gradient slabs (csrc/agg_bwd_common.cuh kSlabs) and the
+  persistent grid: one block per SM."""
+  nblk = torch.cuda.get_device_properties(dev).multi_processor_count
+  w_total, b_total = packed[0].numel(), packed[1].numel()
+  # 16-byte aligned slabs: the kernels add weight tiles as float2
+  slab_len = -(-(w_total + b_total) // 4) * 4
+  return (torch.zeros((_N_SLABS, slab_len), dtype=torch.float32, device=dev),
+          nblk, w_total)
+
+
+# --------------------------------------------------------------------------
+# forward launches (K2/K2r, K3/K3r)
+# --------------------------------------------------------------------------
+
+def _static_launch(net, pts, reffeat, src_pl, rgb_feat, ray_diff, mask):
+  """The K2 launch; returns raw [R,S,4] and the workspaces (residuals)."""
   r, s, v, c = rgb_feat.shape
   _check_dims(s, v, c)
   dev, p = rgb_feat.device, r * s
-  w, b, meta = pack_weights(net, static=True)
-  ref_pe = periodic_embed(ref_pl.float(), 5, 5, linspace=False)
-  reffeat = net.ref_feature_fc(ref_pe).contiguous()             # [R,C]
-  rgbf = rgb_feat.to(torch.bfloat16).contiguous()
-  args = dict(pts=(pts.float().contiguous(), (r, s, 3)),
-              reffeat=(reffeat, (r, c)),
-              rgb_feat=(rgbf, (r, s, v, c)),
-              ray_diff=(ray_diff.float().contiguous(), (r, s, v, 4)),
-              mask=(mask.float().contiguous(), (r, s, v, 1)),
-              src_pl=(src_pl.float().contiguous(), (r, s, v, 6)))
+  w, b, meta, _ = pack_weights(net, static=True)
+  args = dict(pts=(pts.detach().float().contiguous(), (r, s, 3)),
+              reffeat=(reffeat.detach().float().contiguous(), (r, c)),
+              rgb_feat=(rgb_feat.detach().to(torch.bfloat16).contiguous(),
+                        (r, s, v, c)),
+              ray_diff=(ray_diff.detach().float().contiguous(), (r, s, v, 4)),
+              mask=(mask.detach().float().contiguous(), (r, s, v, 1)),
+              src_pl=(src_pl.detach().float().contiguous(), (r, s, v, 6)))
   for name, (t, shape) in args.items():
     _check(t, name, shape, torch.bfloat16 if name == "rgb_feat"
            else torch.float32, dev)
-  ws_rf = torch.empty((v, p, 2 * c), dtype=torch.bfloat16, device=dev)
-  ws_x = torch.empty((v, p, 128), dtype=torch.bfloat16, device=dev)
-  ws_vm = torch.empty((2, v, p), dtype=torch.float32, device=dev)
-  ws_gf = torch.empty((p, 128), dtype=torch.float32, device=dev)
-  ws_nv = torch.empty((p,), dtype=torch.float32, device=dev)
+  ws = dict(rf=torch.empty((v, p, 2 * c), dtype=torch.bfloat16, device=dev),
+            x=torch.empty((v, p, 128), dtype=torch.bfloat16, device=dev),
+            vm=torch.empty((2, v, p), dtype=torch.float32, device=dev),
+            gf=torch.empty((p, 128), dtype=torch.float32, device=dev),
+            nv=torch.empty((p,), dtype=torch.float32, device=dev))
   out = torch.empty((r, s, 4), dtype=torch.float32, device=dev)
-  fn = build.load("static_agg").dyn_static_agg
-  fn.argtypes, fn.restype = _STATIC_ARGS, ctypes.c_int
-  stream = torch.cuda.current_stream(dev).cuda_stream
+  fn = _fn("static_agg", "dyn_static_agg", _STATIC_ARGS)
   ins = [t for t, _ in args.values()]
   build.check(fn(w.data_ptr(), b.data_ptr(), _meta_ptr(meta),
                  *(t.data_ptr() for t in ins),
                  int(net.anti_alias_pooling), int(net.mask_rgb),
-                 ws_rf.data_ptr(), ws_x.data_ptr(), ws_vm[0].data_ptr(),
-                 ws_vm[1].data_ptr(), ws_gf.data_ptr(), ws_nv.data_ptr(),
-                 out.data_ptr(), r, s, v, c, stream), "static aggregator")
+                 ws["rf"].data_ptr(), ws["x"].data_ptr(),
+                 ws["vm"][0].data_ptr(), ws["vm"][1].data_ptr(),
+                 ws["gf"].data_ptr(), ws["nv"].data_ptr(), out.data_ptr(),
+                 r, s, v, c, _stream(dev)), "static aggregator")
+  ws.update({k: t for k, (t, _) in args.items()})
+  return out, ws
+
+
+def _dynamic_launch(net, pts, dirfeat, dirpe, rgb_feat, mask):
+  """The K3 launch; returns raw [R,S,4] and the workspaces (residuals)."""
+  r, s, v, c = rgb_feat.shape
+  _check_dims(s, v, c)
+  dev, p = rgb_feat.device, r * s
+  w, b, meta, _ = pack_weights(net, static=False)
+  posenc = net.pos_enc[:s].contiguous()                         # [S,128]
+  args = dict(pts=(pts.detach().float().contiguous(), (r, s, 3)),
+              dirfeat=(dirfeat.detach().float().contiguous(), (r, s, c)),
+              dirpe=(dirpe.detach().float().contiguous(), (r, 27)),
+              posenc=(posenc, (s, 128)),
+              rgb_feat=(rgb_feat.detach().to(torch.bfloat16).contiguous(),
+                        (r, s, v, c)),
+              mask=(mask.detach().float().contiguous(), (r, s, v, 1)))
+  for name, (t, shape) in args.items():
+    _check(t, name, shape, torch.bfloat16 if name == "rgb_feat"
+           else torch.float32, dev)
+  ws = dict(x=torch.empty((v, p, 128), dtype=torch.bfloat16, device=dev),
+            vm=torch.empty((2, v, p), dtype=torch.float32, device=dev),
+            gf=torch.empty((p, 128), dtype=torch.float32, device=dev),
+            nv=torch.empty((p,), dtype=torch.float32, device=dev))
+  out = torch.empty((r, s, 4), dtype=torch.float32, device=dev)
+  fn = _fn("dynamic_agg", "dyn_dynamic_agg", _DYNAMIC_ARGS)
+  ins = [t for t, _ in args.values()]
+  build.check(fn(w.data_ptr(), b.data_ptr(), _meta_ptr(meta),
+                 *(t.data_ptr() for t in ins), float(net.shift),
+                 ws["x"].data_ptr(), ws["vm"][0].data_ptr(),
+                 ws["vm"][1].data_ptr(), ws["gf"].data_ptr(),
+                 ws["nv"].data_ptr(), out.data_ptr(), r, s, v, c,
+                 _stream(dev)), "dynamic aggregator")
+  ws.update({k: t for k, (t, _) in args.items()})
+  return out, ws
+
+
+def _reffeat(net, ref_pl):
+  return net.ref_feature_fc(periodic_embed(ref_pl.float(), 5, 5,
+                                           linspace=False))      # [R,C]
+
+
+def _dir_inputs(net, glb_ray_dir, time):
+  dirfeat = net.direction_feature(time.float())                  # [R,S,C]
+  dirpe = periodic_embed(glb_ray_dir.float(), 4, 4, linspace=False)
+  return dirfeat, dirpe                                          # [R,27]
+
+
+def fused_static_aggregator(net: nn.Module, pts, ref_pl, src_pl, rgb_feat,
+                            ray_diff, mask) -> torch.Tensor:
+  """Static aggregator; arguments as StaticAggregator.forward."""
+  if not rgb_feat.is_cuda:
+    return net(pts, ref_pl, src_pl, rgb_feat, ray_diff, mask)
+  return _static_cuda(net, pts, ref_pl, src_pl, rgb_feat, ray_diff, mask)
+
+
+def _static_cuda(net, pts, ref_pl, src_pl, rgb_feat, ray_diff, mask):
+  reffeat = _reffeat(net, ref_pl)
+  if torch.is_grad_enabled():
+    return _StaticAggFn.apply(net, pts, reffeat, src_pl, rgb_feat, ray_diff,
+                              mask, *kernel_params(net, True))
+  out, _ = _static_launch(net, pts, reffeat, src_pl, rgb_feat, ray_diff, mask)
   fused_static_aggregator.launches += 1
   return out
 
 
 def fused_dynamic_aggregator(net: nn.Module, pts, rgb_feat, glb_ray_dir,
                              mask, time) -> torch.Tensor:
-  """K3 wrapper; arguments as DynamicAggregator.forward."""
+  """Dynamic aggregator; arguments as DynamicAggregator.forward."""
   if not rgb_feat.is_cuda:
     return net(pts, rgb_feat, glb_ray_dir, mask, time)
-  r, s, v, c = rgb_feat.shape
-  _check_dims(s, v, c)
-  dev, p = rgb_feat.device, r * s
-  w, b, meta = pack_weights(net, static=False)
-  dirfeat = net.direction_feature(time.float()).contiguous()   # [R,S,C]
-  dirpe = periodic_embed(glb_ray_dir.float(), 4, 4,
-                         linspace=False).contiguous()         # [R,27]
-  posenc = net.pos_enc[:s].contiguous()                         # [S,128]
-  args = dict(pts=(pts.float().contiguous(), (r, s, 3)),
-              dirfeat=(dirfeat, (r, s, c)), dirpe=(dirpe, (r, 27)),
-              posenc=(posenc, (s, 128)),
-              rgb_feat=(rgb_feat.to(torch.bfloat16).contiguous(),
-                        (r, s, v, c)),
-              mask=(mask.float().contiguous(), (r, s, v, 1)))
-  for name, (t, shape) in args.items():
-    _check(t, name, shape, torch.bfloat16 if name == "rgb_feat"
-           else torch.float32, dev)
-  ws_x = torch.empty((v, p, 128), dtype=torch.bfloat16, device=dev)
-  ws_vm = torch.empty((2, v, p), dtype=torch.float32, device=dev)
-  ws_gf = torch.empty((p, 128), dtype=torch.float32, device=dev)
-  ws_nv = torch.empty((p,), dtype=torch.float32, device=dev)
-  out = torch.empty((r, s, 4), dtype=torch.float32, device=dev)
-  fn = build.load("dynamic_agg").dyn_dynamic_agg
-  fn.argtypes, fn.restype = _DYNAMIC_ARGS, ctypes.c_int
-  stream = torch.cuda.current_stream(dev).cuda_stream
-  ins = [t for t, _ in args.values()]
-  build.check(fn(w.data_ptr(), b.data_ptr(), _meta_ptr(meta),
-                 *(t.data_ptr() for t in ins), float(net.shift),
-                 ws_x.data_ptr(), ws_vm[0].data_ptr(), ws_vm[1].data_ptr(),
-                 ws_gf.data_ptr(), ws_nv.data_ptr(), out.data_ptr(),
-                 r, s, v, c, stream), "dynamic aggregator")
+  return _dynamic_cuda(net, pts, rgb_feat, glb_ray_dir, mask, time)
+
+
+def _dynamic_cuda(net, pts, rgb_feat, glb_ray_dir, mask, time):
+  dirfeat, dirpe = _dir_inputs(net, glb_ray_dir, time)
+  if torch.is_grad_enabled():
+    return _DynamicAggFn.apply(net, pts, dirfeat, dirpe, rgb_feat, mask,
+                               *kernel_params(net, False))
+  out, _ = _dynamic_launch(net, pts, dirfeat, dirpe, rgb_feat, mask)
   fused_dynamic_aggregator.launches += 1
   return out
 
 
-fused_static_aggregator.launches = 0
-fused_dynamic_aggregator.launches = 0
+def static_forward_residuals(net, pts, reffeat, src_pl, rgb_feat, ray_diff,
+                             mask):
+  """K2r: K2 with its workspaces kept for the backward."""
+  out, ws = _static_launch(net, pts, reffeat, src_pl, rgb_feat, ray_diff,
+                           mask)
+  static_forward_residuals.launches += 1
+  return out, ws
+
+
+def dynamic_forward_residuals(net, pts, dirfeat, dirpe, rgb_feat, mask):
+  """K3r: K3 with its workspaces kept for the backward."""
+  out, ws = _dynamic_launch(net, pts, dirfeat, dirpe, rgb_feat, mask)
+  dynamic_forward_residuals.launches += 1
+  return out, ws
+
+
+# --------------------------------------------------------------------------
+# backward launches (K4a/K4b, K5a/K5b)
+# --------------------------------------------------------------------------
+
+def _ray_common(packed, ws, cot, dev):
+  """The leading arguments of both ray-side backward entries."""
+  w, b, meta, wt = packed
+  return [w.data_ptr(), wt.data_ptr(), b.data_ptr(), _zeros(dev).data_ptr(),
+          _meta_ptr(meta), ws["gf"].data_ptr(), ws["x"].data_ptr(),
+          ws["vm"][0].data_ptr(), ws["vm"][1].data_ptr(), cot.data_ptr()]
+
+
+def static_backward_ray(net, ws, cot, slabs, nblk, w_total):
+  """K5a: ray-side static backward.  Returns d_x [V,P,128] bf16 and
+  d_misc [V,P,8] (d_vis | d_rgb | d_ray_diff); weight grads go to the
+  slabs."""
+  dev = cot.device
+  r, s, v, c = ws["rgb_feat"].shape
+  packed = pack_weights(net, True)
+  dx = torch.empty((v, r * s, 128), dtype=torch.bfloat16, device=dev)
+  dmisc = torch.zeros((v, r * s, 8), dtype=torch.float32, device=dev)
+  scratch = torch.empty((nblk, _MAX_SAMPLES, _SCRATCH_LD),
+                        dtype=torch.float32, device=dev)
+  fn = _fn("static_agg_bwd", "dyn_static_agg_bwd_ray", _ST_RAY_ARGS)
+  build.check(fn(*_ray_common(packed, ws, cot, dev),
+                 ws["ray_diff"].data_ptr(), ws["rgb_feat"].data_ptr(),
+                 dx.data_ptr(), dmisc.data_ptr(), scratch.data_ptr(),
+                 slabs.data_ptr(), slabs.shape[1], w_total, r, s, v, c, nblk,
+                 _stream(dev)), "static aggregator backward (ray)")
+  static_backward_ray.launches += 1
+  return dx, dmisc
+
+
+def static_backward_trunk(net, ws, dx, dmisc, slabs, nblk, w_total):
+  """K5b: trunk-side static backward, then the slab reduction.  Returns
+  the packed f32 gradients and the input cotangents."""
+  dev = dx.device
+  r, s, v, c = ws["rgb_feat"].shape
+  p = r * s
+  if c > _MAX_CH_STATIC_BWD:
+    raise ValueError(f"static backward kernel limit 3+C<={_MAX_CH_STATIC_BWD}"
+                     f"; got {c}")
+  w, b, meta, wt = pack_weights(net, True)
+  f32 = dict(dtype=torch.float32, device=dev)
+  drf = torch.empty((v, p, 2 * c), **f32)
+  out = dict(rgb_feat=torch.empty((p, v, c), **f32),
+             ray_diff=torch.empty((p, v, 4), **f32),
+             src_pl=torch.empty((p, v, 6), **f32),
+             pts=torch.empty((p, 3), **f32),
+             reffeat=torch.empty((p, c), **f32),
+             s=torch.empty((p,), **f32))
+  fn = _fn("static_agg_bwd", "dyn_static_agg_bwd_trunk", _ST_TRUNK_ARGS)
+  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                 _zeros(dev).data_ptr(), _meta_ptr(meta),
+                 ws["rgb_feat"].data_ptr(), ws["mask"].data_ptr(),
+                 ws["pts"].data_ptr(), ws["reffeat"].data_ptr(),
+                 ws["ray_diff"].data_ptr(), ws["src_pl"].data_ptr(),
+                 ws["rf"].data_ptr(), int(net.anti_alias_pooling),
+                 int(net.mask_rgb), dx.data_ptr(), dmisc.data_ptr(),
+                 drf.data_ptr(), out["rgb_feat"].data_ptr(),
+                 out["ray_diff"].data_ptr(), out["src_pl"].data_ptr(),
+                 out["pts"].data_ptr(), out["reffeat"].data_ptr(),
+                 out["s"].data_ptr(), slabs.data_ptr(), slabs.shape[1],
+                 w_total, r, s, v, c, nblk, _stream(dev)),
+              "static aggregator backward (trunk)")
+  grads = _reduce("static_agg_bwd", slabs)
+  static_backward_trunk.launches += 1
+  return grads, out
+
+
+def dynamic_backward_ray(net, ws, cot, slabs, nblk, w_total):
+  """K4a: ray-side dynamic backward.  Returns d_x, d_misc (d_vis in slot
+  0), d_pts [P,3] and d_dirpe [R,27]."""
+  dev = cot.device
+  r, s, v, c = ws["rgb_feat"].shape
+  packed = pack_weights(net, False)
+  f32 = dict(dtype=torch.float32, device=dev)
+  dx = torch.empty((v, r * s, 128), dtype=torch.bfloat16, device=dev)
+  dmisc = torch.zeros((v, r * s, 8), **f32)
+  d_pts = torch.empty((r * s, 3), **f32)
+  d_dirpe = torch.empty((r, 27), **f32)
+  scratch = torch.empty((nblk, _MAX_SAMPLES, _SCRATCH_LD), **f32)
+  fn = _fn("dynamic_agg_bwd", "dyn_dynamic_agg_bwd_ray", _DYN_RAY_ARGS)
+  build.check(fn(*_ray_common(packed, ws, cot, dev),
+                 ws["posenc"].data_ptr(), ws["pts"].data_ptr(),
+                 ws["dirpe"].data_ptr(), dx.data_ptr(), dmisc.data_ptr(),
+                 d_pts.data_ptr(), d_dirpe.data_ptr(), scratch.data_ptr(),
+                 slabs.data_ptr(), slabs.shape[1], w_total, r, s, v, c, nblk,
+                 _stream(dev)), "dynamic aggregator backward (ray)")
+  dynamic_backward_ray.launches += 1
+  return dx, dmisc, d_pts, d_dirpe
+
+
+def dynamic_backward_trunk(net, ws, dx, dmisc, slabs, nblk, w_total):
+  """K4b: trunk-side dynamic backward, then the slab reduction.  Returns
+  the packed f32 gradients, d_rgb_feat [P,V,C] and d_dirfeat [P,C]."""
+  dev = dx.device
+  r, s, v, c = ws["rgb_feat"].shape
+  p = r * s
+  w, b, meta, wt = pack_weights(net, False)
+  f32 = dict(dtype=torch.float32, device=dev)
+  drf = torch.empty((v, p, c), **f32)
+  d_rgbfeat = torch.empty((p, v, c), **f32)
+  d_dirfeat = torch.empty((p, c), **f32)
+  fn = _fn("dynamic_agg_bwd", "dyn_dynamic_agg_bwd_trunk", _DYN_TRUNK_ARGS)
+  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                 _zeros(dev).data_ptr(), _meta_ptr(meta),
+                 ws["rgb_feat"].data_ptr(), ws["mask"].data_ptr(),
+                 ws["dirfeat"].data_ptr(), dx.data_ptr(), dmisc.data_ptr(),
+                 drf.data_ptr(), d_rgbfeat.data_ptr(), d_dirfeat.data_ptr(),
+                 slabs.data_ptr(), slabs.shape[1], w_total, r, s, v, c, nblk,
+                 _stream(dev)), "dynamic aggregator backward (trunk)")
+  grads = _reduce("dynamic_agg_bwd", slabs)
+  dynamic_backward_trunk.launches += 1
+  return grads, d_rgbfeat, d_dirfeat
+
+
+def _reduce(lib: str, slabs: torch.Tensor) -> torch.Tensor:
+  out = torch.empty((slabs.shape[1],), dtype=torch.float32,
+                    device=slabs.device)
+  fn = _fn(lib, "dyn_agg_reduce", _REDUCE_ARGS)
+  build.check(fn(slabs.data_ptr(), slabs.shape[0], slabs.shape[1],
+                 out.data_ptr(), _stream(slabs.device)), "gradient reduce")
+  return out
+
+
+class _StaticAggFn(torch.autograd.Function):
+  """K2r forward, K5a + K5b backward.  Inputs after ``net``: pts [R,S,3],
+  reffeat [R,C] (ref_feature_fc output), src_pl, rgb_feat, ray_diff, mask,
+  then ``kernel_params(net, True)``."""
+
+  @staticmethod
+  def forward(ctx, net, pts, reffeat, src_pl, rgb_feat, ray_diff, mask,
+              *params):
+    out, ws = static_forward_residuals(net, pts, reffeat, src_pl, rgb_feat,
+                                       ray_diff, mask)
+    ctx.net, ctx.ws = net, ws
+    ctx.dtypes = (pts.dtype, reffeat.dtype, src_pl.dtype, rgb_feat.dtype,
+                  ray_diff.dtype)
+    return out
+
+  @staticmethod
+  def backward(ctx, d_out):
+    net, ws = ctx.net, ctx.ws
+    ctx.ws = None                      # residuals go with this backward
+    r, s, v, c = ws["rgb_feat"].shape
+    cot = d_out.float().contiguous()
+    slabs, nblk, w_total = _slabs(cot.device, pack_weights(net, True))
+    dx, dmisc = static_backward_ray(net, ws, cot, slabs, nblk, w_total)
+    for k in ("x", "vm", "gf", "nv"):  # the ray side's residuals
+      del ws[k]
+    grads, d = static_backward_trunk(net, ws, dx, dmisc, slabs, nblk,
+                                     w_total)
+    del ws, dx, dmisc, slabs
+    meta = pack_weights(net, True)[2]
+    d_s = d["s"].sum() if net.anti_alias_pooling else None
+    dt = ctx.dtypes
+    return (None, d["pts"].view(r, s, 3).to(dt[0]),
+            d["reffeat"].view(r, s, c).sum(1).to(dt[1]),
+            d["src_pl"].view(r, s, v, 6).to(dt[2]),
+            d["rgb_feat"].view(r, s, v, c).to(dt[3]),
+            d["ray_diff"].view(r, s, v, 4).to(dt[4]), None,
+            *unpack_grads(net, True, meta, grads, w_total, d_s))
+
+
+class _DynamicAggFn(torch.autograd.Function):
+  """K3r forward, K4a + K4b backward.  Inputs after ``net``: pts [R,S,3],
+  dirfeat [R,S,C] (time ray_dir_fc output), dirpe [R,27], rgb_feat, mask,
+  then ``kernel_params(net, False)``."""
+
+  @staticmethod
+  def forward(ctx, net, pts, dirfeat, dirpe, rgb_feat, mask, *params):
+    out, ws = dynamic_forward_residuals(net, pts, dirfeat, dirpe, rgb_feat,
+                                        mask)
+    ctx.net, ctx.ws = net, ws
+    ctx.dtypes = (pts.dtype, dirfeat.dtype, dirpe.dtype, rgb_feat.dtype)
+    return out
+
+  @staticmethod
+  def backward(ctx, d_out):
+    net, ws = ctx.net, ctx.ws
+    ctx.ws = None
+    r, s, v, c = ws["rgb_feat"].shape
+    cot = d_out.float().contiguous()
+    slabs, nblk, w_total = _slabs(cot.device, pack_weights(net, False))
+    dx, dmisc, d_pts, d_dirpe = dynamic_backward_ray(net, ws, cot, slabs,
+                                                     nblk, w_total)
+    for k in ("x", "vm", "gf", "nv"):
+      del ws[k]
+    grads, d_rgbfeat, d_dirfeat = dynamic_backward_trunk(
+        net, ws, dx, dmisc, slabs, nblk, w_total)
+    del ws, dx, dmisc, slabs
+    meta = pack_weights(net, False)[2]
+    dt = ctx.dtypes
+    return (None, d_pts.view(r, s, 3).to(dt[0]),
+            d_dirfeat.view(r, s, c).to(dt[1]), d_dirpe.to(dt[2]),
+            d_rgbfeat.view(r, s, v, c).to(dt[3]), None,
+            *unpack_grads(net, False, meta, grads, w_total, None))
+
+
+for _f in (fused_static_aggregator, fused_dynamic_aggregator,
+           static_forward_residuals, dynamic_forward_residuals,
+           static_backward_ray, static_backward_trunk, dynamic_backward_ray,
+           dynamic_backward_trunk):
+  _f.launches = 0
 
 
 def _mlp_macs(dims) -> int:
   return sum(a * b for a, b in zip(dims[:-1], dims[1:]))
 
 
-def aggregator_flops(static: bool, r: int, s: int, v: int, c: int) -> int:
-  """Matmul flops the kernel does for these shapes (2 per multiply-add):
-  the per-(point, view) MLPs, the per-point MLPs and the per-ray
-  attention.  Elementwise work is left out."""
+def aggregator_flop_parts(static: bool, r: int, s: int, v: int, c: int
+                          ) -> Tuple[int, int]:
+  """Matmul flops of the forward (2 per multiply-add) for these shapes,
+  split as (trunk side: per-(point, view) MLPs; ray side: geometry_fc,
+  attention, heads).  Elementwise work is left out."""
   p = r * s
   trunk = (_mlp_macs((3 * (2 * c if static else c), 256, 128))
            + _mlp_macs((128, 128, 129)) + _mlp_macs((128, 128, 1)))
-  per_view = trunk + (_mlp_macs((103, 256, c)) + _mlp_macs((261, 128, 64, 1))
-                      if static else 0)
+  if static:
+    trunk += _mlp_macs((103, 256, c))
   per_point = (_mlp_macs((257, 256, 128)) + 4 * 128 * 128
                + _mlp_macs((128, 128, 1)))
-  if not static:
+  if static:
+    per_point += v * _mlp_macs((261, 128, 64, 1))
+  else:
     per_point += _mlp_macs((161, 256, 128)) + _mlp_macs((155, 128, 64, 3))
   attention = 2 * s * s * 128
-  return 2 * (p * (v * per_view + per_point) + r * attention)
+  return 2 * p * v * trunk, 2 * (p * per_point + r * attention)
+
+
+def aggregator_flops(static: bool, r: int, s: int, v: int, c: int) -> int:
+  """Matmul flops of the whole forward (K2/K3) for these shapes."""
+  return sum(aggregator_flop_parts(static, r, s, v, c))

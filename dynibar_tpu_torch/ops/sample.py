@@ -39,6 +39,9 @@ def sample_views(maps: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
   """K1 wrapper: the CUDA kernel for CUDA tensors, the plain twin on CPU."""
   if not maps.is_cuda:
     return sample_views_plain(maps, grid)
+  if torch.is_grad_enabled() and (maps.requires_grad or grid.requires_grad):
+    raise RuntimeError("sample_views has no backward: differentiate "
+                       "through sample_views_plain (F.grid_sample)")
   v, h, w, c = maps.shape
   if grid.device != maps.device or grid.dtype != torch.float32:
     raise ValueError("grid must be f32 on the maps' device")

@@ -1,15 +1,21 @@
-"""The FF eval render core: frozen coarse -> importance -> fine.
+"""The FF render core: frozen coarse -> importance -> fine (-> anchor).
 
-Port of ``dynibar_tpu.render.render_rays.render_rays_mv`` and
-``_render_stage_ff`` (reference render_ray.py:407-867), eval only.  Each
-stage samples the source views through K1 (ops/sample.py) and aggregates
-through K2/K3 (ops/agg.py); ``kernels=False`` runs the plain twins
+Port of ``dynibar_tpu.render.render_rays.render_rays_mv``,
+``_render_stage_ff`` and ``_cross_time_branch`` (reference
+render_ray.py:407-867, :1099-1270).  The eval call runs everything under
+``torch.no_grad()``: each stage samples the source views through K1
+(ops/sample.py) and aggregates through K2/K3 (ops/agg.py).  The train call
+(``is_train=True``) keeps the frozen coarse stage there and runs the fine
+stage and its cross-time (anchor) branch with autograd on: the sampler is
+``F.grid_sample`` (the JAX grad path's routing, render_rays.py:112-122)
+and the aggregators go through their autograd Functions (K2r/K3r forward,
+K5a/K5b and K4a/K4b backward).  ``kernels=False`` runs the plain twins
 instead, which is how the kernels are held against them on the card.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -36,6 +42,17 @@ def _sampling_cast(cfg: RenderSettings, imgs, feats):
   return imgs, feats
 
 
+def _sample_fn(kernels: bool):
+  """K1 for the no-grad passes; F.grid_sample wherever autograd records."""
+  if kernels and not torch.is_grad_enabled():
+    return sample_views
+  return sample_views_plain
+
+
+def _time_emb(t: torch.Tensor, n_rays: int, s: int) -> torch.Tensor:
+  return t.reshape(1, 1, 1).expand(n_rays, s, 1)
+
+
 def _motion_window(model, stage, pts, time_emb, frame_idx, window):
   """MotionMLP -> tail-zeroed coeffs -> trajectory points [R,S,O,3]."""
   raw_coeff = model.apply_motion(stage, torch.cat([pts, time_emb], dim=-1))
@@ -47,15 +64,15 @@ def _motion_window(model, stage, pts, time_emb, frame_idx, window):
 def stage_inputs(model, rb, featmaps, cfg: RenderSettings, stage: str,
                  pts, kernels: bool = True) -> Dict[str, Any]:
   """Everything one stage hands its aggregators: trajectories, displaced
-  points, sampled features (through K1 unless kernels=False), masks and
-  encodings (reference fine_render_rays, render_ray.py:407-597)."""
+  points, sampled features (through K1 for no-grad kernel passes), masks
+  and encodings (reference fine_render_rays, render_ray.py:407-597)."""
   w = cfg.traj_window
   n_rays, s = pts.shape[:2]
-  time_emb = rb["ref_time"].reshape(1, 1, 1).expand(n_rays, s, 1)
+  time_emb = _time_emb(rb["ref_time"], n_rays, s)
   traj = _motion_window(model, stage, pts, time_emb, rb["ref_frame_idx"], w)
   pts_seq = motion.displaced_points(pts, traj, rb["src_offset_idx"], w)
   pts_static = pts[None].expand((cfg.num_views_static,) + pts.shape)
-  sample_fn = sample_views if kernels else sample_views_plain
+  sample_fn = _sample_fn(kernels)
 
   src_imgs, src_feats = _sampling_cast(cfg, rb["src_rgbs"], featmaps[0])
   st_imgs, st_feats = _sampling_cast(cfg, rb["static_src_rgbs"], featmaps[2])
@@ -75,7 +92,7 @@ def stage_inputs(model, rb, featmaps, cfg: RenderSettings, stage: str,
 
 
 def _render_stage_ff(model, rb, featmaps, cfg: RenderSettings, stage: str,
-                     pts, z_vals, kernels: bool):
+                     pts, z_vals, kernels: bool) -> Dict[str, Any]:
   """Shared coarse/fine forward: stage inputs -> K3/K2 -> composite."""
   ins = stage_inputs(model, rb, featmaps, cfg, stage, pts, kernels)
   mask, mask_st = ins["dy"][3], ins["st"][5]
@@ -83,50 +100,135 @@ def _render_stage_ff(model, rb, featmaps, cfg: RenderSettings, stage: str,
   pixel_mask_st = torch.sum(mask_st[..., 0].float(), dim=2) > 1
   raw_dy = model.apply_dy(stage, *ins["dy"], kernels=kernels)
   raw_st = model.apply_st(stage, *ins["st"], kernels=kernels)
-  outputs = comp.composite_dual(raw_dy, raw_st, z_vals, pixel_mask,
-                                pixel_mask_st)
-  outputs_dy = comp.composite_single(raw_dy, z_vals, pixel_mask)
-  return outputs, outputs_dy, ins["traj"], ins["pts_seq"]
+  return {
+      "outputs": comp.composite_dual(raw_dy, raw_st, z_vals, pixel_mask,
+                                     pixel_mask_st),
+      "outputs_dy": comp.composite_single(raw_dy, z_vals, pixel_mask),
+      "traj": ins["traj"], "pts_seq": ins["pts_seq"], "raw_st": raw_st,
+      "pixel_mask_st": pixel_mask_st,
+  }
 
 
-@torch.no_grad()
+def _cross_time_branch(model, rb, cfg: RenderSettings, anchor_featmaps,
+                       stage_out: Dict[str, Any], pts_ref, z_vals,
+                       kernels: bool):
+  """Cross-time (anchor) rendering for the temporal-consistency losses
+  (dynibar_tpu render_rays.py:272-363): the reference points displaced to
+  the anchor time along their trajectory, rendered from the anchor views,
+  the matched trajectory pairs with their validity, and the occlusion
+  weights (no gradient)."""
+  w = cfg.traj_window
+  n_rays, s = pts_ref.shape[:2]
+  traj_ref = stage_out["traj"]
+  delta = (rb["anchor_frame_idx"] - rb["ref_frame_idx"]).reshape(1)
+  sf_seq = motion.scene_flow_seq(traj_ref)                     # [2w,R,S,3]
+
+  traj_at_delta = torch.index_select(traj_ref, 2, delta + w)[:, :, 0]
+  pts_anchor = pts_ref + traj_at_delta - traj_ref[:, :, w]
+  anchor_time_emb = _time_emb(rb["anchor_time"], n_rays, s)
+  traj_anchor = _motion_window(model, "fine", pts_anchor, anchor_time_emb,
+                               rb["anchor_frame_idx"], w)
+  pts_seq_anchor = motion.displaced_points(
+      pts_anchor, traj_anchor, rb["anchor_offset_idx"], w)      # [Va,R,S,3]
+
+  # matched pairs: for each real anchor view at offset o, the reference-time
+  # twin sits at offset delta + o
+  ref_off_idx = delta + rb["anchor_offset_idx"].long()          # [Va]
+  pair_valid = ((rb["anchor_valid"] > 0) & (rb["anchor_is_vv"] < 1)
+                & (ref_off_idx >= 0) & (ref_off_idx <= 2 * w))
+  ref_off_idx = torch.clamp(ref_off_idx, 0, 2 * w)
+  traj_ref_sel = torch.index_select(traj_ref, 2, ref_off_idx)  # [R,S,Va,3]
+  pts_traj_ref = ((traj_ref_sel - traj_ref[:, :, w:w + 1]).permute(2, 0, 1, 3)
+                  + pts_ref[None])
+
+  a_imgs, a_feats = _sampling_cast(cfg, rb["anchor_src_rgbs"],
+                                   anchor_featmaps)
+  rgb_feat_a, _, mask_a = proj.compute_with_motions(
+      pts_ref, pts_seq_anchor, rb["camera"], a_imgs,
+      rb["anchor_src_cameras"], a_feats, rb["anchor_valid"],
+      _sample_fn(kernels))
+  # the anchor pixel mask uses > 0 (reference render_ray.py:1198-1200)
+  pixel_mask_a = torch.sum(mask_a[..., 0].float(), dim=2) > 0
+  raw_anchor = model.apply_dy("fine", pts_anchor, rgb_feat_a,
+                              _normalize(rb["ray_d"]), mask_a,
+                              anchor_time_emb, kernels=kernels)
+  out_a = comp.composite_dual(raw_anchor, stage_out["raw_st"], z_vals,
+                              pixel_mask_a, stage_out["pixel_mask_st"])
+  out_a_dy = comp.composite_single(raw_anchor, z_vals, pixel_mask_a)
+
+  out_ref, out_ref_dy = stage_out["outputs"], stage_out["outputs_dy"]
+  occ_dy = (out_ref_dy["weights"] - out_a_dy["weights"]).detach()
+  out_a_dy["occ_weights"] = 1.0 - torch.abs(occ_dy)
+  out_a_dy["occ_weight_map"] = 1.0 - torch.abs(torch.sum(occ_dy, dim=1))
+  # disocclusion weights (reference render_ray.py:1232-1257)
+  diff_dy = out_ref["weights_dy"] - out_a["weights_dy"]
+  diff_full = out_ref["weights"] - out_a["weights"]
+  if cfg.occ_weights_mode == 0:     # mix: dy-composite unless |dt| <= 1
+    occ = diff_dy if int(delta.abs()) > 1 else diff_full
+  elif cfg.occ_weights_mode == 1:   # composite-dy
+    occ = diff_dy
+  elif cfg.occ_weights_mode == 2:   # full
+    occ = diff_full
+  else:
+    raise NotImplementedError(cfg.occ_weights_mode)
+  occ = occ.detach()
+  out_a["occ_weights"] = 1.0 - torch.abs(occ)
+  out_a["occ_weight_map"] = 1.0 - torch.abs(torch.sum(occ, dim=1))
+  out_a["pts_traj_ref"] = pts_traj_ref
+  out_a["pts_traj_anchor"] = pts_seq_anchor
+  out_a["pair_valid"] = pair_valid
+  out_a["sf_seq"] = sf_seq
+  return out_a, out_a_dy
+
+
 def render_rays_mv(model, rb: Dict[str, Any], coarse_featmaps,
                    fine_featmaps, cfg: RenderSettings, *,
-                   device: DeviceLike = None, kernels: bool = True
+                   device: DeviceLike = None, kernels: bool = True,
+                   is_train: bool = False, det: bool = True,
+                   generator: Optional[torch.Generator] = None
                    ) -> Dict[str, Any]:
-  """Coarse->fine forward of the forward-facing model for one ray chunk
-  (reference render_rays_mv, render_ray.py:600-867), eval only: the
-  deterministic sample placement (det=True) of the eval render.
+  """Coarse->fine forward of the forward-facing model for one ray batch
+  (reference render_rays_mv, render_ray.py:600-867).
 
   rb: ray-batch dict (numpy or tensors, see data/ray_batch.py);
-  featmaps: (dynamic, None, static) per stage, [V, Hf, Wf, C].
+  featmaps: (dynamic, anchor or None, static) per stage, [V, Hf, Wf, C].
+  Eval (is_train=False) runs without autograd.  is_train=True adds the
+  fine-stage cross-time branch and records the fine stage for the
+  backward; the coarse stage stays frozen.  det=False places the samples
+  stochastically from ``generator``.
   """
   dev = resolve_device(device)
   if model.device != dev:
     raise ValueError(f"model is on {model.device}, render asked for {dev}")
   rb = to_device(rb, dev)
-  pts, z_vals, _ = sampling.sample_along_ray(
-      rb["ray_o"], rb["ray_d"], rb["depth_range"], cfg.n_samples,
-      inv_uniform=cfg.inv_uniform, det=True)
-  outputs_coarse, _, _, _ = _render_stage_ff(
-      model, rb, coarse_featmaps, cfg, "coarse", pts, z_vals, kernels)
-
-  z_all = sampling.importance_resample_z(
-      z_vals, outputs_coarse["weights"], cfg.n_importance,
-      inv_uniform=cfg.inv_uniform, det=True)
+  with torch.no_grad():
+    pts, z_vals, _ = sampling.sample_along_ray(
+        rb["ray_o"], rb["ray_d"], rb["depth_range"], cfg.n_samples,
+        inv_uniform=cfg.inv_uniform, det=det, generator=generator)
+    coarse = _render_stage_ff(model, rb, coarse_featmaps, cfg, "coarse",
+                              pts, z_vals, kernels)
+    z_all = sampling.importance_resample_z(
+        z_vals, coarse["outputs"]["weights"], cfg.n_importance,
+        inv_uniform=cfg.inv_uniform, det=det, generator=generator)
   near, far = rb["depth_range"][0], rb["depth_range"][1]
   pts_fine = z_all[..., None] * rb["ray_d"][:, None, :] + rb["ray_o"][:, None]
-  outputs_fine, outputs_fine_dy, traj_fine, pts_seq_fine = _render_stage_ff(
-      model, rb, fine_featmaps, cfg, "fine", pts_fine, z_all, kernels)
-
-  outputs_fine["render_flows"] = comp.render_optical_flow(
-      outputs_fine["weights"], pts_seq_fine, rb["src_cameras"],
-      rb["uv_grid"])
-  outputs_fine["s_vals"] = sampling.z_to_s(z_all, near, far)
-  outputs_fine["exp_sf"] = motion.expected_scene_flow(
-      outputs_fine["weights"], traj_fine, 2, cfg.traj_window)
-  return {
-      "outputs_coarse_ref": outputs_coarse,
-      "outputs_fine_ref": outputs_fine,
-      "outputs_fine_ref_dy": outputs_fine_dy,
-  }
+  with torch.set_grad_enabled(is_train and torch.is_grad_enabled()):
+    fine = _render_stage_ff(model, rb, fine_featmaps, cfg, "fine", pts_fine,
+                            z_all, kernels)
+    outputs_fine = fine["outputs"]
+    outputs_fine["render_flows"] = comp.render_optical_flow(
+        outputs_fine["weights"], fine["pts_seq"], rb["src_cameras"],
+        rb["uv_grid"])
+    outputs_fine["s_vals"] = sampling.z_to_s(z_all, near, far)
+    outputs_fine["exp_sf"] = motion.expected_scene_flow(
+        outputs_fine["weights"], fine["traj"], 2, cfg.traj_window)
+    ret = {
+        "outputs_coarse_ref": coarse["outputs"],
+        "outputs_fine_ref": outputs_fine,
+        "outputs_fine_ref_dy": fine["outputs_dy"],
+    }
+    if is_train:
+      ret["outputs_fine_anchor"], ret["outputs_fine_anchor_dy"] = (
+          _cross_time_branch(model, rb, cfg, fine_featmaps[1], fine,
+                             pts_fine, z_all, kernels))
+  return ret

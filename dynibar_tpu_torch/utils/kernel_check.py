@@ -1,0 +1,226 @@
+"""Holding the aggregator kernels' gradients against their plain twins.
+
+Used on the card by ``tests/test_torch_port_cuda.py`` and ``chip_smoke.py``.
+The bar is the JAX package's own (tests/test_pallas_agg.py:370-377): per
+tensor, ``max|g_kernel - g_f32| / max|g_f32|`` must stay within twice the
+same ratio of the bf16 twin plus 0.02.  The f32 twin is the module under
+autograd; the bf16 twin is the module under
+``torch.autocast("cuda", torch.bfloat16)`` with ``rgb_feat`` and
+``ray_diff`` rounded to bf16 on the way in, as the JAX package's bf16 twin
+casts them (``compute_dtype``, dynibar_tpu/models/aggregators.py).
+
+The twins run in slices of rays (the aggregators treat rays independently:
+input cotangents are cut along rays, weight gradients add up), so the
+kernels are checked at the main path's ray counts with the twins' memory
+of one slice.
+
+The static anti-alias scalar ``s`` gets one gradient: a sum over every
+point of per-point terms of both signs.  Its ratio to ``|g_f32|`` would
+swing with how far those terms cancel, so ``s`` is held twice: per point
+(``s.per_point``, the gradient each point adds, under the bar above) and as
+the sum, with its error scaled by the sum of the f32 terms' magnitudes.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Iterator, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
+
+from dynibar_tpu_torch.ops import agg
+
+STATIC_INPUTS = ("pts", "ref_pl", "src_pl", "rgb_feat", "ray_diff", "mask")
+DYNAMIC_INPUTS = ("pts", "rgb_feat", "ray_dir", "mask", "time")
+_DIFF_INPUTS = {True: ("pts", "ref_pl", "src_pl", "rgb_feat", "ray_diff"),
+                False: ("pts", "rgb_feat", "ray_dir", "time")}
+TWIN_RAYS = 512
+
+
+def random_inputs(dev, r: int, s: int, v: int, seed: int,
+                  c: int = 35) -> Dict[str, torch.Tensor]:
+  """Inputs of both aggregators from a seed: [R,S,V,·] layout, ray 0 with
+  no valid view and ray 1 with only view 0 valid."""
+  g = torch.Generator().manual_seed(seed)
+  mask = (torch.rand(r, s, v, 1, generator=g) > 0.3).float()
+  mask[0] = 0.0
+  mask[1, :, 1:] = 0.0
+  mask[1, :, 0] = 1.0
+  d = dict(pts=torch.randn(r, s, 3, generator=g),
+           ref_pl=torch.randn(r, 6, generator=g),
+           src_pl=torch.randn(r, s, v, 6, generator=g),
+           rgb_feat=torch.rand(r, s, v, c, generator=g),
+           ray_dir=torch.randn(r, 3, generator=g),
+           ray_diff=torch.randn(r, s, v, 4, generator=g) * 0.3,
+           mask=mask, time=torch.full((r, s, 1), 0.37))
+  return {k: t.to(dev) for k, t in d.items()}
+
+
+def _has_s(net: nn.Module, static: bool) -> bool:
+  return static and net.anti_alias_pooling
+
+
+def aggregator_grads(net: nn.Module, static: bool,
+                     args: Sequence[torch.Tensor], cot: torch.Tensor,
+                     mode: str, rays: int = TWIN_RAYS
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+  """One forward + backward of ``sum(raw * cot)``.
+
+  mode: "kernel" (the CUDA kernels through the autograd Function, all rays
+  in one call), "f32" (the module) or "bf16" (the module under autocast,
+  bf16 inputs); the twins run ``rays`` rays at a time.  Returns raw and
+  the gradients of the differentiable inputs (``input.<name>``) and of
+  every parameter (its name in ``net``); for the twins of a static net
+  with anti-alias pooling also ``s.per_point`` [R,S]."""
+  names = STATIC_INPUTS if static else DYNAMIC_INPUTS
+  leaves, call = {}, []
+  for name, a in zip(names, args):
+    if name in _DIFF_INPUTS[static]:
+      a = a.detach().float().clone().requires_grad_(True)
+      leaves[name] = a
+    call.append(a)
+  was = {n: p.requires_grad for n, p in net.named_parameters()}
+  net.requires_grad_(True)
+  for p in net.parameters():
+    p.grad = None
+  per_point = []
+  s_param = net.s if _has_s(net, static) else None
+  try:
+    with torch.enable_grad():
+      if mode == "kernel":
+        fn = (agg.fused_static_aggregator if static
+              else agg.fused_dynamic_aggregator)
+        out = fn(net, *call).float()
+        (out * cot).sum().backward()
+      elif mode in ("f32", "bf16"):
+        outs = []
+        for i in range(0, cot.shape[0], rays):
+          part = [a[i:i + rays] for a in call]
+          if s_param is not None:     # one s per point, each its own grad
+            r_, s_ = part[0].shape[:2]
+            net.s = nn.Parameter(
+                s_param.detach().expand(r_, s_, 1, 1).clone())
+          if mode == "bf16":
+            part = [a.to(torch.bfloat16) if n in ("rgb_feat", "ray_diff")
+                    else a for n, a in zip(names, part)]
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+              o = net(*part)
+          else:
+            o = net(*part)
+          o = o.float()
+          (o * cot[i:i + rays]).sum().backward()
+          outs.append(o.detach())
+          if s_param is not None:
+            per_point.append(net.s.grad.reshape(r_, s_))
+        out = torch.cat(outs)
+      else:
+        raise ValueError(mode)
+    grads = {f"input.{n}": t.grad.detach() for n, t in leaves.items()}
+    if per_point:
+      grads["s.per_point"] = torch.cat(per_point)
+      net.s = s_param
+      grads["s"] = grads["s.per_point"].sum().reshape(s_param.shape)
+    grads.update({n: p.grad.detach().clone()
+                  for n, p in net.named_parameters() if p.grad is not None})
+  finally:
+    if s_param is not None:
+      net.s = s_param
+    for n, p in net.named_parameters():
+      p.requires_grad_(was[n])
+      p.grad = None
+  return out.detach(), grads
+
+
+def kernel_ds_per_point(net: nn.Module, args: Sequence[torch.Tensor],
+                        cot: torch.Tensor) -> torch.Tensor:
+  """The static kernels' per-point anti-alias gradient [R,S]: K2r, K5a and
+  K5b launched directly (the autograd Function sums it over points)."""
+  pts, ref_pl, src_pl, rgb_feat, ray_diff, mask = args
+  r, s = rgb_feat.shape[:2]
+  with torch.no_grad():
+    reffeat = agg._reffeat(net, ref_pl)
+    _, ws = agg.static_forward_residuals(net, pts, reffeat, src_pl, rgb_feat,
+                                         ray_diff, mask)
+    slabs, nblk, w_total = agg._slabs(cot.device, agg.pack_weights(net, True))
+    dx, dmisc = agg.static_backward_ray(net, ws, cot.float().contiguous(),
+                                        slabs, nblk, w_total)
+    _, d = agg.static_backward_trunk(net, ws, dx, dmisc, slabs, nblk,
+                                     w_total)
+  return d["s"].view(r, s)
+
+
+def all_grads(net: nn.Module, static: bool, args: Sequence[torch.Tensor],
+              cot: torch.Tensor, rays: int = TWIN_RAYS):
+  """Kernel, f32 and bf16 twin: (out_k, out_f, g_k, g_f, g_b)."""
+  out_k, g_k = aggregator_grads(net, static, args, cot, "kernel")
+  if _has_s(net, static):
+    g_k["s.per_point"] = kernel_ds_per_point(net, args, cot)
+  out_f, g_f = aggregator_grads(net, static, args, cot, "f32", rays)
+  _, g_b = aggregator_grads(net, static, args, cot, "bf16", rays)
+  return out_k, out_f, g_k, g_f, g_b
+
+
+def grad_errors(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],
+                twin: Dict[str, torch.Tensor]
+                ) -> Dict[str, Tuple[float, float, float]]:
+  """{name: (kernel ratio, bf16-twin ratio, bar)} for every f32 gradient.
+
+  The ratio's scale is ``max|g_f32|``; for the summed ``s``, when the f32
+  per-point terms are given, it is the sum of their magnitudes."""
+  out = {}
+  for name, w in want.items():
+    if name not in got:
+      raise AssertionError(f"kernel path gave no gradient for {name}")
+    if name == "s" and "s.per_point" in want:
+      scale = float(want["s.per_point"].abs().sum())
+    else:
+      scale = float(w.abs().max())
+    if scale == 0.0:
+      ek = float(got[name].abs().max() > 0)
+      eb = 0.0
+    else:
+      ek = float((got[name].float() - w).abs().max()) / scale
+      eb = float((twin[name].float() - w).abs().max()) / scale
+    out[name] = (ek, eb, 2.0 * eb + 0.02)
+  return out
+
+
+def check_grad_errors(errors: Dict[str, Tuple[float, float, float]],
+                      what: str) -> float:
+  """Raise if any ratio exceeds its bar; return the worst kernel ratio."""
+  bad = {n: e for n, e in errors.items() if not e[0] <= e[2]}
+  if bad:
+    raise AssertionError(f"{what}: gradients beyond the bar (kernel, twin, "
+                         f"bar): {bad}")
+  return max(e[0] for e in errors.values())
+
+
+def error_coherence(got: torch.Tensor, want: torch.Tensor) -> float:
+  """``|sum(got - want)| / sum|got - want|``: 1 when every per-point error
+  has one sign (they add up in a sum), about ``1/sqrt(n)`` when the signs
+  are random (they cancel)."""
+  e = (got.float() - want.float()).reshape(-1)
+  total = float(e.abs().sum())
+  return float(e.sum().abs()) / total if total > 0 else 0.0
+
+
+@contextlib.contextmanager
+def sliced_twin(net: nn.Module, rays: int = TWIN_RAYS) -> Iterator[None]:
+  """Within the block, ``net``'s forward runs ``rays`` rays at a time under
+  activation checkpointing: the same function and gradients, with the
+  memory of one slice of activations (every input is [R, ...])."""
+  plain = net.forward
+
+  def forward(*args):
+    parts = [checkpoint(plain, *(a[i:i + rays] for a in args),
+                        use_reentrant=False)
+             for i in range(0, args[0].shape[0], rays)]
+    return torch.cat(parts)
+
+  net.forward = forward
+  try:
+    yield
+  finally:
+    del net.forward

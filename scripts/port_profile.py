@@ -1,12 +1,15 @@
-"""Where the port's FF eval chunk spends its device time.
+"""Where the port's FF eval chunk, or its train step, spends device time.
 
     python3 scripts/port_profile.py [--chunk 1024] [--iters 3]
+    python3 scripts/port_profile.py --train [--chunk 3072] [--iters 2]
 
 Renders one chunk (64+64 samples, 7+11 views, 288x512 sources, bf16,
 random weights from a seed) through the kernel path on the CUDA card under
-torch.profiler, and prints the device time per kernel name (summed over
-the profiled iterations, divided by them), the chunk's wall time and the
-device's busy share of it.  Needs one card; imports nothing of JAX.
+torch.profiler, or with --train runs fine-stage train steps (7 dynamic, 6
+anchor, 11 static views, N_rand = --chunk), and prints the device time per
+kernel name (summed over the profiled iterations, divided by them), the
+wall time per iteration and the device's busy share of it.  Needs one
+card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -22,11 +25,13 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from dynibar_tpu_torch.config import RenderSettings  # noqa: E402
+from dynibar_tpu_torch.config import (RenderSettings,  # noqa: E402
+                                      TrainSettings)
 from dynibar_tpu_torch.data.ray_batch import synthetic_ff_batch  # noqa: E402
 from dynibar_tpu_torch.models.dynibar import FFModel  # noqa: E402
 from dynibar_tpu_torch.ops import build  # noqa: E402
 from dynibar_tpu_torch.render.render_rays import render_rays_mv  # noqa: E402
+from dynibar_tpu_torch.train import losses, trainer  # noqa: E402
 from dynibar_tpu_torch.utils.device import (resolve_device,  # noqa: E402
                                             to_device)
 
@@ -35,6 +40,7 @@ def main() -> int:
   ap = argparse.ArgumentParser()
   ap.add_argument("--chunk", type=int, default=1024)
   ap.add_argument("--iters", type=int, default=3)
+  ap.add_argument("--train", action="store_true")
   args = ap.parse_args()
   dev = resolve_device(None)
   card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -42,22 +48,38 @@ def main() -> int:
                         text=True, check=True).stdout.strip()
   build.build()
   cfg = RenderSettings(n_samples=64, n_importance=64, num_views_dy=7,
+                       num_views_anchor=6 if args.train else 0,
                        num_views_static=11, num_basis=6, inv_uniform=True,
                        compute_dtype="bfloat16")
   model = FFModel(cfg, num_frames=48, seed=0)
   rb = to_device(synthetic_ff_batch(cfg, n_rays=args.chunk, h=288, w=512,
-                                    num_frames=48, scanline=True), dev)
-  with torch.no_grad():
-    coarse, fine = model.encode_featmaps(rb["src_rgbs"], rb["static_src_rgbs"])
+                                    num_frames=48,
+                                    scanline=not args.train), dev)
+  if args.train:
+    t_cfg = TrainSettings()
+    model.train_fine()
+    opt = trainer.make_ff_optimizer(model, t_cfg)
+    weights = losses.schedule_weights(t_cfg, 0)
+
+    def one():
+      trainer.ff_train_step(model, opt, rb, weights, cfg, t_cfg,
+                            generator=torch.Generator(dev).manual_seed(0))
+  else:
+    with torch.no_grad():
+      coarse, fine = model.encode_featmaps(rb["src_rgbs"],
+                                           rb["static_src_rgbs"])
+
+    def one():
+      render_rays_mv(model, rb, coarse, fine, cfg)
   for _ in range(2):
-    render_rays_mv(model, rb, coarse, fine, cfg)
+    one()
   torch.cuda.synchronize()
   acts = [torch.profiler.ProfilerActivity.CPU,
           torch.profiler.ProfilerActivity.CUDA]
   with torch.profiler.profile(activities=acts) as prof:
     t0 = time.perf_counter()
     for _ in range(args.iters):
-      render_rays_mv(model, rb, coarse, fine, cfg)
+      one()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / args.iters
   rows = []
@@ -72,11 +94,13 @@ def main() -> int:
   rows.sort(reverse=True)
   busy = sum(r[0] for r in rows)
   print(f"card: {card}")
-  print(f"chunk {args.chunk}: wall {wall * 1e3:.2f} ms, device busy "
+  what = (f"train step N_rand {args.chunk}" if args.train
+          else f"chunk {args.chunk}")
+  print(f"{what}: wall {wall * 1e3:.2f} ms, device busy "
         f"{busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%)")
   for ms, n, name in rows[:25]:
     print(f"{ms:9.3f} ms  x{n:<4d} {name[:90]}")
-  print(json.dumps({"chunk": args.chunk, "wall_ms": wall * 1e3,
+  print(json.dumps({"what": what, "wall_ms": wall * 1e3,
                     "device_busy_ms": busy, "card": card,
                     "top": [[name[:60], ms] for ms, _, name in rows[:10]]}))
   return 0

@@ -21,6 +21,7 @@ from dynibar_tpu_torch.models.aggregators import (DynamicAggregator,
 from dynibar_tpu_torch.ops.agg import (fused_dynamic_aggregator,
                                        fused_static_aggregator)
 from dynibar_tpu_torch.utils import convert
+from dynibar_tpu_torch.utils import kernel_check as kc
 
 R, S, F = 8, 16, 32
 
@@ -133,3 +134,40 @@ def test_wrappers_on_cpu_are_the_modules():
                                dy(*dy_args), rtol=0, atol=0)
   assert (fused_static_aggregator.launches,
           fused_dynamic_aggregator.launches) == before
+
+
+@pytest.mark.parametrize("static", [True, False])
+def test_twin_gradients_in_ray_slices(static):
+  """The card checks run the f32 twin in ray slices (kernel_check): the
+  outputs and gradients equal one pass over all rays, the per-point
+  anti-alias gradients sum to s's, and a checkpointed sliced forward
+  (sliced_twin) gives the gradients of the plain forward."""
+  d = _inputs(4, seed=5)
+  torch.manual_seed(6)
+  net = StaticAggregator(F, S) if static else DynamicAggregator(F, S)
+  args = _t(d, *(kc.STATIC_INPUTS if static else kc.DYNAMIC_INPUTS))
+  cot = torch.from_numpy(np.random.RandomState(7).randn(R, S, 4)
+                         .astype(np.float32))
+  out1, g1 = kc.aggregator_grads(net, static, args, cot, "f32", rays=R)
+  out3, g3 = kc.aggregator_grads(net, static, args, cot, "f32", rays=3)
+  torch.testing.assert_close(out3, out1, rtol=0, atol=1e-5)
+  assert set(g3) == set(g1)
+  assert ("s.per_point" in g1) == static
+  for name, g in g1.items():   # 1e-6 floor: the blend-logit bias is 0 in math
+    torch.testing.assert_close(g3[name], g, rtol=1e-4,
+                               atol=1e-4 * float(g.abs().max()) + 1e-6)
+  if static:
+    assert g1["s.per_point"].shape == (R, S)
+    assert net.s.shape == ()              # the scalar is back in place
+    torch.testing.assert_close(g1["s.per_point"].sum(), g1["s"])
+  net.requires_grad_(True)
+  out = net(*args)
+  (out * cot).sum().backward()
+  want = {n: p.grad.clone() for n, p in net.named_parameters()}
+  net.zero_grad(set_to_none=True)
+  with kc.sliced_twin(net, rays=3):
+    (net(*args) * cot).sum().backward()
+  assert "forward" not in net.__dict__
+  for n, p in net.named_parameters():
+    torch.testing.assert_close(p.grad, want[n], rtol=1e-4,
+                               atol=1e-4 * float(want[n].abs().max()) + 1e-6)

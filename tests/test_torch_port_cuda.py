@@ -1,4 +1,4 @@
-"""The three CUDA kernels vs their plain twins, on the card.
+"""The CUDA kernels vs their plain twins, on the card.
 
 Marked ``cuda``: on a host without a card every test skips.  On the card
 (no JAX there, so the repository's conftest is bypassed):
@@ -9,6 +9,13 @@ Marked ``cuda``: on a host without a card every test skips.  On the card
 Tolerances as chip_smoke.py states them: K1 within one bf16 ulp, K2/K3
 (bf16 operands, f32 accumulation) vs the f32 modules at the bars the JAX
 package holds its Pallas kernels to (tests/test_pallas_agg.py:80,90).
+The backward kernels K4a/K4b and K5a/K5b through the autograd Functions vs
+the f32 modules under autograd, per tensor within twice the bf16 twin's
+error plus 0.02 (tests/test_pallas_agg.py:370-377); R = 64 with S = 16
+spreads the rays over many blocks, so the weight gradients are summed
+across block slabs.  The static anti-alias scalar is held per point and as
+a sum scaled by its terms' magnitudes (utils/kernel_check.py), and every
+shape runs with several weight seeds.
 """
 
 import numpy as np
@@ -17,12 +24,18 @@ import torch
 
 from dynibar_tpu_torch.models.aggregators import (DynamicAggregator,
                                                   StaticAggregator)
+from dynibar_tpu_torch.ops import agg
 from dynibar_tpu_torch.ops.agg import (fused_dynamic_aggregator,
                                        fused_static_aggregator)
 from dynibar_tpu_torch.ops.sample import sample_views, sample_views_plain
+from dynibar_tpu_torch.utils.kernel_check import (aggregator_grads,
+                                                  all_grads,
+                                                  check_grad_errors,
+                                                  grad_errors, random_inputs)
 
 pytestmark = pytest.mark.cuda
 R, F = 6, 32
+WEIGHT_SEEDS = range(4)
 
 
 @pytest.fixture
@@ -50,20 +63,8 @@ def test_sampler_kernel(dev, dtype, c):
                <= ulp * torch.maximum(got.abs(), want.abs()) + 1e-6).all())
 
 
-def _inputs(dev, s, v, seed):
-  g = torch.Generator().manual_seed(seed)
-  mask = (torch.rand(R, s, v, 1, generator=g) > 0.3).float()
-  mask[0] = 0.0
-  mask[1, :, 1:] = 0.0
-  mask[1, :, 0] = 1.0
-  d = dict(pts=torch.randn(R, s, 3, generator=g),
-           ref_pl=torch.randn(R, 6, generator=g),
-           src_pl=torch.randn(R, s, v, 6, generator=g),
-           rgb_feat=torch.rand(R, s, v, F + 3, generator=g),
-           ray_dir=torch.randn(R, 3, generator=g),
-           ray_diff=torch.randn(R, s, v, 4, generator=g) * 0.3,
-           mask=mask, time=torch.full((R, s, 1), 0.37))
-  return {k: t.to(dev) for k, t in d.items()}
+def _inputs(dev, s, v, seed, R=R):
+  return random_inputs(dev, R, s, v, seed, c=F + 3)
 
 
 def _compare(got, want, atol):
@@ -93,3 +94,39 @@ def test_dynamic_kernel(dev, s, v):
     got = fused_dynamic_aggregator(net, *args)
     _compare(got, net(*args), 1e-2)
   np.testing.assert_array_equal(got[0, :, :3].cpu().numpy(), 0.0)
+
+
+def _check_backward(dev, net, static, args, r, s):
+  cot = torch.randn(r, s, 4, generator=torch.Generator().manual_seed(r + s))
+  cot = cot.to(dev)
+  counters = ((agg.static_backward_ray, agg.static_backward_trunk) if static
+              else (agg.dynamic_backward_ray, agg.dynamic_backward_trunk))
+  before = [f.launches for f in counters]
+  aggregator_grads(net, static, args, cot, "kernel")
+  torch.cuda.synchronize()
+  assert [f.launches for f in counters] == [b + 1 for b in before]
+  out_k, out_f, g_k, g_f, g_b = all_grads(net, static, args, cot)
+  _compare(out_k, out_f, 2e-2 if static else 1e-2)
+  assert set(g_k) == set(g_f)
+  check_grad_errors(grad_errors(g_k, g_f, g_b), "backward")
+
+
+@pytest.mark.parametrize("seed", WEIGHT_SEEDS)
+@pytest.mark.parametrize("r,s,v", [(6, 16, 4), (64, 16, 11), (6, 128, 11)])
+def test_static_backward_kernels(dev, r, s, v, seed):
+  d = _inputs(dev, s, v, seed=7 * s + v, R=r)
+  torch.manual_seed(seed)
+  net = StaticAggregator(F, s).to(dev)
+  args = [d[k] for k in ("pts", "ref_pl", "src_pl", "rgb_feat", "ray_diff",
+                         "mask")]
+  _check_backward(dev, net, True, args, r, s)
+
+
+@pytest.mark.parametrize("seed", WEIGHT_SEEDS)
+@pytest.mark.parametrize("r,s,v", [(6, 16, 3), (64, 16, 7), (6, 128, 6)])
+def test_dynamic_backward_kernels(dev, r, s, v, seed):
+  d = _inputs(dev, s, v, seed=7 * s + v, R=r)
+  torch.manual_seed(seed)
+  net = DynamicAggregator(F, s, shift=0.0).to(dev)
+  args = [d[k] for k in ("pts", "rgb_feat", "ray_dir", "mask", "time")]
+  _check_backward(dev, net, False, args, r, s)

@@ -46,6 +46,14 @@ def _imported_roots(path):
       yield node.module.split(".")[0]
 
 
+def test_scan_covers_every_subpackage():
+  """The static scan reaches every package directory, train/ included."""
+  scanned = {p.parent for p in _sources()}
+  packages = {p.parent for p in PKG.rglob("__init__.py")}
+  assert packages <= scanned
+  assert PKG / "train" in packages
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_jax_or_reference_imports(path):
   bad = sorted(set(_imported_roots(path)) & set(BANNED))

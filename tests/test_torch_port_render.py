@@ -37,7 +37,7 @@ KW = dict(n_samples=8, n_importance=8, num_views_dy=7, num_views_static=4,
 def setup():
   jcfg = JSettings(num_views_anchor=0, num_vv=0, compute_dtype="float32",
                    fused_aggregators=False, strip_sampling=False, **KW)
-  cfg = RenderSettings(**KW)
+  cfg = RenderSettings(num_views_anchor=0, **KW)
   jmodel = JFFModel(cfg=jcfg, num_frames=48)
   params = jax.tree_util.tree_map(
       np.asarray, jax.jit(jmodel.init_params)(jax.random.PRNGKey(0)))
