@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port on one CUDA card: the FF eval render and
-the FF fine-stage train step.
+"""Drive the PyTorch/CUDA port on one CUDA card: the FF eval render, the
+FF fine-stage train step, and the mono model's eval chunk and train step.
 
     python3 chip_smoke.py
 
@@ -7,7 +7,7 @@ Phases (each prints its own lines; any failure raises, so the exit code
 is non-zero and the last line below is never printed):
 
   0. the card's name and power limit (nvidia-smi); TF32 off;
-  1. build the five CUDA libraries from csrc/ (one nvcc each, in parallel);
+  1. build the six CUDA libraries from csrc/ (one nvcc each, in parallel);
   2. hold each eval kernel against its plain PyTorch twin at the main
      path's shapes (K2/K3 at both the coarse and the fine stage) and time
      kernel, twin and (K1) the library call;
@@ -30,7 +30,21 @@ is non-zero and the last line below is never printed):
      (the plain fine aggregators in checkpointed 512-ray slices); s/step
      over 5 steps after 2 warm-ups and peak memory; 10 steps on one batch
      with a falling loss;
-  6. print the kernels line, the card line, then the result line.
+  6. the mono model at bench.py's width (64 samples, 9 dynamic, 10 anchor
+     and 14 static views, 288×512 sources, 48 frames, bf16):
+     a. K2 at V = 14 against its twin; the training kernels at the mono
+        step's 3072 rays as in 2b: static V = 14 on both backward routes
+        (K2r/K5a/K5b and K2r/K5a/K5c/K5d), dynamic V = 9 and V = 10;
+     b. one 1024-ray eval chunk (is_train=False, det=True): launch counts,
+        kernel vs plain rgb, rays/s;
+     c. the mono train step at N_rand 3072 (schedule_weights(epoch=2)) on
+        each static route: launch counts of one step; kernel vs plain loss
+        and per-group gradients (plain aggregators in checkpointed 512-ray
+        slices) after one update, and on the second route the gradients of
+        both routes from the same weights; s/step over 5 steps after 2
+        warm-ups and peak memory; 10 steps on one batch with a falling
+        loss; one bootstrap step;
+  7. print the kernels line, the card line, then the result line.
 
 Weights are random, from a seed.  Needs one card and no network.
 """
@@ -38,6 +52,7 @@ Weights are random, from a seed.  Needs one card and no network.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -58,6 +73,8 @@ TRAIN_SOURCES = {
     "K3r": "dynibar_tpu_torch/csrc/dynamic_agg.cu",
     "K5a": "dynibar_tpu_torch/csrc/static_agg_bwd.cu",
     "K5b": "dynibar_tpu_torch/csrc/static_agg_bwd.cu",
+    "K5c": "dynibar_tpu_torch/csrc/static_agg_bwd3.cu",
+    "K5d": "dynibar_tpu_torch/csrc/static_agg_bwd3.cu",
     "K4a": "dynibar_tpu_torch/csrc/dynamic_agg_bwd.cu",
     "K4b": "dynibar_tpu_torch/csrc/dynamic_agg_bwd.cu"}
 REPLACES = {
@@ -65,10 +82,25 @@ REPLACES = {
     "K3r": "dynibar_tpu/ops/pallas_agg.py:325",
     "K5a": "dynibar_tpu/ops/pallas_agg_bwd.py:879",
     "K5b": "dynibar_tpu/ops/pallas_agg_bwd.py:1109",
+    "K5c": "dynibar_tpu/ops/pallas_agg_bwd.py:1328",
+    "K5d": "dynibar_tpu/ops/pallas_agg_bwd.py:1484",
     "K4a": "dynibar_tpu/ops/pallas_agg_bwd.py:514",
     "K4b": "dynibar_tpu/ops/pallas_agg_bwd.py:733"}
+WRAPPERS = {
+    "K2r": "static_forward_residuals", "K5a": "static_backward_ray",
+    "K5b": "static_backward_trunk", "K5c": "static_backward_trunk3",
+    "K5d": "static_backward_inmlp", "K3r": "dynamic_forward_residuals",
+    "K4a": "dynamic_backward_ray", "K4b": "dynamic_backward_trunk"}
 TRAIN_LAUNCHES = {"K1": 4, "K2": 1, "K3": 1, "K2r": 1, "K5a": 1, "K5b": 1,
-                  "K3r": 2, "K4a": 2, "K4b": 2}
+                  "K3r": 2, "K4a": 2, "K4b": 2, "K5c": 0, "K5d": 0}
+MONO_LAUNCHES = {
+    "pallas_split": {"K1": 0, "K2": 0, "K3": 0, "K2r": 1, "K5a": 1,
+                     "K5b": 1, "K3r": 2, "K4a": 2, "K4b": 2, "K5c": 0,
+                     "K5d": 0},
+    "pallas_split3": {"K1": 0, "K2": 0, "K3": 0, "K2r": 1, "K5a": 1,
+                      "K5b": 0, "K3r": 2, "K4a": 2, "K4b": 2, "K5c": 1,
+                      "K5d": 1}}
+TRUNK_LAYERS = ("base_fc", "vis_fc", "vis_fc2", "s")
 
 
 def _card() -> str:
@@ -123,6 +155,384 @@ def _compare_raw(name, got, want, atol, rtol):
   return float(err.max())
 
 
+def _counters():
+  """Every kernel wrapper's launch counter, by kernel id."""
+  from dynibar_tpu_torch.ops import agg, sample
+  out = {"K1": sample.sample_views, "K2": agg.fused_static_aggregator,
+         "K3": agg.fused_dynamic_aggregator}
+  out.update({k: getattr(agg, name) for k, name in WRAPPERS.items()})
+  return out
+
+
+def _zero_counts():
+  for f in _counters().values():
+    f.launches = 0
+
+
+def _read_counts():
+  return {k: f.launches for k, f in _counters().items()}
+
+
+def _check_training_kernels(card, label, static, net, args, cot,
+                            bwd="pallas_split"):
+  """One aggregator's training kernels at the main path's ray count vs its
+  twins (kernel_check, 512-ray slices): the forward, every input and
+  weight gradient within its bar; fwd+bwd and each launch timed.  Returns
+  {kernel id: result dict}, without launch counts."""
+  from dynibar_tpu_torch.ops import agg
+  from dynibar_tpu_torch.utils import kernel_check as kc
+  if static:
+    keys = ("K2r", "K5a") + (("K5c", "K5d") if bwd == "pallas_split3"
+                             else ("K5b",))
+  else:
+    keys = ("K3r", "K4a", "K4b")
+  r, s_, v, c = args[3 if static else 1].shape
+  out_k, out_f, g_k, g_f, g_b = kc.all_grads(net, static, args, cot, bwd=bwd)
+  torch.cuda.synchronize()
+  fwd_err = _compare_raw(f"{keys[0]} ({label})", out_k, out_f,
+                         2e-2 if static else 1e-2, 2e-2)
+  errs = kc.grad_errors(g_k, g_f, g_b)
+  kc.check_grad_errors(errs, f"{label} backward")
+  fb_ms = _time_ms(lambda: kc.aggregator_grads(net, static, args, cot,
+                                               "kernel", bwd=bwd),
+                   iters=3, warmup=1)
+  plain_fb_ms = _time_ms(lambda: kc.aggregator_grads(
+      net, static, args, cot, "f32"), iters=2, warmup=1)
+
+  def plain_fwd():                   # the twin's forward under autograd
+    for i in range(0, r, kc.TWIN_RAYS):
+      net(*[a[i:i + kc.TWIN_RAYS] for a in args])
+
+  with torch.enable_grad():
+    net.requires_grad_(True)
+    plain_fwd_ms = _time_ms(plain_fwd, iters=2, warmup=1)
+    net.requires_grad_(False)
+  # each launch on its own, CUDA events around the wrapper
+  with torch.no_grad():
+    if static:
+      reffeat = agg._reffeat(net, args[1])
+      fwd = lambda: agg.static_forward_residuals(
+          net, args[0], reffeat, args[2], args[3], args[4], args[5])
+      ray = agg.static_backward_ray
+    else:
+      dirfeat, dirpe = agg._dir_inputs(net, args[2], args[4])
+      fwd = lambda: agg.dynamic_forward_residuals(
+          net, args[0], dirfeat, dirpe, args[1], args[3])
+      ray = agg.dynamic_backward_ray
+    times = {keys[0]: _time_ms(fwd, iters=5)}
+    _, ws = fwd()
+    slabs, nblk, w_total = agg._slabs(cot.device,
+                                      agg.pack_weights(net, static))
+    times[keys[1]] = _time_ms(lambda: ray(net, ws, cot, slabs, nblk,
+                                          w_total), iters=5)
+    dx, dmisc = ray(net, ws, cot, slabs, nblk, w_total)[:2]
+    if bwd == "pallas_split3" and static:
+      times["K5c"] = _time_ms(lambda: agg.static_backward_trunk3(
+          net, ws, dx, dmisc, slabs, nblk, w_total), iters=5)
+      drf, d_dot, _ = agg.static_backward_trunk3(net, ws, dx, dmisc, slabs,
+                                                 nblk, w_total)
+      times["K5d"] = _time_ms(lambda: agg.static_backward_inmlp(
+          net, ws, drf, dmisc, d_dot, slabs, nblk, w_total), iters=5)
+      del drf, d_dot
+    else:
+      trunk = (agg.static_backward_trunk if static
+               else agg.dynamic_backward_trunk)
+      times[keys[2]] = _time_ms(lambda: trunk(net, ws, dx, dmisc, slabs,
+                                              nblk, w_total), iters=5)
+  p = r * s_
+  f_trunk, f_ray = agg.aggregator_flop_parts(static, r, s_, v, c)
+  f_in = agg.static_inmlp_flops(r, s_, v, c) if static else 0
+  w_bytes = _nbytes(*agg.pack_weights(net, static)[:2])
+  rf_bytes = _nbytes(ws["rf"]) if static else 0
+  res_bytes = _nbytes(*[ws[k] for k in ("x", "vm", "gf")]) + rf_bytes
+  in_bytes = _nbytes(*[t for k, t in ws.items()
+                       if k not in ("x", "vm", "gf", "rf", "nv")])
+  d_ray = v * p * (256 + 32)                   # d_x bf16, d_misc f32
+  out_bytes = p * v * 4 * (c + 10) + p * 4 * (3 + c + 1)
+  bounds = {
+      keys[0]: _bound_ms(in_bytes + w_bytes + res_bytes + p * 16,
+                         f_trunk + f_ray, PEAK_BF16_FLOPS),
+      keys[1]: _bound_ms(res_bytes - rf_bytes + p * 16 + w_bytes + d_ray,
+                         3 * f_ray, PEAK_BF16_FLOPS)}
+  if "K5c" in keys:
+    st_in = _nbytes(ws["rgb_feat"], ws["ray_diff"], ws["mask"])
+    drf_bytes = v * p * 2 * c * 4
+    bounds["K5c"] = _bound_ms(st_in + rf_bytes + d_ray + w_bytes + drf_bytes
+                              + v * p * 4 + p * 4, 3 * (f_trunk - f_in),
+                              PEAK_BF16_FLOPS)
+    bounds["K5d"] = _bound_ms(
+        _nbytes(ws["pts"], ws["reffeat"], ws["ray_diff"], ws["src_pl"])
+        + drf_bytes + v * p * (32 + 4) + w_bytes + out_bytes - p * 4,
+        3 * f_in, PEAK_BF16_FLOPS)
+  else:
+    bounds[keys[2]] = _bound_ms(in_bytes + d_ray + w_bytes + rf_bytes
+                                + out_bytes, 3 * f_trunk, PEAK_BF16_FLOPS)
+
+  def side(name):               # which launch produced this gradient
+    if name.startswith("input."):
+      if not static:
+        return 1 if name in ("input.ray_dir", "input.pts") else 2
+      return len(keys) - 1
+    layer = name.split(".")[0]
+    if layer in RAY_SIDE_LAYERS:
+      return 1
+    if "K5c" in keys and layer in TRUNK_LAYERS:
+      return 2
+    return len(keys) - 1
+
+  print(f"{label}: fwd+bwd {fb_ms:.3f} ms (plain f32 {plain_fb_ms:.3f} ms, "
+        f"plain fwd {plain_fwd_ms:.3f} ms); "
+        + ", ".join(f"{k} {times[k]:.3f} ms" for k in keys)
+        + f"; forward max abs err {fwd_err:.3g} [{card}]", flush=True)
+  worst = sorted(errs.items(), key=lambda kv: kv[1][0] - kv[1][2])[-3:]
+  print(f"{label}: gradient ratios closest to their bars (kernel, bf16 "
+        f"twin, bar): {[(n, [round(x, 4) for x in e]) for n, e in worst]}",
+        flush=True)
+  if "s" in errs:
+    print(f"{label}: anti-alias s (kernel, bf16 twin, bar): sum scaled by "
+          f"its terms {[round(x, 5) for x in errs['s']]}, per point "
+          f"{[round(x, 4) for x in errs['s.per_point']]}; per-point error "
+          f"coherence kernel "
+          f"{kc.error_coherence(g_k['s.per_point'], g_f['s.per_point']):.3f}"
+          f", twin "
+          f"{kc.error_coherence(g_b['s.per_point'], g_f['s.per_point']):.3f}",
+          flush=True)
+  abs_err = {n: float((g_k[n].float() - g_f[n]).abs().max()) for n in errs}
+  out = {}
+  for idx, key in enumerate(keys):
+    res = dict(name=WRAPPERS[key], route="cuda", source=TRAIN_SOURCES[key],
+               replaces=REPLACES[key], ms=times[key],
+               bound_ms=bounds[key][0], bound_by=bounds[key][1],
+               library_ms=None, rays=r, samples=s_, views=v)
+    if idx == 0:
+      res.update(max_abs_err=fwd_err, plain_ms=plain_fwd_ms)
+    else:
+      # the gradient closest to its bar: (kernel, bf16 twin, bar) ratios
+      mine = {n: e for n, e in errs.items() if side(n) == idx}
+      name = max(mine, key=lambda n: mine[n][0] / mine[n][2])
+      res.update(max_abs_err=max(abs_err[n] for n in mine),
+                 worst_grad=[name] + list(mine[name]),
+                 plain_ms=plain_fb_ms - plain_fwd_ms)
+    out[key] = res
+  return out
+
+
+def _group_grads(model, loss_fn):
+  """The loss and every group's flattened gradient after one backward."""
+  model.zero_grad(set_to_none=True)
+  loss = loss_fn()
+  loss.backward()
+  grads = {k: torch.cat([p.grad.reshape(-1) for p in ps])
+           for k, ps in model.param_groups().items()}
+  model.zero_grad(set_to_none=True)
+  return float(loss.detach()), grads
+
+
+def _rel(got, want):
+  """Loss and per-group gradient relative differences; NaN fails."""
+  loss_rel = abs(got[0] - want[0]) / abs(want[0])
+  group = {k: float((g - want[1][k]).norm() / want[1][k].norm())
+           for k, g in got[1].items()}
+  ok = loss_rel <= 1e-2 and all(v <= 5e-2 for v in group.values())
+  return loss_rel, group, ok
+
+
+def _mono_phases(card, dev, h, w, n_rand, t_cfg):
+  """Phase 6: the mono model at bench.py's width.  Returns the training
+  kernels' results at the mono step's shapes (K2r/K5a/K5b and K5c/K5d at
+  V = 14, K3r/K4a/K4b at V = 9) and the launches of one step per route."""
+  from dynibar_tpu_torch.config import mono_render_settings
+  from dynibar_tpu_torch.data.ray_batch import synthetic_mono_batch
+  from dynibar_tpu_torch.models.dynibar import MonoModel
+  from dynibar_tpu_torch.ops import agg
+  from dynibar_tpu_torch.render import render_rays as rr
+  from dynibar_tpu_torch.train import losses, trainer
+  from dynibar_tpu_torch.utils import kernel_check as kc
+  from dynibar_tpu_torch.utils.device import to_device
+  # bench.py:257-262: N_rand 3072, 64 samples, num_source_views 7, num_vv
+  # 3, 6 bases, bf16, 48 frames
+  cfg = mono_render_settings(num_source_views=7, num_vv=3, n_samples=64,
+                             num_basis=6, compute_dtype="bfloat16")
+  model = MonoModel(cfg, num_frames=48, seed=SEED)
+
+  # ---- 6a: the kernels at the mono step's shapes ----
+  rb = to_device(synthetic_mono_batch(cfg, n_rays=n_rand, h=h, w=w,
+                                      num_frames=48, seed=SEED + 1), dev)
+  with torch.no_grad():
+    fm = model.encode_featmaps(rb["src_rgbs"], rb["static_src_rgbs"],
+                               rb["anchor_src_rgbs"])
+    pts, _, _ = rr.sampling.sample_along_ray(
+        rb["ray_o"], rb["ray_d"], rb["depth_range"], cfg.n_samples,
+        cfg.inv_uniform, det=True)
+    ins = rr.stage_inputs(model, rb, fm, cfg, None, pts, kernels=False)
+    # the anchor pass's dynamic inputs: the anchor views at the anchor time
+    rb_a = dict(rb, src_rgbs=rb["anchor_src_rgbs"],
+                src_cameras=rb["anchor_src_cameras"],
+                src_offset_idx=rb["anchor_offset_idx"],
+                src_valid=rb["anchor_valid"], ref_time=rb["anchor_time"],
+                ref_frame_idx=rb["anchor_frame_idx"])
+    dy10 = rr.stage_inputs(model, rb_a, (fm[1], None, fm[2]), cfg, None,
+                           pts, kernels=False)["dy"]
+    st, dy9 = ins["st"], ins["dy"]
+    got = agg.fused_static_aggregator(model.net_coarse_st, *st)
+    errs = []
+    for i in range(0, n_rand, kc.TWIN_RAYS):
+      part = [a[i:i + kc.TWIN_RAYS] for a in st]
+      errs.append(_compare_raw("K2 (mono V=14)", got[i:i + kc.TWIN_RAYS],
+                               model.net_coarse_st(*part), 2e-2, 2e-2))
+    print(f"K2 at the mono step's shapes ({n_rand} rays, S=64, V=14): max "
+          f"abs err {max(errs):.3g} [{card}]", flush=True)
+  del rb, rb_a, fm, ins, got
+  g_cot = torch.Generator(device=dev).manual_seed(SEED + 2)
+  results = {}
+  for label, static, net, args, bwd in (
+      ("mono static V=14", True, model.net_coarse_st, st, "pallas_split"),
+      ("mono static V=14 split3", True, model.net_coarse_st, st,
+       "pallas_split3"),
+      ("mono dynamic V=9", False, model.net_coarse_dy, dy9, "pallas_split"),
+      ("mono dynamic V=10", False, model.net_coarse_dy, dy10,
+       "pallas_split")):
+    cot = torch.randn(*args[0].shape[:2], 4, generator=g_cot, device=dev)
+    res = _check_training_kernels(card, label, static, net, args, cot, bwd)
+    if label != "mono dynamic V=10":
+      results.update(res)
+  del st, dy9, dy10, args, res
+  torch.cuda.empty_cache()
+
+  # ---- 6b: one 1024-ray eval chunk ----
+  chunk = 1024
+  rb = to_device(synthetic_mono_batch(cfg, n_rays=chunk, h=h, w=w,
+                                      num_frames=48, seed=SEED,
+                                      scanline=True), dev)
+  with torch.no_grad():
+    fm = model.encode_featmaps(rb["src_rgbs"], rb["static_src_rgbs"])
+  _zero_counts()
+  ret = rr.render_rays_mono(model, rb, fm, cfg)
+  torch.cuda.synchronize()
+  launches = _read_counts()
+  if launches != dict({k: 0 for k in launches}, K1=4, K2=1, K3=1):
+    raise AssertionError(f"mono chunk launches {launches}, want K1 4, K2 1, "
+                         "K3 1")
+  plain = rr.render_rays_mono(model, rb, fm, cfg, kernels=False)
+  rgb = ret["outputs_coarse_ref"]["rgb"]
+  if not torch.isfinite(rgb).all() or rgb.shape != (chunk, 3):
+    raise AssertionError("mono chunk: rgb not finite or misshapen")
+  err = float((rgb - plain["outputs_coarse_ref"]["rgb"]).abs().max())
+  if err > 3e-2:
+    raise AssertionError(f"mono chunk: kernel vs plain rgb {err}")
+  chunk_ms = _time_ms(lambda: rr.render_rays_mono(model, rb, fm, cfg),
+                      iters=5)
+  print(f"mono chunk launches: { {k: launches[k] for k in ('K1', 'K2', 'K3')} }"
+        f"; {chunk_ms:.2f} ms/chunk = {chunk * 1e3 / chunk_ms:.1f} rays/s, "
+        f"rgb kernel vs plain max abs {err:.3g} [{card}]", flush=True)
+  del model, rb, fm, ret, plain
+  torch.cuda.empty_cache()
+
+  # ---- 6c: the mono train step on each static backward route ----
+  weights = losses.schedule_weights(t_cfg, 2)
+  batch = to_device(synthetic_mono_batch(cfg, n_rays=n_rand, h=h, w=w,
+                                         num_frames=48, seed=SEED), dev)
+  step_launches = {}
+  for route in ("pallas_split", "pallas_split3"):
+    rcfg = dataclasses.replace(cfg, fused_st_bwd_impl=route)
+    model = MonoModel(rcfg, num_frames=48, seed=SEED).train_all()
+    opt = trainer.make_mono_optimizer(model, t_cfg)
+
+    def step(seed, bootstrap=False):
+      gen = torch.Generator(dev).manual_seed(seed)
+      return trainer.mono_train_step(model, opt, batch, weights, rcfg, t_cfg,
+                                     bootstrap=bootstrap, generator=gen)
+
+    def loss_fn(kernels=True, bwd=route):
+      gen = torch.Generator(dev).manual_seed(SEED + 1)
+      model.cfg = dataclasses.replace(rcfg, fused_st_bwd_impl=bwd)
+      try:
+        with contextlib.ExitStack() as stack:
+          if not kernels:
+            stack.enter_context(kc.sliced_twin(model.net_coarse_st))
+            stack.enter_context(kc.sliced_twin(model.net_coarse_dy))
+          return trainer.mono_loss(model, batch, weights, rcfg,
+                                   kernels=kernels, generator=gen)[0]
+      finally:
+        model.cfg = rcfg
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    loss, metrics, _ = step(SEED)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    step_launches[route] = _read_counts()
+    if step_launches[route] != MONO_LAUNCHES[route]:
+      raise AssertionError(f"mono step ({route}) launches "
+                           f"{step_launches[route]}, want "
+                           f"{MONO_LAUNCHES[route]}")
+    if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+      raise AssertionError(f"mono step ({route}): non-finite metrics")
+    print(f"mono step ({route}) launches: {step_launches[route]}; first step "
+          f"{first_s:.2f} s, loss {float(loss):.5f}, psnr "
+          f"{float(metrics['psnr']):.3f}, grad_norm "
+          f"{float(metrics['grad_norm']):.4g}", flush=True)
+
+    # kernel vs plain gradients after one update, from the same weights and
+    # sample placement (the plain aggregators in checkpointed 512-ray
+    # slices); on the second route also the first route's kernels
+    ker = _group_grads(model, loss_fn)
+    loss_rel, group, ok = _rel(ker, _group_grads(
+        model, lambda: loss_fn(kernels=False)))
+    print(f"mono step ({route}) kernel vs plain (N_rand {n_rand}): loss rel "
+          f"{loss_rel:.2e}; gradient rel-norm per group "
+          f"{({k: round(v, 5) for k, v in group.items()})}", flush=True)
+    if not ok:
+      raise AssertionError(f"mono step ({route}): kernel and plain "
+                           "gradients disagree")
+    if route == "pallas_split3":
+      loss_rel, group, ok = _rel(ker, _group_grads(
+          model, lambda: loss_fn(bwd="pallas_split")))
+      print(f"mono step: pallas_split3 vs pallas_split kernels, same "
+            f"weights: loss rel {loss_rel:.2e}; gradient rel-norm per group "
+            f"{({k: round(v, 6) for k, v in group.items()})}", flush=True)
+      if not ok:
+        raise AssertionError("mono step: the two static routes disagree")
+    del ker
+    torch.cuda.empty_cache()
+
+    for i in range(2):                                    # warm-up
+      step(SEED + 10 + i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30
+    secs = []
+    for i in range(5):
+      t0 = time.perf_counter()
+      step(SEED + 20 + i)
+      torch.cuda.synchronize()
+      secs.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"mono train step ({route}): {np.mean(secs):.4f} s/step at N_rand "
+          f"{n_rand}, mean of {len(secs)} after 2 warm-ups (min "
+          f"{min(secs):.4f}, max {max(secs):.4f}), peak memory "
+          f"{peak_gib:.2f} GiB ({held_gib:.2f} GiB held before the steps) "
+          f"[{card}]", flush=True)
+    curve = [float(step(SEED + 30)[0]) for _ in range(10)]
+    print(f"mono train loss over 10 steps on one batch ({route}): "
+          f"{[round(x, 5) for x in curve]}", flush=True)
+    if not (np.isfinite(curve).all() and curve[-1] < curve[0]):
+      raise AssertionError(f"mono step ({route}): the loss did not fall")
+    _zero_counts()
+    loss, metrics, _ = step(SEED + 40, bootstrap=True)
+    torch.cuda.synchronize()
+    boot = {k: n for k, n in _read_counts().items() if n}
+    if not (bool(torch.isfinite(loss)) and boot.get("K2r") == 1
+            and boot.get("K5a") == 1):
+      raise AssertionError(f"mono bootstrap step ({route}): loss "
+                           f"{float(loss)}, launches {boot}")
+    print(f"mono bootstrap step ({route}): loss {float(loss):.5f}, "
+          f"launches {boot}", flush=True)
+    del model, opt, step, loss_fn, loss, metrics
+    torch.cuda.empty_cache()
+  return results, step_launches
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -147,6 +557,19 @@ def main() -> int:
   secs = build.build()
   print(f"build: {time.perf_counter() - t0:.1f} s "
         f"({ {k: round(v, 1) for k, v in secs.items()} })", flush=True)
+
+  # footprints: the forward trunk keeps two blocks per SM at every view
+  # count of the main paths (FF 7 and 11, mono 9, 10 and 14)
+  occ = {v: agg.occupancy(v) for v in (7, 9, 10, 11, 14)}
+  for v, o in occ.items():
+    print(f"footprint at V={v} (bytes, blocks/SM): {o} [{card}]",
+          flush=True)
+  for v in (11, 14):
+    if occ[v]["K2 trunk"][1] != 2:
+      raise AssertionError(f"K2 trunk: {occ[v]['K2 trunk']} at V={v}")
+  for v in (7, 9, 10):
+    if occ[v]["K3 trunk"][1] != 2:
+      raise AssertionError(f"K3 trunk: {occ[v]['K3 trunk']} at V={v}")
 
   h, w, chunk = 288, 512, 1024
   cfg = RenderSettings(n_samples=64, n_importance=64, num_views_dy=7,
@@ -286,137 +709,26 @@ def main() -> int:
   dy6_args[1] = dy_args[1][:, :, :6].contiguous()
   dy6_args[3] = dy_args[3][:, :, :6].contiguous()
   train_results = {}
-  for label, static, net, args, keys in (
-      ("static V=11", True, model.net_fine_st, st_args, ("K2r", "K5a", "K5b")),
-      ("dynamic V=7", False, model.net_fine_dy, dy_args,
-       ("K3r", "K4a", "K4b")),
-      ("dynamic V=6", False, model.net_fine_dy, dy6_args,
-       ("K3r", "K4a", "K4b"))):
-    r, s_, v, c = args[3 if static else 1].shape
-    cot = torch.randn(r, s_, 4, generator=g_cot, device=dev)
-    out_k, out_f, g_k, g_f, g_b = kc.all_grads(net, static, args, cot)
-    torch.cuda.synchronize()
-    fwd_err = _compare_raw(f"{keys[0]} ({label})", out_k, out_f,
-                           2e-2 if static else 1e-2, 2e-2)
-    errs = kc.grad_errors(g_k, g_f, g_b)
-    kc.check_grad_errors(errs, f"{label} backward")
-    fb_ms = _time_ms(lambda: kc.aggregator_grads(net, static, args, cot,
-                                                 "kernel"), iters=3, warmup=1)
-    plain_fb_ms = _time_ms(lambda: kc.aggregator_grads(
-        net, static, args, cot, "f32"), iters=2, warmup=1)
-
-    def plain_fwd():                 # the twin's forward under autograd
-      for i in range(0, r, kc.TWIN_RAYS):
-        net(*[a[i:i + kc.TWIN_RAYS] for a in args])
-
-    with torch.enable_grad():
-      net.requires_grad_(True)
-      plain_fwd_ms = _time_ms(plain_fwd, iters=2, warmup=1)
-      net.requires_grad_(False)
-    # each launch on its own, CUDA events around the wrapper
-    with torch.no_grad():
-      if static:
-        reffeat = agg._reffeat(net, args[1])
-        fwd = lambda: agg.static_forward_residuals(
-            net, args[0], reffeat, args[2], args[3], args[4], args[5])
-        ray, trunk = agg.static_backward_ray, agg.static_backward_trunk
-      else:
-        dirfeat, dirpe = agg._dir_inputs(net, args[2], args[4])
-        fwd = lambda: agg.dynamic_forward_residuals(
-            net, args[0], dirfeat, dirpe, args[1], args[3])
-        ray, trunk = agg.dynamic_backward_ray, agg.dynamic_backward_trunk
-      t_fwd = _time_ms(fwd, iters=5)
-      _, ws = fwd()
-      slabs, nblk, w_total = agg._slabs(dev, agg.pack_weights(net, static))
-      t_ray = _time_ms(lambda: ray(net, ws, cot, slabs, nblk, w_total),
-                       iters=5)
-      r_out = ray(net, ws, cot, slabs, nblk, w_total)
-      t_trunk = _time_ms(lambda: trunk(net, ws, r_out[0], r_out[1], slabs,
-                                       nblk, w_total), iters=5)
-    p = r * s_
-    f_trunk, f_ray = agg.aggregator_flop_parts(static, r, s_, v, c)
-    wts = agg.pack_weights(net, static)
-    w_bytes = _nbytes(*wts[:2])
-    res_bytes = _nbytes(*[ws[k] for k in ("x", "vm", "gf")]) + (
-        _nbytes(ws["rf"]) if static else 0)
-    in_bytes = _nbytes(*[t for k, t in ws.items()
-                         if k not in ("x", "vm", "gf", "rf", "nv")])
-    bounds = {
-        keys[0]: _bound_ms(in_bytes + w_bytes + res_bytes + p * 16,
-                           f_trunk + f_ray, PEAK_BF16_FLOPS),
-        keys[1]: _bound_ms(res_bytes - (_nbytes(ws["rf"]) if static else 0)
-                           + p * 16 + w_bytes + v * p * (256 + 32),
-                           3 * f_ray, PEAK_BF16_FLOPS),
-        keys[2]: _bound_ms(in_bytes + v * p * (256 + 32) + w_bytes
-                           + (_nbytes(ws["rf"]) if static else 0)
-                           + p * v * 4 * (c + 10) + p * 4 * (3 + c + 1),
-                           3 * f_trunk, PEAK_BF16_FLOPS)}
-
-    def side(name):             # which launch produced this gradient
-      if name.startswith("input."):
-        return 1 if not static and name in ("input.ray_dir",
-                                            "input.pts") else 2
-      return 1 if name.split(".")[0] in RAY_SIDE_LAYERS else 2
-
-    print(f"{label}: fwd+bwd {fb_ms:.3f} ms (plain f32 {plain_fb_ms:.3f} ms, "
-          f"plain fwd {plain_fwd_ms:.3f} ms); {keys[0]} {t_fwd:.3f} ms, "
-          f"{keys[1]} {t_ray:.3f} ms, {keys[2]} {t_trunk:.3f} ms; forward "
-          f"max abs err {fwd_err:.3g} [{card}]", flush=True)
-    worst = sorted(errs.items(), key=lambda kv: kv[1][0] - kv[1][2])[-3:]
-    print(f"{label}: gradient ratios closest to their bars (kernel, bf16 "
-          f"twin, bar): {[(n, [round(x, 4) for x in e]) for n, e in worst]}",
-          flush=True)
-    if "s" in errs:
-      print(f"{label}: anti-alias s (kernel, bf16 twin, bar): sum scaled by "
-            f"its terms {[round(x, 5) for x in errs['s']]}, per point "
-            f"{[round(x, 4) for x in errs['s.per_point']]}; per-point error "
-            f"coherence kernel "
-            f"{kc.error_coherence(g_k['s.per_point'], g_f['s.per_point']):.3f}"
-            f", twin "
-            f"{kc.error_coherence(g_b['s.per_point'], g_f['s.per_point']):.3f}",
-            flush=True)
-    abs_err = {n: float((g_k[n].float() - g_f[n]).abs().max()) for n in errs}
-    del ws, slabs, r_out, g_k, g_f, g_b, out_k, out_f
-    if label == "dynamic V=6":
-      continue
-    for idx, key, ms in ((0, keys[0], t_fwd), (1, keys[1], t_ray),
-                         (2, keys[2], t_trunk)):
-      mine = {n: e for n, e in errs.items() if side(n) == idx}
-      res = dict(
-          name={"K2r": "static_forward_residuals",
-                "K5a": "static_backward_ray", "K5b": "static_backward_trunk",
-                "K3r": "dynamic_forward_residuals",
-                "K4a": "dynamic_backward_ray",
-                "K4b": "dynamic_backward_trunk"}[key],
-          route="cuda", source=TRAIN_SOURCES[key], replaces=REPLACES[key],
-          ms=ms, bound_ms=bounds[key][0], bound_by=bounds[key][1],
-          library_ms=None, rays=r, views=v)
-      if idx == 0:
-        res.update(max_abs_err=fwd_err, plain_ms=plain_fwd_ms)
-      else:
-        # the gradient closest to its bar: (kernel, bf16 twin, bar) ratios
-        name = max(mine, key=lambda n: mine[n][0] / mine[n][2])
-        res.update(
-            max_abs_err=max(abs_err[n] for n in mine),
-            worst_grad=[name] + list(mine[name]),
-            plain_ms=plain_fb_ms - plain_fwd_ms)
-      train_results[key] = res
-  del ins_t, st_args, dy_args, dy6_args, args
+  for label, static, net, args in (
+      ("static V=11", True, model.net_fine_st, st_args),
+      ("dynamic V=7", False, model.net_fine_dy, dy_args),
+      ("dynamic V=6", False, model.net_fine_dy, dy6_args)):
+    cot = torch.randn(*args[0].shape[:2], 4, generator=g_cot, device=dev)
+    res = _check_training_kernels(card, label, static, net, args, cot)
+    if label != "dynamic V=6":
+      train_results.update(res)
+  del ins_t, st_args, dy_args, dy6_args, args, res
   torch.cuda.empty_cache()
 
   # ---- 3: one chunk through the main path ---------------------------------
-  counters = (sample.sample_views, agg.fused_static_aggregator,
-              agg.fused_dynamic_aggregator)
-  for f in counters:
-    f.launches = 0
+  _zero_counts()
   ret = rr.render_rays_mv(model, rb, coarse, fine, cfg)
   torch.cuda.synchronize()
-  launches = {"K1": sample.sample_views.launches,
-              "K2": agg.fused_static_aggregator.launches,
-              "K3": agg.fused_dynamic_aggregator.launches}
-  if launches != {"K1": 8, "K2": 2, "K3": 2}:
+  launches = _read_counts()
+  if launches != dict({k: 0 for k in launches}, K1=8, K2=2, K3=2):
     raise AssertionError(f"main-path launches per chunk {launches}, "
                          "want 8/2/2")
+  launches = {k: launches[k] for k in ("K1", "K2", "K3")}
   print(f"chunk launches: {launches}", flush=True)
   plain = rr.render_rays_mv(model, rb, coarse, fine, cfg, kernels=False)
   chunk_errs = {}
@@ -465,7 +777,7 @@ def main() -> int:
   from dynibar_tpu_torch.train import losses as ff_losses
   from dynibar_tpu_torch.train import trainer
   del model, rb, frame_rb, ins, ins_c, coarse, fine, out, ret, plain, one_frame
-  del stage_ins, net, fwd, plain_fwd, reffeat, dirfeat, dirpe
+  del stage_ins
   torch.cuda.empty_cache()
   tr_cfg = RenderSettings(n_samples=64, n_importance=64, num_views_dy=7,
                           num_views_anchor=6, num_views_static=11,
@@ -483,21 +795,12 @@ def main() -> int:
     return trainer.ff_train_step(tmodel, opt, b, weights, tr_cfg, t_cfg,
                                  generator=gen)
 
-  counters = {"K1": sample.sample_views, "K2": agg.fused_static_aggregator,
-              "K3": agg.fused_dynamic_aggregator,
-              "K2r": agg.static_forward_residuals,
-              "K5a": agg.static_backward_ray,
-              "K5b": agg.static_backward_trunk,
-              "K3r": agg.dynamic_forward_residuals,
-              "K4a": agg.dynamic_backward_ray,
-              "K4b": agg.dynamic_backward_trunk}
-  for f in counters.values():
-    f.launches = 0
+  _zero_counts()
   t0 = time.perf_counter()
   loss, metrics, _ = step(batch, SEED)
   torch.cuda.synchronize()
   first_s = time.perf_counter() - t0
-  step_launches = {k: f.launches for k, f in counters.items()}
+  step_launches = _read_counts()
   if step_launches != TRAIN_LAUNCHES:
     raise AssertionError(f"train-step launches {step_launches}, want "
                          f"{TRAIN_LAUNCHES}")
@@ -568,17 +871,32 @@ def main() -> int:
         f"{[round(x, 5) for x in curve]}", flush=True)
   if not (np.isfinite(curve).all() and curve[-1] < curve[0]):
     raise AssertionError("train step: the loss did not fall")
+  del tmodel, opt, batch, step, loss, metrics
+  torch.cuda.empty_cache()
+
+  # ---- 6: the mono model --------------------------------------------------
+  mono_results, mono_launches = _mono_phases(card, dev, h, w, n_rand, t_cfg)
   print(f"phases done in {time.perf_counter() - t_start:.1f} s", flush=True)
 
-  # ---- 6: result ----------------------------------------------------------
+  # ---- 7: result ----------------------------------------------------------
+  # K1-K3 at the FF eval chunk and the other training kernels at the FF
+  # step's shapes, as earlier slices reported them, with their launches on
+  # that path; K5c/K5d at the mono step's (their only path: the
+  # pallas_split3 route).  Each training kernel also carries its time and
+  # launches at the mono shape.
   kernels = []
   for key in ("K1", "K2", "K3"):
     res = dict(results[key])
     res["launches"] = launches[key]
     kernels.append(res)
-  for key in ("K2r", "K5a", "K5b", "K3r", "K4a", "K4b"):
-    res = dict(train_results[key])
-    res["launches"] = step_launches[key]
+  for key in ("K2r", "K5a", "K5b", "K3r", "K4a", "K4b", "K5c", "K5d"):
+    res = dict(train_results[key] if key in train_results
+               else mono_results[key])
+    res["launches"] = (step_launches[key] if key in train_results
+                       else mono_launches["pallas_split3"][key])
+    res["mono_ms"] = mono_results[key]["ms"]
+    res["mono_launches"] = {route: n[key]
+                            for route, n in mono_launches.items()}
     kernels.append(res)
   print(json.dumps({"kernels": kernels}), flush=True)
   print(card, flush=True)

@@ -47,7 +47,10 @@ struct Net { Lin l[NLAYERS]; };
 constexpr int NT = 256;             // threads per block
 constexpr int NW = NT / 32;
 constexpr int PT = 64;              // points per trunk block (2 per SM)
-constexpr int VMAX = 12;
+// views: the mono model's 14 static views (2 x num_source_views); the
+// per-view [V][PT] f32 arrays are sized by the launch's V, so FF shapes
+// keep their footprint
+constexpr int VMAX = 14;
 constexpr int SMAX = 128;
 constexpr int CMAX = 40;            // 3 + feature channels
 constexpr int LDA = 280;            // bf16 row strides (multiples of 8)
@@ -218,10 +221,15 @@ struct TrunkArgs {
   float* ws_nv;          // [P] number of valid views
 };
 
-// 113,920 bytes at PT = 64: two blocks fit an SM's shared memory
-constexpr size_t kTrunkSmem =
-    (size_t)PT * (LDA + LDH + 2 * LDG) * 2 + 3 * (size_t)VMAX * PT * 4 +
-    PT * 4;
+// 104,704 + 768 V bytes at PT = 64 (113,152 at V = 11, 115,456 at 14):
+// two blocks fit an SM's 233,472 bytes up to V = 14 with the 1 KB each
+// block reserves
+constexpr size_t trunk_smem(int V) {
+  return (size_t)PT * (LDA + LDH + 2 * LDG) * 2 + 3 * (size_t)V * PT * 4 +
+         PT * 4;
+}
+static_assert(2 * (trunk_smem(VMAX) + 1024) <= 233472,
+              "two forward trunk blocks per SM at VMAX views");
 
 // x and its sin/cos(2^f x) for f < 5 into an encoded row laid out as
 // core/posenc.periodic_embed: [raw (n), cos (5n), sin (5n)], channel ch.
@@ -243,15 +251,14 @@ __global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
   bf16* buf1 = buf0 + PT * LDA;                    // [PT][LDH] hidden
   bf16* buf2 = buf1 + PT * LDH;                    // [PT][LDG] x*w, x*vis
   bf16* xb = buf2 + PT * LDG;                      // [PT][LDG] trunk x
-  float* sm_m = (float*)(xb + PT * LDG);           // [VMAX][PT] masks
-  float* sm_w = sm_m + VMAX * PT;                  // pooling weights
-  float* sm_vis = sm_w + VMAX * PT;                // visibility (trunk)
-  float* sm_e = sm_vis;                            // AA scores (pooling 1)
-  float* sm_row = sm_vis + VMAX * PT;              // [PT]
-
   const Net& net = a.net;
   const int tid = threadIdx.x, p0 = blockIdx.x * PT;
   const int P = a.P, V = a.V, C = a.C, CR = STATIC ? 2 * a.C : a.C;
+  float* sm_m = (float*)(xb + PT * LDG);           // [V][PT] masks
+  float* sm_w = sm_m + V * PT;                     // pooling weights
+  float* sm_vis = sm_w + V * PT;                   // visibility (trunk)
+  float* sm_e = sm_vis;                            // AA scores (pooling 1)
+  float* sm_row = sm_vis + V * PT;                 // [PT]
 
   // ---- per-view input features rf, masks and anti-alias scores ----
   if (STATIC) {
@@ -750,21 +757,35 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
   }
 }
 
+// Blocks of `kernel` one SM holds at NT threads and `smem` bytes of dynamic
+// shared memory (the occupancy calculator), or -1 on an error.
+template <typename Kern>
+int blocks_per_sm(Kern kernel, size_t smem) {
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, NT, smem) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+
 // Both launches of one aggregator on `stream`; returns the cudaError_t.
 template <bool STATIC>
 int launch(const TrunkArgs& ta, const RayArgs& ra, int R, cudaStream_t s) {
   if (ta.V > VMAX || ta.S > SMAX || ta.C > CMAX || ta.V < 1 || ta.S < 1)
     return (int)cudaErrorInvalidValue;
+  const size_t trunk_bytes = trunk_smem(ta.V);
   cudaError_t err = cudaFuncSetAttribute(
       trunk_kernel<STATIC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kTrunkSmem);
+      (int)trunk_smem(VMAX));
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(ray_kernel<STATIC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kRaySmem);
   if (err != cudaSuccess) return (int)err;
   if (ta.P == 0) return 0;
-  trunk_kernel<STATIC><<<(ta.P + PT - 1) / PT, NT, kTrunkSmem, s>>>(ta);
+  trunk_kernel<STATIC><<<(ta.P + PT - 1) / PT, NT, trunk_bytes, s>>>(ta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ray_kernel<STATIC><<<R, NT, kRaySmem, s>>>(ra);

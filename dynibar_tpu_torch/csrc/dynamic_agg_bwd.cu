@@ -92,7 +92,8 @@ extern "C" int dyn_dynamic_agg_bwd_trunk(
   a.slabs = (float*)slabs;
   a.slab_len = slab_len;
   a.w_total = w_total;
-  return launch_persistent(trunk_bwd_kernel<false>, kTrunkBwdSmem, a,
+  return launch_persistent(trunk_bwd_kernel<false, false>,
+                           trunk_bwd_smem<false>(V), a,
                            (a.P + PT - 1) / PT, nblocks,
                            (cudaStream_t)stream);
 }
@@ -101,4 +102,15 @@ extern "C" int dyn_agg_reduce(const void* slabs, int nslab, int len,
                               void* out, void* stream) {
   return launch_reduce((const float*)slabs, nslab, len, (float*)out,
                        (cudaStream_t)stream);
+}
+
+// The kernels' footprints at V views and the blocks an SM holds:
+// out = {ray bytes, ray blocks, trunk bytes, trunk blocks}.
+extern "C" int dyn_occupancy(int V, int* out) {
+  out[0] = (int)kRayBwdSmem;
+  out[1] = blocks_per_sm(ray_bwd_kernel<false>, kRayBwdSmem);
+  out[2] = (int)trunk_bwd_smem<false>(V);
+  out[3] = blocks_per_sm(trunk_bwd_kernel<false, false>,
+                         trunk_bwd_smem<false>(V));
+  return (int)cudaGetLastError();
 }

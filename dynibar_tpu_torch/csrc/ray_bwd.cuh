@@ -58,7 +58,23 @@ constexpr int LD1 = 184, LD2 = 168;   // dynamic ref_pts_fc / rgb_fc inputs
 constexpr int kScratchLd = 128 + 128 + 272;
 constexpr size_t kReg1 = 81920, kDo3Off = 47104, kReg2 = 133120;
 constexpr size_t kRayBwdSmem =
-    kReg1 + kReg2 + (3 * SMAX + 12 * SMAX + 256 + 32 + 64 * 3) * 4;
+    kReg1 + kReg2 +
+    (3 * SMAX + 12 * SMAX + 256 + 32 + 64 * 3 + NW * VMAX) * 4;
+static_assert(kRayBwdSmem <= 232448, "one ray backward block fits an SM");
+// the buffers carved by hand out of the two regions below
+static_assert((size_t)SMAX * LD1 * 2 <= kDo3Off &&
+                  kDo3Off + (size_t)SMAX * LDG * 2 <= kReg1,
+              "gf_attn and d_o3 fit region 1");
+static_assert((size_t)64 * (LDA + LDG + LD64 + LDS) * 2 + 64 * 128 * 4 +
+                      2 * (size_t)VMAX * 64 * 4 <= kReg2,
+              "static heads (LG, PB [VMAX][64]) fit region 2");
+static_assert((size_t)64 * (LDH + LD2 + LDG + LD64 + LDS) * 2 +
+                      64 * 128 * 4 <= kReg2,
+              "dynamic heads fit region 2");
+static_assert((size_t)SMAX * LDA * 2 <= kReg1 &&
+                  (size_t)SMAX * (LDH + LDG) * 2 <= kReg2 &&
+                  (size_t)SMAX * (3 * 128 + LDG) * 2 <= kReg2,
+              "geometry_fc backward and q/k/v/o fit");
 
 // One head's 32 channels of a q/k/v/o row (64-byte aligned in shared
 // memory), read as four 16-byte words.
@@ -183,6 +199,9 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
   float* lng = st_d + 4 * SMAX;                // [256] LN scale | bias grads
   float* sdp = lng + 256;                      // [32] d_dirpe
   float* spp = sdp + 32;                       // [64][3] d_pts
+  // [NW][VMAX] pooling-2 weight cotangents, one row per warp: in shared
+  // memory, not a register array, which spilled at VMAX = 14
+  float* sdw = spp + 64 * 3;
 
   const Net& net = a.net;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -429,7 +448,7 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
         bf16* H2 = H1 + 64 * LDG;              // [64][LD64]
         bf16* D3 = H2 + 64 * LD64;             // [64][LDS]
         float* DF = (float*)(D3 + 64 * LDS);   // [64][128]
-        float* LG = DF + 64 * 128;             // [VMAX][64]
+        float* LG = DF + 64 * 128;             // [VMAX][64] (asserted above)
         float* PB = LG + VMAX * 64;            // [VMAX][64]
         const bf16* g = GA + r0 * LDG;
         const int kr = net.l[RGB0].k;
@@ -765,39 +784,35 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
           dme[j] = SG[i * 272 + c0 + j] - 2.f * dvr[j] * s2[j];
         }
         const float dws = SG[i * 272 + 256] / (float)V;
-        float dw2[VMAX], dvsum = 0.f;
+        float* dw2 = sdw + warp * VMAX;     // written and read by lane 0
+        float dvsum = 0.f;
+        for (int v = 0; v < V; ++v) {
+          load4(v, x);
+          float part = 0.f;
 #pragma unroll
-        for (int v = 0; v < VMAX; ++v) {
-          dw2[v] = 0.f;
-          if (v < V) {
-            load4(v, x);
-            float part = 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              part += x[j] * dme[j] + (x[j] - mean[j]) * (x[j] - mean[j]) * dvr[j];
-            dw2[v] = warp_sum(part) + dws;
-            dvsum -= inv * inv * a.ws_vis[(size_t)v * P + p] * dw2[v];
-          }
+          for (int j = 0; j < 4; ++j)
+            part += x[j] * dme[j] +
+                    (x[j] - mean[j]) * (x[j] - mean[j]) * dvr[j];
+          const float d = warp_sum(part) + dws;
+          if (lane == 0) dw2[v] = d;
+          dvsum -= inv * inv * a.ws_vis[(size_t)v * P + p] * d;
         }
+        for (int v = 0; v < V; ++v) {
+          load4(v, x);
+          const size_t pv = (size_t)v * P + p;
+          const float w = a.ws_vis[pv] * inv;
+          bf16* dxo = a.dx + pv * 128 + c0;
+          __align__(8) bf16 outv[4];
 #pragma unroll
-        for (int v = 0; v < VMAX; ++v) {
-          if (v < V) {
-            load4(v, x);
-            const size_t pv = (size_t)v * P + p;
-            const float w = a.ws_vis[pv] * inv;
-            bf16* dxo = a.dx + pv * 128 + c0;
-            __align__(8) bf16 outv[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              float d = w * (dme[j] + 2.f * (x[j] - mean[j]) * dvr[j]);
-              if (STATIC) d += b2f(dxo[j]);
-              outv[j] = f2b(d);
-            }
-            *reinterpret_cast<uint2*>(dxo) = *reinterpret_cast<uint2*>(outv);
-            if (lane == 0)
-              a.dmisc[pv * 8] =
-                  (STATIC ? a.dmisc[pv * 8] : 0.f) + inv * dw2[v] + dvsum;
+          for (int j = 0; j < 4; ++j) {
+            float d = w * (dme[j] + 2.f * (x[j] - mean[j]) * dvr[j]);
+            if (STATIC) d += b2f(dxo[j]);
+            outv[j] = f2b(d);
           }
+          *reinterpret_cast<uint2*>(dxo) = *reinterpret_cast<uint2*>(outv);
+          if (lane == 0)
+            a.dmisc[pv * 8] =
+                (STATIC ? a.dmisc[pv * 8] : 0.f) + inv * dw2[v] + dvsum;
         }
       }
       for (int c = tid; c < 256; c += NT)

@@ -73,3 +73,14 @@ extern "C" int dyn_static_agg(
   ra.out = (float*)out;
   return launch<true>(ta, ra, R, (cudaStream_t)stream);
 }
+
+// The two kernels' footprints at V views and the blocks an SM holds:
+// out = {trunk bytes, trunk blocks, ray bytes, ray blocks}.
+extern "C" int dyn_occupancy(int V, int* out) {
+  using namespace agg;
+  out[0] = (int)trunk_smem(V);
+  out[1] = blocks_per_sm(trunk_kernel<true>, trunk_smem(V));
+  out[2] = (int)kRaySmem;
+  out[3] = blocks_per_sm(ray_kernel<true>, kRaySmem);
+  return (int)cudaGetLastError();
+}

@@ -17,9 +17,11 @@
 // = 11 in the forward, roughly three times that here).
 //
 // Design: ray_bwd.cuh and trunk_bwd.cuh.  The trunk kernel's shared memory
-// (230,400 bytes: one view's activations and their cotangents in place, a
-// 64-point block) is the reason for one block per SM; the d_rf stash of
-// every view goes to a global workspace instead.
+// (218,112 + 1,024 V bytes: one view's activations and their cotangents in
+// place, a 64-point block; 232,448 at V = 14, the per-block maximum) is
+// the reason for one block per SM; the d_rf stash of every view goes to a
+// global workspace instead.  The three-kernel route (K5a, then K5c + K5d)
+// is static_agg_bwd3.cu.
 
 #include "ray_bwd.cuh"
 #include "trunk_bwd.cuh"
@@ -105,7 +107,8 @@ extern "C" int dyn_static_agg_bwd_trunk(
   a.slabs = (float*)slabs;
   a.slab_len = slab_len;
   a.w_total = w_total;
-  return launch_persistent(trunk_bwd_kernel<true>, kTrunkBwdSmem, a,
+  return launch_persistent(trunk_bwd_kernel<true, true>,
+                           trunk_bwd_smem<true>(V), a,
                            (a.P + PT - 1) / PT, nblocks,
                            (cudaStream_t)stream);
 }
@@ -114,4 +117,15 @@ extern "C" int dyn_agg_reduce(const void* slabs, int nslab, int len,
                               void* out, void* stream) {
   return launch_reduce((const float*)slabs, nslab, len, (float*)out,
                        (cudaStream_t)stream);
+}
+
+// The kernels' footprints at V views and the blocks an SM holds:
+// out = {ray bytes, ray blocks, trunk bytes, trunk blocks}.
+extern "C" int dyn_occupancy(int V, int* out) {
+  out[0] = (int)kRayBwdSmem;
+  out[1] = blocks_per_sm(ray_bwd_kernel<true>, kRayBwdSmem);
+  out[2] = (int)trunk_bwd_smem<true>(V);
+  out[3] = blocks_per_sm(trunk_bwd_kernel<true, true>,
+                         trunk_bwd_smem<true>(V));
+  return (int)cudaGetLastError();
 }

@@ -1,10 +1,14 @@
-// Trunk-side aggregator backward (K4b dynamic, K5b static): pooling-1 and
-// the per-view base/vis/vis2 trunk, recomputed and transposed one view at
-// a time over 64-point blocks, plus (static) the per-view input MLP
-// ray_dir_fc and the anti-alias weight chain.
+// Trunk-side aggregator backward (K4b dynamic, K5b and K5c static):
+// pooling-1 and the per-view base/vis/vis2 trunk, recomputed and
+// transposed one view at a time over 64-point blocks, plus (static) the
+// anti-alias weight chain and (K5b only) the per-view input MLP
+// ray_dir_fc.  K5c stops at the d_rf seam: it leaves d_rf_tot, the
+// anti-alias d_dot and d_s for K5d (static_agg_bwd3.cu), which transposes
+// the input MLP.
 //
-// Math of dynibar_tpu/ops/pallas_agg_bwd.py:733 dynamic_bwd_trunk_kernel and
-// :1109 static_bwd_trunk_kernel; layout of the forward's trunk_kernel
+// Math of dynibar_tpu/ops/pallas_agg_bwd.py:733 dynamic_bwd_trunk_kernel,
+// :1109 static_bwd_trunk_kernel and :1328 static_bwd_trunk3_kernel; layout
+// of the forward's trunk_kernel
 // (agg_common.cuh).  A block recomputes the pooled [mean | var] columns
 // once, then per view: the trunk forward from rf (static: the rf residual
 // of K2r; dynamic: bf16(rgb_feat + dirfeat)), and its transpose from the
@@ -43,7 +47,8 @@ struct TrunkBwdArgs {
   const bf16* dx;        // [V, P, 128]
   const float* dmisc;    // [V, P, 8]: d_vis, static d_rgb (1:4), d_raydiff (4:8)
   // outputs
-  float* drf;            // [V, P, CR] workspace
+  float* drf;            // [V, P, CR] workspace; K5c: d_rf_tot
+  float* d_dot;          // [V, P] K5c: anti-alias cotangent of ray_diff[3]
   float* d_rgbfeat;      // [P, V, C]
   float* d_dirfeat;      // [P, C]
   float* d_raydiff;      // [P, V, 4]
@@ -58,17 +63,36 @@ struct TrunkBwdArgs {
 constexpr int LDT = 152;            // trunk vis_fc output (129 -> 144 cols)
 constexpr int LDF = 144;            // f32 d_[mean | var] of pooling-1
 constexpr int CRMAX = LDF / 2;
+constexpr int LDK = 232;            // base_fc input, 3 CR <= 216 -> 224 cols
 
-// 230,400 bytes at PT = 64: one block per SM
-constexpr size_t kTrunkBwdSmem =
-    (size_t)PT * (LDA + LDH + 5 * LDG + LDT + LDS) * 2 +
-    (size_t)PT * LDF * 4 + 4 * (size_t)VMAX * PT * 4 + 8 * (size_t)PT * 4;
+// Row stride of the input tile: the input MLP's pooled + per-view input
+// needs LDA; the trunk alone (K4b, K5c) base_fc's 224 columns.
+template <bool INMLP>
+__host__ __device__ constexpr int trunk_bwd_ldx() {
+  return INMLP ? LDA : LDK;
+}
 
-template <bool STATIC>
+// PT = 64 points: K5b 218,112 + 1,024 V bytes (229,376 at V = 11; 232,448,
+// the per-block maximum, at V = 14); K4b and K5c 6,144 fewer (226,304 at
+// V = 14).  One block per SM either way.
+template <bool INMLP>
+constexpr size_t trunk_bwd_smem(int V) {
+  return (size_t)PT * (trunk_bwd_ldx<INMLP>() + LDH + 5 * LDG + LDT + LDS) *
+             2 +
+         (size_t)PT * LDF * 4 + 4 * (size_t)V * PT * 4 + 8 * (size_t)PT * 4;
+}
+static_assert(trunk_bwd_smem<true>(VMAX) <= 232448,
+              "K5b fits one block at VMAX views");
+
+// STATIC: the static aggregator's trunk (rf residual, anti-alias chain);
+// INMLP (static only): also the input MLP, as K5b.  <false, false> is K4b,
+// <true, true> K5b, <true, false> K5c.
+template <bool STATIC, bool INMLP>
 __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
+  constexpr int LDX = trunk_bwd_ldx<INMLP>();
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xin = (bf16*)smem;                 // [PT][LDA] trunk input
-  bf16* ah = xin + PT * LDA;               // [PT][LDH] base_fc hidden
+  bf16* xin = (bf16*)smem;                 // [PT][LDX] trunk input
+  bf16* ah = xin + PT * LDX;               // [PT][LDH] base_fc hidden
   bf16* x0 = ah + PT * LDH;                // [PT][LDG] base_fc output
   bf16* ch = x0 + PT * LDG;                // vis_fc hidden
   bf16* xw = ch + PT * LDG;                // x0 * w
@@ -77,19 +101,18 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
   bf16* tb = eh + PT * LDG;                // [PT][LDT] vis_fc output
   bf16* ds = tb + PT * LDT;                // [PT][LDS]
   float* dgf = (float*)(ds + PT * LDS);    // [PT][LDF]
-  float* sm_m = dgf + PT * LDF;            // [VMAX][PT] effective masks
-  float* sm_w = sm_m + VMAX * PT;          // pooling-1 weights
-  float* sm_dw = sm_w + VMAX * PT;         // their cotangents (static AA)
-  float* sm_ed = sm_dw + VMAX * PT;        // AA scores exp(|s|(dot-1))
-  float* r_vis0 = sm_ed + VMAX * PT;       // [PT]
+  const Net& net = a.net;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int P = a.P, V = a.V, C = a.C, CR = STATIC ? 2 * a.C : a.C;
+  float* sm_m = dgf + PT * LDF;            // [V][PT] effective masks
+  float* sm_w = sm_m + V * PT;             // pooling-1 weights
+  float* sm_dw = sm_w + V * PT;            // their cotangents (static AA)
+  float* sm_ed = sm_dw + V * PT;           // AA scores exp(|s|(dot-1))
+  float* r_vis0 = sm_ed + V * PT;          // [PT]
   float* r_sg0 = r_vis0 + PT;
   float* r_sg = r_sg0 + PT;
   float* r_winv = r_sg + PT;
   float* r_pts = r_winv + PT;              // [PT][3]
-
-  const Net& net = a.net;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int P = a.P, V = a.V, C = a.C, CR = STATIC ? 2 * a.C : a.C;
   float* slab = a.slabs + (size_t)(blockIdx.x % kSlabs) * a.slab_len;
   const int wt = a.w_total;
   const float s_val = (STATIC && a.anti_alias) ? a.B[net.l[AA_S].b] : 0.f;
@@ -153,8 +176,8 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
         const float d = rf_val(r, v, c) - mean;
         var += sm_w[v * PT + r] * d * d;
       }
-      xin[r * LDA + c] = f2b(mean);
-      xin[r * LDA + CR + c] = f2b(var);
+      xin[r * LDX + c] = f2b(mean);
+      xin[r * LDX + CR + c] = f2b(var);
     }
 
     // ---- per view: trunk recompute, then its transpose ----
@@ -164,10 +187,10 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
       const float* mk = sm_m + v * PT;
       for (int e = tid; e < PT * (kb - 2 * CR); e += NT) {
         const int r = e / (kb - 2 * CR), c = e % (kb - 2 * CR);
-        xin[r * LDA + 2 * CR + c] = f2b(c < CR ? rf_val(r, v, c) : 0.f);
+        xin[r * LDX + 2 * CR + c] = f2b(c < CR ? rf_val(r, v, c) : 0.f);
       }
       __syncthreads();
-      dense(xin, LDA, PT, a.W, a.B, net.l[BASE0],
+      dense(xin, LDX, PT, a.W, a.B, net.l[BASE0],
             [&](int r, int c, float x) { ah[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
       dense(ah, LDH, PT, a.W, a.B, net.l[BASE1], [&](int r, int c, float x) {
@@ -299,7 +322,7 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
               ah[r * LDH + c] = f2b(x * elu_d(b2f(ah[r * LDH + c])));
             });
       __syncthreads();
-      grad_layer(ah, LDH, xin, LDA, PT, slab, wt, net.l[BASE0]);
+      grad_layer(ah, LDH, xin, LDX, PT, slab, wt, net.l[BASE0]);
       __syncthreads();
       dense(ah, LDH, PT, a.WT, a.Z, tr(net.l[BASE0]),
             [&](int r, int c, float x) {
@@ -331,7 +354,7 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
           if (a.anti_alias)
             atomicAdd(&sm_dw[v * PT + r],
                       rf * dme + (rf - mean) * (rf - mean) * dvr);
-          if (c < C)
+          if (INMLP && c < C)
             a.d_rgbfeat[ig] =
                 dt + (c < 3 ? a.dmisc[((size_t)v * P + p) * 8 + 1 + c] : 0.f);
           else
@@ -346,93 +369,97 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
     __syncthreads();
     if (!STATIC) continue;
 
-    // ---- static: input MLP (ray_dir_fc) recompute + transpose ----
-    float* dh = (float*)xw;                 // [PT][72] f32 over xw, xv
-    const int kin = net.l[RAYDIR0].k;
-    for (int e = tid; e < PT * LDF; e += NT) dgf[e] = 0.f;  // d_reffeat | d_ptspe
-    for (int e = tid; e < PT * 3; e += NT) {
-      const int r = e / 3, c = e % 3, p = p0 + r;
-      const float x = p < P ? a.pts[3 * (size_t)p + c] : 0.f;
-      r_pts[e] = x;
-      pe5(xin + r * LDA, 3, c, x);
-    }
-    for (int v = 0; v < V; ++v) {
-      for (int e = tid; e < PT * 6; e += NT) {
-        const int r = e / 6, c = e % 6, p = p0 + r;
-        pe5(xin + r * LDA + 33, 6, c,
-            p < P ? a.srcpl[((size_t)p * V + v) * 6 + c] : 0.f);
+    // ---- K5b: input MLP (ray_dir_fc) recompute + transpose ----
+    if constexpr (INMLP) {
+      float* dh = (float*)xw;                 // [PT][72] f32 over xw, xv
+      const int kin = net.l[RAYDIR0].k;
+      // d_reffeat | d_ptspe
+      for (int e = tid; e < PT * LDF; e += NT) dgf[e] = 0.f;
+      for (int e = tid; e < PT * 3; e += NT) {
+        const int r = e / 3, c = e % 3, p = p0 + r;
+        const float x = p < P ? a.pts[3 * (size_t)p + c] : 0.f;
+        r_pts[e] = x;
+        pe5(xin + r * LDX, 3, c, x);
       }
-      for (int e = tid; e < PT * (kin - 99); e += NT) {
-        const int r = e / (kin - 99), j = e % (kin - 99), p = p0 + r;
-        xin[r * LDA + 99 + j] = f2b(
-            j < 4 && p < P ? a.raydiff[((size_t)p * V + v) * 4 + j] : 0.f);
-      }
-      __syncthreads();
-      dense(xin, LDA, PT, a.W, a.B, net.l[RAYDIR0],
-            [&](int r, int c, float x) { ah[r * LDH + c] = f2b(elu(x)); });
-      __syncthreads();
-      // sf = ray_dir_fc(.); rf[C:] = sf * reffeat
-      dense(ah, LDH, PT, a.W, a.B, net.l[RAYDIR1], [&](int r, int c, float x) {
-        const int p = p0 + r;
-        float dsf = 0.f;
-        if (c < C && p < P) {
-          const float dc = a.drf[((size_t)v * P + p) * CR + C + c];
-          dsf = dc * a.reffeat[(size_t)(p / a.S) * C + c];
-          dgf[r * LDF + c] += dc * x;
+      for (int v = 0; v < V; ++v) {
+        for (int e = tid; e < PT * 6; e += NT) {
+          const int r = e / 6, c = e % 6, p = p0 + r;
+          pe5(xin + r * LDX + 33, 6, c,
+              p < P ? a.srcpl[((size_t)p * V + v) * 6 + c] : 0.f);
         }
-        x0[r * LDG + c] = f2b(dsf);
-      });
-      __syncthreads();
-      grad_layer(x0, LDG, ah, LDH, PT, slab, wt, net.l[RAYDIR1]);
-      __syncthreads();
-      dense(x0, LDG, PT, a.WT, a.Z, tr(net.l[RAYDIR1]),
-            [&](int r, int c, float x) {
-              ah[r * LDH + c] = f2b(x * elu_d(b2f(ah[r * LDH + c])));
-            });
-      __syncthreads();
-      grad_layer(ah, LDH, xin, LDA, PT, slab, wt, net.l[RAYDIR0]);
-      __syncthreads();
-      dense(ah, LDH, PT, a.WT, a.Z, tr(net.l[RAYDIR0]),
-            [&](int r, int c, float x) {
-              if (c < 33) {
-                int chn;
-                const float d = pe_geo_bwd(r_pts + 3 * r, 3, 5, c, x, &chn);
-                atomicAdd(&dgf[r * LDF + 48 + chn], d);
-              } else if (c < 103) {
-                dh[r * 72 + c - 33] = x;
-              }
-            });
-      __syncthreads();
-      for (int e = tid; e < PT * 10; e += NT) {
-        const int r = e / 10, j = e % 10, p = p0 + r;
-        if (p >= P) continue;
-        const size_t pv = (size_t)p * V + v;
-        const float* d = dh + r * 72;
-        if (j < 6) {           // source Plücker coordinate j, through its PE
-          const float x = a.srcpl[pv * 6 + j];
-          float g = d[j];
-          for (int f = 0; f < 5; ++f) {
-            const float fr = (float)(1 << f);
-            float sn, cs;
-            sincosf(fr * x, &sn, &cs);
-            g += fr * (d[36 + 6 * f + j] * cs - d[6 + 6 * f + j] * sn);
+        for (int e = tid; e < PT * (kin - 99); e += NT) {
+          const int r = e / (kin - 99), j = e % (kin - 99), p = p0 + r;
+          xin[r * LDX + 99 + j] = f2b(
+              j < 4 && p < P ? a.raydiff[((size_t)p * V + v) * 4 + j] : 0.f);
+        }
+        __syncthreads();
+        dense(xin, LDX, PT, a.W, a.B, net.l[RAYDIR0],
+              [&](int r, int c, float x) { ah[r * LDH + c] = f2b(elu(x)); });
+        __syncthreads();
+        // sf = ray_dir_fc(.); rf[C:] = sf * reffeat
+        dense(ah, LDH, PT, a.W, a.B, net.l[RAYDIR1],
+              [&](int r, int c, float x) {
+                const int p = p0 + r;
+                float dsf = 0.f;
+                if (c < C && p < P) {
+                  const float dc = a.drf[((size_t)v * P + p) * CR + C + c];
+                  dsf = dc * a.reffeat[(size_t)(p / a.S) * C + c];
+                  dgf[r * LDF + c] += dc * x;
+                }
+                x0[r * LDG + c] = f2b(dsf);
+              });
+        __syncthreads();
+        grad_layer(x0, LDG, ah, LDH, PT, slab, wt, net.l[RAYDIR1]);
+        __syncthreads();
+        dense(x0, LDG, PT, a.WT, a.Z, tr(net.l[RAYDIR1]),
+              [&](int r, int c, float x) {
+                ah[r * LDH + c] = f2b(x * elu_d(b2f(ah[r * LDH + c])));
+              });
+        __syncthreads();
+        grad_layer(ah, LDH, xin, LDX, PT, slab, wt, net.l[RAYDIR0]);
+        __syncthreads();
+        dense(ah, LDH, PT, a.WT, a.Z, tr(net.l[RAYDIR0]),
+              [&](int r, int c, float x) {
+                if (c < 33) {
+                  int chn;
+                  const float d = pe_geo_bwd(r_pts + 3 * r, 3, 5, c, x, &chn);
+                  atomicAdd(&dgf[r * LDF + 48 + chn], d);
+                } else if (c < 103) {
+                  dh[r * 72 + c - 33] = x;
+                }
+              });
+        __syncthreads();
+        for (int e = tid; e < PT * 10; e += NT) {
+          const int r = e / 10, j = e % 10, p = p0 + r;
+          if (p >= P) continue;
+          const size_t pv = (size_t)p * V + v;
+          const float* d = dh + r * 72;
+          if (j < 6) {           // source Plücker coordinate j, through its PE
+            const float x = a.srcpl[pv * 6 + j];
+            float g = d[j];
+            for (int f = 0; f < 5; ++f) {
+              const float fr = (float)(1 << f);
+              float sn, cs;
+              sincosf(fr * x, &sn, &cs);
+              g += fr * (d[36 + 6 * f + j] * cs - d[6 + 6 * f + j] * sn);
+            }
+            a.d_srcpl[pv * 6 + j] = g;
+          } else {
+            const int k = j - 6;
+            a.d_raydiff[pv * 4 + k] =
+                d[66 + k] + a.dmisc[((size_t)v * P + p) * 8 + 4 + k];
           }
-          a.d_srcpl[pv * 6 + j] = g;
-        } else {
-          const int k = j - 6;
-          a.d_raydiff[pv * 4 + k] =
-              d[66 + k] + a.dmisc[((size_t)v * P + p) * 8 + 4 + k];
         }
+        __syncthreads();
       }
-      __syncthreads();
-    }
-    for (int e = tid; e < PT * C; e += NT) {
-      const int r = e / C, c = e % C, p = p0 + r;
-      if (p < P) a.d_reffeat[(size_t)p * C + c] = dgf[r * LDF + c];
-    }
-    for (int e = tid; e < PT * 3; e += NT) {
-      const int r = e / 3, p = p0 + r;
-      if (p < P) a.d_pts[3 * (size_t)p + e % 3] = dgf[r * LDF + 48 + e % 3];
+      for (int e = tid; e < PT * C; e += NT) {
+        const int r = e / C, c = e % C, p = p0 + r;
+        if (p < P) a.d_reffeat[(size_t)p * C + c] = dgf[r * LDF + c];
+      }
+      for (int e = tid; e < PT * 3; e += NT) {
+        const int r = e / 3, p = p0 + r;
+        if (p < P) a.d_pts[3 * (size_t)p + e % 3] = dgf[r * LDF + 48 + e % 3];
+      }
     }
 
     // ---- anti-alias weight chain -> d_dot (ray_diff[..., 3]) and d_s ----
@@ -441,6 +468,8 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
       if (p >= P) continue;
       if (!a.anti_alias) {
         a.d_s[p] = 0.f;
+        if (!INMLP)
+          for (int v = 0; v < V; ++v) a.d_dot[(size_t)v * P + p] = 0.f;
         continue;
       }
       float sw = 0.f, emin = sm_ed[r];
@@ -466,7 +495,10 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
         // the min over views splits its cotangent evenly among ties
         const float ded =
             sm_dw[v * PT + r] + (ed == emin ? dem / cnt : 0.f);
-        a.d_raydiff[pv * 4 + 3] += ded * ed * s_abs;
+        if (INMLP)
+          a.d_raydiff[pv * 4 + 3] += ded * ed * s_abs;
+        else
+          a.d_dot[(size_t)v * P + p] = ded * ed * s_abs;
         dsl += ded * ed * (a.raydiff[pv * 4 + 3] - 1.f);
       }
       a.d_s[p] = dsl * (s_val > 0.f ? 1.f : (s_val < 0.f ? -1.f : 0.f));

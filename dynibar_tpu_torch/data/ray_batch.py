@@ -13,6 +13,7 @@ Vd/Vs padded view counts):
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -55,14 +56,16 @@ def _textured_image(h: int, w: int, seed: int) -> np.ndarray:
   return img.astype(np.float32)
 
 
-def synthetic_mono_batch(n_rays: int, h: int = 64, w: int = 96,
-                         num_frames: int = 32, ref_idx: int = 10,
+def synthetic_mono_batch(cfg: RenderSettings, n_rays: int, h: int = 64,
+                         w: int = 96, num_frames: int = 32, ref_idx: int = 10,
                          anchor_delta: int = 1, seed: int = 0,
-                         num_views_dy: int = 9, num_views_anchor: int = 10,
-                         num_views_static: int = 14, num_vv: int = 3,
+                         include_identity_anchor: bool = False,
                          scanline: bool = False) -> Dict[str, np.ndarray]:
-  """Fixed-shape monocular ray batch on a synthetic scene.  scanline=True
-  takes a contiguous pixel block (the layout a frame render feeds)."""
+  """Fixed-shape monocular ray batch on a synthetic scene, padded to the
+  view counts of ``cfg`` (``num_views_dy`` with ``num_vv`` virtual views,
+  ``num_views_anchor``, ``num_views_static``).  include_identity_anchor
+  adds the reference frame to the anchor views; scanline=True takes a
+  contiguous pixel block (the layout a frame render feeds)."""
   rng = np.random.RandomState(seed)
   anchor_idx = ref_idx + anchor_delta
   poses = synthetic_poses(num_frames, seed)
@@ -108,16 +111,19 @@ def synthetic_mono_batch(n_rays: int, h: int = 64, w: int = 96,
     return (np.stack(rgbs), np.stack(cams), np.array(off_idx, np.int32),
             np.array(valid, np.float32), np.array(is_vv, np.float32))
 
-  src = view_stack([ref_idx + o for o in MONO_SRC_OFFSETS], num_views_dy,
-                   offsets=True, vv_count=num_vv, base_idx=ref_idx)
-  anchor_ids = sorted(anchor_idx + o for o in ANCHOR_CAND_OFFSETS
-                      if 0 <= anchor_idx + o < num_frames
-                      and anchor_idx + o != ref_idx)
-  anchor = view_stack(anchor_ids, num_views_anchor, offsets=True,
-                      vv_count=num_vv, base_idx=anchor_idx)
+  src = view_stack([ref_idx + o for o in MONO_SRC_OFFSETS], cfg.num_views_dy,
+                   offsets=True, vv_count=cfg.num_vv, base_idx=ref_idx)
+  anchor_ids = [anchor_idx + o for o in ANCHOR_CAND_OFFSETS
+                if 0 <= anchor_idx + o < num_frames
+                and anchor_idx + o != ref_idx]
+  if include_identity_anchor:
+    anchor_ids.append(ref_idx)
+  anchor = view_stack(sorted(anchor_ids), cfg.num_views_anchor, offsets=True,
+                      vv_count=cfg.num_vv, base_idx=anchor_idx)
   stride = max(2, num_frames // (2 * 7))
   static_ids = [i for i in range(0, num_frames, stride) if i != ref_idx]
-  static = view_stack(static_ids[:num_views_static], num_views_static)
+  static = view_stack(static_ids[:cfg.num_views_static],
+                      cfg.num_views_static)
 
   return {
       "ray_o": ray_o,
@@ -153,9 +159,8 @@ def synthetic_ff_batch(cfg: RenderSettings, n_rays: int, h: int = 64,
   temporal source views (offsets -3..3, no virtual views) and
   ``cfg.num_views_anchor`` padded anchor views."""
   mono = synthetic_mono_batch(
-      n_rays, h, w, num_frames, ref_idx, anchor_delta=1, seed=seed,
-      num_views_dy=7, num_views_anchor=cfg.num_views_anchor,
-      num_views_static=cfg.num_views_static, num_vv=0, scanline=scanline)
+      dataclasses.replace(cfg, num_views_dy=7, num_vv=0), n_rays, h, w,
+      num_frames, ref_idx, anchor_delta=1, seed=seed, scanline=scanline)
   poses = synthetic_poses(num_frames, seed)
   k = intrinsics_from_hwf(h, w, 0.9 * w)
   rgbs, cams, off_idx = [], [], []

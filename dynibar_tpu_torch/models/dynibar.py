@@ -1,4 +1,4 @@
-"""The forward-facing (Nvidia benchmark) model container.
+"""The model containers: forward-facing (FF) and monocular (mono).
 
 ``FFModel`` holds the frozen-coarse and fine static/dynamic aggregators,
 two motion MLPs, two feature nets and two DCT bases (reference
@@ -10,6 +10,14 @@ CPU; with grad enabled the kernels' autograd Functions) unless
 ``kernels=False`` asks for the plain modules.  ``train_fine()`` is the
 fine-stage training mode: only the fine groups require grad, the coarse
 stage stays frozen (reference model.py:106-118).
+
+``MonoModel`` holds one static and one dynamic aggregator (the dynamic one
+with ``shift = 5``), two feature nets, one motion MLP and one DCT basis
+(reference model.py:291-397, dynibar_tpu/models/dynibar.py:64-193), under
+the JAX top-level names.  It has one stage: its ``apply_*`` take the
+stage argument of ``FFModel``'s as ``None``, so the render code serves
+both.  Both containers hand the static aggregator's backward route
+(``cfg.fused_st_bwd_impl``) to the kernel wrapper.
 """
 
 from __future__ import annotations
@@ -35,6 +43,10 @@ FF_FINE_KEYS = ("net_fine_st", "net_fine_dy", "feature_net_fine",
                 "motion_mlp_fine", "traj_basis_fine")
 FF_COARSE_KEYS = ("net_coarse_st", "net_coarse_dy", "feature_net",
                   "motion_mlp", "traj_basis")
+# the mono step's groups, in the optimizer order of reference
+# model.py:341-351 (dynibar_tpu/train/trainer.py:73-80)
+MONO_KEYS = ("net_coarse_st", "feature_net_st", "net_coarse_dy",
+             "feature_net", "motion_mlp", "traj_basis")
 
 
 class FFModel(nn.Module):
@@ -81,7 +93,10 @@ class FFModel(nn.Module):
                mask, kernels: bool = True):
     net = getattr(self, f"net_{stage}_st")
     args = (pts, ref_pl, src_pl, rgb_feat, ray_diff, mask)
-    return fused_static_aggregator(net, *args) if kernels else net(*args)
+    if not kernels:
+      return net(*args)
+    return fused_static_aggregator(net, *args,
+                                   bwd=self.cfg.fused_st_bwd_impl)
 
   def apply_motion(self, stage: str, xyzt: torch.Tensor) -> torch.Tensor:
     return (self.motion_mlp_fine if stage == "fine" else self.motion_mlp)(xyzt)
@@ -121,3 +136,81 @@ class FFModel(nn.Module):
     net = self.feature_net_fine
     anchor = None if anchor_src_rgbs is None else net(anchor_src_rgbs)[0]
     return coarse, (net(src_rgbs)[0], anchor, net(static_src_rgbs)[1])
+
+
+class MonoModel(nn.Module):
+
+  def __init__(self, cfg: RenderSettings, num_frames: int,
+               device: DeviceLike = None, seed: int = 0,
+               dy_shift: float = 5.0):
+    """Random weights from `seed`; `device` None means the CUDA card.
+    dy_shift: the dynamic sigma shift (reference model.py:307)."""
+    super().__init__()
+    dev = resolve_device(device)
+    self.cfg, self.num_frames = cfg, num_frames
+    feat = cfg.coarse_feat_dim
+    with torch.random.fork_rng(devices=[]):
+      torch.manual_seed(seed)
+      self.net_coarse_st = StaticAggregator(
+          feat, cfg.n_samples, cfg.anti_alias_pooling, cfg.mask_rgb)
+      self.net_coarse_dy = DynamicAggregator(feat, cfg.n_samples,
+                                             shift=dy_shift)
+      self.feature_net = FeatureNet(cfg.coarse_feat_dim, cfg.fine_feat_dim)
+      self.feature_net_st = FeatureNet(cfg.coarse_feat_dim,
+                                       cfg.fine_feat_dim)
+      self.motion_mlp = MotionMLP(cfg.num_basis)
+    self.traj_basis = nn.Parameter(
+        torch.from_numpy(init_dct_basis(cfg.num_basis, num_frames)))
+    self.requires_grad_(False)
+    self.eval()
+    self.to(dev)
+
+  @property
+  def device(self) -> torch.device:
+    return self.traj_basis.device
+
+  # `stage` is FFModel's argument: the mono model has one stage (None)
+  def apply_dy(self, stage: Optional[str], pts, rgb_feat, ray_dir, mask,
+               time, kernels: bool = True):
+    net = self.net_coarse_dy
+    if kernels:
+      return fused_dynamic_aggregator(net, pts, rgb_feat, ray_dir, mask, time)
+    return net(pts, rgb_feat, ray_dir, mask, time)
+
+  def apply_st(self, stage: Optional[str], pts, ref_pl, src_pl, rgb_feat,
+               ray_diff, mask, kernels: bool = True):
+    args = (pts, ref_pl, src_pl, rgb_feat, ray_diff, mask)
+    if not kernels:
+      return self.net_coarse_st(*args)
+    return fused_static_aggregator(self.net_coarse_st, *args,
+                                   bwd=self.cfg.fused_st_bwd_impl)
+
+  def apply_motion(self, stage: Optional[str], xyzt: torch.Tensor
+                   ) -> torch.Tensor:
+    return self.motion_mlp(xyzt)
+
+  def basis(self, stage: Optional[str]) -> torch.Tensor:
+    return self.traj_basis
+
+  def train_all(self) -> "MonoModel":
+    """Training mode of the mono step: every group requires grad."""
+    self.requires_grad_(True)
+    return self
+
+  def param_groups(self) -> Dict[str, List[nn.Parameter]]:
+    """Every group's parameters, by group name, in optimizer order."""
+    return {key: ([self.traj_basis] if key == "traj_basis"
+                  else list(getattr(self, key).parameters()))
+            for key in MONO_KEYS}
+
+  def encode_featmaps(self, src_rgbs: torch.Tensor,
+                      static_src_rgbs: torch.Tensor,
+                      anchor_src_rgbs: Optional[torch.Tensor] = None
+                      ) -> tuple:
+    """(dynamic, anchor or None, static) featmaps as ``compute_featmaps``
+    routes them (dynibar_tpu/train/trainer.py:132-141): the dynamic and
+    anchor maps from feature_net's coarse channels, the static maps from
+    feature_net_st's coarse channels."""
+    net = self.feature_net
+    anchor = None if anchor_src_rgbs is None else net(anchor_src_rgbs)[0]
+    return (net(src_rgbs)[0], anchor, self.feature_net_st(static_src_rgbs)[0])

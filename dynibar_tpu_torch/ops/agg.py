@@ -11,19 +11,25 @@ Forward kernels (take the inputs of the matching module's ``forward``,
     (pallas_agg.py:587) and ``_dynamic_kernel(emit_residuals=True)``
     (:1033) keep theirs.
 
-Backward kernels (csrc/static_agg_bwd.cu, csrc/dynamic_agg_bwd.cu), each a
-ray-side and a trunk-side launch as in ``pallas_agg_bwd.py``: K4a/K4b
-(dynamic, :514/:733) and K5a/K5b (static, :879/:1109).  The trunk wrapper
-also launches the small kernel that sums the per-block weight-gradient
-slabs.
+Backward kernels (csrc/static_agg_bwd.cu, csrc/static_agg_bwd3.cu,
+csrc/dynamic_agg_bwd.cu), a ray-side and a trunk-side launch as in
+``pallas_agg_bwd.py``: K4a/K4b (dynamic, :514/:733) and K5a/K5b (static,
+:879/:1109).  The static backward's route "pallas_split3" splits the
+trunk side at the d_rf seam as ``_make_st_core_diff_split(three_kernel=
+True)`` does (pallas_agg.py:556-559): K5c (:1328, the trunk) then K5d
+(:1484, the per-view input MLP).  The last trunk-side wrapper also
+launches the small kernel that sums the per-block weight-gradient slabs.
 
 Dispatch: CPU tensors run the module's forward (the plain f32 twin, under
 autograd when grad is enabled).  CUDA tensors launch the kernels: under
 ``torch.no_grad()`` K2/K3; with grad enabled the autograd Functions
-(K2r/K3r forward, K5a+K5b / K4a+K4b backward), so a CUDA call never
-returns a tensor without a graph.  The per-ray pieces the JAX wrappers
-also run outside their kernels stay torch ops and get their gradients from
-autograd through the returned input cotangents: ``ref_feature_fc``
+(K2r/K3r forward, K5a+K5b or K5a+K5c+K5d / K4a+K4b backward), so a CUDA
+call never returns a tensor without a graph.  The static route comes from
+the caller (``RenderSettings.fused_st_bwd_impl``); an unknown route
+raises, on the CPU too, and no route runs another's kernels.  The
+per-ray pieces the JAX wrappers also run outside their kernels stay torch
+ops and get their gradients from autograd through the returned input
+cotangents: ``ref_feature_fc``
 (pallas_agg.py:814-820), the time-PE ``ray_dir_fc`` (:1187-1194) and
 ``dir_pe`` (:1196-1199).
 """
@@ -37,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from dynibar_tpu_torch.config import STATIC_BWD_ROUTES, check_route
 from dynibar_tpu_torch.core.posenc import periodic_embed
 from dynibar_tpu_torch.models.nn_layers import linear_layers
 from dynibar_tpu_torch.ops import build
@@ -44,8 +51,8 @@ from dynibar_tpu_torch.ops import build
 # layer slots of the packed weights; csrc/agg_common.cuh names the same ids
 N_LAYERS = 23
 _LN, _AA_S = 14, 22
-_MAX_VIEWS, _MAX_SAMPLES, _MAX_CH = 12, 128, 40
-_MAX_CH_STATIC_BWD = 36          # 2·(3+C) <= 72 f32 columns in K5b
+_MAX_VIEWS, _MAX_SAMPLES, _MAX_CH = 14, 128, 40   # csrc VMAX, SMAX, CMAX
+_MAX_CH_STATIC_BWD = 36          # 2·(3+C) <= 72 f32 columns in K5b/K5c
 _SCRATCH_LD = 128 + 128 + 272    # csrc/ray_bwd.cuh kScratchLd
 _N_SLABS = 16                    # csrc/agg_bwd_common.cuh kSlabs
 
@@ -56,6 +63,8 @@ _DYN_RAY_ARGS = [_P] * 19 + [_I] * 7 + [_P]
 _DYN_TRUNK_ARGS = [_P] * 14 + [_I] * 7 + [_P]
 _ST_RAY_ARGS = [_P] * 16 + [_I] * 7 + [_P]
 _ST_TRUNK_ARGS = [_P] * 12 + [_I] * 2 + [_P] * 10 + [_I] * 7 + [_P]
+_ST_TRUNK3_ARGS = [_P] * 9 + [_I] * 2 + [_P] * 6 + [_I] * 7 + [_P]
+_ST_INMLP_ARGS = [_P] * 18 + [_I] * 7 + [_P]
 _REDUCE_ARGS = [_P, _I, _I, _P, _P]
 
 
@@ -199,6 +208,27 @@ def _fn(lib: str, name: str, argtypes):
   return fn
 
 
+# each library's two kernels, in the order of its dyn_occupancy output
+_OCCUPANCY = {"static_agg": ("K2 trunk", "K2 ray"),
+              "dynamic_agg": ("K3 trunk", "K3 ray"),
+              "static_agg_bwd": ("K5a", "K5b"),
+              "static_agg_bwd3": ("K5c", "K5d"),
+              "dynamic_agg_bwd": ("K4a", "K4b")}
+
+
+def occupancy(v: int) -> Dict[str, Tuple[int, int]]:
+  """Each aggregator kernel's dynamic shared memory at `v` views and the
+  blocks of it one SM of the current card holds (CUDA's occupancy
+  calculator): {kernel: (bytes, blocks per SM)}."""
+  out = {}
+  for lib, names in _OCCUPANCY.items():
+    buf = (ctypes.c_int * 4)()
+    fn = _fn(lib, "dyn_occupancy", [_I, ctypes.POINTER(ctypes.c_int)])
+    build.check(fn(v, buf), f"{lib} occupancy")
+    out[names[0]], out[names[1]] = (buf[0], buf[1]), (buf[2], buf[3])
+  return out
+
+
 def _stream(dev) -> int:
   return torch.cuda.current_stream(dev).cuda_stream
 
@@ -309,18 +339,24 @@ def _dir_inputs(net, glb_ray_dir, time):
 
 
 def fused_static_aggregator(net: nn.Module, pts, ref_pl, src_pl, rgb_feat,
-                            ray_diff, mask) -> torch.Tensor:
-  """Static aggregator; arguments as StaticAggregator.forward."""
+                            ray_diff, mask, bwd: str = "pallas_split"
+                            ) -> torch.Tensor:
+  """Static aggregator; arguments as StaticAggregator.forward.  bwd: the
+  backward route on the card, "pallas_split" (K5a + K5b) or
+  "pallas_split3" (K5a + K5c + K5d); both take the twin on the CPU."""
+  check_route("fused_st_bwd_impl", bwd, STATIC_BWD_ROUTES)
   if not rgb_feat.is_cuda:
     return net(pts, ref_pl, src_pl, rgb_feat, ray_diff, mask)
-  return _static_cuda(net, pts, ref_pl, src_pl, rgb_feat, ray_diff, mask)
+  return _static_cuda(net, pts, ref_pl, src_pl, rgb_feat, ray_diff, mask,
+                      bwd)
 
 
-def _static_cuda(net, pts, ref_pl, src_pl, rgb_feat, ray_diff, mask):
+def _static_cuda(net, pts, ref_pl, src_pl, rgb_feat, ray_diff, mask,
+                 bwd: str = "pallas_split"):
   reffeat = _reffeat(net, ref_pl)
   if torch.is_grad_enabled():
-    return _StaticAggFn.apply(net, pts, reffeat, src_pl, rgb_feat, ray_diff,
-                              mask, *kernel_params(net, True))
+    return _StaticAggFn.apply(net, bwd, pts, reffeat, src_pl, rgb_feat,
+                              ray_diff, mask, *kernel_params(net, True))
   out, _ = _static_launch(net, pts, reffeat, src_pl, rgb_feat, ray_diff, mask)
   fused_static_aggregator.launches += 1
   return out
@@ -361,7 +397,7 @@ def dynamic_forward_residuals(net, pts, dirfeat, dirpe, rgb_feat, mask):
 
 
 # --------------------------------------------------------------------------
-# backward launches (K4a/K4b, K5a/K5b)
+# backward launches (K4a/K4b, K5a/K5b, K5c/K5d)
 # --------------------------------------------------------------------------
 
 def _ray_common(packed, ws, cot, dev):
@@ -430,6 +466,89 @@ def static_backward_trunk(net, ws, dx, dmisc, slabs, nblk, w_total):
   return grads, out
 
 
+def static_backward_trunk3(net, ws, dx, dmisc, slabs, nblk, w_total):
+  """K5c: the static trunk-side backward without the input MLP.  Returns
+  d_rf_tot [V,P,2C] f32, d_dot [V,P] (the anti-alias cotangent of
+  ray_diff[..., 3]) and d_s [P]; weight grads go to the slabs."""
+  dev = dx.device
+  r, s, v, c = ws["rgb_feat"].shape
+  p = r * s
+  if c > _MAX_CH_STATIC_BWD:
+    raise ValueError(f"static backward kernel limit 3+C<={_MAX_CH_STATIC_BWD}"
+                     f"; got {c}")
+  w, b, meta, wt = pack_weights(net, True)
+  f32 = dict(dtype=torch.float32, device=dev)
+  drf = torch.empty((v, p, 2 * c), **f32)
+  d_dot = torch.empty((v, p), **f32)
+  d_s = torch.empty((p,), **f32)
+  fn = _fn("static_agg_bwd3", "dyn_static_agg_bwd_trunk3", _ST_TRUNK3_ARGS)
+  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                 _zeros(dev).data_ptr(), _meta_ptr(meta),
+                 ws["rgb_feat"].data_ptr(), ws["mask"].data_ptr(),
+                 ws["ray_diff"].data_ptr(), ws["rf"].data_ptr(),
+                 int(net.anti_alias_pooling), int(net.mask_rgb),
+                 dx.data_ptr(), dmisc.data_ptr(), drf.data_ptr(),
+                 d_dot.data_ptr(), d_s.data_ptr(), slabs.data_ptr(),
+                 slabs.shape[1], w_total, r, s, v, c, nblk, _stream(dev)),
+              "static aggregator backward (trunk, split3)")
+  static_backward_trunk3.launches += 1
+  return drf, d_dot, d_s
+
+
+def static_backward_inmlp(net, ws, drf, dmisc, d_dot, slabs, nblk, w_total):
+  """K5d: the per-view input MLP's backward, then the slab reduction.
+  Returns the packed f32 gradients and the input cotangents (as
+  static_backward_trunk's, without ``s``).  Two 64-point blocks fit an SM:
+  the grid is 2 · nblk persistent blocks."""
+  dev = drf.device
+  r, s, v, c = ws["rgb_feat"].shape
+  p = r * s
+  w, b, meta, wt = pack_weights(net, True)
+  f32 = dict(dtype=torch.float32, device=dev)
+  out = dict(rgb_feat=torch.empty((p, v, c), **f32),
+             ray_diff=torch.empty((p, v, 4), **f32),
+             src_pl=torch.empty((p, v, 6), **f32),
+             pts=torch.empty((p, 3), **f32),
+             reffeat=torch.empty((p, c), **f32))
+  fn = _fn("static_agg_bwd3", "dyn_static_agg_bwd_inmlp", _ST_INMLP_ARGS)
+  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                 _zeros(dev).data_ptr(), _meta_ptr(meta),
+                 ws["pts"].data_ptr(), ws["reffeat"].data_ptr(),
+                 ws["ray_diff"].data_ptr(), ws["src_pl"].data_ptr(),
+                 drf.data_ptr(), dmisc.data_ptr(), d_dot.data_ptr(),
+                 out["rgb_feat"].data_ptr(), out["ray_diff"].data_ptr(),
+                 out["src_pl"].data_ptr(), out["pts"].data_ptr(),
+                 out["reffeat"].data_ptr(), slabs.data_ptr(), slabs.shape[1],
+                 w_total, r, s, v, c, 2 * nblk, _stream(dev)),
+              "static aggregator backward (input MLP, split3)")
+  grads = _reduce("static_agg_bwd3", slabs)
+  static_backward_inmlp.launches += 1
+  return grads, out
+
+
+def static_backward(net, ws, cot, bwd: str):
+  """The whole static backward on route `bwd`: K5a, then K5b or K5c + K5d.
+  Frees the residuals as it goes.  Returns the packed f32 gradients and
+  the input cotangents (``s`` per point)."""
+  slabs, nblk, w_total = _slabs(cot.device, pack_weights(net, True))
+  dx, dmisc = static_backward_ray(net, ws, cot, slabs, nblk, w_total)
+  for k in ("x", "vm", "gf", "nv"):    # the ray side's residuals
+    del ws[k]
+  if bwd == "pallas_split3":
+    drf, d_dot, d_s = static_backward_trunk3(net, ws, dx, dmisc, slabs,
+                                             nblk, w_total)
+    del dx, ws["rf"]
+    grads, d = static_backward_inmlp(net, ws, drf, dmisc, d_dot, slabs, nblk,
+                                     w_total)
+    d["s"] = d_s
+  elif bwd == "pallas_split":
+    grads, d = static_backward_trunk(net, ws, dx, dmisc, slabs, nblk,
+                                     w_total)
+  else:
+    raise NotImplementedError(bwd)
+  return grads, d
+
+
 def dynamic_backward_ray(net, ws, cot, slabs, nblk, w_total):
   """K4a: ray-side dynamic backward.  Returns d_x, d_misc (d_vis in slot
   0), d_pts [P,3] and d_dirpe [R,27]."""
@@ -487,16 +606,17 @@ def _reduce(lib: str, slabs: torch.Tensor) -> torch.Tensor:
 
 
 class _StaticAggFn(torch.autograd.Function):
-  """K2r forward, K5a + K5b backward.  Inputs after ``net``: pts [R,S,3],
-  reffeat [R,C] (ref_feature_fc output), src_pl, rgb_feat, ray_diff, mask,
-  then ``kernel_params(net, True)``."""
+  """K2r forward, K5a + K5b (route "pallas_split") or K5a + K5c + K5d
+  ("pallas_split3") backward.  Inputs after ``net`` and the route: pts
+  [R,S,3], reffeat [R,C] (ref_feature_fc output), src_pl, rgb_feat,
+  ray_diff, mask, then ``kernel_params(net, True)``."""
 
   @staticmethod
-  def forward(ctx, net, pts, reffeat, src_pl, rgb_feat, ray_diff, mask,
+  def forward(ctx, net, bwd, pts, reffeat, src_pl, rgb_feat, ray_diff, mask,
               *params):
     out, ws = static_forward_residuals(net, pts, reffeat, src_pl, rgb_feat,
                                        ray_diff, mask)
-    ctx.net, ctx.ws = net, ws
+    ctx.net, ctx.ws, ctx.bwd = net, ws, bwd
     ctx.dtypes = (pts.dtype, reffeat.dtype, src_pl.dtype, rgb_feat.dtype,
                   ray_diff.dtype)
     return out
@@ -506,23 +626,17 @@ class _StaticAggFn(torch.autograd.Function):
     net, ws = ctx.net, ctx.ws
     ctx.ws = None                      # residuals go with this backward
     r, s, v, c = ws["rgb_feat"].shape
-    cot = d_out.float().contiguous()
-    slabs, nblk, w_total = _slabs(cot.device, pack_weights(net, True))
-    dx, dmisc = static_backward_ray(net, ws, cot, slabs, nblk, w_total)
-    for k in ("x", "vm", "gf", "nv"):  # the ray side's residuals
-      del ws[k]
-    grads, d = static_backward_trunk(net, ws, dx, dmisc, slabs, nblk,
-                                     w_total)
-    del ws, dx, dmisc, slabs
-    meta = pack_weights(net, True)[2]
+    grads, d = static_backward(net, ws, d_out.float().contiguous(), ctx.bwd)
+    del ws
+    w, _, meta, _ = pack_weights(net, True)
     d_s = d["s"].sum() if net.anti_alias_pooling else None
     dt = ctx.dtypes
-    return (None, d["pts"].view(r, s, 3).to(dt[0]),
+    return (None, None, d["pts"].view(r, s, 3).to(dt[0]),
             d["reffeat"].view(r, s, c).sum(1).to(dt[1]),
             d["src_pl"].view(r, s, v, 6).to(dt[2]),
             d["rgb_feat"].view(r, s, v, c).to(dt[3]),
             d["ray_diff"].view(r, s, v, 4).to(dt[4]), None,
-            *unpack_grads(net, True, meta, grads, w_total, d_s))
+            *unpack_grads(net, True, meta, grads, w.numel(), d_s))
 
 
 class _DynamicAggFn(torch.autograd.Function):
@@ -562,7 +676,8 @@ class _DynamicAggFn(torch.autograd.Function):
 
 for _f in (fused_static_aggregator, fused_dynamic_aggregator,
            static_forward_residuals, dynamic_forward_residuals,
-           static_backward_ray, static_backward_trunk, dynamic_backward_ray,
+           static_backward_ray, static_backward_trunk, static_backward_trunk3,
+           static_backward_inmlp, dynamic_backward_ray,
            dynamic_backward_trunk):
   _f.launches = 0
 
@@ -589,6 +704,12 @@ def aggregator_flop_parts(static: bool, r: int, s: int, v: int, c: int
     per_point += _mlp_macs((161, 256, 128)) + _mlp_macs((155, 128, 64, 3))
   attention = 2 * s * s * 128
   return 2 * p * v * trunk, 2 * (p * per_point + r * attention)
+
+
+def static_inmlp_flops(r: int, s: int, v: int, c: int) -> int:
+  """Matmul flops of the static input MLP ray_dir_fc's forward, the part
+  of the trunk side that K5d (not K5c) transposes."""
+  return 2 * r * s * v * _mlp_macs((103, 256, c))
 
 
 def aggregator_flops(static: bool, r: int, s: int, v: int, c: int) -> int:

@@ -1,8 +1,9 @@
-"""The FF render core: frozen coarse -> importance -> fine (-> anchor).
+"""The render cores: FF (frozen coarse -> importance -> fine (-> anchor))
+and mono (one stage (-> anchor)).
 
 Port of ``dynibar_tpu.render.render_rays.render_rays_mv``,
-``_render_stage_ff`` and ``_cross_time_branch`` (reference
-render_ray.py:407-867, :1099-1270).  The eval call runs everything under
+``render_rays_mono``, ``_render_stage_ff`` and ``_cross_time_branch``
+(reference render_ray.py:407-1270).  The eval call runs everything under
 ``torch.no_grad()``: each stage samples the source views through K1
 (ops/sample.py) and aggregates through K2/K3 (ops/agg.py).  The train call
 (``is_train=True``) keeps the frozen coarse stage there and runs the fine
@@ -11,6 +12,10 @@ stage and its cross-time (anchor) branch with autograd on: the sampler is
 and the aggregators go through their autograd Functions (K2r/K3r forward,
 K5a/K5b and K4a/K4b backward).  ``kernels=False`` runs the plain twins
 instead, which is how the kernels are held against them on the card.
+``render_rays_mono`` runs its one stage the same way: no autograd unless
+``needs_grad`` (by default ``is_train``) asks for it, so the bootstrap
+step renders with ``is_train=False`` and still differentiates.  The mono
+model passes ``None`` where the FF model names its stage.
 """
 
 from __future__ import annotations
@@ -61,8 +66,9 @@ def _motion_window(model, stage, pts, time_emb, frame_idx, window):
   return motion.traj_points_window(raw_coeff, basis_win)
 
 
-def stage_inputs(model, rb, featmaps, cfg: RenderSettings, stage: str,
-                 pts, kernels: bool = True) -> Dict[str, Any]:
+def stage_inputs(model, rb, featmaps, cfg: RenderSettings,
+                 stage: Optional[str], pts, kernels: bool = True
+                 ) -> Dict[str, Any]:
   """Everything one stage hands its aggregators: trajectories, displaced
   points, sampled features (through K1 for no-grad kernel passes), masks
   and encodings (reference fine_render_rays, render_ray.py:407-597)."""
@@ -91,9 +97,11 @@ def stage_inputs(model, rb, featmaps, cfg: RenderSettings, stage: str,
   }
 
 
-def _render_stage_ff(model, rb, featmaps, cfg: RenderSettings, stage: str,
-                     pts, z_vals, kernels: bool) -> Dict[str, Any]:
-  """Shared coarse/fine forward: stage inputs -> K3/K2 -> composite."""
+def _render_stage_ff(model, rb, featmaps, cfg: RenderSettings,
+                     stage: Optional[str], pts, z_vals, kernels: bool
+                     ) -> Dict[str, Any]:
+  """One stage's forward (FF coarse/fine, or mono with stage None): stage
+  inputs -> K3/K2 -> composite."""
   ins = stage_inputs(model, rb, featmaps, cfg, stage, pts, kernels)
   mask, mask_st = ins["dy"][3], ins["st"][5]
   pixel_mask = torch.sum(mask[..., 0].float(), dim=2) > 1
@@ -109,14 +117,15 @@ def _render_stage_ff(model, rb, featmaps, cfg: RenderSettings, stage: str,
   }
 
 
-def _cross_time_branch(model, rb, cfg: RenderSettings, anchor_featmaps,
-                       stage_out: Dict[str, Any], pts_ref, z_vals,
-                       kernels: bool):
+def _cross_time_branch(model, rb, cfg: RenderSettings, stage: Optional[str],
+                       anchor_featmaps, stage_out: Dict[str, Any], pts_ref,
+                       z_vals, kernels: bool):
   """Cross-time (anchor) rendering for the temporal-consistency losses
-  (dynibar_tpu render_rays.py:272-363): the reference points displaced to
-  the anchor time along their trajectory, rendered from the anchor views,
-  the matched trajectory pairs with their validity, and the occlusion
-  weights (no gradient)."""
+  (dynibar_tpu render_rays.py:272-363) of the model's `stage` (FF "fine",
+  mono None): the reference points displaced to the anchor time along
+  their trajectory, rendered from the anchor views, the matched
+  trajectory pairs with their validity, and the occlusion weights (no
+  gradient)."""
   w = cfg.traj_window
   n_rays, s = pts_ref.shape[:2]
   traj_ref = stage_out["traj"]
@@ -126,7 +135,7 @@ def _cross_time_branch(model, rb, cfg: RenderSettings, anchor_featmaps,
   traj_at_delta = torch.index_select(traj_ref, 2, delta + w)[:, :, 0]
   pts_anchor = pts_ref + traj_at_delta - traj_ref[:, :, w]
   anchor_time_emb = _time_emb(rb["anchor_time"], n_rays, s)
-  traj_anchor = _motion_window(model, "fine", pts_anchor, anchor_time_emb,
+  traj_anchor = _motion_window(model, stage, pts_anchor, anchor_time_emb,
                                rb["anchor_frame_idx"], w)
   pts_seq_anchor = motion.displaced_points(
       pts_anchor, traj_anchor, rb["anchor_offset_idx"], w)      # [Va,R,S,3]
@@ -149,7 +158,7 @@ def _cross_time_branch(model, rb, cfg: RenderSettings, anchor_featmaps,
       _sample_fn(kernels))
   # the anchor pixel mask uses > 0 (reference render_ray.py:1198-1200)
   pixel_mask_a = torch.sum(mask_a[..., 0].float(), dim=2) > 0
-  raw_anchor = model.apply_dy("fine", pts_anchor, rgb_feat_a,
+  raw_anchor = model.apply_dy(stage, pts_anchor, rgb_feat_a,
                               _normalize(rb["ray_d"]), mask_a,
                               anchor_time_emb, kernels=kernels)
   out_a = comp.composite_dual(raw_anchor, stage_out["raw_st"], z_vals,
@@ -164,7 +173,7 @@ def _cross_time_branch(model, rb, cfg: RenderSettings, anchor_featmaps,
   diff_dy = out_ref["weights_dy"] - out_a["weights_dy"]
   diff_full = out_ref["weights"] - out_a["weights"]
   if cfg.occ_weights_mode == 0:     # mix: dy-composite unless |dt| <= 1
-    occ = diff_dy if int(delta.abs()) > 1 else diff_full
+    occ = torch.where(delta.abs() > 1, diff_dy, diff_full)
   elif cfg.occ_weights_mode == 1:   # composite-dy
     occ = diff_dy
   elif cfg.occ_weights_mode == 2:   # full
@@ -229,6 +238,56 @@ def render_rays_mv(model, rb: Dict[str, Any], coarse_featmaps,
     }
     if is_train:
       ret["outputs_fine_anchor"], ret["outputs_fine_anchor_dy"] = (
-          _cross_time_branch(model, rb, cfg, fine_featmaps[1], fine,
+          _cross_time_branch(model, rb, cfg, "fine", fine_featmaps[1], fine,
                              pts_fine, z_all, kernels))
+  return ret
+
+
+def render_rays_mono(model, rb: Dict[str, Any], featmaps,
+                     cfg: RenderSettings, *, device: DeviceLike = None,
+                     kernels: bool = True, is_train: bool = False,
+                     det: bool = True,
+                     generator: Optional[torch.Generator] = None,
+                     needs_grad: Optional[bool] = None) -> Dict[str, Any]:
+  """Forward of the monocular model for one ray batch (dynibar_tpu
+  render_rays.py:135-269, reference render_ray.py:870-1277).
+
+  featmaps: (dynamic [Vd,Hf,Wf,C], anchor [Va,Hf,Wf,C] or None, static
+  [Vs,Hf,Wf,C]).  Returns outputs_coarse_ref / _ref_dy / _st and, with
+  is_train, outputs_coarse_anchor(_dy) with the occlusion weights,
+  matched trajectory pairs and scene-flow sequence the loss reads.
+  needs_grad (default is_train) records the render for a backward: the
+  sampler is then F.grid_sample and the aggregators their autograd
+  Functions; without it the pass runs under no_grad through K1-K3.
+  det=False places the samples stochastically from ``generator``."""
+  dev = resolve_device(device)
+  if model.device != dev:
+    raise ValueError(f"model is on {model.device}, render asked for {dev}")
+  rb = to_device(rb, dev)
+  if needs_grad is None:
+    needs_grad = is_train
+  with torch.set_grad_enabled(needs_grad and torch.is_grad_enabled()):
+    pts, z_vals, s_vals = sampling.sample_along_ray(
+        rb["ray_o"], rb["ray_d"], rb["depth_range"], cfg.n_samples,
+        inv_uniform=cfg.inv_uniform, det=det, generator=generator)
+    stage = _render_stage_ff(model, rb, featmaps, cfg, None, pts, z_vals,
+                             kernels)
+    out = stage["outputs"]
+    # render-derived flow against the first 6 (temporal) source views
+    out["render_flows"] = comp.render_optical_flow(
+        out["weights"], stage["pts_seq"][:6], rb["src_cameras"][:6],
+        rb["uv_grid"])
+    out["s_vals"] = s_vals
+    out["exp_sf"] = motion.expected_scene_flow(
+        out["weights"], stage["traj"], 1, cfg.traj_window).detach()
+    ret = {
+        "outputs_coarse_ref": out,
+        "outputs_coarse_ref_dy": stage["outputs_dy"],
+        "outputs_coarse_st": comp.composite_single(
+            stage["raw_st"], z_vals, stage["pixel_mask_st"]),
+    }
+    if is_train:
+      ret["outputs_coarse_anchor"], ret["outputs_coarse_anchor_dy"] = (
+          _cross_time_branch(model, rb, cfg, None, featmaps[1], stage, pts,
+                             z_vals, kernels))
   return ret

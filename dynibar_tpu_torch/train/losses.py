@@ -1,8 +1,10 @@
-"""The fine-stage FF training loss (port of ``dynibar_tpu.train.losses``).
+"""The training losses (port of ``dynibar_tpu.train.losses``).
 
 The 8-term assembly of the reference train loop (train.py:300-456) with
 its criterion helpers (ibrnet/criterion.py:21-85, utils.py:32-39), applied
-to the fine outputs of ``render_rays_mv(is_train=True)``.  The
+to the fine outputs of ``render_rays_mv(is_train=True)`` (FF) or to the
+outputs of ``render_rays_mono(is_train=True)`` (mono), and the mono
+static-bootstrap loss (train.py:187-196).  The
 epoch-dependent decay factors come from :func:`schedule_weights` on the
 host.  Every term is f32.
 """
@@ -79,6 +81,24 @@ def flow_loss(render_flow, gt_flow, gt_mask):
   m2 = torch.cat([m, m], dim=-1)
   return (torch.sum(torch.abs(render_flow - gt_flow) * m2)
           / (torch.sum(m2) + 1e-8))
+
+
+def compute_mono_losses(ret: Dict[str, Any], rb: Dict[str, Any],
+                        w: LossWeights) -> Dict[str, torch.Tensor]:
+  """Full 8-term mono loss (train.py:300-456).  Returns each term and the
+  total."""
+  return _assemble_losses(
+      ret["outputs_coarse_ref"], ret["outputs_coarse_ref_dy"],
+      ret["outputs_coarse_anchor"], ret["outputs_coarse_anchor_dy"], rb, w)
+
+
+def compute_bootstrap_loss(ret: Dict[str, Any], rb: Dict[str, Any]
+                           ) -> torch.Tensor:
+  """Static-bootstrap phase loss (reference train.py:187-196): the static
+  render on the static pixels."""
+  mask = ((1.0 - rb["static_mask"].float())
+          * ret["outputs_coarse_ref"]["mask"].float())
+  return charbonnier_rgb(ret["outputs_coarse_st"]["rgb"], rb["rgb"], mask)
 
 
 def compute_ff_losses(ret: Dict[str, Any], rb: Dict[str, Any],

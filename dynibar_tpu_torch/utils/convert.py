@@ -1,4 +1,5 @@
-"""The weight bridge: JAX ``FFModel`` params pytree <-> port state_dict.
+"""The weight bridge: JAX ``FFModel`` / ``MonoModel`` params pytree <->
+port state_dict.
 
 Inverts ``dynibar_tpu/utils/torch_convert.py:73-149`` (feature net,
 aggregators, motion MLP) and carries ``traj_basis`` / ``traj_basis_fine``
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from dynibar_tpu_torch.config import RenderSettings
+from dynibar_tpu_torch.models.dynibar import FFModel, MonoModel
 
 Entry = Tuple[Tuple[str, ...], str, str]
 
@@ -116,6 +118,26 @@ def ff_entries(cfg: RenderSettings) -> List[Entry]:
               (("traj_basis_fine",), "traj_basis_fine", "copy")]
 
 
+def mono_entries(cfg: RenderSettings) -> List[Entry]:
+  """The whole MonoModel mapping (dynibar_tpu/models/dynibar.py:103-123)."""
+  e = aggregator_entries(True, cfg.anti_alias_pooling, ("net_coarse_st",),
+                         "net_coarse_st")
+  e += aggregator_entries(False, False, ("net_coarse_dy",), "net_coarse_dy")
+  for name in ("feature_net", "feature_net_st"):
+    e += _feature_net((name,), name)
+  return e + _motion_mlp(("motion_mlp",), "motion_mlp") + [
+      (("traj_basis",), "traj_basis", "copy")]
+
+
+def model_entries(model) -> List[Entry]:
+  """The mapping of an FFModel or a MonoModel, by its type."""
+  if isinstance(model, MonoModel):
+    return mono_entries(model.cfg)
+  if isinstance(model, FFModel):
+    return ff_entries(model.cfg)
+  raise TypeError(f"no JAX mapping for {type(model).__name__}")
+
+
 def _to_torch(a: np.ndarray, kind: str) -> np.ndarray:
   if kind == "linear":
     return a.T
@@ -145,7 +167,7 @@ def _leaves(tree: Dict[str, Any], prefix=()) -> Dict[Tuple[str, ...], Any]:
 def jax_params_to_state_dict(params: Dict[str, Any], entries: List[Entry]
                              ) -> Dict[str, torch.Tensor]:
   """JAX params (leaves as numpy) -> state_dict (f32) along `entries`
-  (ff_entries or aggregator_entries).
+  (ff_entries, mono_entries or aggregator_entries).
 
   Raises if a pytree leaf has no place in the port."""
   leaves = _leaves(params)
@@ -172,7 +194,7 @@ def state_dict_to_jax_params(sd: Dict[str, torch.Tensor],
 
 
 def load_jax_params(model, params: Dict[str, Any]) -> None:
-  """Load a JAX FFModel params pytree into an FFModel strictly (no
-  missing or unexpected keys)."""
+  """Load a JAX FFModel or MonoModel params pytree into the port's model
+  of the same kind strictly (no missing or unexpected keys)."""
   model.load_state_dict(
-      jax_params_to_state_dict(params, ff_entries(model.cfg)), strict=True)
+      jax_params_to_state_dict(params, model_entries(model)), strict=True)

@@ -64,13 +64,15 @@ def _has_s(net: nn.Module, static: bool) -> bool:
 
 def aggregator_grads(net: nn.Module, static: bool,
                      args: Sequence[torch.Tensor], cot: torch.Tensor,
-                     mode: str, rays: int = TWIN_RAYS
+                     mode: str, rays: int = TWIN_RAYS,
+                     bwd: str = "pallas_split"
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
   """One forward + backward of ``sum(raw * cot)``.
 
   mode: "kernel" (the CUDA kernels through the autograd Function, all rays
-  in one call), "f32" (the module) or "bf16" (the module under autocast,
-  bf16 inputs); the twins run ``rays`` rays at a time.  Returns raw and
+  in one call; a static net's backward on route `bwd`), "f32" (the module)
+  or "bf16" (the module under autocast, bf16 inputs); the twins run
+  ``rays`` rays at a time.  Returns raw and
   the gradients of the differentiable inputs (``input.<name>``) and of
   every parameter (its name in ``net``); for the twins of a static net
   with anti-alias pooling also ``s.per_point`` [R,S]."""
@@ -90,9 +92,10 @@ def aggregator_grads(net: nn.Module, static: bool,
   try:
     with torch.enable_grad():
       if mode == "kernel":
-        fn = (agg.fused_static_aggregator if static
-              else agg.fused_dynamic_aggregator)
-        out = fn(net, *call).float()
+        if static:
+          out = agg.fused_static_aggregator(net, *call, bwd=bwd).float()
+        else:
+          out = agg.fused_dynamic_aggregator(net, *call).float()
         (out * cot).sum().backward()
       elif mode in ("f32", "bf16"):
         outs = []
@@ -134,29 +137,29 @@ def aggregator_grads(net: nn.Module, static: bool,
 
 
 def kernel_ds_per_point(net: nn.Module, args: Sequence[torch.Tensor],
-                        cot: torch.Tensor) -> torch.Tensor:
-  """The static kernels' per-point anti-alias gradient [R,S]: K2r, K5a and
-  K5b launched directly (the autograd Function sums it over points)."""
+                        cot: torch.Tensor, bwd: str = "pallas_split"
+                        ) -> torch.Tensor:
+  """The static kernels' per-point anti-alias gradient [R,S]: K2r and the
+  backward of route `bwd` launched directly (the autograd Function sums it
+  over points)."""
   pts, ref_pl, src_pl, rgb_feat, ray_diff, mask = args
   r, s = rgb_feat.shape[:2]
   with torch.no_grad():
     reffeat = agg._reffeat(net, ref_pl)
     _, ws = agg.static_forward_residuals(net, pts, reffeat, src_pl, rgb_feat,
                                          ray_diff, mask)
-    slabs, nblk, w_total = agg._slabs(cot.device, agg.pack_weights(net, True))
-    dx, dmisc = agg.static_backward_ray(net, ws, cot.float().contiguous(),
-                                        slabs, nblk, w_total)
-    _, d = agg.static_backward_trunk(net, ws, dx, dmisc, slabs, nblk,
-                                     w_total)
+    _, d = agg.static_backward(net, ws, cot.float().contiguous(), bwd)
   return d["s"].view(r, s)
 
 
 def all_grads(net: nn.Module, static: bool, args: Sequence[torch.Tensor],
-              cot: torch.Tensor, rays: int = TWIN_RAYS):
-  """Kernel, f32 and bf16 twin: (out_k, out_f, g_k, g_f, g_b)."""
-  out_k, g_k = aggregator_grads(net, static, args, cot, "kernel")
+              cot: torch.Tensor, rays: int = TWIN_RAYS,
+              bwd: str = "pallas_split"):
+  """Kernel (a static net's backward on route `bwd`), f32 and bf16 twin:
+  (out_k, out_f, g_k, g_f, g_b)."""
+  out_k, g_k = aggregator_grads(net, static, args, cot, "kernel", bwd=bwd)
   if _has_s(net, static):
-    g_k["s.per_point"] = kernel_ds_per_point(net, args, cot)
+    g_k["s.per_point"] = kernel_ds_per_point(net, args, cot, bwd)
   out_f, g_f = aggregator_grads(net, static, args, cot, "f32", rays)
   _, g_b = aggregator_grads(net, static, args, cot, "bf16", rays)
   return out_k, out_f, g_k, g_f, g_b

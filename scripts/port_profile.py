@@ -1,15 +1,19 @@
-"""Where the port's FF eval chunk, or its train step, spends device time.
+"""Where the port's FF eval chunk, or a train step, spends device time.
 
     python3 scripts/port_profile.py [--chunk 1024] [--iters 3]
     python3 scripts/port_profile.py --train [--chunk 3072] [--iters 2]
+    python3 scripts/port_profile.py --mono [--route pallas_split3]
+        [--chunk 3072] [--iters 2]
 
 Renders one chunk (64+64 samples, 7+11 views, 288x512 sources, bf16,
 random weights from a seed) through the kernel path on the CUDA card under
-torch.profiler, or with --train runs fine-stage train steps (7 dynamic, 6
-anchor, 11 static views, N_rand = --chunk), and prints the device time per
-kernel name (summed over the profiled iterations, divided by them), the
-wall time per iteration and the device's busy share of it.  Needs one
-card; imports nothing of JAX.
+torch.profiler; with --train runs FF fine-stage train steps (7 dynamic, 6
+anchor, 11 static views, N_rand = --chunk); with --mono runs mono train
+steps at bench.py's width (64 samples, 9 dynamic, 10 anchor, 14 static
+views, 48 frames, schedule_weights(epoch=2)) on the static backward route
+--route.  Prints the device time per kernel name (summed over the
+profiled iterations, divided by them), the wall time per iteration and
+the device's busy share of it.  Needs one card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -26,9 +30,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from dynibar_tpu_torch.config import (RenderSettings,  # noqa: E402
-                                      TrainSettings)
-from dynibar_tpu_torch.data.ray_batch import synthetic_ff_batch  # noqa: E402
-from dynibar_tpu_torch.models.dynibar import FFModel  # noqa: E402
+                                      TrainSettings, mono_render_settings)
+from dynibar_tpu_torch.data.ray_batch import (  # noqa: E402
+    synthetic_ff_batch, synthetic_mono_batch)
+from dynibar_tpu_torch.models.dynibar import FFModel, MonoModel  # noqa: E402
 from dynibar_tpu_torch.ops import build  # noqa: E402
 from dynibar_tpu_torch.render.render_rays import render_rays_mv  # noqa: E402
 from dynibar_tpu_torch.train import losses, trainer  # noqa: E402
@@ -41,12 +46,31 @@ def main() -> int:
   ap.add_argument("--chunk", type=int, default=1024)
   ap.add_argument("--iters", type=int, default=3)
   ap.add_argument("--train", action="store_true")
+  ap.add_argument("--mono", action="store_true")
+  ap.add_argument("--route", default="pallas_split",
+                  help="the mono step's static backward route")
   args = ap.parse_args()
   dev = resolve_device(None)
   card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                          "--format=csv,noheader"], capture_output=True,
                         text=True, check=True).stdout.strip()
   build.build()
+  if args.mono:
+    cfg = mono_render_settings(num_source_views=7, num_vv=3, n_samples=64,
+                               num_basis=6, compute_dtype="bfloat16",
+                               fused_st_bwd_impl=args.route)
+    model = MonoModel(cfg, num_frames=48, seed=0).train_all()
+    rb = to_device(synthetic_mono_batch(cfg, n_rays=args.chunk, h=288,
+                                        w=512, num_frames=48), dev)
+    t_cfg = TrainSettings()
+    opt = trainer.make_mono_optimizer(model, t_cfg)
+    weights = losses.schedule_weights(t_cfg, 2)
+
+    def one():
+      trainer.mono_train_step(model, opt, rb, weights, cfg, t_cfg,
+                              generator=torch.Generator(dev).manual_seed(0))
+    return _profile(one, args, card,
+                    f"mono train step N_rand {args.chunk} ({args.route})")
   cfg = RenderSettings(n_samples=64, n_importance=64, num_views_dy=7,
                        num_views_anchor=6 if args.train else 0,
                        num_views_static=11, num_basis=6, inv_uniform=True,
@@ -71,6 +95,14 @@ def main() -> int:
 
     def one():
       render_rays_mv(model, rb, coarse, fine, cfg)
+  return _profile(one, args, card,
+                  f"train step N_rand {args.chunk}" if args.train
+                  else f"chunk {args.chunk}")
+
+
+def _profile(one, args, card: str, what: str) -> int:
+  """Two warm-up iterations, then --iters under torch.profiler; prints the
+  table and a JSON line."""
   for _ in range(2):
     one()
   torch.cuda.synchronize()
@@ -94,8 +126,6 @@ def main() -> int:
   rows.sort(reverse=True)
   busy = sum(r[0] for r in rows)
   print(f"card: {card}")
-  what = (f"train step N_rand {args.chunk}" if args.train
-          else f"chunk {args.chunk}")
   print(f"{what}: wall {wall * 1e3:.2f} ms, device busy "
         f"{busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%)")
   for ms, n, name in rows[:25]:

@@ -9,13 +9,16 @@ Marked ``cuda``: on a host without a card every test skips.  On the card
 Tolerances as chip_smoke.py states them: K1 within one bf16 ulp, K2/K3
 (bf16 operands, f32 accumulation) vs the f32 modules at the bars the JAX
 package holds its Pallas kernels to (tests/test_pallas_agg.py:80,90).
-The backward kernels K4a/K4b and K5a/K5b through the autograd Functions vs
-the f32 modules under autograd, per tensor within twice the bf16 twin's
-error plus 0.02 (tests/test_pallas_agg.py:370-377); R = 64 with S = 16
-spreads the rays over many blocks, so the weight gradients are summed
-across block slabs.  The static anti-alias scalar is held per point and as
-a sum scaled by its terms' magnitudes (utils/kernel_check.py), and every
-shape runs with several weight seeds.
+The backward kernels K4a/K4b, K5a/K5b and (route "pallas_split3")
+K5a/K5c/K5d through the autograd Functions vs the f32 modules under
+autograd, per tensor within twice the bf16 twin's error plus 0.02
+(tests/test_pallas_agg.py:370-377); R = 64 with S = 16 spreads the rays
+over many blocks, so the weight gradients are summed across block slabs.
+The static anti-alias scalar is held per point and as a sum scaled by its
+terms' magnitudes (utils/kernel_check.py), and every shape runs with
+several weight seeds.  The shapes cover the FF views (11 static, 7 and 6
+dynamic) and the mono ones (14 static, 9 and 10 dynamic); the two static
+routes also agree with each other, and 15 views raise.
 """
 
 import numpy as np
@@ -75,7 +78,8 @@ def _compare(got, want, atol):
   assert bool(((g - w).abs() <= atol + 2e-2 * w.abs()).all())
 
 
-@pytest.mark.parametrize("s,v", [(16, 4), (64, 11), (40, 11)])
+@pytest.mark.parametrize("s,v", [(16, 4), (64, 11), (40, 11), (64, 14),
+                                 (16, 14)])
 def test_static_kernel(dev, s, v):
   d = _inputs(dev, s, v, seed=s + v)
   net = StaticAggregator(F, s).to(dev).eval()
@@ -96,23 +100,34 @@ def test_dynamic_kernel(dev, s, v):
   np.testing.assert_array_equal(got[0, :, :3].cpu().numpy(), 0.0)
 
 
-def _check_backward(dev, net, static, args, r, s):
+_COUNTERS = {
+    "pallas_split": (agg.static_backward_ray, agg.static_backward_trunk),
+    "pallas_split3": (agg.static_backward_ray, agg.static_backward_trunk3,
+                      agg.static_backward_inmlp),
+    "dynamic": (agg.dynamic_backward_ray, agg.dynamic_backward_trunk)}
+
+
+def _check_backward(dev, net, static, args, r, s, bwd="pallas_split"):
   cot = torch.randn(r, s, 4, generator=torch.Generator().manual_seed(r + s))
   cot = cot.to(dev)
-  counters = ((agg.static_backward_ray, agg.static_backward_trunk) if static
-              else (agg.dynamic_backward_ray, agg.dynamic_backward_trunk))
-  before = [f.launches for f in counters]
-  aggregator_grads(net, static, args, cot, "kernel")
+  counters = _COUNTERS[bwd if static else "dynamic"]
+  others = [f for k, fs in _COUNTERS.items() for f in fs if f not in counters]
+  before = [f.launches for f in counters + tuple(others)]
+  aggregator_grads(net, static, args, cot, "kernel", bwd=bwd)
   torch.cuda.synchronize()
-  assert [f.launches for f in counters] == [b + 1 for b in before]
-  out_k, out_f, g_k, g_f, g_b = all_grads(net, static, args, cot)
+  # each kernel of the route once, no kernel of another route
+  assert [f.launches for f in counters + tuple(others)] == (
+      [b + 1 for b in before[:len(counters)]] + before[len(counters):])
+  out_k, out_f, g_k, g_f, g_b = all_grads(net, static, args, cot, bwd=bwd)
   _compare(out_k, out_f, 2e-2 if static else 1e-2)
   assert set(g_k) == set(g_f)
-  check_grad_errors(grad_errors(g_k, g_f, g_b), "backward")
+  check_grad_errors(grad_errors(g_k, g_f, g_b), f"backward ({bwd})")
+  return cot, g_k, g_f
 
 
 @pytest.mark.parametrize("seed", WEIGHT_SEEDS)
-@pytest.mark.parametrize("r,s,v", [(6, 16, 4), (64, 16, 11), (6, 128, 11)])
+@pytest.mark.parametrize("r,s,v", [(6, 16, 4), (64, 16, 11), (6, 128, 11),
+                                   (6, 64, 14)])
 def test_static_backward_kernels(dev, r, s, v, seed):
   d = _inputs(dev, s, v, seed=7 * s + v, R=r)
   torch.manual_seed(seed)
@@ -123,7 +138,56 @@ def test_static_backward_kernels(dev, r, s, v, seed):
 
 
 @pytest.mark.parametrize("seed", WEIGHT_SEEDS)
-@pytest.mark.parametrize("r,s,v", [(6, 16, 3), (64, 16, 7), (6, 128, 6)])
+@pytest.mark.parametrize("r,s,v", [(64, 16, 14), (6, 64, 14), (64, 16, 11),
+                                   (6, 128, 11)])
+def test_static_split3_backward_kernels(dev, r, s, v, seed):
+  """K5a + K5c + K5d vs the twins, and against K5a + K5b on the same
+  inputs: the same bf16 products summed in another order, so every
+  gradient within 1e-3 of its f32 scale (``s``: the sum of its per-point
+  terms' magnitudes)."""
+  d = _inputs(dev, s, v, seed=7 * s + v, R=r)
+  torch.manual_seed(seed)
+  net = StaticAggregator(F, s).to(dev)
+  args = [d[k] for k in ("pts", "ref_pl", "src_pl", "rgb_feat", "ray_diff",
+                         "mask")]
+  cot, g3, g_f = _check_backward(dev, net, True, args, r, s, "pallas_split3")
+  _, g2 = aggregator_grads(net, True, args, cot, "kernel")
+  for name, want in g2.items():
+    scale = (float(g_f["s.per_point"].abs().sum()) if name == "s"
+             else float(g_f[name].abs().max()))
+    err = float((g3[name] - want).abs().max())
+    assert err <= 1e-3 * scale + 1e-7, (name, err, scale)
+
+
+@pytest.mark.parametrize("static", [True, False])
+def test_views_past_the_limit_raise(dev, static):
+  """15 views: the wrapper refuses, and so does the library's own check
+  when the wrapper's is bypassed; nothing falls back to the twin."""
+  d = _inputs(dev, 16, 15, seed=3)
+  if static:
+    net = StaticAggregator(F, 16).to(dev).eval()
+    args = [d[k] for k in ("pts", "ref_pl", "src_pl", "rgb_feat",
+                           "ray_diff", "mask")]
+    fn = fused_static_aggregator
+  else:
+    net = DynamicAggregator(F, 16).to(dev).eval()
+    args = [d[k] for k in ("pts", "rgb_feat", "ray_dir", "mask", "time")]
+    fn = fused_dynamic_aggregator
+  with torch.no_grad():
+    with pytest.raises(ValueError, match="V<=14"):
+      fn(net, *args)
+    check = agg._check_dims
+    agg._check_dims = lambda *a: None
+    try:
+      with pytest.raises(RuntimeError, match="CUDA error"):
+        fn(net, *args)
+    finally:
+      agg._check_dims = check
+
+
+@pytest.mark.parametrize("seed", WEIGHT_SEEDS)
+@pytest.mark.parametrize("r,s,v", [(6, 16, 3), (64, 16, 7), (6, 128, 6),
+                                   (64, 16, 10), (6, 64, 9)])
 def test_dynamic_backward_kernels(dev, r, s, v, seed):
   d = _inputs(dev, s, v, seed=7 * s + v, R=r)
   torch.manual_seed(seed)
