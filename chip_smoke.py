@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the FF eval render, the
-FF fine-stage train step, and the mono model's eval chunk and train step.
+FF fine-stage train step, the mono model's eval chunk and train step, and
+the monocular training CLI from an on-disk scene to checkpoints.
 
     python3 chip_smoke.py
 
@@ -7,7 +8,8 @@ Phases (each prints its own lines; any failure raises, so the exit code
 is non-zero and the last line below is never printed):
 
   0. the card's name and power limit (nvidia-smi); TF32 off;
-  1. build the six CUDA libraries from csrc/ (one nvcc each, in parallel);
+  1. build the seven CUDA libraries from csrc/ (one nvcc each, in
+     parallel); print each kernel's footprint and blocks per SM;
   2. hold each eval kernel against its plain PyTorch twin at the main
      path's shapes (K2/K3 at both the coarse and the fine stage) and time
      kernel, twin and (K1) the library call;
@@ -17,7 +19,12 @@ is non-zero and the last line below is never printed):
      the autograd Functions vs the f32 modules under autograd (run in
      512-ray slices), per tensor within twice the bf16 twin's error plus
      0.02, the anti-alias scalar per point and as a sum scaled by its
-     terms; time fwd+bwd and each launch;
+     terms; time fwd+bwd and each launch.  The dynamic shapes also on the
+     route "pallas": K3p (the K3 forward, no residuals) and the one-launch
+     backward K4s at the same bars, K4s's gradients within a tenth of
+     that bar of K4a + K4b's on the same inputs and cotangent (largest
+     relative difference printed per tensor, and the split's own
+     run-to-run difference where it is largest), each launch timed;
   3. render one 1024-ray chunk (64+64 samples, 7+11 views, 288×512
      sources, bf16) with launch counters zeroed just before and read just
      after, compare its coarse and fine rgb with the plain path, and time
@@ -34,17 +41,30 @@ is non-zero and the last line below is never printed):
      and 14 static views, 288×512 sources, 48 frames, bf16):
      a. K2 at V = 14 against its twin; the training kernels at the mono
         step's 3072 rays as in 2b: static V = 14 on both backward routes
-        (K2r/K5a/K5b and K2r/K5a/K5c/K5d), dynamic V = 9 and V = 10;
+        (K2r/K5a/K5b and K2r/K5a/K5c/K5d), dynamic V = 9 and V = 10 on
+        both dynamic routes (K3r/K4a/K4b; a': K3p/K4s as in 2b, with four
+        weight seeds);
      b. one 1024-ray eval chunk (is_train=False, det=True): launch counts,
         kernel vs plain rgb, rays/s;
      c. the mono train step at N_rand 3072 (schedule_weights(epoch=2)) on
-        each static route: launch counts of one step; kernel vs plain loss
+        each route (pallas_split; static pallas_split3; c': dynamic
+        pallas, K3p + K4s): launch counts of one step; kernel vs plain loss
         and per-group gradients (plain aggregators in checkpointed 512-ray
-        slices) after one update, and on the second route the gradients of
-        both routes from the same weights; s/step over 5 steps after 2
-        warm-ups and peak memory; 10 steps on one batch with a falling
-        loss; one bootstrap step;
-  7. print the kernels line, the card line, then the result line.
+        slices) after one update, and on the other routes their gradients
+        against pallas_split's from the same weights; s/step over 5 steps
+        after 2 warm-ups and peak memory; 10 steps on one batch with a
+        falling loss; one bootstrap step;
+  8. the training CLI (cli/train.main) on the "pallas" route from a
+     48-frame 288×512 scene written to a temporary directory: one
+     bootstrap epoch and one phase-2 epoch of 48 steps each at N_rand
+     3072, a checkpoint in phase 2, one full-frame training panel at the
+     last step (K1-K3) held against a plain-path render of the same view
+     with the last checkpoint's weights (rgb within 3e-2); s/step per
+     phase, the panel's s/frame, the time waiting on the data pipeline;
+     then a second run that resumes at the saved step with the saved
+     parameters and runs one more epoch;
+  7. print the kernels line (13 kernels), the card line, then the result
+     line.
 
 Weights are random, from a seed.  Needs one card and no network.
 """
@@ -54,6 +74,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -76,7 +97,9 @@ TRAIN_SOURCES = {
     "K5c": "dynibar_tpu_torch/csrc/static_agg_bwd3.cu",
     "K5d": "dynibar_tpu_torch/csrc/static_agg_bwd3.cu",
     "K4a": "dynibar_tpu_torch/csrc/dynamic_agg_bwd.cu",
-    "K4b": "dynibar_tpu_torch/csrc/dynamic_agg_bwd.cu"}
+    "K4b": "dynibar_tpu_torch/csrc/dynamic_agg_bwd.cu",
+    "K3p": "dynibar_tpu_torch/csrc/dynamic_agg.cu",
+    "K4s": "dynibar_tpu_torch/csrc/dynamic_agg_bwd1.cu"}
 REPLACES = {
     "K2r": "dynibar_tpu/ops/pallas_agg.py:225",
     "K3r": "dynibar_tpu/ops/pallas_agg.py:325",
@@ -85,21 +108,33 @@ REPLACES = {
     "K5c": "dynibar_tpu/ops/pallas_agg_bwd.py:1328",
     "K5d": "dynibar_tpu/ops/pallas_agg_bwd.py:1484",
     "K4a": "dynibar_tpu/ops/pallas_agg_bwd.py:514",
-    "K4b": "dynibar_tpu/ops/pallas_agg_bwd.py:733"}
+    "K4b": "dynibar_tpu/ops/pallas_agg_bwd.py:733",
+    "K3p": "dynibar_tpu/ops/pallas_agg.py:925",
+    "K4s": "dynibar_tpu/ops/pallas_agg_bwd.py:163"}
 WRAPPERS = {
     "K2r": "static_forward_residuals", "K5a": "static_backward_ray",
     "K5b": "static_backward_trunk", "K5c": "static_backward_trunk3",
     "K5d": "static_backward_inmlp", "K3r": "dynamic_forward_residuals",
-    "K4a": "dynamic_backward_ray", "K4b": "dynamic_backward_trunk"}
+    "K4a": "dynamic_backward_ray", "K4b": "dynamic_backward_trunk",
+    "K3p": "dynamic_forward_primal", "K4s": "dynamic_backward_single"}
 TRAIN_LAUNCHES = {"K1": 4, "K2": 1, "K3": 1, "K2r": 1, "K5a": 1, "K5b": 1,
-                  "K3r": 2, "K4a": 2, "K4b": 2, "K5c": 0, "K5d": 0}
+                  "K3r": 2, "K4a": 2, "K4b": 2, "K5c": 0, "K5d": 0, "K3p": 0,
+                  "K4s": 0}
+# the mono step's routes: (static fused_st_bwd_impl, dynamic fused_bwd_impl)
+MONO_ROUTES = {"pallas_split": ("pallas_split", "pallas_split"),
+               "pallas_split3": ("pallas_split3", "pallas_split"),
+               "pallas": ("pallas_split", "pallas")}
 MONO_LAUNCHES = {
     "pallas_split": {"K1": 0, "K2": 0, "K3": 0, "K2r": 1, "K5a": 1,
                      "K5b": 1, "K3r": 2, "K4a": 2, "K4b": 2, "K5c": 0,
-                     "K5d": 0},
+                     "K5d": 0, "K3p": 0, "K4s": 0},
     "pallas_split3": {"K1": 0, "K2": 0, "K3": 0, "K2r": 1, "K5a": 1,
                       "K5b": 0, "K3r": 2, "K4a": 2, "K4b": 2, "K5c": 1,
-                      "K5d": 1}}
+                      "K5d": 1, "K3p": 0, "K4s": 0},
+    "pallas": {"K1": 0, "K2": 0, "K3": 0, "K2r": 1, "K5a": 1, "K5b": 1,
+               "K3r": 0, "K4a": 0, "K4b": 0, "K5c": 0, "K5d": 0, "K3p": 2,
+               "K4s": 2}}
+WEIGHT_SEEDS = range(4)
 TRUNK_LAYERS = ("base_fc", "vis_fc", "vis_fc2", "s")
 
 
@@ -196,17 +231,7 @@ def _check_training_kernels(card, label, static, net, args, cot,
   fb_ms = _time_ms(lambda: kc.aggregator_grads(net, static, args, cot,
                                                "kernel", bwd=bwd),
                    iters=3, warmup=1)
-  plain_fb_ms = _time_ms(lambda: kc.aggregator_grads(
-      net, static, args, cot, "f32"), iters=2, warmup=1)
-
-  def plain_fwd():                   # the twin's forward under autograd
-    for i in range(0, r, kc.TWIN_RAYS):
-      net(*[a[i:i + kc.TWIN_RAYS] for a in args])
-
-  with torch.enable_grad():
-    net.requires_grad_(True)
-    plain_fwd_ms = _time_ms(plain_fwd, iters=2, warmup=1)
-    net.requires_grad_(False)
+  plain_fb_ms, plain_fwd_ms = _plain_ms(net, args, cot, static)
   # each launch on its own, CUDA events around the wrapper
   with torch.no_grad():
     if static:
@@ -317,6 +342,130 @@ def _check_training_kernels(card, label, static, net, args, cot,
   return out
 
 
+def _plain_ms(net, args, cot, static):
+  """The f32 twin's fwd+bwd and forward ms (512-ray slices, autograd)."""
+  from dynibar_tpu_torch.utils import kernel_check as kc
+  fb = _time_ms(lambda: kc.aggregator_grads(net, static, args, cot, "f32"),
+                iters=2, warmup=1)
+
+  def plain_fwd():
+    for i in range(0, cot.shape[0], kc.TWIN_RAYS):
+      net(*[a[i:i + kc.TWIN_RAYS] for a in args])
+
+  with torch.enable_grad():
+    net.requires_grad_(True)
+    fwd = _time_ms(plain_fwd, iters=2, warmup=1)
+    net.requires_grad_(False)
+  return fb, fwd
+
+
+def _single_correctness(label, net, args, cot):
+  """The "pallas" route (K3p forward, K4s backward) vs the twins at the
+  kernel_check bars, and K4s's gradients vs K4a + K4b's (route
+  "pallas_split") on the same inputs and cotangent: the same bf16
+  products, the weight gradients summed by atomics in another order, so
+  each within a tenth of its kernel_check bar (relative to the f32
+  gradient's scale).  Not 1e-3 as at the card tests' few rays: a
+  one-column bias (vis_fc2's last) sums ~200k per-point terms of both
+  signs, and its f32 sum moved with the order by up to 2e-3 of its
+  cancelled value between two runs of the split itself.  Returns the K3p error, the gradient errors and the
+  largest relative difference from the split per tensor."""
+  from dynibar_tpu_torch.utils import kernel_check as kc
+  out_k, out_f, g_k, g_f, g_b = kc.all_grads(net, False, args, cot,
+                                             bwd="pallas")
+  torch.cuda.synchronize()
+  fwd_err = _compare_raw(f"K3p ({label})", out_k, out_f, 1e-2, 2e-2)
+  errs = kc.grad_errors(g_k, g_f, g_b)
+  kc.check_grad_errors(errs, f"{label} K4s")
+  _, g_split = kc.aggregator_grads(net, False, args, cot, "kernel",
+                                   bwd="pallas_split")
+  vs_split = {n: float((g_k[n].float() - g).abs().max())
+              / max(float(g_f[n].abs().max()), 1e-30)
+              for n, g in g_split.items()}
+  bad = {n: e for n, e in vs_split.items() if not e <= 0.1 * errs[n][2]}
+  if bad:
+    raise AssertionError(f"{label}: K4s and K4a+K4b gradients differ: {bad}")
+  # the split against itself: the atomics' order alone
+  worst = max(vs_split, key=vs_split.get)
+  _, g_again = kc.aggregator_grads(net, False, args, cot, "kernel",
+                                   bwd="pallas_split")
+  again = (float((g_again[worst] - g_split[worst]).abs().max())
+           / max(float(g_f[worst].abs().max()), 1e-30))
+  print(f"{label}: K4s vs K4a+K4b largest on {worst}: {vs_split[worst]:.3g}"
+        f" of its scale; K4a+K4b run twice differ there by {again:.3g}",
+        flush=True)
+  abs_err = max(float((g_k[n].float() - g_f[n]).abs().max()) for n in errs)
+  return fwd_err, errs, vs_split, abs_err
+
+
+def _check_single_kernels(card, label, net, args, cot, seeds=()):
+  """The "pallas" route's kernels at one shape (_single_correctness) with
+  `net`'s weights and, for correctness only, with fresh nets from each of
+  `seeds`; each launch timed.  Returns {"K3p": ..., "K4s": ...} result
+  dicts without launch counts."""
+  from dynibar_tpu_torch.models.aggregators import DynamicAggregator
+  from dynibar_tpu_torch.ops import agg
+  from dynibar_tpu_torch.utils import kernel_check as kc
+  r, s_, v, c = args[1].shape
+  fwd_err, errs, vs_split, abs_err = _single_correctness(label, net, args,
+                                                         cot)
+  for seed in seeds:
+    torch.manual_seed(seed)
+    fresh = DynamicAggregator(c - 3, s_, shift=net.shift).to(cot.device)
+    _single_correctness(f"{label} weight seed {seed}", fresh, args, cot)
+  fb_ms = _time_ms(lambda: kc.aggregator_grads(net, False, args, cot,
+                                               "kernel", bwd="pallas"),
+                   iters=3, warmup=1)
+  plain_fb_ms, plain_fwd_ms = _plain_ms(net, args, cot, False)
+  with torch.no_grad():
+    dirfeat, dirpe = agg._dir_inputs(net, args[2], args[4])
+    fwd = lambda: agg.dynamic_forward_primal(net, args[0], dirfeat, dirpe,
+                                             args[1], args[3])
+    times = {"K3p": _time_ms(fwd, iters=5)}
+    _, ins = fwd()
+    times["K4s"] = _time_ms(lambda: agg.dynamic_backward_single(net, ins,
+                                                                cot), iters=5)
+  p = r * s_
+  f_trunk, f_ray = agg.aggregator_flop_parts(False, r, s_, v, c)
+  packed = agg.pack_weights(net, False)
+  w_bytes = _nbytes(*packed[:2])
+  in_bytes = _nbytes(*ins.values())
+  out_bytes = 4 * (p * 3 + r * 27 + p * v * c + p * c
+                   + packed[0].numel() + packed[1].numel())
+  # K4s: the forward trunk it recomputes (counted as K3r counts it) plus
+  # the backward, counted as K4a (3x the ray side) and K4b (3x the trunk)
+  # count it, so the two routes read the same work
+  bounds = {"K3p": _bound_ms(in_bytes + w_bytes + p * 16, f_trunk + f_ray,
+                             PEAK_BF16_FLOPS),
+            "K4s": _bound_ms(in_bytes + w_bytes + p * 16 + out_bytes,
+                             f_trunk + 3 * (f_trunk + f_ray),
+                             PEAK_BF16_FLOPS)}
+  worst = max(errs, key=lambda n: errs[n][0] / errs[n][2])
+  print(f"{label}: pallas route fwd+bwd {fb_ms:.3f} ms (plain f32 "
+        f"{plain_fb_ms:.3f} ms, plain fwd {plain_fwd_ms:.3f} ms); K3p "
+        f"{times['K3p']:.3f} ms, K4s {times['K4s']:.3f} ms; K3p max abs err "
+        f"{fwd_err:.3g}; weight seeds {[0] + list(seeds)} within the bars "
+        f"[{card}]", flush=True)
+  print(f"{label}: K4s gradient closest to its bar (kernel, bf16 twin, "
+        f"bar): {worst} {[round(x, 4) for x in errs[worst]]}; largest "
+        f"relative difference from K4a+K4b per tensor: "
+        f"{ {n: float(f'{e:.3g}') for n, e in vs_split.items()} }",
+        flush=True)
+  out = {}
+  for key in ("K3p", "K4s"):
+    out[key] = dict(name=WRAPPERS[key], route="cuda",
+                    source=TRAIN_SOURCES[key], replaces=REPLACES[key],
+                    ms=times[key], bound_ms=bounds[key][0],
+                    bound_by=bounds[key][1], library_ms=None, rays=r,
+                    samples=s_, views=v)
+  out["K3p"].update(max_abs_err=fwd_err, plain_ms=plain_fwd_ms)
+  out["K4s"].update(max_abs_err=abs_err,
+                    worst_grad=[worst] + list(errs[worst]),
+                    max_rel_vs_split=max(vs_split.values()),
+                    plain_ms=plain_fb_ms - plain_fwd_ms)
+  return out
+
+
 def _group_grads(model, loss_fn):
   """The loss and every group's flattened gradient after one backward."""
   model.zero_grad(set_to_none=True)
@@ -396,6 +545,14 @@ def _mono_phases(card, dev, h, w, n_rand, t_cfg):
     res = _check_training_kernels(card, label, static, net, args, cot, bwd)
     if label != "mono dynamic V=10":
       results.update(res)
+    if not static:
+      # 6a': the "pallas" route at the same shape, four weight seeds
+      res = _check_single_kernels(card, label, net, args, cot,
+                                  seeds=WEIGHT_SEEDS[1:])
+      if label == "mono dynamic V=9":
+        results.update(res)
+      else:
+        results["K4s V=10"] = res["K4s"]
   del st, dy9, dy10, args, res
   torch.cuda.empty_cache()
 
@@ -428,13 +585,14 @@ def _mono_phases(card, dev, h, w, n_rand, t_cfg):
   del model, rb, fm, ret, plain
   torch.cuda.empty_cache()
 
-  # ---- 6c: the mono train step on each static backward route ----
+  # ---- 6c: the mono train step on each backward route ----
   weights = losses.schedule_weights(t_cfg, 2)
   batch = to_device(synthetic_mono_batch(cfg, n_rays=n_rand, h=h, w=w,
                                          num_frames=48, seed=SEED), dev)
-  step_launches = {}
-  for route in ("pallas_split", "pallas_split3"):
-    rcfg = dataclasses.replace(cfg, fused_st_bwd_impl=route)
+  step_launches, step_stats = {}, {}
+  for route, (st_bwd, dy_bwd) in MONO_ROUTES.items():
+    rcfg = dataclasses.replace(cfg, fused_st_bwd_impl=st_bwd,
+                               fused_bwd_impl=dy_bwd)
     model = MonoModel(rcfg, num_frames=48, seed=SEED).train_all()
     opt = trainer.make_mono_optimizer(model, t_cfg)
 
@@ -443,9 +601,11 @@ def _mono_phases(card, dev, h, w, n_rand, t_cfg):
       return trainer.mono_train_step(model, opt, batch, weights, rcfg, t_cfg,
                                      bootstrap=bootstrap, generator=gen)
 
-    def loss_fn(kernels=True, bwd=route):
+    def loss_fn(kernels=True, other=None):
       gen = torch.Generator(dev).manual_seed(SEED + 1)
-      model.cfg = dataclasses.replace(rcfg, fused_st_bwd_impl=bwd)
+      model.cfg = rcfg if other is None else dataclasses.replace(
+          rcfg, fused_st_bwd_impl=MONO_ROUTES[other][0],
+          fused_bwd_impl=MONO_ROUTES[other][1])
       try:
         with contextlib.ExitStack() as stack:
           if not kernels:
@@ -485,14 +645,15 @@ def _mono_phases(card, dev, h, w, n_rand, t_cfg):
     if not ok:
       raise AssertionError(f"mono step ({route}): kernel and plain "
                            "gradients disagree")
-    if route == "pallas_split3":
+    if route != "pallas_split":
       loss_rel, group, ok = _rel(ker, _group_grads(
-          model, lambda: loss_fn(bwd="pallas_split")))
-      print(f"mono step: pallas_split3 vs pallas_split kernels, same "
+          model, lambda: loss_fn(other="pallas_split")))
+      print(f"mono step: {route} vs pallas_split kernels, same "
             f"weights: loss rel {loss_rel:.2e}; gradient rel-norm per group "
             f"{({k: round(v, 6) for k, v in group.items()})}", flush=True)
       if not ok:
-        raise AssertionError("mono step: the two static routes disagree")
+        raise AssertionError(f"mono step: routes {route} and pallas_split "
+                             "disagree")
     del ker
     torch.cuda.empty_cache()
 
@@ -508,6 +669,8 @@ def _mono_phases(card, dev, h, w, n_rand, t_cfg):
       torch.cuda.synchronize()
       secs.append(time.perf_counter() - t0)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_stats[route] = dict(s_per_step=float(np.mean(secs)),
+                             peak_gib=peak_gib)
     print(f"mono train step ({route}): {np.mean(secs):.4f} s/step at N_rand "
           f"{n_rand}, mean of {len(secs)} after 2 warm-ups (min "
           f"{min(secs):.4f}, max {max(secs):.4f}), peak memory "
@@ -530,7 +693,114 @@ def _mono_phases(card, dev, h, w, n_rand, t_cfg):
           f"launches {boot}", flush=True)
     del model, opt, step, loss_fn, loss, metrics
     torch.cuda.empty_cache()
-  return results, step_launches
+  return results, step_launches, step_stats
+
+
+def _cli_phase(card, dev, h, w, frames=48, n_rand=3072, chunk=4096):
+  """Phase 8: the training CLI from an on-disk scene, twice (the second run
+  resumes), and its panel against a plain-path render of the same view.
+  Returns the launches of the first run."""
+  import tempfile
+  from dynibar_tpu_torch.cli import train as cli_train
+  from dynibar_tpu_torch.data.synthetic_scene import write_synthetic_scene
+  from dynibar_tpu_torch.models.dynibar import MonoModel
+  from dynibar_tpu_torch.render import render_rays as rr
+  from dynibar_tpu_torch.render.render_image import full_image_ray_batch
+  from dynibar_tpu_torch.utils import checkpoints as ckpt
+  with tempfile.TemporaryDirectory() as root:
+    t0 = time.perf_counter()
+    write_synthetic_scene(root, "scene", num_frames=frames, height=h, width=w)
+    print(f"cli: wrote a {frames}-frame {h}x{w} scene in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # bench.py's mono shape on the "pallas" route; init_decay_epoch 2: one
+    # bootstrap epoch, then n_iters 48 (counted from the start step, as
+    # the JAX CLI counts it) runs one phase-2 epoch; the panel renders
+    # at the last step, whose weights the last checkpoint holds; a
+    # checkpoint also a third into phase 2
+    mid = frames + frames // 3
+    args = ["--folder_path", root, "--train_scenes", "scene", "--rootdir",
+            root, "--training_height", str(h), "--N_rand", str(n_rand),
+            "--N_samples", "64", "--num_source_views", "7", "--num_vv", "3",
+            "--num_basis", "6", "--fused_bwd_impl", "pallas",
+            "--init_decay_epoch", "2", "--compute_dtype", "bfloat16",
+            "--i_img", str(2 * frames), "--i_weights", str(mid),
+            "--i_print", "24", "--workers", "4", "--chunk_size", str(chunk)]
+    _zero_counts()
+    first = cli_train.main(args + ["--n_iters", str(frames)])
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    out = first["out_folder"]
+    snaps = sorted(p for p in os.listdir(out) if p.startswith("model_"))
+    ph = first["phases"]
+    if not (ph["bootstrap"]["steps"] == frames
+            and ph["train"]["steps"] == frames
+            and first["final_step"] == 2 * frames
+            and snaps == [f"model_{mid:08d}.pt",
+                          f"model_{2 * frames:08d}.pt"]
+            and first["panel"]["step"] == 2 * frames
+            and all(launches[k] > 0 for k in ("K1", "K2", "K3", "K2r", "K5a",
+                                              "K5b", "K3p", "K4s"))):
+      raise AssertionError(f"cli: phases {ph}, final step "
+                           f"{first['final_step']}, snapshots {snaps}, "
+                           f"launches {launches}")
+    panel_s = ph["train"]["panel_s"]
+    for name, rec in ph.items():
+      busy = rec["seconds"] - sum(rec.get("panel_s", []))
+      print(f"cli {name}: {busy / rec['steps']:.4f} s/step over "
+            f"{rec['steps']} steps, {rec['wait_s']:.2f} s waiting on the "
+            f"data pipeline [{card}]", flush=True)
+    print(f"cli panel: {panel_s[0]:.3f} s/frame at {h}x{w} (train view, "
+          f"anchor branch, 22 PNG panels); launches of the run {launches} "
+          f"[{card}]", flush=True)
+
+    # the panel vs the plain path: the last checkpoint's weights, the
+    # panel's batch, kernels=False chunk by chunk
+    config = cli_train.parse_args(args)[0]
+    cfg = config.render_settings("mono")
+    payload = ckpt.load_checkpoint(os.path.join(out, snaps[-1]),
+                                   map_location=dev)
+    model = MonoModel(cfg, num_frames=frames)
+    model.load_state_dict(payload["model"])
+    rb = first["panel"]["batch"]
+    full = full_image_ray_batch(rb, rb["camera"])
+    panel = first["panel"]["render"]["outputs_coarse_ref"]
+    with torch.no_grad():
+      fm = model.encode_featmaps(full["src_rgbs"], full["static_src_rgbs"],
+                                 full["anchor_src_rgbs"])
+      rgbs = []
+      for i in range(0, h * w, chunk // 2):
+        part = {k: (v[i:i + chunk // 2] if k in ("ray_o", "ray_d", "uv_grid")
+                    else v) for k, v in full.items()}
+        rgbs.append(rr.render_rays_mono(
+            model, part, fm, cfg, is_train=True, kernels=False)[
+                "outputs_coarse_ref"]["rgb"])
+    plain = torch.cat(rgbs).cpu().numpy().reshape(h, w, 3)
+    plain = plain * (panel["mask"][..., None] > 0)
+    err = float(np.abs(panel["rgb"] - plain).max())
+    if not (np.isfinite(panel["rgb"]).all() and err <= 3e-2):
+      raise AssertionError(f"cli panel: kernel vs plain rgb {err}")
+    print(f"cli panel rgb vs the plain path: max abs {err:.3g}", flush=True)
+    del model, fm, rgbs, full, payload, first
+    torch.cuda.empty_cache()
+
+    saved = ckpt.load_checkpoint(os.path.join(out, snaps[-1]),
+                                 map_location="cpu")["model"]
+    second = cli_train.main(args + ["--n_iters", "1"])
+    same = all(torch.equal(second["resumed_state"][k], v)
+               for k, v in saved.items())
+    if not (second["start_step"] == 2 * frames and same
+            and second["phases"]["bootstrap"]["steps"] == 0
+            and second["final_step"] == 3 * frames):
+      raise AssertionError(f"cli resume: start {second['start_step']}, "
+                           f"parameters equal {same}, final "
+                           f"{second['final_step']}")
+    rec = second["phases"]["train"]
+    print(f"cli resume: at step {second['start_step']} with the saved "
+          f"parameters, ran on to {second['final_step']} "
+          f"({(rec['seconds'] - sum(rec['panel_s'])) / rec['steps']:.4f} "
+          f"s/step) [{card}]", flush=True)
+  torch.cuda.empty_cache()
+  return launches
 
 
 def main() -> int:
@@ -708,7 +978,7 @@ def main() -> int:
   dy6_args = list(dy_args)                 # the anchor pass: 6 views
   dy6_args[1] = dy_args[1][:, :, :6].contiguous()
   dy6_args[3] = dy_args[3][:, :, :6].contiguous()
-  train_results = {}
+  train_results, single_ff = {}, {}
   for label, static, net, args in (
       ("static V=11", True, model.net_fine_st, st_args),
       ("dynamic V=7", False, model.net_fine_dy, dy_args),
@@ -717,6 +987,10 @@ def main() -> int:
     res = _check_training_kernels(card, label, static, net, args, cot)
     if label != "dynamic V=6":
       train_results.update(res)
+    if not static:                  # the same shape on the "pallas" route
+      res = _check_single_kernels(card, label, net, args, cot)
+      if label == "dynamic V=7":
+        single_ff = res
   del ins_t, st_args, dy_args, dy6_args, args, res
   torch.cuda.empty_cache()
 
@@ -875,7 +1149,11 @@ def main() -> int:
   torch.cuda.empty_cache()
 
   # ---- 6: the mono model --------------------------------------------------
-  mono_results, mono_launches = _mono_phases(card, dev, h, w, n_rand, t_cfg)
+  mono_results, mono_launches, mono_stats = _mono_phases(card, dev, h, w,
+                                                        n_rand, t_cfg)
+
+  # ---- 8: the training CLI from an on-disk scene --------------------------
+  cli_launches = _cli_phase(card, dev, h, w)
   print(f"phases done in {time.perf_counter() - t_start:.1f} s", flush=True)
 
   # ---- 7: result ----------------------------------------------------------
@@ -895,9 +1173,25 @@ def main() -> int:
     res["launches"] = (step_launches[key] if key in train_results
                        else mono_launches["pallas_split3"][key])
     res["mono_ms"] = mono_results[key]["ms"]
+    res["mono_bound_ms"] = mono_results[key]["bound_ms"]
     res["mono_launches"] = {route: n[key]
                             for route, n in mono_launches.items()}
     kernels.append(res)
+  # K3p/K4s at the mono step's shapes (V = 9), their launches on the mono
+  # step's "pallas" route; also their times at the FF step's (V = 7, S =
+  # 128) and K4s's at V = 10, and their launches in the CLI's first run
+  for key in ("K3p", "K4s"):
+    res = dict(mono_results[key])
+    res["launches"] = mono_launches["pallas"][key]
+    res["ff_ms"] = single_ff[key]["ms"]
+    res["ff_bound_ms"] = single_ff[key]["bound_ms"]
+    res["mono_launches"] = {route: n[key]
+                            for route, n in mono_launches.items()}
+    res["cli_launches"] = cli_launches[key]
+    if key == "K4s":
+      res["ms_v10"] = mono_results["K4s V=10"]["ms"]
+    kernels.append(res)
+  print(f"mono step per route: {mono_stats} [{card}]", flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)
   print(card, flush=True)
   print(json.dumps({"ok": True, "device": {

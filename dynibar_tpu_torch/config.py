@@ -9,21 +9,22 @@ sampling) have no counterpart: the CUDA sampler is exact for every sample.
 ``mono_render_settings`` is the mono branch of ``DynibarConfig
 .render_settings`` (dynibar_tpu/config.py:225-265).  ``TrainSettings``
 copies the ``DynibarConfig`` fields that the trainers and the loss
-schedule read, with the same defaults.
+schedule read, with the same defaults.  ``DynibarConfig`` holds the
+training CLI's knobs and reads the reference-style ``configs/*.txt``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import List
 
 # the aggregator backward routes the CUDA kernels implement, per aggregator
 # (the JAX names of dynibar_tpu/config.py:173,182)
-DYNAMIC_BWD_ROUTES = ("pallas_split",)
+DYNAMIC_BWD_ROUTES = ("pallas_split", "pallas")
 STATIC_BWD_ROUTES = ("pallas_split", "pallas_split3")
-# where the routes the port does not have yet are planned
+# where the routes the port does not have are planned
 _ROUTE_PLAN = {
-    "pallas": "ROADMAP.md queue 2 (K3p/K4s, the single-kernel dynamic "
-              "backward)",
     "flax": "no ROADMAP item: the port's twins are the plain modules, "
             "run with kernels=False"}
 
@@ -60,7 +61,8 @@ class RenderSettings:
   # kernels always take bf16 operands with f32 accumulation.
   compute_dtype: str = "float32"
   # the aggregators' training backward on the card: dynamic
-  # "pallas_split" (K4a + K4b); static "pallas_split" (K5a + K5b) or
+  # "pallas_split" (K3r forward, K4a + K4b) or "pallas" (K3p forward, the
+  # single-kernel K4s); static "pallas_split" (K5a + K5b) or
   # "pallas_split3" (K5a + K5c + K5d).  Any other value raises.
   fused_bwd_impl: str = "pallas_split"
   fused_st_bwd_impl: str = "pallas_split"
@@ -107,3 +109,162 @@ class TrainSettings:
   w_distortion: float = 1e-3
   decay_rate: float = 10.0
   init_decay_epoch: int = 150
+
+
+def _parse_value(field_type, raw: str):
+  raw = raw.strip()
+  if field_type is bool:
+    return raw.lower() in ("1", "true", "yes", "on")
+  if field_type is int:
+    return int(raw)
+  if field_type is float:
+    return float(raw)
+  if field_type is list:
+    return raw.split()
+  return raw
+
+
+_TYPES = {"bool": bool, "int": int, "float": float, "str": str,
+          "List[str]": list}
+
+
+@dataclasses.dataclass
+class DynibarConfig:
+  """The knobs of the monocular training CLI (``cli/train``), copied
+  from ``dynibar_tpu.config.DynibarConfig`` with its names and defaults
+  (reference config.py:6-375).  The TPU-only switches (strip sampling,
+  fused RGB sampling, the channel-major handoff, buffer donation, remat,
+  the fused-aggregator toggles) have no counterpart; ``seed`` is the
+  port's: the model's initial weights and the step's generator."""
+
+  # general / paths
+  rootdir: str = "./"
+  folder_path: str = ""
+  expname: str = "exp"
+  workers: int = 4
+
+  # data / masking options
+  mask_src_view: bool = False
+  training_height: int = 288
+  erosion_radius: int = 1
+
+  # ray/batch options
+  N_rand: int = 512
+  sample_mode: str = "uniform"
+  chunk_size: int = 1024
+
+  # model options
+  coarse_feat_dim: int = 32
+  fine_feat_dim: int = 32
+  num_source_views: int = 7
+  num_basis: int = 6
+  anti_alias_pooling: int = 1
+  mask_rgb: int = 1
+  num_vv: int = 3
+  lr_multipler: float = 1.0
+
+  # curriculum / schedules
+  init_decay_epoch: int = 150
+  max_range: int = 35
+  decay_rate: float = 10.0
+  cycle_factor: float = 0.1
+  anneal_cycle: bool = False
+
+  # datasets
+  train_dataset: str = "monocular"
+  train_scenes: List[str] = dataclasses.field(default_factory=list)
+  render_idx: int = -1
+
+  # checkpoints
+  no_reload: bool = False
+  ckpt_path: str = ""
+  no_load_opt: bool = False
+
+  # iterations & learning rates
+  n_iters: int = 300000
+  lrate_feature: float = 1e-3
+  lrate_mlp: float = 5e-4
+  lrate_decay_factor: float = 0.5
+  lrate_decay_steps: int = 50000
+  clip_grad_norm: float = 0.0
+
+  # loss weights
+  w_cycle: float = 0.1
+  w_distortion: float = 1e-3
+  w_disp: float = 5e-2
+  w_flow: float = 5e-3
+  w_skew_entropy: float = 1e-3
+  w_reg: float = 0.05
+  occ_weights_mode: int = 0
+
+  # rendering options
+  N_samples: int = 64
+  inv_uniform: bool = False
+
+  # logging
+  i_print: int = 100
+  i_img: int = 1000
+  i_weights: int = 10000
+
+  # derived at run time (reference train.py:91-92)
+  num_frames: int = 0
+
+  # devices: "auto" or "1" train on one card; a larger mesh is ROADMAP
+  # queue 1 item 11
+  mesh_shape: str = "auto"
+  compute_dtype: str = "float32"
+  fused_bwd_impl: str = "pallas_split"
+  fused_st_bwd_impl: str = "pallas_split"
+  seed: int = 0
+
+  @classmethod
+  def from_file(cls, path: str, **overrides) -> "DynibarConfig":
+    """Read a reference-style ``key = value`` config file; keys this class
+    does not have are skipped, bare flags set booleans."""
+    values = {}
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    with open(path) as fh:
+      for line in fh:
+        line = line.split("#", 1)[0].strip()
+        if not line or "=" not in line:
+          if line in fields and fields[line].type == "bool":
+            values[line] = True
+          continue
+        key, raw = (tok.strip() for tok in line.split("=", 1))
+        if key in fields:
+          values[key] = _parse_value(_TYPES.get(fields[key].type, str), raw)
+    values.update(overrides)
+    return cls(**values)
+
+  def experiment_name(self) -> str:
+    """Hyperparameters in the experiment name (reference train.py:50-57)."""
+    return (
+        f"{self.expname}_mr-{self.max_range}"
+        f"_w-disp-{self.w_disp:.3f}_w-flow-{self.w_flow:.3f}"
+        f"_anneal_cycle-{self.w_cycle:.1f}-{self.cycle_factor:.1f}"
+        f"-w_mode-{self.occ_weights_mode}"
+    )
+
+  def out_folder(self) -> str:
+    return os.path.join(self.rootdir, "out", self.experiment_name())
+
+  def render_settings(self, mode: str = "mono") -> RenderSettings:
+    """The mono model's render settings; the FF modes belong to the FF
+    training and eval CLIs, not ported yet (ROADMAP queue 1 items 6, 9)."""
+    if mode != "mono":
+      raise NotImplementedError(f"render_settings({mode!r}): the port's "
+                                "DynibarConfig serves cli/train (mono)")
+    return mono_render_settings(
+        num_source_views=self.num_source_views, num_vv=self.num_vv,
+        n_samples=self.N_samples, num_basis=self.num_basis,
+        inv_uniform=self.inv_uniform, occ_weights_mode=self.occ_weights_mode,
+        anti_alias_pooling=bool(self.anti_alias_pooling),
+        mask_rgb=bool(self.mask_rgb), coarse_feat_dim=self.coarse_feat_dim,
+        fine_feat_dim=self.fine_feat_dim, compute_dtype=self.compute_dtype,
+        fused_bwd_impl=self.fused_bwd_impl,
+        fused_st_bwd_impl=self.fused_st_bwd_impl)
+
+  def train_settings(self) -> TrainSettings:
+    """The fields the optimizer and the loss schedule read."""
+    names = {f.name for f in dataclasses.fields(TrainSettings)}
+    return TrainSettings(**{k: getattr(self, k) for k in names})

@@ -14,17 +14,23 @@ import torch
 
 @functools.lru_cache(maxsize=None)
 def _freqs(max_freq: int, n_freq: int, linspace: bool) -> np.ndarray:
+  """The frequency ladder, shared by every caller: read-only."""
   if linspace:
-    return np.linspace(1.0, max_freq + 1.0, n_freq).astype(np.float32)
-  exps = np.linspace(0.0, n_freq - 1.0, n_freq).astype(np.float32)
-  return (2.0 ** exps).astype(np.float32)
+    out = np.linspace(1.0, max_freq + 1.0, n_freq).astype(np.float32)
+  else:
+    exps = np.linspace(0.0, n_freq - 1.0, n_freq).astype(np.float32)
+    out = (2.0 ** exps).astype(np.float32)
+  out.setflags(write=False)
+  return out
 
 
 def periodic_embed(x: torch.Tensor, max_freq: int, n_freq: int,
                    linspace: bool = True) -> torch.Tensor:
   """[..., C] -> [..., C * (2 * n_freq + 1)]."""
-  freqs = torch.as_tensor(_freqs(max_freq, n_freq, linspace),
-                          device=x.device, dtype=x.dtype)
+  # a copy: a tensor aliasing the cached table would let one caller's
+  # in-place op change every later embedding
+  freqs = torch.tensor(_freqs(max_freq, n_freq, linspace), device=x.device,
+                       dtype=x.dtype)
   xs = x[..., None, :] * freqs[:, None]                  # [..., F, C]
   shape = x.shape[:-1] + (n_freq * x.shape[-1],)
   return torch.cat([x, torch.cos(xs).reshape(shape),

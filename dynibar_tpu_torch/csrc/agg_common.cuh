@@ -197,6 +197,17 @@ inline Net load_net(const int* meta) {
   return net;
 }
 
+// Where a point's rows sit in a workspace: the two-launch routes keep every
+// point's ([V, P, .] from point 0), the single-kernel backward K4s one ray's
+// points in a per-block scratch ([V, S, .] from the ray's first point).
+struct WsMap {
+  int P, p0;
+  __device__ __forceinline__ size_t vp(int v, size_t p) const {
+    return (size_t)v * P + (p - p0);
+  }
+  __device__ __forceinline__ size_t pt(size_t p) const { return p - p0; }
+};
+
 struct TrunkArgs {
   const bf16* W;
   const float* B;
@@ -244,15 +255,17 @@ __device__ __forceinline__ void pe5(bf16* row, int n, int ch, float x) {
   }
 }
 
+// One 64-point block of the trunk from point p0; workspace rows by `ws`.
 template <bool STATIC>
-__global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
+__device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
+                                            const WsMap ws) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* buf0 = (bf16*)smem;                        // [PT][LDA] layer inputs
   bf16* buf1 = buf0 + PT * LDA;                    // [PT][LDH] hidden
   bf16* buf2 = buf1 + PT * LDH;                    // [PT][LDG] x*w, x*vis
   bf16* xb = buf2 + PT * LDG;                      // [PT][LDG] trunk x
   const Net& net = a.net;
-  const int tid = threadIdx.x, p0 = blockIdx.x * PT;
+  const int tid = threadIdx.x;
   const int P = a.P, V = a.V, C = a.C, CR = STATIC ? 2 * a.C : a.C;
   float* sm_m = (float*)(xb + PT * LDG);           // [V][PT] masks
   float* sm_w = sm_m + V * PT;                     // pooling weights
@@ -300,7 +313,7 @@ __global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
       for (int e = tid; e < PT * C; e += NT) {
         const int r = e / C, c = e % C, p = p0 + r;
         if (p < P)
-          a.ws_rf[((size_t)v * P + p) * CR + c] =
+          a.ws_rf[ws.vp(v, p) * CR + c] =
               a.rgbfeat[((size_t)p * V + v) * C + c];
       }
       __syncthreads();
@@ -311,7 +324,7 @@ __global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
             [&](int r, int c, float x) {
               const int p = p0 + r;
               if (c < C && p < P)
-                a.ws_rf[((size_t)v * P + p) * CR + C + c] =
+                a.ws_rf[ws.vp(v, p) * CR + C + c] =
                     f2b(x * a.reffeat[(size_t)(p / a.S) * C + c]);
             });
       __syncthreads();
@@ -327,7 +340,7 @@ __global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
   auto rf_val = [&](int r, int v, int c) -> float {
     const int p = p0 + r;
     if (p >= P) return 0.f;
-    if (STATIC) return b2f(a.ws_rf[((size_t)v * P + p) * CR + c]);
+    if (STATIC) return b2f(a.ws_rf[ws.vp(v, p) * CR + c]);
     return b2f(f2b(b2f(a.rgbfeat[((size_t)p * V + v) * C + c]) +
                    a.dirfeat[(size_t)p * C + c]));
   };
@@ -351,7 +364,7 @@ __global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
       const float inv = 1.f / (nv + 1e-8f);
       for (int v = 0; v < V; ++v) sm_w[v * PT + r] = sm_m[v * PT + r] * inv;
     }
-    if (p0 + r < P) a.ws_nv[p0 + r] = nv;
+    if (p0 + r < P) a.ws_nv[ws.pt(p0 + r)] = nv;
   }
   __syncthreads();
   // base_fc input [mean (CR) | var (CR) | rf_v (CR)]: the pooled columns
@@ -414,14 +427,14 @@ __global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
     for (int e = tid; e < PT * 16; e += NT) {      // 16-byte row pieces
       const int r = e >> 4, q = (e & 15) * 8, p = p0 + r;
       if (p < P)
-        *reinterpret_cast<uint4*>(a.ws_x + ((size_t)v * P + p) * 128 + q) =
+        *reinterpret_cast<uint4*>(a.ws_x + ws.vp(v, p) * 128 + q) =
             *reinterpret_cast<const uint4*>(xb + r * LDG + q);
     }
     for (int r = tid; r < PT; r += NT) {
       const int p = p0 + r;
       if (p < P) {
-        a.ws_vis[(size_t)v * P + p] = sm_vis[v * PT + r];
-        a.ws_m[(size_t)v * P + p] = mk[r];
+        a.ws_vis[ws.vp(v, p)] = sm_vis[v * PT + r];
+        a.ws_m[ws.vp(v, p)] = mk[r];
       }
     }
   }
@@ -450,7 +463,7 @@ __global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
       for (int pass = 0; pass < 2; ++pass) {
         for (int v = 0; v < V; ++v) {
           const uint4 raw = *reinterpret_cast<const uint4*>(
-              a.ws_x + ((size_t)v * P + p) * 128 + c0);
+              a.ws_x + ws.vp(v, p) * 128 + c0);
           const bf16* xb = reinterpret_cast<const bf16*>(&raw);
           const float w = sm_w[v * PT + r];
 #pragma unroll
@@ -480,8 +493,13 @@ __global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
   dense(buf1, LDH, PT, a.W, a.B, net.l[GEO1],
         [&](int r, int c, float x) {
           const int p = p0 + r;
-          if (p < P) a.ws_gf[(size_t)p * 128 + c] = elu(x);
+          if (p < P) a.ws_gf[ws.pt(p) * 128 + c] = elu(x);
         });
+}
+
+template <bool STATIC>
+__global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
+  trunk_block<STATIC>(a, blockIdx.x * PT, WsMap{a.P, 0});
 }
 
 struct RayArgs {

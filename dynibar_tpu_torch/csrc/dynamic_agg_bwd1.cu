@@ -1,0 +1,212 @@
+// K4s: the whole dynamic-aggregator backward in one launch (reference
+// DynibarDynamic, ibrnet/mlp_network.py:129-316).
+//
+// Replaces dynibar_tpu/ops/pallas_agg_bwd.py:163 dynamic_bwd_kernel
+// (launched by pallas_agg.py:981, route fused_bwd_impl = "pallas"): from
+// the primal inputs alone (K3p, the K3 forward, keeps no residuals) it
+// recomputes pooling-1, the trunk, pooling-2 and geometry_fc for a ray,
+// then transposes the ray side (heads, sigma - shift, ref_pts_fc,
+// attention, pooling-2, geometry_fc) and the trunk side (the per-view
+// trunk, pooling-1): d_pts, d_dirpe, d_rgb_feat, d_dirfeat and the 36
+// weight gradients, added into the 16 L2-resident slabs that the one
+// reduce sums afterwards.
+//
+// What bounds it on the H100: operations.  The forward trunk it recomputes
+// plus about three times the forward's matmul flops (the split's K4a and
+// K4b recompute and transpose the same layers), far above the card's ~295
+// flop/byte ridge.
+//
+// Design: persistent blocks, one ray at a time per block, three phases
+// that are the split route's device code (agg_common.cuh trunk_block,
+// ray_bwd.cuh ray_bwd_ray, trunk_bwd.cuh trunk_bwd_block) run back to back
+// with a block barrier between them.  The recomputed x [V, S, 128] bf16
+// (163,840 B at V = 10, S = 64) does not fit beside the ray phase's shared
+// memory, so the phases hand one ray's workspaces (x, vis, mask, the
+// geometry feature, d_x, d_misc, d_rf) over in a per-block global scratch
+// the wrapper allocates: the split's hand-off inside one launch, at
+// nblocks rays' worth of memory instead of every ray's.  The phases share
+// one dynamic shared-memory buffer sized to the largest of them.  A ray of
+// S = 128 samples is two 64-point trunk blocks.  Simple and correct first:
+// one block per SM, no overlap between the phases.
+
+#include "ray_bwd.cuh"
+#include "trunk_bwd.cuh"
+
+using namespace agg;
+
+namespace {
+
+struct SingleBwdArgs {
+  TrunkArgs f;           // forward trunk (its workspace pointers: scratch)
+  RayBwdArgs r;
+  TrunkBwdArgs t;
+  int R, S, V, C;
+  // per-block scratch, one ray's rows each
+  bf16* sx;              // [nblocks, V, S, 128] trunk output x
+  bf16* sdx;             // [nblocks, V, S, 128] its cotangent
+  float* svm;            // [nblocks, 2, V, S] vis | effective mask
+  float* sgf;            // [nblocks, S, 128] geometry feature
+  float* snv;            // [nblocks, S] valid views
+  float* sdmisc;         // [nblocks, V, S, 8] d_vis in slot 0
+  float* sdrf;           // [nblocks, V, S, C] per-view d_rf
+};
+
+__host__ __device__ constexpr size_t cmax(size_t a, size_t b) {
+  return a > b ? a : b;
+}
+
+constexpr size_t single_smem(int V) {
+  return cmax(cmax(trunk_smem(V), kRayBwdSmem), trunk_bwd_smem<false>(V));
+}
+static_assert(single_smem(VMAX) <= 232448, "one K4s block fits an SM");
+
+// The three phases as calls, not inlined into one body: the compiler
+// allocates registers for three functions of the split kernels' size, not
+// for one of their sum (inlined: 6,032 B of spill loads in the kernel and
+// a 374 s build of this library, against 135 s for the split's).
+__device__ __noinline__ void phase_trunk(const TrunkArgs& f, int p0,
+                                         const WsMap ws) {
+  trunk_block<false>(f, p0, ws);
+}
+
+__device__ __noinline__ void phase_ray(const RayBwdArgs& r, int ray,
+                                       const WsMap ws) {
+  ray_bwd_ray<false>(r, ray, ws);
+}
+
+__device__ __noinline__ void phase_trunk_bwd(const TrunkBwdArgs& t, int p0,
+                                             const WsMap ws) {
+  trunk_bwd_block<false, false>(t, p0, ws);
+}
+
+__global__ void __launch_bounds__(NT, 1)
+    dynamic_bwd_single_kernel(SingleBwdArgs a) {
+  const int S = a.S, V = a.V;
+  const size_t b = blockIdx.x, vs = (size_t)V * S;
+  TrunkArgs f = a.f;
+  RayBwdArgs r = a.r;
+  TrunkBwdArgs t = a.t;
+  f.ws_x = a.sx + b * vs * 128;
+  f.ws_vis = a.svm + b * 2 * vs;
+  f.ws_m = f.ws_vis + vs;
+  f.ws_gf = a.sgf + b * S * 128;
+  f.ws_nv = a.snv + b * S;
+  r.gf = f.ws_gf;
+  r.ws_x = f.ws_x;
+  r.ws_vis = f.ws_vis;
+  r.ws_m = f.ws_m;
+  r.dx = a.sdx + b * vs * 128;
+  r.dmisc = a.sdmisc + b * vs * 8;
+  t.dx = r.dx;
+  t.dmisc = r.dmisc;
+  t.drf = a.sdrf + b * vs * a.C;
+  for (int ray = blockIdx.x; ray < a.R; ray += gridDim.x) {
+    const int first = ray * S;
+    const WsMap ws{S, first};
+    for (int p0 = first; p0 < first + S; p0 += PT) {
+      phase_trunk(f, p0, ws);
+      __syncthreads();
+    }
+    phase_ray(r, ray, ws);
+    __syncthreads();
+    for (int p0 = first; p0 < first + S; p0 += PT) {
+      phase_trunk_bwd(t, p0, ws);
+      __syncthreads();
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int dyn_dynamic_agg_bwd_single(
+    const void* W, const void* WT, const void* B, const void* Z,
+    const void* meta, const void* pts, const void* dirfeat,
+    const void* dirpe, const void* posenc, const void* rgbfeat,
+    const void* mask, const void* cot, void* sx, void* sdx, void* svm,
+    void* sgf, void* snv, void* sdmisc, void* sdrf, void* ray_scratch,
+    void* d_pts, void* d_dirpe, void* d_rgbfeat, void* d_dirfeat,
+    void* slabs, int slab_len, int w_total, int R, int S, int V, int C,
+    int nblocks, void* stream) {
+  if (V > VMAX || S > SMAX || C > CMAX || C > CRMAX || V < 1 || S < PT ||
+      S % PT != 0)
+    return (int)cudaErrorInvalidValue;
+  SingleBwdArgs a{};
+  a.R = R;
+  a.S = S;
+  a.V = V;
+  a.C = C;
+  const Net net = load_net((const int*)meta);
+  TrunkArgs& f = a.f;
+  f.W = (const bf16*)W;
+  f.B = (const float*)B;
+  f.net = net;
+  f.rgbfeat = (const bf16*)rgbfeat;
+  f.mask = (const float*)mask;
+  f.P = R * S;
+  f.S = S;
+  f.V = V;
+  f.C = C;
+  f.dirfeat = (const float*)dirfeat;
+  RayBwdArgs& r = a.r;
+  r.W = f.W;
+  r.WT = (const bf16*)WT;
+  r.B = f.B;
+  r.Z = (const float*)Z;
+  r.net = net;
+  r.cot = (const float*)cot;
+  r.P = f.P;
+  r.S = S;
+  r.V = V;
+  r.C = C;
+  r.R = R;
+  r.posenc = (const float*)posenc;
+  r.pts = (const float*)pts;
+  r.dirpe = (const float*)dirpe;
+  r.d_pts = (float*)d_pts;
+  r.d_dirpe = (float*)d_dirpe;
+  r.scratch = (float*)ray_scratch;
+  r.slabs = (float*)slabs;
+  r.slab_len = slab_len;
+  r.w_total = w_total;
+  TrunkBwdArgs& t = a.t;
+  t.W = f.W;
+  t.WT = r.WT;
+  t.B = f.B;
+  t.Z = r.Z;
+  t.net = net;
+  t.rgbfeat = f.rgbfeat;
+  t.mask = f.mask;
+  t.P = f.P;
+  t.S = S;
+  t.V = V;
+  t.C = C;
+  t.dirfeat = f.dirfeat;
+  t.d_rgbfeat = (float*)d_rgbfeat;
+  t.d_dirfeat = (float*)d_dirfeat;
+  t.slabs = r.slabs;
+  t.slab_len = slab_len;
+  t.w_total = w_total;
+  a.sx = (bf16*)sx;
+  a.sdx = (bf16*)sdx;
+  a.svm = (float*)svm;
+  a.sgf = (float*)sgf;
+  a.snv = (float*)snv;
+  a.sdmisc = (float*)sdmisc;
+  a.sdrf = (float*)sdrf;
+  return launch_persistent(dynamic_bwd_single_kernel, single_smem(V), a, R,
+                           nblocks, (cudaStream_t)stream);
+}
+
+extern "C" int dyn_agg_reduce(const void* slabs, int nslab, int len,
+                              void* out, void* stream) {
+  return launch_reduce((const float*)slabs, nslab, len, (float*)out,
+                       (cudaStream_t)stream);
+}
+
+// K4s's footprint at V views and the blocks an SM holds: out = {bytes,
+// blocks}.
+extern "C" int dyn_occupancy(int V, int* out) {
+  out[0] = (int)single_smem(V);
+  out[1] = blocks_per_sm(dynamic_bwd_single_kernel, single_smem(V));
+  return (int)cudaGetLastError();
+}

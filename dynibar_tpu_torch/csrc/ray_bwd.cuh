@@ -180,8 +180,10 @@ __device__ void attn_fwd(const bf16* q, const bf16* k, const bf16* vv,
   }
 }
 
+// The backward of one ray; workspace rows by `ws`.
 template <bool STATIC>
-__global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
+__device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
+                                            const WsMap ws) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* reg2 = smem + kReg1;
   bf16* GA = (bf16*)smem;                      // gf_attn (dynamic: | pts PE)
@@ -205,7 +207,7 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
 
   const Net& net = a.net;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int S = a.S, V = a.V, P = a.P, Sp = (S + 15) & ~15;
+  const int S = a.S, V = a.V, Sp = (S + 15) & ~15;
   const int GLD = STATIC ? LDG : LD1;
   float* slab = a.slabs + (size_t)(blockIdx.x % kSlabs) * a.slab_len;
   const int wt = a.w_total;
@@ -216,11 +218,11 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
   const float* ln_s = a.B + net.l[LN].b;
   const float* ln_b = ln_s + 128;
 
-  for (int ray = blockIdx.x; ray < a.R; ray += gridDim.x) {
+  {                                 // one ray
     const size_t p0 = (size_t)ray * S;
     auto gf_in = [&](int i, int c) -> float {
       if (i >= S) return 0.f;
-      const float g = a.gf[(p0 + i) * 128 + c];
+      const float g = a.gf[ws.pt(p0 + i) * 128 + c];
       return STATIC ? g : g + a.posenc[i * 128 + c];
     };
     auto load_gf = [&]() {
@@ -268,8 +270,8 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
       float nv = 0.f, vs = 0.f;
       if (i < S)
         for (int v = 0; v < V; ++v) {
-          nv += a.ws_m[(size_t)v * P + p0 + i];
-          vs += a.ws_vis[(size_t)v * P + p0 + i];
+          nv += a.ws_m[ws.vp(v, p0 + i)];
+          vs += a.ws_vis[ws.vp(v, p0 + i)];
         }
       snv[i] = nv;
       sinv[i] = 1.f / (vs + 1e-8f);
@@ -484,7 +486,7 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
               val = *reinterpret_cast<const uint4*>(g + r * LDG + q * 8);
             else if (i < S)
               val = *reinterpret_cast<const uint4*>(
-                  a.ws_x + ((size_t)v * P + p0 + i) * 128 + (q - 16) * 8);
+                  a.ws_x + ws.vp(v, p0 + i) * 128 + (q - 16) * 8);
             *reinterpret_cast<uint4*>(HIN + r * LDA + q * 8) = val;
           }
           for (int e = tid; e < rows * (kr - 256); e += NT) {
@@ -493,7 +495,7 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
             const size_t p = p0 + i;
             float val = 0.f;
             if (i < S) {
-              if (col == 256) val = a.ws_vis[(size_t)v * P + p];
+              if (col == 256) val = a.ws_vis[ws.vp(v, p)];
               else if (col < 261) val = a.raydiff[(p * V + v) * 4 + col - 257];
             }
             HIN[r * LDA + col] = f2b(val);
@@ -513,7 +515,7 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
                   const int i = r0 + r;
                   if (c == 0)
                     LG[v * 64 + r] =
-                        (i < S && a.ws_m[(size_t)v * P + p0 + i] == 0.f) ? -1e9f
+                        (i < S && a.ws_m[ws.vp(v, p0 + i)] == 0.f) ? -1e9f
                                                                          : x;
                 });
           __syncthreads();
@@ -543,10 +545,10 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
             LG[v * 64 + r] = dp;
             sb += pv * dp;
             for (int c = 0; c < 3; ++c)
-              a.dmisc[((size_t)v * P + p) * 8 + 1 + c] = pv * drgb[c];
+              a.dmisc[ws.vp(v, p) * 8 + 1 + c] = pv * drgb[c];
           }
           for (int v = 0; v < V; ++v)
-            LG[v * 64 + r] = a.ws_m[(size_t)v * P + p] > 0.f
+            LG[v * 64 + r] = a.ws_m[ws.vp(v, p)] > 0.f
                                  ? PB[v * 64 + r] * (LG[v * 64 + r] - sb)
                                  : 0.f;
         }
@@ -580,7 +582,7 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
                   if (c < 128) {
                     DF[r * 128 + c] += x;
                   } else if (i < S) {
-                    const size_t pv = (size_t)v * P + p0 + i;
+                    const size_t pv = ws.vp(v, p0 + i);
                     if (c < 256) a.dx[pv * 128 + c - 128] = f2b(x);
                     else if (c == 256) a.dmisc[pv * 8] = x;
                     else if (c < 261) a.dmisc[pv * 8 + 4 + c - 257] = x;
@@ -694,7 +696,7 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
       for (int e = tid; e < Sp * 128; e += NT) {
         const int i = e >> 7, c = e & 127;
         DG[i * LDG + c] = f2b(
-            i < S ? SD[e] * elu_d(a.gf[(p0 + i) * 128 + c]) : 0.f);
+            i < S ? SD[e] * elu_d(a.gf[ws.pt(p0 + i) * 128 + c]) : 0.f);
       }
       // pooling-2 of x over views with the visibility weights (as forward)
       for (int e = tid; e < Sp * 16; e += NT) {
@@ -706,9 +708,9 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
           for (int pass = 0; pass < 2; ++pass)
             for (int v = 0; v < V; ++v) {
               const uint4 raw = *reinterpret_cast<const uint4*>(
-                  a.ws_x + ((size_t)v * P + p) * 128 + c0);
+                  a.ws_x + ws.vp(v, p) * 128 + c0);
               const bf16* xb = reinterpret_cast<const bf16*>(&raw);
-              const float w = a.ws_vis[(size_t)v * P + p] * sinv[i];
+              const float w = a.ws_vis[ws.vp(v, p)] * sinv[i];
 #pragma unroll
               for (int j = 0; j < 8; ++j) {
                 const float xv = b2f(xb[j]);
@@ -729,7 +731,7 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
         float val = 0.f;
         if (j == 0 && i < S) {
           for (int v = 0; v < V; ++v)
-            val += a.ws_vis[(size_t)v * P + p0 + i] * sinv[i];
+            val += a.ws_vis[ws.vp(v, p0 + i)] * sinv[i];
           val /= (float)V;
         }
         G[i * LDA + 256 + j] = f2b(val);
@@ -759,7 +761,7 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
         const int c0 = lane * 4;
         auto load4 = [&](int v, float (&x)[4]) {
           const uint2 raw = *reinterpret_cast<const uint2*>(
-              a.ws_x + ((size_t)v * P + p) * 128 + c0);
+              a.ws_x + ws.vp(v, p) * 128 + c0);
           const bf16* xb = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
           for (int j = 0; j < 4; ++j) x[j] = b2f(xb[j]);
@@ -768,13 +770,13 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
         float x[4], dme[4], dvr[4];
         for (int v = 0; v < V; ++v) {
           load4(v, x);
-          const float w = a.ws_vis[(size_t)v * P + p] * inv;
+          const float w = a.ws_vis[ws.vp(v, p)] * inv;
 #pragma unroll
           for (int j = 0; j < 4; ++j) mean[j] += w * x[j];
         }
         for (int v = 0; v < V; ++v) {
           load4(v, x);
-          const float w = a.ws_vis[(size_t)v * P + p] * inv;
+          const float w = a.ws_vis[ws.vp(v, p)] * inv;
 #pragma unroll
           for (int j = 0; j < 4; ++j) s2[j] += w * (x[j] - mean[j]);
         }
@@ -795,11 +797,11 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
                     (x[j] - mean[j]) * (x[j] - mean[j]) * dvr[j];
           const float d = warp_sum(part) + dws;
           if (lane == 0) dw2[v] = d;
-          dvsum -= inv * inv * a.ws_vis[(size_t)v * P + p] * d;
+          dvsum -= inv * inv * a.ws_vis[ws.vp(v, p)] * d;
         }
         for (int v = 0; v < V; ++v) {
           load4(v, x);
-          const size_t pv = (size_t)v * P + p;
+          const size_t pv = ws.vp(v, p);
           const float w = a.ws_vis[pv] * inv;
           bf16* dxo = a.dx + pv * 128 + c0;
           __align__(8) bf16 outv[4];
@@ -823,6 +825,12 @@ __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
       __syncthreads();
     }
   }
+}
+
+template <bool STATIC>
+__global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
+  for (int ray = blockIdx.x; ray < a.R; ray += gridDim.x)
+    ray_bwd_ray<STATIC>(a, ray, WsMap{a.P, 0});
 }
 
 }  // namespace agg

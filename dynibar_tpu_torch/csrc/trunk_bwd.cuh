@@ -85,10 +85,11 @@ static_assert(trunk_bwd_smem<true>(VMAX) <= 232448,
               "K5b fits one block at VMAX views");
 
 // STATIC: the static aggregator's trunk (rf residual, anti-alias chain);
-// INMLP (static only): also the input MLP, as K5b.  <false, false> is K4b,
-// <true, true> K5b, <true, false> K5c.
+// INMLP (static only): also the input MLP, as K5b.
+// The backward of one 64-point block from point p0; workspace rows by `ws`.
 template <bool STATIC, bool INMLP>
-__global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
+__device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
+                                                int p0, const WsMap ws) {
   constexpr int LDX = trunk_bwd_ldx<INMLP>();
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xin = (bf16*)smem;                 // [PT][LDX] trunk input
@@ -117,14 +118,12 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
   const int wt = a.w_total;
   const float s_val = (STATIC && a.anti_alias) ? a.B[net.l[AA_S].b] : 0.f;
   const float s_abs = fabsf(s_val);
-  const int nblk = (P + PT - 1) / PT;
 
-  for (int blk = blockIdx.x; blk < nblk; blk += gridDim.x) {
-    const int p0 = blk * PT;
+  {                                 // one 64-point block
     auto rf_val = [&](int r, int v, int c) -> float {
       const int p = p0 + r;
       if (p >= P) return 0.f;
-      if (STATIC) return b2f(a.ws_rf[((size_t)v * P + p) * CR + c]);
+      if (STATIC) return b2f(a.ws_rf[ws.vp(v, p) * CR + c]);
       return b2f(f2b(b2f(a.rgbfeat[((size_t)p * V + v) * C + c]) +
                      a.dirfeat[(size_t)p * C + c]));
     };
@@ -232,7 +231,7 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
         float d = 0.f;
         if (c == 0 && p < P) {
           const float sg = r_sg[r];
-          d = sg * (1.f - sg) * mk[r] * a.dmisc[((size_t)v * P + p) * 8];
+          d = sg * (1.f - sg) * mk[r] * a.dmisc[ws.vp(v, p) * 8];
           // one-column bias: summed from the f32 values (bf16 terms of
           // mixed sign lose the sum)
           atomicAdd(slab + wt + net.l[VIS21].b, d);
@@ -262,8 +261,7 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
           tt[q] = b2f(tb[r * LDT + c]);
           const float x = b2f(f2b(b2f(x0[r * LDG + c]) + tt[q]));
           const float dv = b2f(xv[r * LDG + c]);
-          const float din =
-              p < P ? b2f(a.dx[((size_t)v * P + p) * 128 + c]) : 0.f;
+          const float din = p < P ? b2f(a.dx[ws.vp(v, p) * 128 + c]) : 0.f;
           dxx[q] = din + r_vis0[r] * dv;
           part += x * dv;
         }
@@ -301,8 +299,7 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int c = lane + 32 * q;
-          const float din =
-              p < P ? b2f(a.dx[((size_t)v * P + p) * 128 + c]) : 0.f;
+          const float din = p < P ? b2f(a.dx[ws.vp(v, p) * 128 + c]) : 0.f;
           const float dxx = din + r_vis0[r] * b2f(xv[r * LDG + c]);
           const float dxw = b2f(xw[r * LDG + c]);
           const float y0 = b2f(x0[r * LDG + c]);
@@ -330,7 +327,7 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
               if (c < 2 * CR)
                 dgf[r * LDF + c] += x;
               else if (c < 3 * CR && p < P)
-                a.drf[((size_t)v * P + p) * CR + c - 2 * CR] = x;
+                a.drf[ws.vp(v, p) * CR + c - 2 * CR] = x;
             });
       __syncthreads();
     }
@@ -347,7 +344,7 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
       const float dme = dm - 2.f * dvr * s0;
       for (int v = 0; v < V; ++v) {
         const float rf = rf_val(r, v, c), w = sm_w[v * PT + r];
-        const size_t iv = ((size_t)v * P + p) * CR + c;
+        const size_t iv = ws.vp(v, p) * CR + c;
         const float dt = a.drf[iv] + w * (dme + 2.f * (rf - mean) * dvr);
         const size_t ig = ((size_t)p * V + v) * C + c;
         if (STATIC) {
@@ -356,7 +353,7 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
                       rf * dme + (rf - mean) * (rf - mean) * dvr);
           if (INMLP && c < C)
             a.d_rgbfeat[ig] =
-                dt + (c < 3 ? a.dmisc[((size_t)v * P + p) * 8 + 1 + c] : 0.f);
+                dt + (c < 3 ? a.dmisc[ws.vp(v, p) * 8 + 1 + c] : 0.f);
           else
             a.drf[iv] = dt;
         } else {
@@ -367,7 +364,7 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
       if (!STATIC) a.d_dirfeat[(size_t)p * C + c] = dsum;
     }
     __syncthreads();
-    if (!STATIC) continue;
+    if (!STATIC) return;
 
     // ---- K5b: input MLP (ray_dir_fc) recompute + transpose ----
     if constexpr (INMLP) {
@@ -402,7 +399,7 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
                 const int p = p0 + r;
                 float dsf = 0.f;
                 if (c < C && p < P) {
-                  const float dc = a.drf[((size_t)v * P + p) * CR + C + c];
+                  const float dc = a.drf[ws.vp(v, p) * CR + C + c];
                   dsf = dc * a.reffeat[(size_t)(p / a.S) * C + c];
                   dgf[r * LDF + c] += dc * x;
                 }
@@ -447,7 +444,7 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
           } else {
             const int k = j - 6;
             a.d_raydiff[pv * 4 + k] =
-                d[66 + k] + a.dmisc[((size_t)v * P + p) * 8 + 4 + k];
+                d[66 + k] + a.dmisc[ws.vp(v, p) * 8 + 4 + k];
           }
         }
         __syncthreads();
@@ -469,7 +466,7 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
       if (!a.anti_alias) {
         a.d_s[p] = 0.f;
         if (!INMLP)
-          for (int v = 0; v < V; ++v) a.d_dot[(size_t)v * P + p] = 0.f;
+          for (int v = 0; v < V; ++v) a.d_dot[ws.vp(v, p)] = 0.f;
         continue;
       }
       float sw = 0.f, emin = sm_ed[r];
@@ -498,13 +495,20 @@ __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
         if (INMLP)
           a.d_raydiff[pv * 4 + 3] += ded * ed * s_abs;
         else
-          a.d_dot[(size_t)v * P + p] = ded * ed * s_abs;
+          a.d_dot[ws.vp(v, p)] = ded * ed * s_abs;
         dsl += ded * ed * (a.raydiff[pv * 4 + 3] - 1.f);
       }
       a.d_s[p] = dsl * (s_val > 0.f ? 1.f : (s_val < 0.f ? -1.f : 0.f));
     }
     __syncthreads();
   }
+}
+
+// <false, false> is K4b, <true, true> K5b, <true, false> K5c.
+template <bool STATIC, bool INMLP>
+__global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
+  for (int blk = blockIdx.x; blk < (a.P + PT - 1) / PT; blk += gridDim.x)
+    trunk_bwd_block<STATIC, INMLP>(a, blk * PT, WsMap{a.P, 0});
 }
 
 }  // namespace agg

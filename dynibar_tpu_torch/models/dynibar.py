@@ -16,8 +16,9 @@ with ``shift = 5``), two feature nets, one motion MLP and one DCT basis
 (reference model.py:291-397, dynibar_tpu/models/dynibar.py:64-193), under
 the JAX top-level names.  It has one stage: its ``apply_*`` take the
 stage argument of ``FFModel``'s as ``None``, so the render code serves
-both.  Both containers hand the static aggregator's backward route
-(``cfg.fused_st_bwd_impl``) to the kernel wrapper.
+both.  Both containers hand the aggregators' backward routes
+(``cfg.fused_st_bwd_impl``, ``cfg.fused_bwd_impl``) to the kernel
+wrappers.
 """
 
 from __future__ import annotations
@@ -86,7 +87,8 @@ class FFModel(nn.Module):
                kernels: bool = True):
     net = getattr(self, f"net_{stage}_dy")
     if kernels:
-      return fused_dynamic_aggregator(net, pts, rgb_feat, ray_dir, mask, time)
+      return fused_dynamic_aggregator(net, pts, rgb_feat, ray_dir, mask, time,
+                                      bwd=self.cfg.fused_bwd_impl)
     return net(pts, rgb_feat, ray_dir, mask, time)
 
   def apply_st(self, stage: str, pts, ref_pl, src_pl, rgb_feat, ray_diff,
@@ -174,7 +176,8 @@ class MonoModel(nn.Module):
                time, kernels: bool = True):
     net = self.net_coarse_dy
     if kernels:
-      return fused_dynamic_aggregator(net, pts, rgb_feat, ray_dir, mask, time)
+      return fused_dynamic_aggregator(net, pts, rgb_feat, ray_dir, mask, time,
+                                      bwd=self.cfg.fused_bwd_impl)
     return net(pts, rgb_feat, ray_dir, mask, time)
 
   def apply_st(self, stage: Optional[str], pts, ref_pl, src_pl, rgb_feat,

@@ -14,19 +14,25 @@ Forward kernels (take the inputs of the matching module's ``forward``,
 Backward kernels (csrc/static_agg_bwd.cu, csrc/static_agg_bwd3.cu,
 csrc/dynamic_agg_bwd.cu), a ray-side and a trunk-side launch as in
 ``pallas_agg_bwd.py``: K4a/K4b (dynamic, :514/:733) and K5a/K5b (static,
-:879/:1109).  The static backward's route "pallas_split3" splits the
-trunk side at the d_rf seam as ``_make_st_core_diff_split(three_kernel=
-True)`` does (pallas_agg.py:556-559): K5c (:1328, the trunk) then K5d
-(:1484, the per-view input MLP).  The last trunk-side wrapper also
+:879/:1109).  The dynamic backward's route "pallas" is one launch instead
+(csrc/dynamic_agg_bwd1.cu): K4s replaces ``pallas_agg_bwd.py:163
+dynamic_bwd_kernel``; its forward K3p (``_dynamic_kernel`` under
+``_make_dyn_core_diff``, pallas_agg.py:925) is the K3 launch with no
+residuals kept, and the backward recomputes them.  The static backward's
+route "pallas_split3" splits the trunk side at the d_rf seam as
+``_make_st_core_diff_split(three_kernel=True)`` does
+(pallas_agg.py:556-559): K5c (:1328, the trunk) then K5d (:1484, the
+per-view input MLP).  The last trunk-side wrapper also
 launches the small kernel that sums the per-block weight-gradient slabs.
 
 Dispatch: CPU tensors run the module's forward (the plain f32 twin, under
 autograd when grad is enabled).  CUDA tensors launch the kernels: under
 ``torch.no_grad()`` K2/K3; with grad enabled the autograd Functions
-(K2r/K3r forward, K5a+K5b or K5a+K5c+K5d / K4a+K4b backward), so a CUDA
-call never returns a tensor without a graph.  The static route comes from
-the caller (``RenderSettings.fused_st_bwd_impl``); an unknown route
-raises, on the CPU too, and no route runs another's kernels.  The
+(K2r forward, K5a+K5b or K5a+K5c+K5d backward; K3r forward, K4a+K4b
+backward, or K3p forward, K4s backward), so a CUDA call never returns a
+tensor without a graph.  The routes come from the caller
+(``RenderSettings.fused_st_bwd_impl``, ``fused_bwd_impl``); an unknown
+route raises, on the CPU too, and no route runs another's kernels.  The
 per-ray pieces the JAX wrappers also run outside their kernels stay torch
 ops and get their gradients from autograd through the returned input
 cotangents: ``ref_feature_fc``
@@ -43,7 +49,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from dynibar_tpu_torch.config import STATIC_BWD_ROUTES, check_route
+from dynibar_tpu_torch.config import (DYNAMIC_BWD_ROUTES, STATIC_BWD_ROUTES,
+                                     check_route)
 from dynibar_tpu_torch.core.posenc import periodic_embed
 from dynibar_tpu_torch.models.nn_layers import linear_layers
 from dynibar_tpu_torch.ops import build
@@ -65,6 +72,7 @@ _ST_RAY_ARGS = [_P] * 16 + [_I] * 7 + [_P]
 _ST_TRUNK_ARGS = [_P] * 12 + [_I] * 2 + [_P] * 10 + [_I] * 7 + [_P]
 _ST_TRUNK3_ARGS = [_P] * 9 + [_I] * 2 + [_P] * 6 + [_I] * 7 + [_P]
 _ST_INMLP_ARGS = [_P] * 18 + [_I] * 7 + [_P]
+_DYN_SINGLE_ARGS = [_P] * 25 + [_I] * 7 + [_P]
 _REDUCE_ARGS = [_P, _I, _I, _P, _P]
 
 
@@ -208,12 +216,13 @@ def _fn(lib: str, name: str, argtypes):
   return fn
 
 
-# each library's two kernels, in the order of its dyn_occupancy output
+# each library's kernels, in the order of its dyn_occupancy output
 _OCCUPANCY = {"static_agg": ("K2 trunk", "K2 ray"),
               "dynamic_agg": ("K3 trunk", "K3 ray"),
               "static_agg_bwd": ("K5a", "K5b"),
               "static_agg_bwd3": ("K5c", "K5d"),
-              "dynamic_agg_bwd": ("K4a", "K4b")}
+              "dynamic_agg_bwd": ("K4a", "K4b"),
+              "dynamic_agg_bwd1": ("K4s",)}
 
 
 def occupancy(v: int) -> Dict[str, Tuple[int, int]]:
@@ -225,7 +234,8 @@ def occupancy(v: int) -> Dict[str, Tuple[int, int]]:
     buf = (ctypes.c_int * 4)()
     fn = _fn(lib, "dyn_occupancy", [_I, ctypes.POINTER(ctypes.c_int)])
     build.check(fn(v, buf), f"{lib} occupancy")
-    out[names[0]], out[names[1]] = (buf[0], buf[1]), (buf[2], buf[3])
+    for i, name in enumerate(names):
+      out[name] = (buf[2 * i], buf[2 * i + 1])
   return out
 
 
@@ -363,18 +373,24 @@ def _static_cuda(net, pts, ref_pl, src_pl, rgb_feat, ray_diff, mask,
 
 
 def fused_dynamic_aggregator(net: nn.Module, pts, rgb_feat, glb_ray_dir,
-                             mask, time) -> torch.Tensor:
-  """Dynamic aggregator; arguments as DynamicAggregator.forward."""
+                             mask, time, bwd: str = "pallas_split"
+                             ) -> torch.Tensor:
+  """Dynamic aggregator; arguments as DynamicAggregator.forward.  bwd: the
+  training route on the card, "pallas_split" (K3r; K4a + K4b) or "pallas"
+  (K3p; K4s); both take the twin on the CPU."""
+  check_route("fused_bwd_impl", bwd, DYNAMIC_BWD_ROUTES)
   if not rgb_feat.is_cuda:
     return net(pts, rgb_feat, glb_ray_dir, mask, time)
-  return _dynamic_cuda(net, pts, rgb_feat, glb_ray_dir, mask, time)
+  return _dynamic_cuda(net, pts, rgb_feat, glb_ray_dir, mask, time, bwd)
 
 
-def _dynamic_cuda(net, pts, rgb_feat, glb_ray_dir, mask, time):
+def _dynamic_cuda(net, pts, rgb_feat, glb_ray_dir, mask, time,
+                  bwd: str = "pallas_split"):
   dirfeat, dirpe = _dir_inputs(net, glb_ray_dir, time)
   if torch.is_grad_enabled():
-    return _DynamicAggFn.apply(net, pts, dirfeat, dirpe, rgb_feat, mask,
-                               *kernel_params(net, False))
+    fn = _DynamicAggSingleFn if bwd == "pallas" else _DynamicAggFn
+    return fn.apply(net, pts, dirfeat, dirpe, rgb_feat, mask,
+                    *kernel_params(net, False))
   out, _ = _dynamic_launch(net, pts, dirfeat, dirpe, rgb_feat, mask)
   fused_dynamic_aggregator.launches += 1
   return out
@@ -394,6 +410,20 @@ def dynamic_forward_residuals(net, pts, dirfeat, dirpe, rgb_feat, mask):
   out, ws = _dynamic_launch(net, pts, dirfeat, dirpe, rgb_feat, mask)
   dynamic_forward_residuals.launches += 1
   return out, ws
+
+
+def dynamic_forward_primal(net, pts, dirfeat, dirpe, rgb_feat, mask):
+  """K3p: the K3 launch under the "pallas" route, which keeps no residuals:
+  returns raw and the converted inputs K4s reads.  K4s runs whole 64-point
+  trunk blocks per ray (csrc/agg_common.cuh PT), so S must be a multiple of
+  64."""
+  if rgb_feat.shape[1] % 64:
+    raise ValueError("the pallas route (K3p/K4s) takes S a multiple of 64; "
+                     f"got S={rgb_feat.shape[1]}")
+  out, ws = _dynamic_launch(net, pts, dirfeat, dirpe, rgb_feat, mask)
+  dynamic_forward_primal.launches += 1
+  return out, {k: ws[k] for k in ("pts", "dirfeat", "dirpe", "posenc",
+                                  "rgb_feat", "mask")}
 
 
 # --------------------------------------------------------------------------
@@ -596,6 +626,48 @@ def dynamic_backward_trunk(net, ws, dx, dmisc, slabs, nblk, w_total):
   return grads, d_rgbfeat, d_dirfeat
 
 
+def dynamic_backward_single(net, ins, cot):
+  """K4s: the whole dynamic backward in one launch from K3p's inputs, then
+  the slab reduction.  Returns the packed f32 gradients, d_pts [P,3],
+  d_dirpe [R,27], d_rgb_feat [P,V,C] and d_dirfeat [P,C].  One ray per
+  persistent block at a time, its workspaces in a per-block scratch."""
+  dev = cot.device
+  r, s, v, c = ins["rgb_feat"].shape
+  p = r * s
+  packed = pack_weights(net, False)
+  w, b, meta, wt = packed
+  slabs, nblk, w_total = _slabs(dev, packed)
+  f32 = dict(dtype=torch.float32, device=dev)
+  bf = dict(dtype=torch.bfloat16, device=dev)
+  scratch = dict(x=torch.empty((nblk, v, s, 128), **bf),
+                 dx=torch.empty((nblk, v, s, 128), **bf),
+                 vm=torch.empty((nblk, 2, v, s), **f32),
+                 gf=torch.empty((nblk, s, 128), **f32),
+                 nv=torch.empty((nblk, s), **f32),
+                 dmisc=torch.empty((nblk, v, s, 8), **f32),
+                 drf=torch.empty((nblk, v, s, c), **f32),
+                 ray=torch.empty((nblk, _MAX_SAMPLES, _SCRATCH_LD), **f32))
+  d_pts = torch.empty((p, 3), **f32)
+  d_dirpe = torch.empty((r, 27), **f32)
+  d_rgbfeat = torch.empty((p, v, c), **f32)
+  d_dirfeat = torch.empty((p, c), **f32)
+  fn = _fn("dynamic_agg_bwd1", "dyn_dynamic_agg_bwd_single", _DYN_SINGLE_ARGS)
+  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                 _zeros(dev).data_ptr(), _meta_ptr(meta),
+                 *(ins[k].data_ptr() for k in ("pts", "dirfeat", "dirpe",
+                                               "posenc", "rgb_feat", "mask")),
+                 cot.data_ptr(),
+                 *(scratch[k].data_ptr() for k in ("x", "dx", "vm", "gf", "nv",
+                                                   "dmisc", "drf", "ray")),
+                 d_pts.data_ptr(), d_dirpe.data_ptr(), d_rgbfeat.data_ptr(),
+                 d_dirfeat.data_ptr(), slabs.data_ptr(), slabs.shape[1],
+                 w_total, r, s, v, c, nblk, _stream(dev)),
+              "dynamic aggregator backward (single kernel)")
+  grads = _reduce("dynamic_agg_bwd1", slabs)
+  dynamic_backward_single.launches += 1
+  return grads, d_pts, d_dirpe, d_rgbfeat, d_dirfeat
+
+
 def _reduce(lib: str, slabs: torch.Tensor) -> torch.Tensor:
   out = torch.empty((slabs.shape[1],), dtype=torch.float32,
                     device=slabs.device)
@@ -674,11 +746,41 @@ class _DynamicAggFn(torch.autograd.Function):
             *unpack_grads(net, False, meta, grads, w_total, None))
 
 
+class _DynamicAggSingleFn(torch.autograd.Function):
+  """K3p forward, K4s backward (route "pallas"): the forward keeps only its
+  inputs, as ``_make_dyn_core_diff`` does (pallas_agg.py:907-965).  Inputs
+  as ``_DynamicAggFn``'s."""
+
+  @staticmethod
+  def forward(ctx, net, pts, dirfeat, dirpe, rgb_feat, mask, *params):
+    out, ins = dynamic_forward_primal(net, pts, dirfeat, dirpe, rgb_feat,
+                                      mask)
+    ctx.net, ctx.ins = net, ins
+    ctx.dtypes = (pts.dtype, dirfeat.dtype, dirpe.dtype, rgb_feat.dtype)
+    return out
+
+  @staticmethod
+  def backward(ctx, d_out):
+    net, ins = ctx.net, ctx.ins
+    ctx.ins = None
+    r, s, v, c = ins["rgb_feat"].shape
+    grads, d_pts, d_dirpe, d_rgbfeat, d_dirfeat = dynamic_backward_single(
+        net, ins, d_out.float().contiguous())
+    del ins
+    w, _, meta, _ = pack_weights(net, False)
+    dt = ctx.dtypes
+    return (None, d_pts.view(r, s, 3).to(dt[0]),
+            d_dirfeat.view(r, s, c).to(dt[1]), d_dirpe.to(dt[2]),
+            d_rgbfeat.view(r, s, v, c).to(dt[3]), None,
+            *unpack_grads(net, False, meta, grads, w.numel(), None))
+
+
 for _f in (fused_static_aggregator, fused_dynamic_aggregator,
            static_forward_residuals, dynamic_forward_residuals,
-           static_backward_ray, static_backward_trunk, static_backward_trunk3,
+           dynamic_forward_primal, static_backward_ray,
+           static_backward_trunk, static_backward_trunk3,
            static_backward_inmlp, dynamic_backward_ray,
-           dynamic_backward_trunk):
+           dynamic_backward_trunk, dynamic_backward_single):
   _f.launches = 0
 
 

@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_SOURCES = ("sample", "static_agg", "dynamic_agg", "static_agg_bwd",
-                  "static_agg_bwd3", "dynamic_agg_bwd")
+                  "static_agg_bwd3", "dynamic_agg_bwd", "dynamic_agg_bwd1")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,9 +1,12 @@
 """Full-frame rendering as a plain chunk loop.
 
-Port of ``dynibar_tpu.render.render_image.full_image_ray_batch`` and
-``render_image_ff`` (reference ibrnet/render_image.py:9-439).  Feature maps
-are encoded once per frame by the caller; chunks run in order on the
-current stream and their kept outputs are read back to the host.
+Port of ``dynibar_tpu.render.render_image.full_image_ray_batch``,
+``render_image_ff`` and ``render_image_mono`` (reference
+ibrnet/render_image.py:9-439).  Feature maps are encoded once per frame by
+the caller; chunks run in order on the current stream, without autograd,
+and their kept outputs are read back to the host.  The JAX package's
+sampling-coverage fallback (``_exact_cfg``) has no counterpart: the CUDA
+sampler is exact for every sample.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import torch
 
 from dynibar_tpu_torch.config import RenderSettings
 from dynibar_tpu_torch.core.cameras import pixel_rays, split_camera
-from dynibar_tpu_torch.render.render_rays import render_rays_mv
+from dynibar_tpu_torch.render.render_rays import (render_rays_mono,
+                                                  render_rays_mv)
 from dynibar_tpu_torch.utils.device import (DeviceLike, resolve_device,
                                             to_device)
 
@@ -42,6 +46,72 @@ def full_image_ray_batch(rb_template: Dict[str, Any], camera,
   return rb
 
 
+def _images(parts: Dict[str, Dict[str, list]], height: int, width: int
+            ) -> Dict[str, Dict[str, np.ndarray]]:
+  """Concatenated chunk outputs -> [H, W, .] numpy arrays; rgb zeroed where
+  the mask says no source view saw the ray (reference
+  render_image.py:384-411)."""
+  result = {}
+  for name, fields in parts.items():
+    imgs = {k: torch.cat(v, dim=0).cpu().numpy().reshape(
+        (height, width) + tuple(v[0].shape[1:])) for k, v in fields.items()}
+    imgs["rgb"] = imgs["rgb"] * (imgs["mask"][..., None] > 0)
+    result[name] = imgs
+  return result
+
+
+def _keep_mono(ret, train_view: bool) -> Dict[str, Dict[str, torch.Tensor]]:
+  """The fields a mono frame keeps (dynibar_tpu render_image.py:152-174):
+  with ``train_view`` also the observability fields of the training
+  panels (expected scene flow, rendered flows [R, V, 2], the anchor's
+  occlusion-weight map)."""
+  keep = {}
+  for name in ("outputs_coarse_ref", "outputs_coarse_st"):
+    o = ret[name]
+    keep[name] = {k: o[k] for k in ("rgb", "depth", "rgb_static", "rgb_dy")
+                  if k in o}
+    keep[name]["mask"] = o["mask"].float()
+  if train_view:
+    o = ret["outputs_coarse_ref"]
+    keep["outputs_coarse_ref"]["exp_sf"] = o["exp_sf"]
+    keep["outputs_coarse_ref"]["render_flows"] = o["render_flows"].transpose(
+        0, 1)
+    a = ret["outputs_coarse_anchor"]
+    keep["outputs_coarse_anchor"] = {
+        "rgb": a["rgb"], "depth": a["depth"], "mask": a["mask"].float(),
+        "occ_weight_map": a["occ_weight_map"]}
+  return keep
+
+
+def render_image_mono(model, rb: Dict[str, Any], featmaps,
+                      cfg: RenderSettings, chunk_size: int, height: int,
+                      width: int, det: bool = True, train_view: bool = False,
+                      device: DeviceLike = None
+                      ) -> Dict[str, Dict[str, np.ndarray]]:
+  """Render a full target view with the monocular model.
+
+  Returns {'outputs_coarse_ref': {...}, 'outputs_coarse_st': {...}} of
+  [H, W, .] numpy arrays (rgb, depth, mask and, for the composite,
+  rgb_static and rgb_dy).  ``train_view`` renders the training program,
+  cross-time anchor branch included, and adds exp_sf, render_flows
+  [H, W, V, 2] and 'outputs_coarse_anchor' (rgb, depth, mask,
+  occ_weight_map): the reference's training panels (train.py:576-762)."""
+  dev = resolve_device(device)
+  rb = to_device(rb, dev)
+  n_rays = rb["ray_o"].shape[0]
+  parts: Dict[str, Dict[str, list]] = {}
+  with torch.no_grad():
+    for start in range(0, n_rays, chunk_size):
+      chunk = {k: (v[start:start + chunk_size] if k in _PER_RAY_KEYS else v)
+               for k, v in rb.items()}
+      ret = render_rays_mono(model, chunk, featmaps, cfg, device=dev,
+                             is_train=train_view, det=det, needs_grad=False)
+      for name, fields in _keep_mono(ret, train_view).items():
+        for k, v in fields.items():
+          parts.setdefault(name, {}).setdefault(k, []).append(v.float())
+  return _images(parts, height, width)
+
+
 def render_image_ff(model, rb: Dict[str, Any], coarse_featmaps,
                     fine_featmaps, cfg: RenderSettings, chunk_size: int,
                     height: int, width: int,
@@ -65,10 +135,4 @@ def render_image_ff(model, rb: Dict[str, Any], coarse_featmaps,
     for name, fields in parts.items():
       for k in _KEEP:
         fields[k].append(ret[name][k].float())
-  result = {}
-  for name, fields in parts.items():
-    imgs = {k: torch.cat(v, dim=0).cpu().numpy().reshape(
-        (height, width) + tuple(v[0].shape[1:])) for k, v in fields.items()}
-    imgs["rgb"] = imgs["rgb"] * (imgs["mask"][..., None] > 0)
-    result[name] = imgs
-  return result
+  return _images(parts, height, width)

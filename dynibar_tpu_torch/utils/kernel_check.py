@@ -70,7 +70,7 @@ def aggregator_grads(net: nn.Module, static: bool,
   """One forward + backward of ``sum(raw * cot)``.
 
   mode: "kernel" (the CUDA kernels through the autograd Function, all rays
-  in one call; a static net's backward on route `bwd`), "f32" (the module)
+  in one call, the backward on route `bwd`), "f32" (the module)
   or "bf16" (the module under autocast, bf16 inputs); the twins run
   ``rays`` rays at a time.  Returns raw and
   the gradients of the differentiable inputs (``input.<name>``) and of
@@ -95,7 +95,7 @@ def aggregator_grads(net: nn.Module, static: bool,
         if static:
           out = agg.fused_static_aggregator(net, *call, bwd=bwd).float()
         else:
-          out = agg.fused_dynamic_aggregator(net, *call).float()
+          out = agg.fused_dynamic_aggregator(net, *call, bwd=bwd).float()
         (out * cot).sum().backward()
       elif mode in ("f32", "bf16"):
         outs = []
@@ -155,7 +155,7 @@ def kernel_ds_per_point(net: nn.Module, args: Sequence[torch.Tensor],
 def all_grads(net: nn.Module, static: bool, args: Sequence[torch.Tensor],
               cot: torch.Tensor, rays: int = TWIN_RAYS,
               bwd: str = "pallas_split"):
-  """Kernel (a static net's backward on route `bwd`), f32 and bf16 twin:
+  """Kernel (the backward on route `bwd`), f32 and bf16 twin:
   (out_k, out_f, g_k, g_f, g_b)."""
   out_k, g_k = aggregator_grads(net, static, args, cot, "kernel", bwd=bwd)
   if _has_s(net, static):

@@ -2,7 +2,7 @@
 
     python3 scripts/port_profile.py [--chunk 1024] [--iters 3]
     python3 scripts/port_profile.py --train [--chunk 3072] [--iters 2]
-    python3 scripts/port_profile.py --mono [--route pallas_split3]
+    python3 scripts/port_profile.py --mono [--route pallas_split3|pallas]
         [--chunk 3072] [--iters 2]
 
 Renders one chunk (64+64 samples, 7+11 views, 288x512 sources, bf16,
@@ -10,8 +10,9 @@ random weights from a seed) through the kernel path on the CUDA card under
 torch.profiler; with --train runs FF fine-stage train steps (7 dynamic, 6
 anchor, 11 static views, N_rand = --chunk); with --mono runs mono train
 steps at bench.py's width (64 samples, 9 dynamic, 10 anchor, 14 static
-views, 48 frames, schedule_weights(epoch=2)) on the static backward route
---route.  Prints the device time per kernel name (summed over the
+views, 48 frames, schedule_weights(epoch=2)) on the backward route
+--route: "pallas_split" (K5a + K5b, K4a + K4b), "pallas_split3" (static
+K5a + K5c + K5d) or "pallas" (dynamic K3p forward, K4s backward).  Prints the device time per kernel name (summed over the
 profiled iterations, divided by them), the wall time per iteration and
 the device's busy share of it.  Needs one card; imports nothing of JAX.
 """
@@ -41,14 +42,20 @@ from dynibar_tpu_torch.utils.device import (resolve_device,  # noqa: E402
                                             to_device)
 
 
+# --route -> (fused_st_bwd_impl, fused_bwd_impl)
+ROUTES = {"pallas_split": ("pallas_split", "pallas_split"),
+          "pallas_split3": ("pallas_split3", "pallas_split"),
+          "pallas": ("pallas_split", "pallas")}
+
+
 def main() -> int:
   ap = argparse.ArgumentParser()
   ap.add_argument("--chunk", type=int, default=1024)
   ap.add_argument("--iters", type=int, default=3)
   ap.add_argument("--train", action="store_true")
   ap.add_argument("--mono", action="store_true")
-  ap.add_argument("--route", default="pallas_split",
-                  help="the mono step's static backward route")
+  ap.add_argument("--route", default="pallas_split", choices=sorted(ROUTES),
+                  help="the mono step's backward route")
   args = ap.parse_args()
   dev = resolve_device(None)
   card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -58,7 +65,8 @@ def main() -> int:
   if args.mono:
     cfg = mono_render_settings(num_source_views=7, num_vv=3, n_samples=64,
                                num_basis=6, compute_dtype="bfloat16",
-                               fused_st_bwd_impl=args.route)
+                               fused_st_bwd_impl=ROUTES[args.route][0],
+                               fused_bwd_impl=ROUTES[args.route][1])
     model = MonoModel(cfg, num_frames=48, seed=0).train_all()
     rb = to_device(synthetic_mono_batch(cfg, n_rays=args.chunk, h=288,
                                         w=512, num_frames=48), dev)

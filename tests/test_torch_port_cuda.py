@@ -9,16 +9,17 @@ Marked ``cuda``: on a host without a card every test skips.  On the card
 Tolerances as chip_smoke.py states them: K1 within one bf16 ulp, K2/K3
 (bf16 operands, f32 accumulation) vs the f32 modules at the bars the JAX
 package holds its Pallas kernels to (tests/test_pallas_agg.py:80,90).
-The backward kernels K4a/K4b, K5a/K5b and (route "pallas_split3")
-K5a/K5c/K5d through the autograd Functions vs the f32 modules under
-autograd, per tensor within twice the bf16 twin's error plus 0.02
+The backward kernels K4a/K4b, K5a/K5b, (route "pallas_split3")
+K5a/K5c/K5d and (route "pallas") K3p + K4s through the autograd Functions
+vs the f32 modules under autograd, per tensor within twice the bf16 twin's error plus 0.02
 (tests/test_pallas_agg.py:370-377); R = 64 with S = 16 spreads the rays
 over many blocks, so the weight gradients are summed across block slabs.
 The static anti-alias scalar is held per point and as a sum scaled by its
 terms' magnitudes (utils/kernel_check.py), and every shape runs with
 several weight seeds.  The shapes cover the FF views (11 static, 7 and 6
 dynamic) and the mono ones (14 static, 9 and 10 dynamic); the two static
-routes also agree with each other, and 15 views raise.
+routes agree with each other, so do the two dynamic ones, and 15 views
+raise.
 """
 
 import numpy as np
@@ -104,13 +105,14 @@ _COUNTERS = {
     "pallas_split": (agg.static_backward_ray, agg.static_backward_trunk),
     "pallas_split3": (agg.static_backward_ray, agg.static_backward_trunk3,
                       agg.static_backward_inmlp),
-    "dynamic": (agg.dynamic_backward_ray, agg.dynamic_backward_trunk)}
+    "dynamic": (agg.dynamic_backward_ray, agg.dynamic_backward_trunk),
+    "pallas": (agg.dynamic_forward_primal, agg.dynamic_backward_single)}
 
 
 def _check_backward(dev, net, static, args, r, s, bwd="pallas_split"):
   cot = torch.randn(r, s, 4, generator=torch.Generator().manual_seed(r + s))
   cot = cot.to(dev)
-  counters = _COUNTERS[bwd if static else "dynamic"]
+  counters = _COUNTERS[bwd if static or bwd == "pallas" else "dynamic"]
   others = [f for k, fs in _COUNTERS.items() for f in fs if f not in counters]
   before = [f.launches for f in counters + tuple(others)]
   aggregator_grads(net, static, args, cot, "kernel", bwd=bwd)
@@ -194,3 +196,32 @@ def test_dynamic_backward_kernels(dev, r, s, v, seed):
   net = DynamicAggregator(F, s, shift=0.0).to(dev)
   args = [d[k] for k in ("pts", "rgb_feat", "ray_dir", "mask", "time")]
   _check_backward(dev, net, False, args, r, s)
+
+
+@pytest.mark.parametrize("seed", WEIGHT_SEEDS)
+@pytest.mark.parametrize("r,s,v", [(6, 64, 9), (6, 64, 10), (6, 128, 7),
+                                   (6, 128, 6), (300, 64, 10)])
+def test_dynamic_single_backward_kernel(dev, r, s, v, seed):
+  """K3p + K4s (route "pallas") vs the twins, and against K3r + K4a + K4b
+  on the same inputs: the same bf16 products, the weight gradients summed
+  in another order, so every gradient within 1e-3 of its f32 scale.  300
+  rays put more than one ray on a block."""
+  d = _inputs(dev, s, v, seed=7 * s + v, R=r)
+  torch.manual_seed(seed)
+  net = DynamicAggregator(F, s, shift=5.0).to(dev)
+  args = [d[k] for k in ("pts", "rgb_feat", "ray_dir", "mask", "time")]
+  cot, g1, g_f = _check_backward(dev, net, False, args, r, s, "pallas")
+  _, g2 = aggregator_grads(net, False, args, cot, "kernel")
+  assert set(g1) == set(g2)
+  for name, want in g2.items():
+    err = float((g1[name] - want).abs().max())
+    assert err <= 1e-3 * float(g_f[name].abs().max()) + 1e-7, (name, err)
+
+
+def test_single_backward_refuses_odd_sample_counts(dev):
+  """K4s runs whole 64-point trunk blocks per ray: S = 40 raises."""
+  d = _inputs(dev, 40, 7, seed=5)
+  net = DynamicAggregator(F, 40).to(dev)
+  args = [d[k] for k in ("pts", "rgb_feat", "ray_dir", "mask", "time")]
+  with pytest.raises(ValueError, match="multiple of 64"):
+    fused_dynamic_aggregator(net, *args, bwd="pallas")

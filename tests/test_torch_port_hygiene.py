@@ -30,6 +30,12 @@ PKG = ROOT / "dynibar_tpu_torch"
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "dynibar_tpu")
 CFG = RenderSettings(n_samples=4, n_importance=4, num_views_dy=7,
                      num_views_static=3, inv_uniform=True)
+# the training CLI's modules: each must import with JAX blocked
+NEW_MODULES = ("cli/train.py", "data/png.py", "data/llff.py",
+               "data/view_selection.py", "data/monocular.py",
+               "data/factory.py", "data/pipeline.py",
+               "data/synthetic_scene.py", "utils/checkpoints.py",
+               "utils/logging.py", "utils/viz.py", "train/view_logging.py")
 
 
 def _sources():
@@ -47,11 +53,15 @@ def _imported_roots(path):
 
 
 def test_scan_covers_every_subpackage():
-  """The static scan reaches every package directory, train/ included."""
+  """The static scan reaches every package directory, train/ and cli/
+  included, and the data path's modules."""
   scanned = {p.parent for p in _sources()}
   packages = {p.parent for p in PKG.rglob("__init__.py")}
   assert packages <= scanned
-  assert PKG / "train" in packages
+  assert {PKG / "train", PKG / "cli"} <= packages
+  names = {p.relative_to(PKG).as_posix() for p in _sources() if PKG in
+           p.parents}
+  assert set(NEW_MODULES) <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
@@ -76,7 +86,7 @@ for name in names:
   importlib.import_module(name)
 import chip_smoke
 assert not any(m.split(".")[0] in BANNED for m in sys.modules)
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -85,7 +95,10 @@ def test_package_imports_with_jax_blocked():
       [sys.executable, "-c", _BLOCKED_IMPORT.format(banned=BANNED)],
       cwd=ROOT, capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr[-2000:]
-  assert int(out.stdout.strip()) >= 20
+  names = set(out.stdout.split())
+  assert len(names) >= 30
+  assert {"dynibar_tpu_torch." + m[:-3].replace("/", ".")
+          for m in NEW_MODULES} <= names
 
 
 def test_render_on_cpu_launches_no_kernel():

@@ -26,9 +26,12 @@ import torch
 
 from dynibar_tpu.config import DynibarConfig
 from dynibar_tpu.data import ray_batch as jray_batch
+from dynibar_tpu.models.aggregators import DynamicAggregator as JDynamic
 from dynibar_tpu.models.aggregators import StaticAggregator as JStatic
 from dynibar_tpu.models.dynibar import MonoModel as JMonoModel
+from dynibar_tpu.ops.pallas_agg import fused_dynamic_aggregator as jfused_dy
 from dynibar_tpu.ops.pallas_agg import fused_static_aggregator as jfused_st
+from dynibar_tpu.render import render_image as jrender_image
 from dynibar_tpu.render.render_rays import render_rays_mono as jrender_mono
 from dynibar_tpu.train import losses as jlosses
 from dynibar_tpu.train import trainer as jtrainer
@@ -36,9 +39,11 @@ from dynibar_tpu_torch.config import (RenderSettings, TrainSettings,
                                       mono_render_settings)
 from dynibar_tpu_torch.core import sampling
 from dynibar_tpu_torch.data import ray_batch
-from dynibar_tpu_torch.models.aggregators import StaticAggregator
+from dynibar_tpu_torch.models.aggregators import (DynamicAggregator,
+                                                  StaticAggregator)
 from dynibar_tpu_torch.models.dynibar import MONO_KEYS, MonoModel
 from dynibar_tpu_torch.ops import agg
+from dynibar_tpu_torch.render import render_image
 from dynibar_tpu_torch.render.render_rays import render_rays_mono
 from dynibar_tpu_torch.train import losses, trainer
 from dynibar_tpu_torch.utils import convert
@@ -395,8 +400,7 @@ def test_routes_on_the_cpu_take_the_twin(route):
 
 @pytest.mark.parametrize("field,value", [
     ("fused_st_bwd_impl", "flax"), ("fused_st_bwd_impl", "pallas"),
-    ("fused_bwd_impl", "pallas"), ("fused_bwd_impl", "pallas_split3"),
-    ("fused_bwd_impl", "flax")])
+    ("fused_bwd_impl", "pallas_split3"), ("fused_bwd_impl", "flax")])
 def test_unknown_routes_raise(field, value):
   with pytest.raises(NotImplementedError, match="planned"):
     RenderSettings(**{field: value})
@@ -404,6 +408,31 @@ def test_unknown_routes_raise(field, value):
     with pytest.raises(NotImplementedError):
       agg.fused_static_aggregator(StaticAggregator(8, 4), *([None] * 6),
                                   bwd=value)
+  else:
+    with pytest.raises(NotImplementedError):
+      agg.fused_dynamic_aggregator(DynamicAggregator(8, 4), *([None] * 5),
+                                   bwd=value)
+
+
+@pytest.mark.parametrize("route", ["pallas_split", "pallas"])
+def test_dynamic_routes_on_the_cpu_take_the_twin(route):
+  """fused_bwd_impl "pallas" (K3p/K4s on the card) is a valid route; on
+  the CPU both dynamic routes run the f32 twin, forward and gradient."""
+  cfg = dataclasses.replace(CFG, fused_bwd_impl=route)
+  model = MonoModel(cfg, NUM_FRAMES, device="cpu").train_all()
+  g = torch.Generator().manual_seed(1)
+  args = [torch.randn(2, 4, 3, generator=g),
+          torch.rand(2, 4, 3, 35, generator=g),
+          torch.randn(2, 3, generator=g), torch.ones(2, 4, 3, 1),
+          torch.full((2, 4, 1), 0.3)]
+  net = model.net_coarse_dy
+  want = net(*args)
+  got = model.apply_dy(None, *args)
+  assert torch.equal(got, want)
+  gw = torch.autograd.grad(want.sum(), list(net.parameters()))
+  gg = torch.autograd.grad(agg.fused_dynamic_aggregator(
+      net, *args, bwd=route).sum(), list(net.parameters()))
+  assert all(torch.equal(a, b) for a, b in zip(gg, gw))
 
 
 def test_view_limit_is_fourteen():
@@ -411,6 +440,106 @@ def test_view_limit_is_fourteen():
   agg._check_dims(64, 14, 35)
   with pytest.raises(ValueError, match="V<=14"):
     agg._check_dims(64, 15, 35)
+
+
+def test_jax_pallas_backward_matches_the_port_twin():
+  """dynibar_tpu's fused_dynamic_aggregator(pallas_bwd=True) (the primal
+  kernel K3p and the single-kernel backward K4s) in interpret mode vs the
+  port's f32 twin on converted weights: per leaf within twice the bf16
+  flax module's error plus 0.02 (the bar of the split3 test below and of
+  tests/test_pallas_agg.py:332-377, at its shape R,S,V,F = 6,16,5,32)."""
+  r, s, v, f = 6, 16, 5, 32
+  rng = np.random.RandomState(8)
+  mask = (rng.rand(r, s, v, 1) > 0.2).astype(np.float32)
+  ins = dict(pts=rng.randn(r, s, 3), rgb_feat=rng.rand(r, s, v, f + 3),
+             ray_dir=rng.randn(r, 3), ray_diff=rng.randn(r, s, v, 4) * 0.1)
+  ins = {k: a.astype(np.float32) for k, a in ins.items()}
+  j = {k: jnp.asarray(a) for k, a in ins.items()}
+  rest = (jnp.zeros((r, s, v, 1)), jnp.asarray(mask),
+          jnp.full((r, s, 1), 0.37))
+  jdy = JDynamic(in_feat_ch=f, n_samples=s, shift=5.0, compute_dtype=None)
+  jdy16 = JDynamic(in_feat_ch=f, n_samples=s, shift=5.0,
+                   compute_dtype=jnp.bfloat16)
+  p = _np(jdy.init(jax.random.PRNGKey(4), j["pts"], j["rgb_feat"],
+                   j["ray_dir"], j["ray_diff"], *rest)["params"])
+
+  def loss(out):
+    return jnp.mean(out[..., :3] ** 2) + jnp.mean(jnp.tanh(out[..., 3]))
+
+  def jgrad(fn):
+    return _np(jax.jit(jax.grad(lambda pp, rf, pts, rd: loss(fn(
+        pp, pts, rf, rd, j["ray_diff"], *rest)), argnums=(0, 1, 2, 3)))(
+            jax.tree_util.tree_map(jnp.asarray, p), j["rgb_feat"], j["pts"],
+            j["ray_dir"]))
+
+  g_pl = jgrad(lambda pp, *a: jfused_dy(pp, *a, shift=5.0, n_samples=s,
+                                        interpret=True, pallas_bwd=True))
+  g_16 = jgrad(lambda pp, *a: jdy16.apply({"params": pp}, *a))
+
+  net = DynamicAggregator(f, s, shift=5.0)
+  entries = convert.aggregator_entries(False, False)
+  net.load_state_dict(convert.jax_params_to_state_dict(p, entries))
+  t = {k: torch.from_numpy(ins[k]).requires_grad_(True)
+       for k in ("rgb_feat", "pts", "ray_dir")}
+  out = net(t["pts"], t["rgb_feat"], t["ray_dir"], torch.from_numpy(mask),
+            torch.full((r, s, 1), 0.37))
+  (torch.mean(out[..., :3] ** 2) + torch.mean(torch.tanh(out[..., 3]))
+   ).backward()
+  named = dict(net.named_parameters())
+  pairs = []                                 # (kernel, bf16, port f32)
+  for path, key, kind in entries:
+    pairs.append((convert._to_torch(convert._leaves(g_pl[0])[path], kind),
+                  convert._to_torch(convert._leaves(g_16[0])[path], kind),
+                  named[key].grad.numpy()))
+  for i, name in enumerate(("rgb_feat", "pts", "ray_dir")):
+    pairs.append((g_pl[i + 1], g_16[i + 1], t[name].grad.numpy()))
+  for a, b16, want in pairs:
+    assert np.isfinite(a).all()
+    scale = np.abs(want).max() + 1e-6
+    err = np.abs(a - want).max() / scale
+    err16 = np.abs(b16 - want).max() / scale
+    assert err <= 2.0 * err16 + 0.02, (want.shape, err, err16)
+
+
+def _small_camera(camera, h, w):
+  """The batch camera at h×w pixels: the intrinsics scaled to match."""
+  cam = np.array(camera, np.float32)
+  scale = h / cam[0]
+  k = cam[2:18].reshape(4, 4)
+  k[:2, :3] *= scale
+  cam[0], cam[1], cam[2:18] = h, w, k.reshape(-1)
+  return cam
+
+
+def test_render_image_mono_train_view(setup):
+  """render_image_mono(train_view=True) vs the JAX one on converted weights,
+  f32: an 8×12 view of the batch camera in two 48-ray chunks, every kept
+  [H, W, .] field within 2e-5 (the render bar above), plus 2e-5 relative
+  for the fields that scale with depth."""
+  jmodel, params, model, rb, _ = setup
+  cam = _small_camera(rb["camera"], 8, 12)
+  jrb = {k: jnp.asarray(v) for k, v in rb.items()}
+  jfull = jrender_image.full_image_ray_batch(jrb, jnp.asarray(cam))
+  jp = jax.tree_util.tree_map(jnp.asarray, params)
+  want = jrender_image.render_image_mono(
+      jmodel, jp, jfull, jtrainer.compute_featmaps(jmodel, jp, jfull), JCFG,
+      chunk_size=48, height=8, width=12, train_view=True)
+  full = render_image.full_image_ray_batch(rb, cam, device="cpu")
+  with torch.no_grad():
+    fm = model.encode_featmaps(full["src_rgbs"], full["static_src_rgbs"],
+                               full["anchor_src_rgbs"])
+  got = render_image.render_image_mono(model, full, fm, CFG, chunk_size=48,
+                                       height=8, width=12, train_view=True,
+                                       device="cpu")
+  assert set(got) == set(want) == {"outputs_coarse_ref", "outputs_coarse_st",
+                                   "outputs_coarse_anchor"}
+  for name in want:
+    assert set(got[name]) == set(want[name]), name
+    for k, w in want[name].items():
+      assert got[name][k].shape == w.shape, (name, k)
+      np.testing.assert_allclose(got[name][k], np.asarray(w, np.float32),
+                                 atol=2e-5, rtol=2e-5, err_msg=f"{name}.{k}")
+  assert got["outputs_coarse_ref"]["render_flows"].shape == (8, 12, 6, 2)
 
 
 def test_jax_split3_backward_matches_the_port_twin():

@@ -199,6 +199,30 @@ def test_fine_group_gradient(port_grads, jax_step, group):
   assert rel <= 1e-4, rel
 
 
+def test_pallas_route_takes_the_twin_on_the_cpu(setup, port_grads):
+  """fused_bwd_impl="pallas" (K3p/K4s on the card) in the FF model's fine
+  and anchor passes: on the CPU the same twins, the same loss and every
+  gradient equal to the default route's."""
+  _, _, model, rb = setup
+  cfg = dataclasses.replace(CFG, fused_bwd_impl="pallas")
+  model.cfg = cfg
+  try:
+    model.zero_grad(set_to_none=True)
+    loss, _ = trainer.ff_loss(model, to_device(rb, torch.device("cpu")),
+                              losses.schedule_weights(TCFG, 0), cfg,
+                              det=True)
+    loss.backward()
+    assert float(loss.detach()) == port_grads[0]
+    for k, p in model.named_parameters():
+      want = port_grads[1][k]
+      assert (p.grad is None) == (want is None), k
+      if want is not None:
+        assert torch.equal(p.grad, want), k
+  finally:
+    model.cfg = CFG
+    model.zero_grad(set_to_none=True)
+
+
 def test_coarse_groups_get_no_gradient(port_grads):
   for key, g in port_grads[1].items():
     if key.split(".")[0] in FF_COARSE_KEYS:
