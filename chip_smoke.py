@@ -58,11 +58,12 @@ is non-zero and the last line below is never printed):
      48-frame 288×512 scene written to a temporary directory: one
      bootstrap epoch and one phase-2 epoch of 48 steps each at N_rand
      3072, a checkpoint in phase 2, one full-frame training panel at the
-     last step (K1-K3) held against a plain-path render of the same view
-     with the last checkpoint's weights (rgb within 3e-2); s/step per
-     phase, the panel's s/frame, the time waiting on the data pipeline;
-     then a second run that resumes at the saved step with the saved
-     parameters and runs one more epoch;
+     last step (K1-K3); s/step per phase, the panel's s/frame and the
+     time the step loop spent getting batches from the data pipeline, as
+     the CLI logs them; the CLI's panel function on a batch of the scene
+     with the last checkpoint's weights held against a plain-path render
+     of the same view (rgb within 3e-2); then a second run that resumes
+     at the saved step with the saved parameters and runs one more epoch;
   7. print the kernels line (13 kernels), the card line, then the result
      line.
 
@@ -432,14 +433,13 @@ def _check_single_kernels(card, label, net, args, cot, seeds=()):
   in_bytes = _nbytes(*ins.values())
   out_bytes = 4 * (p * 3 + r * 27 + p * v * c + p * c
                    + packed[0].numel() + packed[1].numel())
-  # K4s: the forward trunk it recomputes (counted as K3r counts it) plus
-  # the backward, counted as K4a (3x the ray side) and K4b (3x the trunk)
-  # count it, so the two routes read the same work
+  # K4s: the backward of dynamic_bwd_kernel from the primal inputs, one
+  # forward recomputed and two forwards' worth of backward, 3x the whole
+  # forward (the design's second trunk pass is its own cost, not the bound)
   bounds = {"K3p": _bound_ms(in_bytes + w_bytes + p * 16, f_trunk + f_ray,
                              PEAK_BF16_FLOPS),
             "K4s": _bound_ms(in_bytes + w_bytes + p * 16 + out_bytes,
-                             f_trunk + 3 * (f_trunk + f_ray),
-                             PEAK_BF16_FLOPS)}
+                             3 * (f_trunk + f_ray), PEAK_BF16_FLOPS)}
   worst = max(errs, key=lambda n: errs[n][0] / errs[n][2])
   print(f"{label}: pallas route fwd+bwd {fb_ms:.3f} ms (plain f32 "
         f"{plain_fb_ms:.3f} ms, plain fwd {plain_fwd_ms:.3f} ms); K3p "
@@ -696,17 +696,36 @@ def _mono_phases(card, dev, h, w, n_rand, t_cfg):
   return results, step_launches, step_stats
 
 
+def _cli_phases(logs):
+  """The CLI's phase records in its metrics log, in order: (name, record
+  with the "phase/<name>/" prefix taken off)."""
+  with open(os.path.join(logs, "metrics.jsonl")) as fh:
+    recs = [json.loads(line) for line in fh]
+  out = []
+  for r in recs:
+    for name in sorted({k.split("/")[1] for k in r if k.startswith("phase/")}):
+      pre = f"phase/{name}/"
+      out.append((name, {k[len(pre):]: v for k, v in r.items()
+                         if k.startswith(pre)}))
+  return out
+
+
 def _cli_phase(card, dev, h, w, frames=48, n_rand=3072, chunk=4096):
   """Phase 8: the training CLI from an on-disk scene, twice (the second run
-  resumes), and its panel against a plain-path render of the same view.
-  Returns the launches of the first run."""
+  resumes), and the CLI's panel function on a batch of the scene against a
+  plain-path render of the same view.  Returns the launches of the first
+  run."""
   import tempfile
   from dynibar_tpu_torch.cli import train as cli_train
+  from dynibar_tpu_torch.data.factory import create_training_dataset
   from dynibar_tpu_torch.data.synthetic_scene import write_synthetic_scene
   from dynibar_tpu_torch.models.dynibar import MonoModel
   from dynibar_tpu_torch.render import render_rays as rr
   from dynibar_tpu_torch.render.render_image import full_image_ray_batch
+  from dynibar_tpu_torch.train.view_logging import log_train_view
   from dynibar_tpu_torch.utils import checkpoints as ckpt
+  from dynibar_tpu_torch.utils.device import to_device
+  from dynibar_tpu_torch.utils.logging import MetricsLogger
   with tempfile.TemporaryDirectory() as root:
     t0 = time.perf_counter()
     write_synthetic_scene(root, "scene", num_frames=frames, height=h, width=w)
@@ -715,8 +734,7 @@ def _cli_phase(card, dev, h, w, frames=48, n_rand=3072, chunk=4096):
     # bench.py's mono shape on the "pallas" route; init_decay_epoch 2: one
     # bootstrap epoch, then n_iters 48 (counted from the start step, as
     # the JAX CLI counts it) runs one phase-2 epoch; the panel renders
-    # at the last step, whose weights the last checkpoint holds; a
-    # checkpoint also a third into phase 2
+    # at the last step; a checkpoint also a third into phase 2
     mid = frames + frames // 3
     args = ["--folder_path", root, "--train_scenes", "scene", "--rootdir",
             root, "--training_height", str(h), "--N_rand", str(n_rand),
@@ -730,40 +748,47 @@ def _cli_phase(card, dev, h, w, frames=48, n_rand=3072, chunk=4096):
     torch.cuda.synchronize()
     launches = _read_counts()
     out = first["out_folder"]
+    logs = os.path.join(root, "logs", os.path.basename(out))
     snaps = sorted(p for p in os.listdir(out) if p.startswith("model_"))
-    ph = first["phases"]
-    if not (ph["bootstrap"]["steps"] == frames
-            and ph["train"]["steps"] == frames
-            and first["final_step"] == 2 * frames
+    phases = _cli_phases(logs)
+    panels = [p for p in os.listdir(os.path.join(logs, "images"))
+              if p.startswith(f"{2 * frames:08d}_train_")]
+    if not (first["start_step"] == 0
+            and [(n, r["steps"]) for n, r in phases] == [("bootstrap", frames),
+                                                         ("train", frames)]
             and snaps == [f"model_{mid:08d}.pt",
                           f"model_{2 * frames:08d}.pt"]
-            and first["panel"]["step"] == 2 * frames
+            and phases[1][1]["panels"] == 1 and len(panels) == 22
             and all(launches[k] > 0 for k in ("K1", "K2", "K3", "K2r", "K5a",
                                               "K5b", "K3p", "K4s"))):
-      raise AssertionError(f"cli: phases {ph}, final step "
-                           f"{first['final_step']}, snapshots {snaps}, "
-                           f"launches {launches}")
-    panel_s = ph["train"]["panel_s"]
-    for name, rec in ph.items():
-      busy = rec["seconds"] - sum(rec.get("panel_s", []))
-      print(f"cli {name}: {busy / rec['steps']:.4f} s/step over "
-            f"{rec['steps']} steps, {rec['wait_s']:.2f} s waiting on the "
-            f"data pipeline [{card}]", flush=True)
-    print(f"cli panel: {panel_s[0]:.3f} s/frame at {h}x{w} (train view, "
-          f"anchor branch, 22 PNG panels); launches of the run {launches} "
-          f"[{card}]", flush=True)
+      raise AssertionError(f"cli: phases {phases}, snapshots {snaps}, "
+                           f"{len(panels)} panels, launches {launches}")
+    for name, rec in phases:
+      print(f"cli {name}: {rec['seconds'] / rec['steps']:.4f} s/step over "
+            f"{rec['steps']:.0f} steps, {rec['wait_s']:.2f} s getting "
+            f"batches from the data pipeline [{card}]", flush=True)
+    print(f"cli panel: {phases[1][1]['panel_s']:.3f} s/frame at {h}x{w} "
+          f"(train view, anchor branch, 22 PNG panels); launches of the run "
+          f"{launches} [{card}]", flush=True)
 
-    # the panel vs the plain path: the last checkpoint's weights, the
-    # panel's batch, kernels=False chunk by chunk
+    # the CLI's panel function vs the plain path: the last checkpoint's
+    # weights, a batch of the scene built here, kernels=False chunk by chunk
     config = cli_train.parse_args(args)[0]
+    data = create_training_dataset(config)
     cfg = config.render_settings("mono")
     payload = ckpt.load_checkpoint(os.path.join(out, snaps[-1]),
                                    map_location=dev)
-    model = MonoModel(cfg, num_frames=frames)
+    model = MonoModel(cfg, num_frames=frames, device=dev)
     model.load_state_dict(payload["model"])
-    rb = first["panel"]["batch"]
-    full = full_image_ray_batch(rb, rb["camera"])
-    panel = first["panel"]["render"]["outputs_coarse_ref"]
+    rb = to_device(data.sample_batch(np.random.RandomState(SEED), n_rand,
+                                     config.sample_mode), dev)
+    frame_idx = int(rb["ref_frame_idx"])
+    provider = data.providers[0]
+    panel = log_train_view(MetricsLogger(logs, enabled=False), 2 * frames,
+                           model, rb, cfg, chunk,
+                           provider._load_rgb(frame_idx),
+                           provider._load_disp(frame_idx))["outputs_coarse_ref"]
+    full = full_image_ray_batch(rb, rb["camera"], device=dev)
     with torch.no_grad():
       fm = model.encode_featmaps(full["src_rgbs"], full["static_src_rgbs"],
                                  full["anchor_src_rgbs"])
@@ -772,33 +797,48 @@ def _cli_phase(card, dev, h, w, frames=48, n_rand=3072, chunk=4096):
         part = {k: (v[i:i + chunk // 2] if k in ("ray_o", "ray_d", "uv_grid")
                     else v) for k, v in full.items()}
         rgbs.append(rr.render_rays_mono(
-            model, part, fm, cfg, is_train=True, kernels=False)[
-                "outputs_coarse_ref"]["rgb"])
+            model, part, fm, cfg, is_train=True, kernels=False,
+            device=dev)["outputs_coarse_ref"]["rgb"])
     plain = torch.cat(rgbs).cpu().numpy().reshape(h, w, 3)
     plain = plain * (panel["mask"][..., None] > 0)
     err = float(np.abs(panel["rgb"] - plain).max())
     if not (np.isfinite(panel["rgb"]).all() and err <= 3e-2):
       raise AssertionError(f"cli panel: kernel vs plain rgb {err}")
-    print(f"cli panel rgb vs the plain path: max abs {err:.3g}", flush=True)
-    del model, fm, rgbs, full, payload, first
+    print(f"cli panel rgb (frame {frame_idx}) vs the plain path: max abs "
+          f"{err:.3g}", flush=True)
+    del model, fm, rgbs, full, payload, panel, rb
     torch.cuda.empty_cache()
 
+    # the second run: the parameters as the model loads them, recorded
     saved = ckpt.load_checkpoint(os.path.join(out, snaps[-1]),
                                  map_location="cpu")["model"]
-    second = cli_train.main(args + ["--n_iters", "1"])
-    same = all(torch.equal(second["resumed_state"][k], v)
-               for k, v in saved.items())
+    loaded, load = {}, MonoModel.load_state_dict
+
+    def recording_load(self, state, *a, **kw):
+      res = load(self, state, *a, **kw)
+      loaded.update({k: v.detach().cpu().clone()
+                     for k, v in self.state_dict().items()})
+      return res
+
+    MonoModel.load_state_dict = recording_load
+    try:
+      second = cli_train.main(args + ["--n_iters", "1"])
+    finally:
+      MonoModel.load_state_dict = load
+    same = bool(loaded) and all(torch.equal(loaded[k], v)
+                                for k, v in saved.items())
+    latest = ckpt.latest_checkpoint(out)
+    (_, boot), (_, rec) = _cli_phases(logs)[2:]
     if not (second["start_step"] == 2 * frames and same
-            and second["phases"]["bootstrap"]["steps"] == 0
-            and second["final_step"] == 3 * frames):
+            and boot["steps"] == 0
+            and latest.endswith(f"model_{3 * frames:08d}.pt")):
       raise AssertionError(f"cli resume: start {second['start_step']}, "
-                           f"parameters equal {same}, final "
-                           f"{second['final_step']}")
-    rec = second["phases"]["train"]
+                           f"parameters equal {same}, bootstrap steps "
+                           f"{boot['steps']}, latest {latest}")
     print(f"cli resume: at step {second['start_step']} with the saved "
-          f"parameters, ran on to {second['final_step']} "
-          f"({(rec['seconds'] - sum(rec['panel_s'])) / rec['steps']:.4f} "
-          f"s/step) [{card}]", flush=True)
+          f"parameters, ran on to {3 * frames} "
+          f"({rec['seconds'] / rec['steps']:.4f} s/step) [{card}]",
+          flush=True)
   torch.cuda.empty_cache()
   return launches
 

@@ -5,7 +5,10 @@ scene from disk, bootstrap the static model for ``init_decay_epoch // 2``
 epochs (phase 1), then run the full 8-term loss until ``n_iters`` (phase
 2); scalars every ``i_print`` steps, a checkpoint every ``i_weights``,
 full-frame image panels every ``i_img``, and a last checkpoint at the end.
-It resumes from the newest snapshot in the experiment folder.
+It resumes from the newest snapshot in the experiment folder.  At the end
+of each phase it prints and logs (``phase/<name>/...``) the phase's steps,
+their seconds less the panels', the seconds the step loop spent getting
+its batches from the data pipeline, and the panels' count and seconds.
 
     python -m dynibar_tpu_torch.cli.train --config configs/train_example.txt
     python -m dynibar_tpu_torch.cli.train --config <file> --device cpu
@@ -31,7 +34,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from dynibar_tpu_torch.config import DynibarConfig
+from dynibar_tpu_torch.config import INIT_SEED, STEP_SEED, DynibarConfig
 from dynibar_tpu_torch.data.factory import create_training_dataset
 from dynibar_tpu_torch.data.pipeline import PrefetchPipeline
 from dynibar_tpu_torch.models.dynibar import MonoModel
@@ -94,10 +97,7 @@ def _save(out_folder, step, model, opt, name="model"):
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-  """Run the CLI; returns what a caller may check: the out folder, the
-  start and final step, the parameters as resumed (host copies, or None),
-  per phase the steps, seconds and seconds waited on the data pipeline,
-  and the last panel's step, batch and render (or None)."""
+  """Run the CLI; returns the out folder and the step it started from."""
   config, device = parse_args(argv)
   if not config.train_scenes:
     raise SystemExit("error: no training scene: pass --config <file> with "
@@ -117,26 +117,21 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     json.dump(vars(config), fh, indent=2, default=str)
 
   model = MonoModel(cfg, num_frames=data.num_frames, device=dev,
-                    seed=config.seed).train_all()
+                    seed=INIT_SEED).train_all()
   opt = make_mono_optimizer(model, t_cfg)
   payload, start_step = ckpt_lib.resume_from(
       out_folder, config.ckpt_path, config.no_reload, map_location=dev)
-  resumed = None
   if payload is not None:
     model.load_state_dict(payload["model"])
     if not config.no_load_opt and "optimizer" in payload:
       opt.load_state_dict(payload["optimizer"])
-    resumed = {k: v.detach().cpu().clone()
-               for k, v in model.state_dict().items()}
     print(f"resumed at step {start_step}", flush=True)
 
   logger = MetricsLogger(os.path.join(config.rootdir, "logs",
                                       config.experiment_name()))
-  gen = torch.Generator(device=dev).manual_seed(config.seed + 1)
+  gen = torch.Generator(device=dev).manual_seed(STEP_SEED)
   global_step = start_step
   start_epoch = global_step // data.num_frames
-  result = {"out_folder": out_folder, "start_step": start_step,
-            "resumed_state": resumed, "phases": {}, "panel": None}
 
   def batches(seed):
     def sample(np_rng):
@@ -144,11 +139,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     return PrefetchPipeline(sample, num_workers=config.workers, seed=seed,
                             device=dev)
 
-  def phase_record(name, steps, t0, pipe):
+  def phase_record(name, steps, t0, pipe, panel_s=()):
     _sync(dev)
-    result["phases"][name] = {"steps": steps,
-                              "seconds": time.perf_counter() - t0,
-                              "wait_s": pipe.wait_s}
+    rec = {"steps": steps,
+           "seconds": time.perf_counter() - t0 - sum(panel_s),
+           "wait_s": pipe.wait_s, "panels": len(panel_s),
+           "panel_s": float(sum(panel_s))}
+    logger.scalars(global_step, rec, prefix=f"phase/{name}/")
+    print(f"[{config.expname}] {name}: " + " ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in rec.items()), flush=True)
 
   try:
     # ---- phase 1: static bootstrap (reference train.py:116-225) ----
@@ -208,13 +208,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                                    for o in (1, 2, 3, -1, -2, -3)])
             except OSError:
               gt_flows = None
-            ret = log_train_view(logger, global_step, model, rb, cfg,
-                                 config.chunk_size,
-                                 provider._load_rgb(frame_idx),
-                                 provider._load_disp(frame_idx),
-                                 gt_flows=gt_flows)
+            log_train_view(logger, global_step, model, rb, cfg,
+                           config.chunk_size, provider._load_rgb(frame_idx),
+                           provider._load_disp(frame_idx), gt_flows=gt_flows)
             panel_s.append(time.perf_counter() - tp)
-            result["panel"] = {"step": global_step, "batch": rb, "render": ret}
 
         # one-shot pre-virtual-view snapshot (reference train.py:503-506),
         # once per experiment folder
@@ -222,14 +219,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             and ckpt_lib.latest_checkpoint(out_folder, NO_VV) is None):
           _save(out_folder, global_step, model, opt, name=NO_VV)
         epoch += 1
-      phase_record("train", steps, t0, pipe)
-      result["phases"]["train"]["panel_s"] = panel_s
+      phase_record("train", steps, t0, pipe, panel_s)
 
     _save(out_folder, global_step, model, opt)
   finally:
     logger.close()
-  result["final_step"] = global_step
-  return result
+  return {"out_folder": out_folder, "start_step": start_step}
 
 
 if __name__ == "__main__":

@@ -128,14 +128,19 @@ _TYPES = {"bool": bool, "int": int, "float": float, "str": str,
           "List[str]": list}
 
 
+# the training CLI's seeds: the initial weights and the steps' random
+# draws, as the JAX CLI's PRNGKey(0) and PRNGKey(1)
+INIT_SEED = 0
+STEP_SEED = 1
+
+
 @dataclasses.dataclass
 class DynibarConfig:
   """The knobs of the monocular training CLI (``cli/train``), copied
   from ``dynibar_tpu.config.DynibarConfig`` with its names and defaults
   (reference config.py:6-375).  The TPU-only switches (strip sampling,
   fused RGB sampling, the channel-major handoff, buffer donation, remat,
-  the fused-aggregator toggles) have no counterpart; ``seed`` is the
-  port's: the model's initial weights and the step's generator."""
+  the fused-aggregator toggles) have no counterpart."""
 
   # general / paths
   rootdir: str = "./"
@@ -215,7 +220,6 @@ class DynibarConfig:
   compute_dtype: str = "float32"
   fused_bwd_impl: str = "pallas_split"
   fused_st_bwd_impl: str = "pallas_split"
-  seed: int = 0
 
   @classmethod
   def from_file(cls, path: str, **overrides) -> "DynibarConfig":

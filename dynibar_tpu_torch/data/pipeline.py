@@ -4,12 +4,14 @@ Port of ``dynibar_tpu.data.pipeline.PrefetchPipeline``.  Worker threads
 call ``sample_fn(rng)`` with the same per-worker ``RandomState`` streams
 as the JAX pipeline, (seed, worker id, step) -> one seed, so both yield the
 same batches (in the same order with one worker).  Threads suffice: the
-decode path (zlib, numpy) releases the interpreter lock.  The consumer
-turns each numpy batch into tensors as ``utils/device.to_device`` does
-(floating -> f32, integer -> int64); for a CUDA device it pins them and
-copies them with ``non_blocking=True``, so the copy overlaps the step
-already queued on the card.  ``wait_s`` sums the time the consumer spent
-blocked on the queue: the share of a step the data path did not hide.
+decode path (zlib, numpy) releases the interpreter lock.  Given a
+device, the workers also turn each numpy batch into tensors as
+``utils/device.to_device`` does (floating -> f32, integer -> int64) and,
+for a CUDA device, pin them; the consumer only issues the copies, with
+``non_blocking=True``, so they overlap the step already queued on the
+card.  ``wait_s`` sums the host time the consumer spent in ``__next__``
+(blocked on the queue, then issuing the copies): the share of a step the
+data path did not hide from the thread that launches the step.
 """
 
 from __future__ import annotations
@@ -23,12 +25,10 @@ import numpy as np
 import torch
 
 
-def _to_tensor(v, device: torch.device) -> torch.Tensor:
+def _to_host_tensor(v, pin: bool) -> torch.Tensor:
   t = torch.from_numpy(np.ascontiguousarray(v))
   t = t.float() if t.is_floating_point() else t.long()
-  if device.type == "cuda":
-    return t.pin_memory().to(device, non_blocking=True)
-  return t.to(device)
+  return t.pin_memory() if pin else t
 
 
 class PrefetchPipeline:
@@ -57,6 +57,9 @@ class PrefetchPipeline:
           (self._seed * 1_000_003 + wid * 7919 + step) % (2 ** 31 - 1))
       try:
         batch = self._sample_fn(rng)
+        if self._device is not None:
+          pin = self._device.type == "cuda"
+          batch = {k: _to_host_tensor(v, pin) for k, v in batch.items()}
       except Exception as exc:  # surfaced to the consumer by __next__
         self._queue.put(exc)
         return
@@ -74,12 +77,13 @@ class PrefetchPipeline:
   def __next__(self) -> Dict:
     t0 = time.perf_counter()
     item = self._queue.get()
-    self.wait_s += time.perf_counter() - t0
     if isinstance(item, Exception):
       raise item
-    if self._device is None:
-      return item
-    return {k: _to_tensor(v, self._device) for k, v in item.items()}
+    if self._device is not None:
+      item = {k: v.to(self._device, non_blocking=True)
+              for k, v in item.items()}
+    self.wait_s += time.perf_counter() - t0
+    return item
 
   def close(self):
     self._stop.set()

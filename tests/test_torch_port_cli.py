@@ -1,9 +1,10 @@
 """The port's training CLI (``dynibar_tpu_torch.cli.train``) on the CPU.
 
   * it runs both phases from an on-disk scene (``--device cpu``), writes
-    ``model_<digits>`` snapshots, scalars and image panels, and a second
-    run resumes at the saved step with the saved parameters, passing over
-    a ``model_no-vv`` snapshot that sorts after it;
+    ``model_<digits>`` snapshots, scalars, per-phase timing records and
+    image panels, and a second run resumes at the saved step with the
+    saved parameters (recorded as the model loads them), passing over a
+    ``model_no-vv`` snapshot that sorts after it;
   * its ``model_no-vv`` snapshot is written once per experiment folder:
     the JAX CLI writes it again when a resume reaches that epoch
     (dynibar_tpu/cli/train.py:210), google/dynibar guards it
@@ -19,14 +20,14 @@ import os
 import sys
 
 import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 
 from dynibar_tpu.cli import train as jtrain
 from dynibar_tpu.data import synthetic_scene as jscene
 from dynibar_tpu_torch.cli import train
-from dynibar_tpu_torch.data import synthetic_scene
+from dynibar_tpu_torch.data import png, synthetic_scene
+from dynibar_tpu_torch.models.dynibar import MonoModel
 from dynibar_tpu_torch.utils import checkpoints as ckpt
 
 FRAMES = 7
@@ -52,42 +53,65 @@ def scene_root(tmp_path_factory):
   return root
 
 
-def test_cli_trains_both_phases_and_resumes(scene_root, tmp_path):
+def _phases(logs):
+  """The metrics log's scalar records and its phase records, in order."""
+  with open(os.path.join(logs, "metrics.jsonl")) as fh:
+    recs = [json.loads(line) for line in fh]
+  phases = [(k.split("/")[1], r) for r in recs for k in r
+            if k.startswith("phase/") and k.endswith("/steps")]
+  return recs, phases
+
+
+def test_cli_trains_both_phases_and_resumes(scene_root, tmp_path,
+                                            monkeypatch):
   root = str(tmp_path)
   os.symlink(os.path.join(scene_root, "s"), os.path.join(root, "s"))
   # n_iters counts from the start step, bootstrap steps included: 7 < 8
   # runs one phase-2 epoch
   first = train.main(["--device", "cpu"] + _args(root, n_iters=7))
-  assert first["start_step"] == 0 and first["resumed_state"] is None
-  assert first["phases"]["bootstrap"]["steps"] == FRAMES
-  assert first["phases"]["train"]["steps"] == FRAMES   # one whole epoch
+  assert first["start_step"] == 0
   out = first["out_folder"]
-  assert first["final_step"] == 2 * FRAMES
   assert sorted(os.listdir(out)) == ["args.json", "model_00000014.pt"]
   with open(os.path.join(out, "args.json")) as fh:
     assert json.load(fh)["num_frames"] == FRAMES
   logs = os.path.join(root, "logs", os.path.basename(out))
-  with open(os.path.join(logs, "metrics.jsonl")) as fh:
-    recs = [json.loads(line) for line in fh]
-  assert [r["step"] for r in recs] == [5, 10]
-  assert "bootstrap/loss" in recs[0] and "train/psnr" in recs[1]
+  recs, phases = _phases(logs)
+  # scalars at 5 and 10, a phase record at each phase's end (7, 14)
+  assert [r["step"] for r in recs] == [5, 7, 10, 14]
+  assert "bootstrap/loss" in recs[0] and "train/psnr" in recs[2]
+  (b_name, boot), (t_name, tr) = phases
+  assert (b_name, boot["phase/bootstrap/steps"]) == ("bootstrap", FRAMES)
+  assert (t_name, tr["phase/train/steps"]) == ("train", FRAMES)  # an epoch
+  assert tr["phase/train/panels"] == 1 and tr["phase/train/panel_s"] > 0
+  assert boot["phase/bootstrap/wait_s"] >= 0
   panels = sorted(os.listdir(os.path.join(logs, "images")))
   assert len(panels) == 22 and all(p.startswith("00000010_train_")
                                    for p in panels)
-  render = first["panel"]["render"]
-  assert render["outputs_coarse_ref"]["rgb"].shape == (16, 24, 3)
-  assert render["outputs_coarse_ref"]["render_flows"].shape == (16, 24, 6, 2)
-  assert np.isfinite(render["outputs_coarse_anchor"]["occ_weight_map"]).all()
+  assert sum("_rd_flow_" in p for p in panels) == 6
+  for name in ("render_rgb_coarse_ref", "occ_weight_map"):
+    img = png.read(os.path.join(logs, "images", f"00000010_train_{name}.png"))
+    assert img.shape == (16, 24, 3)
 
   # a no-vv snapshot whose step sorts after every model_ snapshot
   saved = ckpt.load_checkpoint(os.path.join(out, "model_00000014.pt"))
   ckpt.save_checkpoint(out, 99, saved["model"], name="model_no-vv")
+  loaded = {}
+  load = MonoModel.load_state_dict
+
+  def recording_load(self, state, *a, **kw):
+    res = load(self, state, *a, **kw)
+    loaded.update({k: v.detach().clone()
+                   for k, v in self.state_dict().items()})
+    return res
+
+  monkeypatch.setattr(MonoModel, "load_state_dict", recording_load)
   second = train.main(["--device", "cpu"] + _args(root))
   assert second["start_step"] == 14
-  assert second["phases"]["bootstrap"]["steps"] == 0
-  assert second["final_step"] == 21
+  (b_name, boot), _ = _phases(logs)[1][2:]
+  assert (b_name, boot["phase/bootstrap/steps"]) == ("bootstrap", 0)
+  assert boot["step"] == 14
   for k, v in saved["model"].items():
-    assert torch.equal(second["resumed_state"][k], v), k
+    assert torch.equal(loaded[k], v), k
   assert ckpt.latest_checkpoint(out).endswith("model_00000021.pt")
 
 
