@@ -22,6 +22,7 @@
 #pragma once
 
 #include "agg_bwd_common.cuh"
+#include "phase_clock.cuh"
 
 namespace agg {
 
@@ -217,6 +218,7 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
   const float scale = 0.17677669529663687f;
   const float* ln_s = a.B + net.l[LN].b;
   const float* ln_b = ln_s + 128;
+  PhaseClock clk;
 
   {                                 // one ray
     const size_t p0 = (size_t)ray * S;
@@ -318,6 +320,7 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
       }
     }
     __syncthreads();
+    clk(RP_A);
 
     // ---- B: heads, 64 rows at a time: forward, transpose, LN backward ----
     for (int r0 = 0; r0 < Sp; r0 += 64) {
@@ -465,18 +468,23 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
           D3[e] = f2b(d);
         }
         __syncthreads();
+        clk(RP_HEAD_FWD);
         dw_accum(D3, LDS, H1, LDG, rows, slab, net.l[OG1]);
         __syncthreads();
+        clk(RP_HEAD_DW);
         dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[OG1]),
               [&](int r, int c, float x) {
                 H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
               });
         __syncthreads();
+        clk(RP_HEAD_TRANS);
         grad_layer(H1, LDG, g, LDG, rows, slab, wt, net.l[OG0]);
         __syncthreads();
+        clk(RP_HEAD_DW);
         dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[OG0]),
               [&](int r, int c, float x) { DF[r * 128 + c] = x; });
         __syncthreads();
+        clk(RP_HEAD_TRANS);
         // per-view blend-logit head: [gf' | x_v | vis_v | ray_diff_v]
         auto head_fwd = [&](int v) {
           for (int e = tid; e < rows * 32; e += NT) {
@@ -501,12 +509,15 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
             HIN[r * LDA + col] = f2b(val);
           }
           __syncthreads();
+          clk(RP_HEAD_ELEM);
           dense(HIN, LDA, rows, a.W, a.B, net.l[RGB0],
                 [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
           __syncthreads();
+          clk(RP_HEAD_FWD);
           dense(H1, LDG, rows, a.W, a.B, net.l[RGB1],
                 [&](int r, int c, float x) { H2[r * LD64 + c] = f2b(elu(x)); });
           __syncthreads();
+          clk(RP_HEAD_FWD);
         };
         for (int v = 0; v < V; ++v) {
           head_fwd(v);
@@ -519,6 +530,7 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
                                                                          : x;
                 });
           __syncthreads();
+          clk(RP_HEAD_FWD);
         }
         // softmax over views; d_logit = p (dp - sum_u p_u dp_u) on valid views
         for (int r = tid; r < rows; r += NT) {
@@ -553,6 +565,7 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
                                  : 0.f;
         }
         __syncthreads();
+        clk(RP_HEAD_ELEM);
         for (int v = 0; v < V; ++v) {
           head_fwd(v);
           for (int e = tid; e < rows * LDS; e += NT)
@@ -560,22 +573,28 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
           // no bias gradient: the blend-logit bias cancels in the softmax
           // over views, so its gradient is identically zero
           __syncthreads();
+          clk(RP_HEAD_ELEM);
           dw_accum(D3, LDS, H2, LD64, rows, slab, net.l[RGB2]);
           __syncthreads();
+          clk(RP_HEAD_DW);
           dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[RGB2]),
                 [&](int r, int c, float x) {
                   H2[r * LD64 + c] = f2b(x * elu_d(b2f(H2[r * LD64 + c])));
                 });
           __syncthreads();
+          clk(RP_HEAD_TRANS);
           grad_layer(H2, LD64, H1, LDG, rows, slab, wt, net.l[RGB1]);
           __syncthreads();
+          clk(RP_HEAD_DW);
           dense(H2, LD64, rows, a.WT, a.Z, tr(net.l[RGB1]),
                 [&](int r, int c, float x) {
                   H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
                 });
           __syncthreads();
+          clk(RP_HEAD_TRANS);
           grad_layer(H1, LDG, HIN, LDA, rows, slab, wt, net.l[RGB0]);
           __syncthreads();
+          clk(RP_HEAD_DW);
           dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[RGB0]),
                 [&](int r, int c, float x) {
                   const int i = r0 + r;
@@ -589,24 +608,31 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
                   }
                 });
           __syncthreads();
+          clk(RP_HEAD_TRANS);
         }
         ln_bwd(r0, rows, DF);
         __syncthreads();
+        clk(RP_HEAD_ELEM);
       }
     }
 
     // ---- C: attention backward ----
     load_gf();
     __syncthreads();
+    clk(RP_C);
     qkv();
     __syncthreads();
+    clk(RP_C);
     attn_fwd(Q, K, Vv, O, snv, S, Sp, st_m, st_l);
     __syncthreads();
+    clk(RP_C);
     dw_accum(DO3, LDG, O, LDG, Sp, slab, net.l[WFC]);
     __syncthreads();
+    clk(RP_C_DW);
     dense(DO3, LDG, Sp, a.WT, a.Z, tr(net.l[WFC]),
           [&](int r, int c, float x) { O[r * LDG + c] = f2b(x); });   // d_o
     __syncthreads();
+    clk(RP_C);
     for (int pr = tid; pr < 4 * Sp; pr += NT) {     // d_q, one (query, head)
       const int h = pr / Sp, i = pr % Sp;
       float qv[32], dov[32], acc[32];
@@ -637,6 +663,7 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
       store32(DO3 + i * LDG + h * 32, acc, 1.f);
     }
     __syncthreads();
+    clk(RP_C);
     for (int pr = tid; pr < 4 * Sp; pr += NT) {     // d_k, d_v: (key, head)
       const int h = pr / Sp, j = pr % Sp;
       bf16* ko = K + j * 128 + h * 32;
@@ -673,20 +700,29 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
       store32(vo, acc, 1.f);
     }
     __syncthreads();
+    clk(RP_C);
     load_gf();                                       // gf1, the q/k/v input
     __syncthreads();
+    clk(RP_C);
     dw_accum(DO3, LDG, O, LDG, Sp, slab, net.l[WQ]);
     dw_accum(K, 128, O, LDG, Sp, slab, net.l[WK]);
     dw_accum(Vv, 128, O, LDG, Sp, slab, net.l[WV]);
+#ifdef AGG_PHASE_CLOCKS
+    __syncthreads();
+    clk(RP_C_DW);
+#endif
     dense(DO3, LDG, Sp, a.WT, a.Z, tr(net.l[WQ]),
           [&](int r, int c, float x) { SD[r * 128 + c] += x; });
     __syncthreads();
+    clk(RP_C);
     dense(K, 128, Sp, a.WT, a.Z, tr(net.l[WK]),
           [&](int r, int c, float x) { SD[r * 128 + c] += x; });
     __syncthreads();
+    clk(RP_C);
     dense(Vv, 128, Sp, a.WT, a.Z, tr(net.l[WV]),
           [&](int r, int c, float x) { SD[r * 128 + c] += x; });
     __syncthreads();
+    clk(RP_C);
 
     // ---- D: geometry_fc and pooling-2 backward ----
     {
@@ -737,23 +773,29 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
         G[i * LDA + 256 + j] = f2b(val);
       }
       __syncthreads();
+      clk(RP_D);
       dense(G, LDA, Sp, a.W, a.B, net.l[GEO0],
             [&](int r, int c, float x) { H[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
+      clk(RP_D);
       grad_layer(DG, LDG, H, LDH, Sp, slab, wt, net.l[GEO1]);
       __syncthreads();
+      clk(RP_D_DW);
       dense(DG, LDG, Sp, a.WT, a.Z, tr(net.l[GEO1]),
             [&](int r, int c, float x) {
               H[r * LDH + c] = f2b(x * elu_d(b2f(H[r * LDH + c])));
             });
       __syncthreads();
+      clk(RP_D);
       grad_layer(H, LDH, G, LDA, Sp, slab, wt, net.l[GEO0]);
       __syncthreads();
+      clk(RP_D_DW);
       dense(H, LDH, Sp, a.WT, a.Z, tr(net.l[GEO0]),
             [&](int r, int c, float x) {
               if (c < 257) SG[r * 272 + c] = x;
             });
       __syncthreads();
+      clk(RP_D);
       // pooling-2 backward, one warp per sample, 4 channels per lane
       for (int i = warp; i < S; i += NW) {
         const size_t p = p0 + i;
@@ -823,6 +865,7 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
         for (int c = tid; c < 27; c += NT)
           a.d_dirpe[(size_t)ray * 27 + c] = sdp[c];
       __syncthreads();
+      clk(RP_D);
     }
   }
 }

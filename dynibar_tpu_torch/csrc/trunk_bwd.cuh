@@ -22,6 +22,7 @@
 #pragma once
 
 #include "agg_bwd_common.cuh"
+#include "phase_clock.cuh"
 
 namespace agg {
 
@@ -118,6 +119,7 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
   const int wt = a.w_total;
   const float s_val = (STATIC && a.anti_alias) ? a.B[net.l[AA_S].b] : 0.f;
   const float s_abs = fabsf(s_val);
+  PhaseClock clk;
 
   {                                 // one 64-point block
     auto rf_val = [&](int r, int v, int c) -> float {
@@ -189,18 +191,22 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         xin[r * LDX + 2 * CR + c] = f2b(c < CR ? rf_val(r, v, c) : 0.f);
       }
       __syncthreads();
+      clk(v == 0 ? TP_POOL1 : TP_ELEM);
       dense(xin, LDX, PT, a.W, a.B, net.l[BASE0],
             [&](int r, int c, float x) { ah[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
+      clk(TP_FWD);
       dense(ah, LDH, PT, a.W, a.B, net.l[BASE1], [&](int r, int c, float x) {
         const float y = elu(x);
         x0[r * LDG + c] = f2b(y);
         xw[r * LDG + c] = f2b(y * wv[r]);
       });
       __syncthreads();
+      clk(TP_FWD);
       dense(xw, LDG, PT, a.W, a.B, net.l[VIS0],
             [&](int r, int c, float x) { ch[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
+      clk(TP_FWD);
       dense(ch, LDG, PT, a.W, a.B, net.l[VIS1], [&](int r, int c, float x) {
         const float t = elu(x);
         tb[r * LDT + c] = f2b(t);
@@ -211,19 +217,23 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         }
       });
       __syncthreads();
+      clk(TP_FWD);
       for (int e = tid; e < PT * 128; e += NT) {
         const int r = e >> 7, c = e & 127;
         const float x = b2f(f2b(b2f(x0[r * LDG + c]) + b2f(tb[r * LDT + c])));
         xv[r * LDG + c] = f2b(x * r_vis0[r]);
       }
       __syncthreads();
+      clk(TP_ELEM);
       dense(xv, LDG, PT, a.W, a.B, net.l[VIS20],
             [&](int r, int c, float x) { eh[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
+      clk(TP_FWD);
       dense(eh, LDG, PT, a.W, a.B, net.l[VIS21], [&](int r, int c, float x) {
         if (c == 0) r_sg[r] = sigm(x);
       });
       __syncthreads();
+      clk(TP_FWD);
 
       // vis = sigmoid(vh) * m
       for (int e = tid; e < PT * LDS; e += NT) {
@@ -239,18 +249,23 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         ds[e] = f2b(d);
       }
       __syncthreads();
+      clk(TP_ELEM);
       dw_accum(ds, LDS, eh, LDG, PT, slab, net.l[VIS21]);
       __syncthreads();
+      clk(TP_DW);
       dense(ds, LDS, PT, a.WT, a.Z, tr(net.l[VIS21]),
             [&](int r, int c, float x) {
               eh[r * LDG + c] = f2b(x * elu_d(b2f(eh[r * LDG + c])));
             });
       __syncthreads();
+      clk(TP_TRANS);
       grad_layer(eh, LDG, xv, LDG, PT, slab, wt, net.l[VIS20]);
       __syncthreads();
+      clk(TP_DW);
       dense(eh, LDG, PT, a.WT, a.Z, tr(net.l[VIS20]),
             [&](int r, int c, float x) { xv[r * LDG + c] = f2b(x); });
       __syncthreads();
+      clk(TP_TRANS);
       // xv = x * vis0, x = x0 + t[:128]: d_x and d_t, one warp per point
       for (int r = warp; r < PT; r += NW) {
         const int p = p0 + r;
@@ -280,18 +295,23 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         }
       }
       __syncthreads();
+      clk(TP_ELEM);
       grad_layer(tb, LDT, ch, LDG, PT, slab, wt, net.l[VIS1]);
       __syncthreads();
+      clk(TP_DW);
       dense(tb, LDT, PT, a.WT, a.Z, tr(net.l[VIS1]),
             [&](int r, int c, float x) {
               ch[r * LDG + c] = f2b(x * elu_d(b2f(ch[r * LDG + c])));
             });
       __syncthreads();
+      clk(TP_TRANS);
       grad_layer(ch, LDG, xw, LDG, PT, slab, wt, net.l[VIS0]);
       __syncthreads();
+      clk(TP_DW);
       dense(ch, LDG, PT, a.WT, a.Z, tr(net.l[VIS0]),
             [&](int r, int c, float x) { xw[r * LDG + c] = f2b(x); });
       __syncthreads();
+      clk(TP_TRANS);
       // xw = x0 * w_v; d_x0 = d_x + w_v d_xw, through base_fc's last ELU
       for (int r = warp; r < PT; r += NW) {
         const int p = p0 + r;
@@ -312,15 +332,19 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         }
       }
       __syncthreads();
+      clk(TP_ELEM);
       grad_layer(x0, LDG, ah, LDH, PT, slab, wt, net.l[BASE1]);
       __syncthreads();
+      clk(TP_DW);
       dense(x0, LDG, PT, a.WT, a.Z, tr(net.l[BASE1]),
             [&](int r, int c, float x) {
               ah[r * LDH + c] = f2b(x * elu_d(b2f(ah[r * LDH + c])));
             });
       __syncthreads();
+      clk(TP_TRANS);
       grad_layer(ah, LDH, xin, LDX, PT, slab, wt, net.l[BASE0]);
       __syncthreads();
+      clk(TP_DW);
       dense(ah, LDH, PT, a.WT, a.Z, tr(net.l[BASE0]),
             [&](int r, int c, float x) {
               const int p = p0 + r;
@@ -330,6 +354,7 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
                 a.drf[ws.vp(v, p) * CR + c - 2 * CR] = x;
             });
       __syncthreads();
+      clk(TP_TRANS);
     }
 
     // ---- pooling-1 backward ----
@@ -364,6 +389,7 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
       if (!STATIC) a.d_dirfeat[(size_t)p * C + c] = dsum;
     }
     __syncthreads();
+    clk(TP_POOL1_BWD);
     if (!STATIC) return;
 
     // ---- K5b: input MLP (ray_dir_fc) recompute + transpose ----
@@ -390,9 +416,11 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
               j < 4 && p < P ? a.raydiff[((size_t)p * V + v) * 4 + j] : 0.f);
         }
         __syncthreads();
+        clk(TP_INMLP);
         dense(xin, LDX, PT, a.W, a.B, net.l[RAYDIR0],
               [&](int r, int c, float x) { ah[r * LDH + c] = f2b(elu(x)); });
         __syncthreads();
+        clk(TP_INMLP);
         // sf = ray_dir_fc(.); rf[C:] = sf * reffeat
         dense(ah, LDH, PT, a.W, a.B, net.l[RAYDIR1],
               [&](int r, int c, float x) {
@@ -406,15 +434,19 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
                 x0[r * LDG + c] = f2b(dsf);
               });
         __syncthreads();
+        clk(TP_INMLP);
         grad_layer(x0, LDG, ah, LDH, PT, slab, wt, net.l[RAYDIR1]);
         __syncthreads();
+        clk(TP_INMLP_DW);
         dense(x0, LDG, PT, a.WT, a.Z, tr(net.l[RAYDIR1]),
               [&](int r, int c, float x) {
                 ah[r * LDH + c] = f2b(x * elu_d(b2f(ah[r * LDH + c])));
               });
         __syncthreads();
+        clk(TP_INMLP);
         grad_layer(ah, LDH, xin, LDX, PT, slab, wt, net.l[RAYDIR0]);
         __syncthreads();
+        clk(TP_INMLP_DW);
         dense(ah, LDH, PT, a.WT, a.Z, tr(net.l[RAYDIR0]),
               [&](int r, int c, float x) {
                 if (c < 33) {
@@ -426,6 +458,7 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
                 }
               });
         __syncthreads();
+        clk(TP_INMLP);
         for (int e = tid; e < PT * 10; e += NT) {
           const int r = e / 10, j = e % 10, p = p0 + r;
           if (p >= P) continue;
@@ -448,6 +481,7 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
           }
         }
         __syncthreads();
+        clk(TP_INMLP);
       }
       for (int e = tid; e < PT * C; e += NT) {
         const int r = e / C, c = e % C, p = p0 + r;
@@ -501,6 +535,7 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
       a.d_s[p] = dsl * (s_val > 0.f ? 1.f : (s_val < 0.f ? -1.f : 0.f));
     }
     __syncthreads();
+    clk(TP_AA);
   }
 }
 

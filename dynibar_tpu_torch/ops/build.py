@@ -6,6 +6,11 @@ root, listed in .gitignore).  The hash covers the sources and the flags,
 so an edited kernel never loads a stale library.  Nothing here runs at
 import time: the first launch builds, or a caller builds ahead with
 :func:`build` (which starts one nvcc per source, all at once).
+
+A library named in :func:`use_phase_clocks` loads from its phase-clock
+build instead (``PHASE_FLAGS``, ``<name>-phases-<hash>.so``): the same
+sources with per-phase clock64 sums compiled in (csrc/phase_clock.cuh),
+for ``scripts/port_profile.py --phases`` only.
 """
 
 from __future__ import annotations
@@ -17,16 +22,18 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Set
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+PHASE_FLAGS = ("-DAGG_PHASE_CLOCKS",)
 KERNEL_SOURCES = ("sample", "static_agg", "dynamic_agg", "static_agg_bwd",
                   "static_agg_bwd3", "dynamic_agg_bwd", "dynamic_agg_bwd1")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_PHASES: Set[str] = set()
 
 
 def _nvcc() -> str:
@@ -38,12 +45,24 @@ def _nvcc() -> str:
                      "machine with the CUDA toolkit")
 
 
+def _flags(name: str):
+  return NVCC_FLAGS + (PHASE_FLAGS if name in _PHASES else ())
+
+
+def use_phase_clocks(names: Iterable[str]) -> None:
+  """Load (and build) these libraries from their phase-clock build."""
+  for name in names:
+    _PHASES.add(name)
+    _LIBS.pop(name, None)
+
+
 def library_path(name: str) -> Path:
-  digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+  digest = hashlib.sha256(" ".join(_flags(name)).encode())
   for src in sorted(CSRC.glob("*.cu*")):
     if src.suffix == ".cuh" or src.stem == name:
       digest.update(src.read_bytes())
-  return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+  tag = "-phases" if name in _PHASES else ""
+  return BUILD_DIR / f"{name}{tag}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
@@ -60,7 +79,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
       continue
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
     log = open(out.with_suffix(".log"), "w")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
                    tmp, out, log)
   seconds = {}

@@ -4,6 +4,7 @@
     python3 scripts/port_profile.py --train [--chunk 3072] [--iters 2]
     python3 scripts/port_profile.py --mono [--route pallas_split3|pallas]
         [--chunk 3072] [--iters 2]
+    python3 scripts/port_profile.py --phases (--train | --mono) [...]
 
 Renders one chunk (64+64 samples, 7+11 views, 288x512 sources, bf16,
 random weights from a seed) through the kernel path on the CUDA card under
@@ -14,14 +15,23 @@ views, 48 frames, schedule_weights(epoch=2)) on the backward route
 --route: "pallas_split" (K5a + K5b, K4a + K4b), "pallas_split3" (static
 K5a + K5c + K5d) or "pallas" (dynamic K3p forward, K4s backward).  Prints the device time per kernel name (summed over the
 profiled iterations, divided by them), the wall time per iteration and
-the device's busy share of it.  Needs one card; imports nothing of JAX.
+the device's busy share of it.  With --phases the static backward's
+library (K5a, K5b) loads from its phase-clock build (ops/build.py
+use_phase_clocks, csrc/phase_clock.cuh): after the profile, one more
+--iters steps run with the clocks zeroed before them, and each kernel's
+phases are printed as shares of its clock cycles and as ms of its
+profiled device time; also the registers, stack and spills nvcc reported
+for both kernels (production and phase-clock builds).  Needs one card;
+imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -42,6 +52,18 @@ from dynibar_tpu_torch.utils.device import (resolve_device,  # noqa: E402
                                             to_device)
 
 
+# phase names of csrc/phase_clock.cuh, the profiler's kernel name and the
+# first counter
+PHASES = {
+    "K5a": (("A recompute", "B head fwd", "B head transposed",
+             "B head dW", "B elementwise", "C attention", "C dW",
+             "D geometry + pooling-2", "D dW"), "ray_bwd_kernel<true>", 0),
+    "K5b": (("masks + pooling-1 fwd", "view fwd recompute",
+             "view transposed", "view dW", "view elementwise",
+             "pooling-1 bwd", "input MLP", "input MLP dW",
+             "anti-alias chain"), "trunk_bwd_kernel<true, true>", 16)}
+PHASE_LIB = "static_agg_bwd"
+
 # --route -> (fused_st_bwd_impl, fused_bwd_impl)
 ROUTES = {"pallas_split": ("pallas_split", "pallas_split"),
           "pallas_split3": ("pallas_split3", "pallas_split"),
@@ -56,7 +78,13 @@ def main() -> int:
   ap.add_argument("--mono", action="store_true")
   ap.add_argument("--route", default="pallas_split", choices=sorted(ROUTES),
                   help="the mono step's backward route")
+  ap.add_argument("--phases", action="store_true",
+                  help="per-phase clocks of K5a/K5b (with --train or --mono)")
   args = ap.parse_args()
+  if args.phases:
+    if not (args.train or args.mono):
+      ap.error("--phases needs --train or --mono")
+    build.use_phase_clocks([PHASE_LIB])
   dev = resolve_device(None)
   card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                          "--format=csv,noheader"], capture_output=True,
@@ -133,6 +161,8 @@ def _profile(one, args, card: str, what: str) -> int:
                    ev.key))
   rows.sort(reverse=True)
   busy = sum(r[0] for r in rows)
+  if args.phases:
+    _phases(one, args, card, rows)
   print(f"card: {card}")
   print(f"{what}: wall {wall * 1e3:.2f} ms, device busy "
         f"{busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%)")
@@ -142,6 +172,59 @@ def _profile(one, args, card: str, what: str) -> int:
                     "device_busy_ms": busy, "card": card,
                     "top": [[name[:60], ms] for ms, _, name in rows[:10]]}))
   return 0
+
+
+def _phases(one, args, card: str, rows) -> None:
+  """--iters more steps with the phase clocks zeroed before them; print
+  each kernel's phases and nvcc's resource lines."""
+  fn = build.load(PHASE_LIB).dyn_phase_clocks
+  fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+  fn.restype = ctypes.c_int
+  buf = (ctypes.c_ulonglong * 32)()
+  torch.cuda.synchronize()
+  build.check(fn(buf, 1), "phase clocks")
+  for _ in range(args.iters):
+    one()
+  torch.cuda.synchronize()
+  build.check(fn(buf, 1), "phase clocks")
+  out = {}
+  for key, (names, kname, first) in PHASES.items():
+    cyc = list(buf)[first:first + len(names)]
+    total = max(sum(cyc), 1)
+    ms = sum(r[0] for r in rows if kname in r[2])
+    print(f"{key} phases ({kname}: {ms:.3f} ms device time per step in the "
+          f"profile; {total} clock64 cycles over its blocks) [{card}]")
+    for name, c in zip(names, cyc):
+      print(f"  {name:28s} {100 * c / total:6.2f}%  {ms * c / total:8.3f} ms")
+    out[key] = dict(ms=ms, cycles=total,
+                    share={n: c / total for n, c in zip(names, cyc)})
+  print(json.dumps({"phases": out, "card": card}))
+  for phases in (False, True):
+    build._PHASES.discard(PHASE_LIB)
+    if phases:
+      build._PHASES.add(PHASE_LIB)
+    build.build([PHASE_LIB])
+    log = build.library_path(PHASE_LIB).with_suffix(".log")
+    if log.exists():
+      print(f"nvcc resources ({log.name}):")
+      for entry, props, regs in _ptxas(log.read_text()):
+        print(f"  {entry}: {props}; {regs}")
+
+
+def _ptxas(text: str):
+  """(kernel, stack/spill line, registers line) per entry in a -Xptxas -v
+  log."""
+  out, entry, props = [], None, ""
+  for line in text.splitlines():
+    m = re.search(r"Compiling entry function '(\w+)'", line)
+    if m:
+      entry, props = m.group(1), ""
+    elif entry and "bytes stack frame" in line:
+      props = line.strip()
+    elif entry and "Used" in line and "registers" in line:
+      out.append((entry, props, line.split(":", 1)[1].strip()))
+      entry = None
+  return out
 
 
 if __name__ == "__main__":
