@@ -34,7 +34,7 @@ __device__ unsigned long long g_phase_cycles[kPhases];
 
 struct PhaseClock {
   long long t0;
-  __device__ __forceinline__ PhaseClock() : t0(clock64()) {}
+  __device__ __forceinline__ PhaseClock() { t0 = clock64(); }
   __device__ __forceinline__ void operator()(int phase) {
     const long long t = clock64();
     if (threadIdx.x == 0)
