@@ -310,6 +310,10 @@ def _check_training_kernels(card, label, static, net, args, cot,
         f"plain fwd {plain_fwd_ms:.3f} ms); "
         + ", ".join(f"{k} {times[k]:.3f} ms" for k in keys)
         + f"; forward max abs err {fwd_err:.3g} [{card}]", flush=True)
+  print(f"{label}: per launch ms / bound ms (bound's share): "
+        + ", ".join(f"{k} {times[k]:.3f} / {bounds[k][0]:.3f} "
+                    f"({100 * bounds[k][0] / times[k]:.1f}%)" for k in keys)
+        + f" [{card}]", flush=True)
   worst = sorted(errs.items(), key=lambda kv: kv[1][0] - kv[1][2])[-3:]
   print(f"{label}: gradient ratios closest to their bars (kernel, bf16 "
         f"twin, bar): {[(n, [round(x, 4) for x in e]) for n, e in worst]}",

@@ -59,7 +59,7 @@ extern "C" int dyn_dynamic_agg_bwd_ray(
   a.slabs = (float*)slabs;
   a.slab_len = slab_len;
   a.w_total = w_total;
-  return launch_persistent(ray_bwd_kernel<false>, kRayBwdSmem, a, R, nblocks,
+  return launch_persistent(ray_bwd_kernel, kRayBwdSmem, a, R, nblocks,
                            (cudaStream_t)stream);
 }
 
@@ -92,8 +92,8 @@ extern "C" int dyn_dynamic_agg_bwd_trunk(
   a.slabs = (float*)slabs;
   a.slab_len = slab_len;
   a.w_total = w_total;
-  return launch_persistent(trunk_bwd_kernel<false, false>,
-                           trunk_bwd_smem<false>(V), a,
+  return launch_persistent(trunk_bwd_kernel<false>,
+                           trunk_bwd_smem(V), a,
                            (a.P + PT - 1) / PT, nblocks,
                            (cudaStream_t)stream);
 }
@@ -108,9 +108,9 @@ extern "C" int dyn_agg_reduce(const void* slabs, int nslab, int len,
 // out = {ray bytes, ray blocks, trunk bytes, trunk blocks}.
 extern "C" int dyn_occupancy(int V, int* out) {
   out[0] = (int)kRayBwdSmem;
-  out[1] = blocks_per_sm(ray_bwd_kernel<false>, kRayBwdSmem);
-  out[2] = (int)trunk_bwd_smem<false>(V);
-  out[3] = blocks_per_sm(trunk_bwd_kernel<false, false>,
-                         trunk_bwd_smem<false>(V));
+  out[1] = blocks_per_sm(ray_bwd_kernel, kRayBwdSmem);
+  out[2] = (int)trunk_bwd_smem(V);
+  out[3] = blocks_per_sm(trunk_bwd_kernel<false>,
+                         trunk_bwd_smem(V));
   return (int)cudaGetLastError();
 }

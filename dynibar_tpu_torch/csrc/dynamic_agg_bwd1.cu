@@ -56,7 +56,7 @@ __host__ __device__ constexpr size_t cmax(size_t a, size_t b) {
 }
 
 constexpr size_t single_smem(int V) {
-  return cmax(cmax(trunk_smem(V), kRayBwdSmem), trunk_bwd_smem<false>(V));
+  return cmax(cmax(trunk_smem(V), kRayBwdSmem), trunk_bwd_smem(V));
 }
 static_assert(single_smem(VMAX) <= 232448, "one K4s block fits an SM");
 
@@ -71,12 +71,12 @@ __device__ __noinline__ void phase_trunk(const TrunkArgs& f, int p0,
 
 __device__ __noinline__ void phase_ray(const RayBwdArgs& r, int ray,
                                        const WsMap ws) {
-  ray_bwd_ray<false>(r, ray, ws);
+  ray_bwd_ray(r, ray, ws);
 }
 
 __device__ __noinline__ void phase_trunk_bwd(const TrunkBwdArgs& t, int p0,
                                              const WsMap ws) {
-  trunk_bwd_block<false, false>(t, p0, ws);
+  trunk_bwd_block<false>(t, p0, ws);
 }
 
 __global__ void __launch_bounds__(NT, 1)

@@ -21,13 +21,16 @@ constexpr int kPhases = 32;
 // backward; the input MLP (products and elementwise, weight gradients);
 // the anti-alias chain.
 enum TrunkPhase { TP_POOL1 = 16, TP_FWD, TP_TRANS, TP_DW, TP_ELEM, TP_POOL1_BWD,
-                  TP_INMLP, TP_INMLP_DW, TP_AA };
+                  TP_INMLP, TP_INMLP_DW, TP_AA, TP_RING_WAIT = 31 };
 // K5a, the static ray backward: A (recompute up to the layer norm); B, the
 // heads per 64-row chunk (forward, transposed, weight gradients,
 // elementwise); C (attention backward, and its weight gradients); D
-// (geometry_fc and pooling-2 backward, and its weight gradients).
+// (geometry_fc and pooling-2 backward, and its weight gradients).  The
+// *_RING_WAIT counters hold thread 0's waits on weight slabs, the two
+// below each its time in the slabs' products and in their epilogues,
+// inside the other phases' time.
 enum RayPhase { RP_A, RP_HEAD_FWD, RP_HEAD_TRANS, RP_HEAD_DW, RP_HEAD_ELEM,
-                RP_C, RP_C_DW, RP_D, RP_D_DW };
+                RP_C, RP_C_DW, RP_D, RP_D_DW, RP_RING_WAIT = 15 };
 
 #ifdef AGG_PHASE_CLOCKS
 __device__ unsigned long long g_phase_cycles[kPhases];

@@ -1,10 +1,11 @@
-// Ray-side aggregator backward (K4a dynamic, K5a static): pooling-2 ->
-// geometry_fc -> 4-head ray transformer -> heads, recomputed from the
-// forward's residuals and transposed, one ray (S <= 128 samples) per
-// block, persistent blocks over the rays.
+// Ray-side dynamic-aggregator backward (K4a, and the ray phase of K4s):
+// pooling-2 -> geometry_fc -> 4-head ray transformer -> heads, recomputed
+// from the forward's residuals and transposed, one ray (S <= 128 samples)
+// per block, persistent blocks over the rays.  (The static K5a, in these
+// phases, is ray_bwd_sm90.cuh.)
 //
-// Math of dynibar_tpu/ops/pallas_agg_bwd.py:514 dynamic_bwd_ray_kernel and
-// :879 static_bwd_ray_kernel; layout of the forward's ray_kernel
+// Math of dynibar_tpu/ops/pallas_agg_bwd.py:514 dynamic_bwd_ray_kernel;
+// layout of the forward's ray_kernel
 // (agg_common.cuh).  Phases per ray:
 //   A. geometry feature from the forward's workspace (ws_gf), q/k/v,
 //      attention, fc and layer norm (y_hat kept in a per-block f32 scratch);
@@ -22,7 +23,6 @@
 #pragma once
 
 #include "agg_bwd_common.cuh"
-#include "phase_clock.cuh"
 
 namespace agg {
 
@@ -38,18 +38,14 @@ struct RayBwdArgs {
   const float* ws_m;     // [V, P]
   const float* cot;      // [P, 4] cotangent of raw
   int P, S, V, C, R;
-  // static aggregator
-  const float* raydiff;  // [P, V, 4]
-  const bf16* rgbfeat;   // [P, V, C]
-  // dynamic aggregator
   const float* posenc;   // [S, 128]
   const float* pts;      // [P, 3]
   const float* dirpe;    // [R, 27]
   // outputs
   bf16* dx;              // [V, P, 128]
-  float* dmisc;          // [V, P, 8]: d_vis, static d_rgb (1:4), d_raydiff (4:8)
-  float* d_pts;          // [P, 3] dynamic
-  float* d_dirpe;        // [R, 27] dynamic
+  float* dmisc;          // [V, P, 8]: d_vis in slot 0
+  float* d_pts;          // [P, 3]
+  float* d_dirpe;        // [R, 27]
   float* scratch;        // [gridDim.x, SMAX, kScratchLd] f32
   float* slabs;          // [kSlabs, slab_len] weight gradients
   int slab_len, w_total;
@@ -66,12 +62,9 @@ static_assert(kRayBwdSmem <= 232448, "one ray backward block fits an SM");
 static_assert((size_t)SMAX * LD1 * 2 <= kDo3Off &&
                   kDo3Off + (size_t)SMAX * LDG * 2 <= kReg1,
               "gf_attn and d_o3 fit region 1");
-static_assert((size_t)64 * (LDA + LDG + LD64 + LDS) * 2 + 64 * 128 * 4 +
-                      2 * (size_t)VMAX * 64 * 4 <= kReg2,
-              "static heads (LG, PB [VMAX][64]) fit region 2");
 static_assert((size_t)64 * (LDH + LD2 + LDG + LD64 + LDS) * 2 +
                       64 * 128 * 4 <= kReg2,
-              "dynamic heads fit region 2");
+              "heads fit region 2");
 static_assert((size_t)SMAX * LDA * 2 <= kReg1 &&
                   (size_t)SMAX * (LDH + LDG) * 2 <= kReg2 &&
                   (size_t)SMAX * (3 * 128 + LDG) * 2 <= kReg2,
@@ -182,12 +175,11 @@ __device__ void attn_fwd(const bf16* q, const bf16* k, const bf16* vv,
 }
 
 // The backward of one ray; workspace rows by `ws`.
-template <bool STATIC>
 __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
                                             const WsMap ws) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* reg2 = smem + kReg1;
-  bf16* GA = (bf16*)smem;                      // gf_attn (dynamic: | pts PE)
+  bf16* GA = (bf16*)smem;                      // gf_attn | pts PE
   bf16* DO3 = (bf16*)(smem + kDo3Off);         // [SMAX][LDG] d_o3, then d_q
   bf16* Q = (bf16*)reg2;                       // [SMAX][128]
   bf16* K = Q + SMAX * 128;
@@ -209,7 +201,7 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
   const Net& net = a.net;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int S = a.S, V = a.V, Sp = (S + 15) & ~15;
-  const int GLD = STATIC ? LDG : LD1;
+  const int GLD = LD1;
   float* slab = a.slabs + (size_t)(blockIdx.x % kSlabs) * a.slab_len;
   const int wt = a.w_total;
   float* SY = a.scratch + (size_t)blockIdx.x * SMAX * kScratchLd;  // y_hat
@@ -218,14 +210,12 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
   const float scale = 0.17677669529663687f;
   const float* ln_s = a.B + net.l[LN].b;
   const float* ln_b = ln_s + 128;
-  PhaseClock clk;
 
   {                                 // one ray
     const size_t p0 = (size_t)ray * S;
     auto gf_in = [&](int i, int c) -> float {
       if (i >= S) return 0.f;
-      const float g = a.gf[ws.pt(p0 + i) * 128 + c];
-      return STATIC ? g : g + a.posenc[i * 128 + c];
+      return a.gf[ws.pt(p0 + i) * 128 + c] + a.posenc[i * 128 + c];
     };
     auto load_gf = [&]() {
       for (int e = tid; e < Sp * 128; e += NT)
@@ -310,7 +300,7 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
         GA[i * GLD + c] = f2b(yh * ln_s[c] + ln_b[c]);
       }
     }
-    if (!STATIC) {
+    {
       const int k1 = net.l[REFPTS0].k;
       for (int e = tid; e < Sp * (k1 - 128); e += NT) {
         const int i = e / (k1 - 128), col = e % (k1 - 128);
@@ -320,319 +310,145 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
       }
     }
     __syncthreads();
-    clk(RP_A);
 
     // ---- B: heads, 64 rows at a time: forward, transpose, LN backward ----
     for (int r0 = 0; r0 < Sp; r0 += 64) {
       const int rows = min(64, Sp - r0);
-      if (!STATIC) {
-        bf16* RH = (bf16*)reg2;                // [64][LDH]
-        bf16* HIN = RH + 64 * LDH;             // [64][LD2] gf2 | dir PE
-        bf16* H1 = HIN + 64 * LD2;             // [64][LDG]
-        bf16* H2 = H1 + 64 * LDG;              // [64][LD64]
-        bf16* D3 = H2 + 64 * LD64;             // [64][LDS]
-        float* DF = (float*)(D3 + 64 * LDS);   // [64][128]
-        const bf16* rp = GA + r0 * LD1;
-        const int k2 = net.l[RGB0].k;
-        for (int e = tid; e < 64 * 3; e += NT) spp[e] = 0.f;
-        dense(rp, LD1, rows, a.W, a.B, net.l[REFPTS0],
-              [&](int r, int c, float x) { RH[r * LDH + c] = f2b(elu(x)); });
-        __syncthreads();
-        dense(RH, LDH, rows, a.W, a.B, net.l[REFPTS1],
-              [&](int r, int c, float x) { HIN[r * LD2 + c] = f2b(elu(x)); });
-        for (int e = tid; e < rows * (k2 - 128); e += NT) {
-          const int r = e / (k2 - 128), col = 128 + e % (k2 - 128);
-          HIN[r * LD2 + col] =
-              f2b(col < 155 && r0 + r < S ? a.dirpe[(size_t)ray * 27 + col - 128]
-                                          : 0.f);
-        }
-        __syncthreads();
-        // sigma head: sigma - shift, -1e9 (no gradient) where no view is valid
-        dense(HIN, LD2, rows, a.W, a.B, net.l[OG0],
-              [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
-        for (int e = tid; e < rows * LDS; e += NT) {
-          const int r = e / LDS, c = e % LDS, i = r0 + r;
-          const float d = c == 0 && i < S && snv[i] >= 1.f
-                              ? a.cot[(p0 + i) * 4 + 3] : 0.f;
-          if (d != 0.f) atomicAdd(slab + wt + net.l[OG1].b, d);
-          D3[e] = f2b(d);
-        }
-        __syncthreads();
-        dw_accum(D3, LDS, H1, LDG, rows, slab, net.l[OG1]);
-        __syncthreads();
-        dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[OG1]),
-              [&](int r, int c, float x) {
-                H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
-              });
-        __syncthreads();
-        grad_layer(H1, LDG, HIN, LD2, rows, slab, wt, net.l[OG0]);
-        __syncthreads();
-        dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[OG0]),
-              [&](int r, int c, float x) { DF[r * 128 + c] = x; });
-        __syncthreads();
-        // rgb head: sigmoid MLP on [gf2 | dir PE], 0 where no view is valid
-        dense(HIN, LD2, rows, a.W, a.B, net.l[RGB0],
-              [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
-        __syncthreads();
-        dense(H1, LDG, rows, a.W, a.B, net.l[RGB1],
-              [&](int r, int c, float x) { H2[r * LD64 + c] = f2b(elu(x)); });
-        __syncthreads();
-        dense(H2, LD64, rows, a.W, a.B, net.l[RGB2],
-              [&](int r, int c, float x) {
-                const int i = r0 + r;
-                float d = 0.f;
-                if (c < 3 && i < S && snv[i] > 0.f) {
-                  const float rg = sigm(x);
-                  d = a.cot[(p0 + i) * 4 + c] * rg * (1.f - rg);
-                  atomicAdd(slab + wt + net.l[RGB2].b + c, d);
-                }
-                D3[r * LDS + c] = f2b(d);
-              });
-        __syncthreads();
-        dw_accum(D3, LDS, H2, LD64, rows, slab, net.l[RGB2]);
-        __syncthreads();
-        dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[RGB2]),
-              [&](int r, int c, float x) {
-                H2[r * LD64 + c] = f2b(x * elu_d(b2f(H2[r * LD64 + c])));
-              });
-        __syncthreads();
-        grad_layer(H2, LD64, H1, LDG, rows, slab, wt, net.l[RGB1]);
-        __syncthreads();
-        dense(H2, LD64, rows, a.WT, a.Z, tr(net.l[RGB1]),
-              [&](int r, int c, float x) {
-                H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
-              });
-        __syncthreads();
-        grad_layer(H1, LDG, HIN, LD2, rows, slab, wt, net.l[RGB0]);
-        __syncthreads();
-        dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[RGB0]),
-              [&](int r, int c, float x) {
-                if (c < 128)
-                  DF[r * 128 + c] += x;
-                else if (c < 155 && r0 + r < S)
-                  atomicAdd(&sdp[c - 128], x);
-              });
-        __syncthreads();
-        // ref_pts_fc (ELU output gf2, then its hidden layer)
-        for (int e = tid; e < rows * 128; e += NT) {
-          const int r = e >> 7, c = e & 127;
-          HIN[r * LD2 + c] = f2b(DF[e] * elu_d(b2f(HIN[r * LD2 + c])));
-        }
-        __syncthreads();
-        grad_layer(HIN, LD2, RH, LDH, rows, slab, wt, net.l[REFPTS1]);
-        __syncthreads();
-        dense(HIN, LD2, rows, a.WT, a.Z, tr(net.l[REFPTS1]),
-              [&](int r, int c, float x) {
-                RH[r * LDH + c] = f2b(x * elu_d(b2f(RH[r * LDH + c])));
-              });
-        __syncthreads();
-        grad_layer(RH, LDH, rp, LD1, rows, slab, wt, net.l[REFPTS0]);
-        __syncthreads();
-        dense(RH, LDH, rows, a.WT, a.Z, tr(net.l[REFPTS0]),
-              [&](int r, int c, float x) {
-                const int i = r0 + r;
-                if (c < 128) {
-                  DF[r * 128 + c] = x;
-                } else if (c < 161 && i < S) {
-                  int chn;
-                  const float d =
-                      pe_geo_bwd(a.pts + (p0 + i) * 3, 3, 5, c - 128, x, &chn);
-                  atomicAdd(&spp[r * 3 + chn], d);
-                }
-              });
-        __syncthreads();
-        for (int e = tid; e < rows * 3; e += NT) {
-          const int i = r0 + e / 3;
-          if (i < S) a.d_pts[(p0 + i) * 3 + e % 3] = spp[e];
-        }
-        ln_bwd(r0, rows, DF);
-        __syncthreads();
-      } else {
-        bf16* HIN = (bf16*)reg2;               // [64][LDA]
-        bf16* H1 = HIN + 64 * LDA;             // [64][LDG]
-        bf16* H2 = H1 + 64 * LDG;              // [64][LD64]
-        bf16* D3 = H2 + 64 * LD64;             // [64][LDS]
-        float* DF = (float*)(D3 + 64 * LDS);   // [64][128]
-        float* LG = DF + 64 * 128;             // [VMAX][64] (asserted above)
-        float* PB = LG + VMAX * 64;            // [VMAX][64]
-        const bf16* g = GA + r0 * LDG;
-        const int kr = net.l[RGB0].k;
-        // sigma head: -1e9 (no gradient) where no view is valid
-        dense(g, LDG, rows, a.W, a.B, net.l[OG0],
-              [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
-        for (int e = tid; e < rows * LDS; e += NT) {
-          const int r = e / LDS, c = e % LDS, i = r0 + r;
-          const float d = c == 0 && i < S && snv[i] >= 1.f
-                              ? a.cot[(p0 + i) * 4 + 3] : 0.f;
-          if (d != 0.f) atomicAdd(slab + wt + net.l[OG1].b, d);
-          D3[e] = f2b(d);
-        }
-        __syncthreads();
-        clk(RP_HEAD_FWD);
-        dw_accum(D3, LDS, H1, LDG, rows, slab, net.l[OG1]);
-        __syncthreads();
-        clk(RP_HEAD_DW);
-        dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[OG1]),
-              [&](int r, int c, float x) {
-                H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
-              });
-        __syncthreads();
-        clk(RP_HEAD_TRANS);
-        grad_layer(H1, LDG, g, LDG, rows, slab, wt, net.l[OG0]);
-        __syncthreads();
-        clk(RP_HEAD_DW);
-        dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[OG0]),
-              [&](int r, int c, float x) { DF[r * 128 + c] = x; });
-        __syncthreads();
-        clk(RP_HEAD_TRANS);
-        // per-view blend-logit head: [gf' | x_v | vis_v | ray_diff_v]
-        auto head_fwd = [&](int v) {
-          for (int e = tid; e < rows * 32; e += NT) {
-            const int r = e >> 5, q = e & 31, i = r0 + r;
-            uint4 val = make_uint4(0u, 0u, 0u, 0u);
-            if (q < 16)
-              val = *reinterpret_cast<const uint4*>(g + r * LDG + q * 8);
-            else if (i < S)
-              val = *reinterpret_cast<const uint4*>(
-                  a.ws_x + ws.vp(v, p0 + i) * 128 + (q - 16) * 8);
-            *reinterpret_cast<uint4*>(HIN + r * LDA + q * 8) = val;
-          }
-          for (int e = tid; e < rows * (kr - 256); e += NT) {
-            const int r = e / (kr - 256), col = 256 + e % (kr - 256);
-            const int i = r0 + r;
-            const size_t p = p0 + i;
-            float val = 0.f;
-            if (i < S) {
-              if (col == 256) val = a.ws_vis[ws.vp(v, p)];
-              else if (col < 261) val = a.raydiff[(p * V + v) * 4 + col - 257];
-            }
-            HIN[r * LDA + col] = f2b(val);
-          }
-          __syncthreads();
-          clk(RP_HEAD_ELEM);
-          dense(HIN, LDA, rows, a.W, a.B, net.l[RGB0],
-                [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
-          __syncthreads();
-          clk(RP_HEAD_FWD);
-          dense(H1, LDG, rows, a.W, a.B, net.l[RGB1],
-                [&](int r, int c, float x) { H2[r * LD64 + c] = f2b(elu(x)); });
-          __syncthreads();
-          clk(RP_HEAD_FWD);
-        };
-        for (int v = 0; v < V; ++v) {
-          head_fwd(v);
-          dense(H2, LD64, rows, a.W, a.B, net.l[RGB2],
-                [&](int r, int c, float x) {
-                  const int i = r0 + r;
-                  if (c == 0)
-                    LG[v * 64 + r] =
-                        (i < S && a.ws_m[ws.vp(v, p0 + i)] == 0.f) ? -1e9f
-                                                                         : x;
-                });
-          __syncthreads();
-          clk(RP_HEAD_FWD);
-        }
-        // softmax over views; d_logit = p (dp - sum_u p_u dp_u) on valid views
-        for (int r = tid; r < rows; r += NT) {
-          const int i = r0 + r;
-          if (i >= S) {
-            for (int v = 0; v < V; ++v) LG[v * 64 + r] = 0.f;
-            continue;
-          }
-          const size_t p = p0 + i;
-          float lmax = -INFINITY, bsum = 0.f, sb = 0.f;
-          for (int v = 0; v < V; ++v) lmax = fmaxf(lmax, LG[v * 64 + r]);
-          for (int v = 0; v < V; ++v) {
-            PB[v * 64 + r] = expf(LG[v * 64 + r] - lmax);
-            bsum += PB[v * 64 + r];
-          }
-          const float drgb[3] = {a.cot[p * 4], a.cot[p * 4 + 1],
-                                 a.cot[p * 4 + 2]};
-          for (int v = 0; v < V; ++v) {
-            const bf16* src = a.rgbfeat + (p * V + v) * a.C;
-            const float pv = PB[v * 64 + r] / bsum;
-            const float dp = b2f(src[0]) * drgb[0] + b2f(src[1]) * drgb[1] +
-                             b2f(src[2]) * drgb[2];
-            PB[v * 64 + r] = pv;
-            LG[v * 64 + r] = dp;
-            sb += pv * dp;
-            for (int c = 0; c < 3; ++c)
-              a.dmisc[ws.vp(v, p) * 8 + 1 + c] = pv * drgb[c];
-          }
-          for (int v = 0; v < V; ++v)
-            LG[v * 64 + r] = a.ws_m[ws.vp(v, p)] > 0.f
-                                 ? PB[v * 64 + r] * (LG[v * 64 + r] - sb)
-                                 : 0.f;
-        }
-        __syncthreads();
-        clk(RP_HEAD_ELEM);
-        for (int v = 0; v < V; ++v) {
-          head_fwd(v);
-          for (int e = tid; e < rows * LDS; e += NT)
-            D3[e] = f2b(e % LDS == 0 ? LG[v * 64 + e / LDS] : 0.f);
-          // no bias gradient: the blend-logit bias cancels in the softmax
-          // over views, so its gradient is identically zero
-          __syncthreads();
-          clk(RP_HEAD_ELEM);
-          dw_accum(D3, LDS, H2, LD64, rows, slab, net.l[RGB2]);
-          __syncthreads();
-          clk(RP_HEAD_DW);
-          dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[RGB2]),
-                [&](int r, int c, float x) {
-                  H2[r * LD64 + c] = f2b(x * elu_d(b2f(H2[r * LD64 + c])));
-                });
-          __syncthreads();
-          clk(RP_HEAD_TRANS);
-          grad_layer(H2, LD64, H1, LDG, rows, slab, wt, net.l[RGB1]);
-          __syncthreads();
-          clk(RP_HEAD_DW);
-          dense(H2, LD64, rows, a.WT, a.Z, tr(net.l[RGB1]),
-                [&](int r, int c, float x) {
-                  H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
-                });
-          __syncthreads();
-          clk(RP_HEAD_TRANS);
-          grad_layer(H1, LDG, HIN, LDA, rows, slab, wt, net.l[RGB0]);
-          __syncthreads();
-          clk(RP_HEAD_DW);
-          dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[RGB0]),
-                [&](int r, int c, float x) {
-                  const int i = r0 + r;
-                  if (c < 128) {
-                    DF[r * 128 + c] += x;
-                  } else if (i < S) {
-                    const size_t pv = ws.vp(v, p0 + i);
-                    if (c < 256) a.dx[pv * 128 + c - 128] = f2b(x);
-                    else if (c == 256) a.dmisc[pv * 8] = x;
-                    else if (c < 261) a.dmisc[pv * 8 + 4 + c - 257] = x;
-                  }
-                });
-          __syncthreads();
-          clk(RP_HEAD_TRANS);
-        }
-        ln_bwd(r0, rows, DF);
-        __syncthreads();
-        clk(RP_HEAD_ELEM);
+      bf16* RH = (bf16*)reg2;                // [64][LDH]
+      bf16* HIN = RH + 64 * LDH;             // [64][LD2] gf2 | dir PE
+      bf16* H1 = HIN + 64 * LD2;             // [64][LDG]
+      bf16* H2 = H1 + 64 * LDG;              // [64][LD64]
+      bf16* D3 = H2 + 64 * LD64;             // [64][LDS]
+      float* DF = (float*)(D3 + 64 * LDS);   // [64][128]
+      const bf16* rp = GA + r0 * LD1;
+      const int k2 = net.l[RGB0].k;
+      for (int e = tid; e < 64 * 3; e += NT) spp[e] = 0.f;
+      dense(rp, LD1, rows, a.W, a.B, net.l[REFPTS0],
+            [&](int r, int c, float x) { RH[r * LDH + c] = f2b(elu(x)); });
+      __syncthreads();
+      dense(RH, LDH, rows, a.W, a.B, net.l[REFPTS1],
+            [&](int r, int c, float x) { HIN[r * LD2 + c] = f2b(elu(x)); });
+      for (int e = tid; e < rows * (k2 - 128); e += NT) {
+        const int r = e / (k2 - 128), col = 128 + e % (k2 - 128);
+        HIN[r * LD2 + col] =
+            f2b(col < 155 && r0 + r < S ? a.dirpe[(size_t)ray * 27 + col - 128]
+                                        : 0.f);
       }
+      __syncthreads();
+      // sigma head: sigma - shift, -1e9 (no gradient) where no view is valid
+      dense(HIN, LD2, rows, a.W, a.B, net.l[OG0],
+            [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
+      for (int e = tid; e < rows * LDS; e += NT) {
+        const int r = e / LDS, c = e % LDS, i = r0 + r;
+        const float d = c == 0 && i < S && snv[i] >= 1.f
+                            ? a.cot[(p0 + i) * 4 + 3] : 0.f;
+        if (d != 0.f) atomicAdd(slab + wt + net.l[OG1].b, d);
+        D3[e] = f2b(d);
+      }
+      __syncthreads();
+      dw_accum(D3, LDS, H1, LDG, rows, slab, net.l[OG1]);
+      __syncthreads();
+      dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[OG1]),
+            [&](int r, int c, float x) {
+              H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
+            });
+      __syncthreads();
+      grad_layer(H1, LDG, HIN, LD2, rows, slab, wt, net.l[OG0]);
+      __syncthreads();
+      dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[OG0]),
+            [&](int r, int c, float x) { DF[r * 128 + c] = x; });
+      __syncthreads();
+      // rgb head: sigmoid MLP on [gf2 | dir PE], 0 where no view is valid
+      dense(HIN, LD2, rows, a.W, a.B, net.l[RGB0],
+            [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
+      __syncthreads();
+      dense(H1, LDG, rows, a.W, a.B, net.l[RGB1],
+            [&](int r, int c, float x) { H2[r * LD64 + c] = f2b(elu(x)); });
+      __syncthreads();
+      dense(H2, LD64, rows, a.W, a.B, net.l[RGB2],
+            [&](int r, int c, float x) {
+              const int i = r0 + r;
+              float d = 0.f;
+              if (c < 3 && i < S && snv[i] > 0.f) {
+                const float rg = sigm(x);
+                d = a.cot[(p0 + i) * 4 + c] * rg * (1.f - rg);
+                atomicAdd(slab + wt + net.l[RGB2].b + c, d);
+              }
+              D3[r * LDS + c] = f2b(d);
+            });
+      __syncthreads();
+      dw_accum(D3, LDS, H2, LD64, rows, slab, net.l[RGB2]);
+      __syncthreads();
+      dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[RGB2]),
+            [&](int r, int c, float x) {
+              H2[r * LD64 + c] = f2b(x * elu_d(b2f(H2[r * LD64 + c])));
+            });
+      __syncthreads();
+      grad_layer(H2, LD64, H1, LDG, rows, slab, wt, net.l[RGB1]);
+      __syncthreads();
+      dense(H2, LD64, rows, a.WT, a.Z, tr(net.l[RGB1]),
+            [&](int r, int c, float x) {
+              H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
+            });
+      __syncthreads();
+      grad_layer(H1, LDG, HIN, LD2, rows, slab, wt, net.l[RGB0]);
+      __syncthreads();
+      dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[RGB0]),
+            [&](int r, int c, float x) {
+              if (c < 128)
+                DF[r * 128 + c] += x;
+              else if (c < 155 && r0 + r < S)
+                atomicAdd(&sdp[c - 128], x);
+            });
+      __syncthreads();
+      // ref_pts_fc (ELU output gf2, then its hidden layer)
+      for (int e = tid; e < rows * 128; e += NT) {
+        const int r = e >> 7, c = e & 127;
+        HIN[r * LD2 + c] = f2b(DF[e] * elu_d(b2f(HIN[r * LD2 + c])));
+      }
+      __syncthreads();
+      grad_layer(HIN, LD2, RH, LDH, rows, slab, wt, net.l[REFPTS1]);
+      __syncthreads();
+      dense(HIN, LD2, rows, a.WT, a.Z, tr(net.l[REFPTS1]),
+            [&](int r, int c, float x) {
+              RH[r * LDH + c] = f2b(x * elu_d(b2f(RH[r * LDH + c])));
+            });
+      __syncthreads();
+      grad_layer(RH, LDH, rp, LD1, rows, slab, wt, net.l[REFPTS0]);
+      __syncthreads();
+      dense(RH, LDH, rows, a.WT, a.Z, tr(net.l[REFPTS0]),
+            [&](int r, int c, float x) {
+              const int i = r0 + r;
+              if (c < 128) {
+                DF[r * 128 + c] = x;
+              } else if (c < 161 && i < S) {
+                int chn;
+                const float d =
+                    pe_geo_bwd(a.pts + (p0 + i) * 3, 3, 5, c - 128, x, &chn);
+                atomicAdd(&spp[r * 3 + chn], d);
+              }
+            });
+      __syncthreads();
+      for (int e = tid; e < rows * 3; e += NT) {
+        const int i = r0 + e / 3;
+        if (i < S) a.d_pts[(p0 + i) * 3 + e % 3] = spp[e];
+      }
+      ln_bwd(r0, rows, DF);
+      __syncthreads();
     }
 
     // ---- C: attention backward ----
     load_gf();
     __syncthreads();
-    clk(RP_C);
     qkv();
     __syncthreads();
-    clk(RP_C);
     attn_fwd(Q, K, Vv, O, snv, S, Sp, st_m, st_l);
     __syncthreads();
-    clk(RP_C);
     dw_accum(DO3, LDG, O, LDG, Sp, slab, net.l[WFC]);
     __syncthreads();
-    clk(RP_C_DW);
     dense(DO3, LDG, Sp, a.WT, a.Z, tr(net.l[WFC]),
           [&](int r, int c, float x) { O[r * LDG + c] = f2b(x); });   // d_o
     __syncthreads();
-    clk(RP_C);
     for (int pr = tid; pr < 4 * Sp; pr += NT) {     // d_q, one (query, head)
       const int h = pr / Sp, i = pr % Sp;
       float qv[32], dov[32], acc[32];
@@ -663,7 +479,6 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
       store32(DO3 + i * LDG + h * 32, acc, 1.f);
     }
     __syncthreads();
-    clk(RP_C);
     for (int pr = tid; pr < 4 * Sp; pr += NT) {     // d_k, d_v: (key, head)
       const int h = pr / Sp, j = pr % Sp;
       bf16* ko = K + j * 128 + h * 32;
@@ -700,29 +515,20 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
       store32(vo, acc, 1.f);
     }
     __syncthreads();
-    clk(RP_C);
     load_gf();                                       // gf1, the q/k/v input
     __syncthreads();
-    clk(RP_C);
     dw_accum(DO3, LDG, O, LDG, Sp, slab, net.l[WQ]);
     dw_accum(K, 128, O, LDG, Sp, slab, net.l[WK]);
     dw_accum(Vv, 128, O, LDG, Sp, slab, net.l[WV]);
-#ifdef AGG_PHASE_CLOCKS
-    __syncthreads();
-    clk(RP_C_DW);
-#endif
     dense(DO3, LDG, Sp, a.WT, a.Z, tr(net.l[WQ]),
           [&](int r, int c, float x) { SD[r * 128 + c] += x; });
     __syncthreads();
-    clk(RP_C);
     dense(K, 128, Sp, a.WT, a.Z, tr(net.l[WK]),
           [&](int r, int c, float x) { SD[r * 128 + c] += x; });
     __syncthreads();
-    clk(RP_C);
     dense(Vv, 128, Sp, a.WT, a.Z, tr(net.l[WV]),
           [&](int r, int c, float x) { SD[r * 128 + c] += x; });
     __syncthreads();
-    clk(RP_C);
 
     // ---- D: geometry_fc and pooling-2 backward ----
     {
@@ -773,29 +579,23 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
         G[i * LDA + 256 + j] = f2b(val);
       }
       __syncthreads();
-      clk(RP_D);
       dense(G, LDA, Sp, a.W, a.B, net.l[GEO0],
             [&](int r, int c, float x) { H[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
-      clk(RP_D);
       grad_layer(DG, LDG, H, LDH, Sp, slab, wt, net.l[GEO1]);
       __syncthreads();
-      clk(RP_D_DW);
       dense(DG, LDG, Sp, a.WT, a.Z, tr(net.l[GEO1]),
             [&](int r, int c, float x) {
               H[r * LDH + c] = f2b(x * elu_d(b2f(H[r * LDH + c])));
             });
       __syncthreads();
-      clk(RP_D);
       grad_layer(H, LDH, G, LDA, Sp, slab, wt, net.l[GEO0]);
       __syncthreads();
-      clk(RP_D_DW);
       dense(H, LDH, Sp, a.WT, a.Z, tr(net.l[GEO0]),
             [&](int r, int c, float x) {
               if (c < 257) SG[r * 272 + c] = x;
             });
       __syncthreads();
-      clk(RP_D);
       // pooling-2 backward, one warp per sample, 4 channels per lane
       for (int i = warp; i < S; i += NW) {
         const size_t p = p0 + i;
@@ -849,31 +649,25 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
           __align__(8) bf16 outv[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            float d = w * (dme[j] + 2.f * (x[j] - mean[j]) * dvr[j]);
-            if (STATIC) d += b2f(dxo[j]);
-            outv[j] = f2b(d);
+            outv[j] = f2b(w * (dme[j] + 2.f * (x[j] - mean[j]) * dvr[j]));
           }
           *reinterpret_cast<uint2*>(dxo) = *reinterpret_cast<uint2*>(outv);
           if (lane == 0)
-            a.dmisc[pv * 8] =
-                (STATIC ? a.dmisc[pv * 8] : 0.f) + inv * dw2[v] + dvsum;
+            a.dmisc[pv * 8] = 0.f + inv * dw2[v] + dvsum;
         }
       }
       for (int c = tid; c < 256; c += NT)
         atomicAdd(slab + wt + net.l[LN].b + c, lng[c]);
-      if (!STATIC)
-        for (int c = tid; c < 27; c += NT)
+      for (int c = tid; c < 27; c += NT)
           a.d_dirpe[(size_t)ray * 27 + c] = sdp[c];
       __syncthreads();
-      clk(RP_D);
     }
   }
 }
 
-template <bool STATIC>
 __global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
   for (int ray = blockIdx.x; ray < a.R; ray += gridDim.x)
-    ray_bwd_ray<STATIC>(a, ray, WsMap{a.P, 0});
+    ray_bwd_ray(a, ray, WsMap{a.P, 0});
 }
 
 }  // namespace agg

@@ -1,5 +1,5 @@
 // K5a / K5b: the split backward of the static aggregator (reference
-// DynibarStatic, ibrnet/mlp_network.py:319-527).
+// DynibarStatic, ibrnet/mlp_network.py:319-527), for Hopper.
 //
 // K5a replaces dynibar_tpu/ops/pallas_agg_bwd.py:879 static_bwd_ray_kernel
 // (launched by pallas_agg.py:640): pooling-2 -> geometry_fc -> attention ->
@@ -16,33 +16,28 @@
 // What bounds them on the H100: operations (about 5 MFLOP per point at V
 // = 11 in the forward, roughly three times that here).
 //
-// Design: ray_bwd.cuh and trunk_bwd.cuh.  The trunk kernel's shared memory
-// (218,112 + 1,024 V bytes: one view's activations and their cotangents in
-// place, a 64-point block; 232,448 at V = 14, the per-block maximum) is
-// the reason for one block per SM; the d_rf stash of every view goes to a
-// global workspace instead.  The three-kernel route (K5a, then K5c + K5d)
-// is static_agg_bwd3.cu.
+// Design: ray_bwd_sm90.cuh and trunk_bwd_sm90.cuh, on sm90_common.cuh:
+// wgmma products on weight slabs that bulk copies stage in shared memory
+// from the tiled pack (ops/agg.py pack_tiled).  The three-kernel route
+// (K5a, then K5c + K5d) is static_agg_bwd3.cu.
 
-#include "ray_bwd.cuh"
-#include "trunk_bwd.cuh"
+#include "ray_bwd_sm90.cuh"
+#include "trunk_bwd_sm90.cuh"
 
 using namespace agg;
 
 extern "C" int dyn_static_agg_bwd_ray(
-    const void* W, const void* WT, const void* B, const void* Z,
-    const void* meta, const void* gf, const void* ws_x, const void* ws_vis,
-    const void* ws_m, const void* cot, const void* raydiff,
-    const void* rgbfeat, void* dx, void* dmisc, void* scratch, void* slabs,
-    int slab_len, int w_total, int R, int S, int V, int C, int nblocks,
-    void* stream) {
+    const void* Wt, const void* B, const void* meta, const void* gf,
+    const void* ws_x, const void* ws_vis, const void* ws_m, const void* cot,
+    const void* raydiff, const void* rgbfeat, void* dx, void* dmisc,
+    void* scratch, void* stats, void* slabs, int slab_len, int w_total,
+    int R, int S, int V, int C, int nblocks, void* stream) {
+  StaticRayBwdArgs a{};
+  a.net = load_net((const int*)meta);
   if (V > VMAX || S > SMAX || C > CMAX || V < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
-  RayBwdArgs a{};
-  a.W = (const bf16*)W;
-  a.WT = (const bf16*)WT;
+  a.Wt = (const bf16*)Wt;
   a.B = (const float*)B;
-  a.Z = (const float*)Z;
-  a.net = load_net((const int*)meta);
   a.gf = (const float*)gf;
   a.ws_x = (const bf16*)ws_x;
   a.ws_vis = (const float*)ws_vis;
@@ -58,30 +53,29 @@ extern "C" int dyn_static_agg_bwd_ray(
   a.dx = (bf16*)dx;
   a.dmisc = (float*)dmisc;
   a.scratch = (float*)scratch;
+  a.stats = (float*)stats;
   a.slabs = (float*)slabs;
   a.slab_len = slab_len;
   a.w_total = w_total;
-  return launch_persistent(ray_bwd_kernel<true>, kRayBwdSmem, a, R, nblocks,
-                           (cudaStream_t)stream);
+  return launch_persistent(static_ray_bwd_kernel, kStaticRayBwdSmem, a, R,
+                           nblocks, (cudaStream_t)stream);
 }
 
 extern "C" int dyn_static_agg_bwd_trunk(
-    const void* W, const void* WT, const void* B, const void* Z,
-    const void* meta, const void* rgbfeat, const void* mask, const void* pts,
-    const void* reffeat, const void* raydiff, const void* srcpl,
-    const void* ws_rf, int anti_alias, int mask_rgb, const void* dx,
-    const void* dmisc, void* drf, void* d_rgbfeat, void* d_raydiff,
+    const void* Wt, const void* B, const void* meta, const void* rgbfeat,
+    const void* mask, const void* pts, const void* reffeat,
+    const void* raydiff, const void* srcpl, const void* ws_rf,
+    int anti_alias, int mask_rgb, const void* dx, const void* dmisc,
+    void* drf, void* ws_dgf, void* d_rgbfeat, void* d_raydiff,
     void* d_srcpl, void* d_pts, void* d_reffeat, void* d_s, void* slabs,
     int slab_len, int w_total, int R, int S, int V, int C, int nblocks,
     void* stream) {
-  if (V > VMAX || S > SMAX || 2 * C > CRMAX || V < 1 || S < 1)
-    return (int)cudaErrorInvalidValue;
-  TrunkBwdArgs a{};
-  a.W = (const bf16*)W;
-  a.WT = (const bf16*)WT;
-  a.B = (const float*)B;
-  a.Z = (const float*)Z;
+  StaticTrunkBwdArgs a{};
   a.net = load_net((const int*)meta);
+  if (V > VMAX || S > SMAX || 2 * C > kTrunkCrMax || V < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  a.Wt = (const bf16*)Wt;
+  a.B = (const float*)B;
   a.rgbfeat = (const bf16*)rgbfeat;
   a.mask = (const float*)mask;
   a.P = R * S;
@@ -98,6 +92,7 @@ extern "C" int dyn_static_agg_bwd_trunk(
   a.dx = (const bf16*)dx;
   a.dmisc = (const float*)dmisc;
   a.drf = (float*)drf;
+  a.ws_dgf = (float*)ws_dgf;
   a.d_rgbfeat = (float*)d_rgbfeat;
   a.d_raydiff = (float*)d_raydiff;
   a.d_srcpl = (float*)d_srcpl;
@@ -107,9 +102,8 @@ extern "C" int dyn_static_agg_bwd_trunk(
   a.slabs = (float*)slabs;
   a.slab_len = slab_len;
   a.w_total = w_total;
-  return launch_persistent(trunk_bwd_kernel<true, true>,
-                           trunk_bwd_smem<true>(V), a,
-                           (a.P + PT - 1) / PT, nblocks,
+  return launch_persistent(static_trunk_bwd_kernel, static_trunk_bwd_smem(V),
+                           a, (a.P + PT - 1) / PT, nblocks,
                            (cudaStream_t)stream);
 }
 
@@ -122,10 +116,9 @@ extern "C" int dyn_agg_reduce(const void* slabs, int nslab, int len,
 // The kernels' footprints at V views and the blocks an SM holds:
 // out = {ray bytes, ray blocks, trunk bytes, trunk blocks}.
 extern "C" int dyn_occupancy(int V, int* out) {
-  out[0] = (int)kRayBwdSmem;
-  out[1] = blocks_per_sm(ray_bwd_kernel<true>, kRayBwdSmem);
-  out[2] = (int)trunk_bwd_smem<true>(V);
-  out[3] = blocks_per_sm(trunk_bwd_kernel<true, true>,
-                         trunk_bwd_smem<true>(V));
+  out[0] = (int)kStaticRayBwdSmem;
+  out[1] = blocks_per_sm(static_ray_bwd_kernel, kStaticRayBwdSmem);
+  out[2] = (int)static_trunk_bwd_smem(V);
+  out[3] = blocks_per_sm(static_trunk_bwd_kernel, static_trunk_bwd_smem(V));
   return (int)cudaGetLastError();
 }

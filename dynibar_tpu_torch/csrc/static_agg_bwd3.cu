@@ -7,7 +7,7 @@
 // nothing of the input MLP; 12 weight gradients, d_rf_tot [V, P, 2C] f32
 // (the whole per-view input cotangent, both halves), d_dot [V, P] (the
 // anti-alias chain's cotangent of ray_diff[..., 3]) and d_s per point.  It
-// is trunk_bwd_kernel<true, false> (trunk_bwd.cuh).
+// is trunk_bwd_kernel<true> (trunk_bwd.cuh).
 //
 // K5d replaces :1484 static_bwd_inmlp_kernel (pallas_agg.py:707): the
 // per-view input MLP ray_dir_fc on [pts PE | src Plücker PE | ray_diff],
@@ -218,8 +218,8 @@ extern "C" int dyn_static_agg_bwd_trunk3(
   a.slabs = (float*)slabs;
   a.slab_len = slab_len;
   a.w_total = w_total;
-  return launch_persistent(trunk_bwd_kernel<true, false>,
-                           trunk_bwd_smem<false>(V), a,
+  return launch_persistent(trunk_bwd_kernel<true>,
+                           trunk_bwd_smem(V), a,
                            (a.P + PT - 1) / PT, nblocks,
                            (cudaStream_t)stream);
 }
@@ -266,9 +266,9 @@ extern "C" int dyn_static_agg_bwd_inmlp(
 // The two kernels' footprints at V views and the blocks an SM holds:
 // out = {K5c bytes, K5c blocks, K5d bytes, K5d blocks}.
 extern "C" int dyn_occupancy(int V, int* out) {
-  out[0] = (int)trunk_bwd_smem<false>(V);
-  out[1] = blocks_per_sm(trunk_bwd_kernel<true, false>,
-                         trunk_bwd_smem<false>(V));
+  out[0] = (int)trunk_bwd_smem(V);
+  out[1] = blocks_per_sm(trunk_bwd_kernel<true>,
+                         trunk_bwd_smem(V));
   out[2] = (int)kInmlpSmem;
   out[3] = blocks_per_sm(inmlp_bwd_kernel, kInmlpSmem);
   return (int)cudaGetLastError();

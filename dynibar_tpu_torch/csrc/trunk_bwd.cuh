@@ -1,13 +1,12 @@
-// Trunk-side aggregator backward (K4b dynamic, K5b and K5c static):
-// pooling-1 and the per-view base/vis/vis2 trunk, recomputed and
-// transposed one view at a time over 64-point blocks, plus (static) the
-// anti-alias weight chain and (K5b only) the per-view input MLP
-// ray_dir_fc.  K5c stops at the d_rf seam: it leaves d_rf_tot, the
-// anti-alias d_dot and d_s for K5d (static_agg_bwd3.cu), which transposes
-// the input MLP.
+// Trunk-side aggregator backward (K4b dynamic, K5c static): pooling-1 and
+// the per-view base/vis/vis2 trunk, recomputed and transposed one view at
+// a time over 64-point blocks, plus (static) the anti-alias weight chain.
+// K5c stops at the d_rf seam: it leaves d_rf_tot, the anti-alias d_dot and
+// d_s for K5d (static_agg_bwd3.cu), which transposes the input MLP.  (K5b,
+// the trunk with the input MLP, is trunk_bwd_sm90.cuh.)
 //
-// Math of dynibar_tpu/ops/pallas_agg_bwd.py:733 dynamic_bwd_trunk_kernel,
-// :1109 static_bwd_trunk_kernel and :1328 static_bwd_trunk3_kernel; layout
+// Math of dynibar_tpu/ops/pallas_agg_bwd.py:733 dynamic_bwd_trunk_kernel
+// and :1328 static_bwd_trunk3_kernel; layout
 // of the forward's trunk_kernel
 // (agg_common.cuh).  A block recomputes the pooled [mean | var] columns
 // once, then per view: the trunk forward from rf (static: the rf residual
@@ -17,12 +16,11 @@
 // activations and cotangents fit the block's shared memory together.  The
 // per-view d_rf goes to a workspace; after the view loop, pooling-1's
 // backward (d_mean_eff = d_mean - 2 d_var sum_v w_v (rf_v - mean)) adds
-// its part and (static) the input MLP is recomputed and transposed.
+// its part.
 // Mask cotangents are never formed.
 #pragma once
 
 #include "agg_bwd_common.cuh"
-#include "phase_clock.cuh"
 
 namespace agg {
 
@@ -36,10 +34,7 @@ struct TrunkBwdArgs {
   const float* mask;     // [P, V]
   int P, S, V, C;
   // static aggregator
-  const float* pts;      // [P, 3]
-  const float* reffeat;  // [R, C]
   const float* raydiff;  // [P, V, 4]
-  const float* srcpl;    // [P, V, 6]
   int anti_alias, mask_rgb;
   const bf16* ws_rf;     // [V, P, 2C] K2r residual
   // dynamic aggregator
@@ -52,10 +47,6 @@ struct TrunkBwdArgs {
   float* d_dot;          // [V, P] K5c: anti-alias cotangent of ray_diff[3]
   float* d_rgbfeat;      // [P, V, C]
   float* d_dirfeat;      // [P, C]
-  float* d_raydiff;      // [P, V, 4]
-  float* d_srcpl;        // [P, V, 6]
-  float* d_pts;          // [P, 3]
-  float* d_reffeat;      // [P, C]
   float* d_s;            // [P]
   float* slabs;          // [kSlabs, slab_len] weight gradients
   int slab_len, w_total;
@@ -66,32 +57,21 @@ constexpr int LDF = 144;            // f32 d_[mean | var] of pooling-1
 constexpr int CRMAX = LDF / 2;
 constexpr int LDK = 232;            // base_fc input, 3 CR <= 216 -> 224 cols
 
-// Row stride of the input tile: the input MLP's pooled + per-view input
-// needs LDA; the trunk alone (K4b, K5c) base_fc's 224 columns.
-template <bool INMLP>
-__host__ __device__ constexpr int trunk_bwd_ldx() {
-  return INMLP ? LDA : LDK;
-}
-
-// PT = 64 points: K5b 218,112 + 1,024 V bytes (229,376 at V = 11; 232,448,
-// the per-block maximum, at V = 14); K4b and K5c 6,144 fewer (226,304 at
-// V = 14).  One block per SM either way.
-template <bool INMLP>
+// PT = 64 points: 211,968 + 1,024 V bytes (226,304 at V = 14).  One block
+// per SM.
 constexpr size_t trunk_bwd_smem(int V) {
-  return (size_t)PT * (trunk_bwd_ldx<INMLP>() + LDH + 5 * LDG + LDT + LDS) *
-             2 +
+  return (size_t)PT * (LDK + LDH + 5 * LDG + LDT + LDS) * 2 +
          (size_t)PT * LDF * 4 + 4 * (size_t)V * PT * 4 + 8 * (size_t)PT * 4;
 }
-static_assert(trunk_bwd_smem<true>(VMAX) <= 232448,
-              "K5b fits one block at VMAX views");
+static_assert(trunk_bwd_smem(VMAX) <= 232448,
+              "the trunk backward fits one block at VMAX views");
 
-// STATIC: the static aggregator's trunk (rf residual, anti-alias chain);
-// INMLP (static only): also the input MLP, as K5b.
+// STATIC: the static aggregator's trunk (rf residual, anti-alias chain).
 // The backward of one 64-point block from point p0; workspace rows by `ws`.
-template <bool STATIC, bool INMLP>
+template <bool STATIC>
 __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
                                                 int p0, const WsMap ws) {
-  constexpr int LDX = trunk_bwd_ldx<INMLP>();
+  constexpr int LDX = LDK;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xin = (bf16*)smem;                 // [PT][LDX] trunk input
   bf16* ah = xin + PT * LDX;               // [PT][LDH] base_fc hidden
@@ -114,12 +94,10 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
   float* r_sg0 = r_vis0 + PT;
   float* r_sg = r_sg0 + PT;
   float* r_winv = r_sg + PT;
-  float* r_pts = r_winv + PT;              // [PT][3]
   float* slab = a.slabs + (size_t)(blockIdx.x % kSlabs) * a.slab_len;
   const int wt = a.w_total;
   const float s_val = (STATIC && a.anti_alias) ? a.B[net.l[AA_S].b] : 0.f;
   const float s_abs = fabsf(s_val);
-  PhaseClock clk;
 
   {                                 // one 64-point block
     auto rf_val = [&](int r, int v, int c) -> float {
@@ -191,22 +169,18 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         xin[r * LDX + 2 * CR + c] = f2b(c < CR ? rf_val(r, v, c) : 0.f);
       }
       __syncthreads();
-      clk(v == 0 ? TP_POOL1 : TP_ELEM);
       dense(xin, LDX, PT, a.W, a.B, net.l[BASE0],
             [&](int r, int c, float x) { ah[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
-      clk(TP_FWD);
       dense(ah, LDH, PT, a.W, a.B, net.l[BASE1], [&](int r, int c, float x) {
         const float y = elu(x);
         x0[r * LDG + c] = f2b(y);
         xw[r * LDG + c] = f2b(y * wv[r]);
       });
       __syncthreads();
-      clk(TP_FWD);
       dense(xw, LDG, PT, a.W, a.B, net.l[VIS0],
             [&](int r, int c, float x) { ch[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
-      clk(TP_FWD);
       dense(ch, LDG, PT, a.W, a.B, net.l[VIS1], [&](int r, int c, float x) {
         const float t = elu(x);
         tb[r * LDT + c] = f2b(t);
@@ -217,23 +191,19 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         }
       });
       __syncthreads();
-      clk(TP_FWD);
       for (int e = tid; e < PT * 128; e += NT) {
         const int r = e >> 7, c = e & 127;
         const float x = b2f(f2b(b2f(x0[r * LDG + c]) + b2f(tb[r * LDT + c])));
         xv[r * LDG + c] = f2b(x * r_vis0[r]);
       }
       __syncthreads();
-      clk(TP_ELEM);
       dense(xv, LDG, PT, a.W, a.B, net.l[VIS20],
             [&](int r, int c, float x) { eh[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
-      clk(TP_FWD);
       dense(eh, LDG, PT, a.W, a.B, net.l[VIS21], [&](int r, int c, float x) {
         if (c == 0) r_sg[r] = sigm(x);
       });
       __syncthreads();
-      clk(TP_FWD);
 
       // vis = sigmoid(vh) * m
       for (int e = tid; e < PT * LDS; e += NT) {
@@ -249,23 +219,18 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         ds[e] = f2b(d);
       }
       __syncthreads();
-      clk(TP_ELEM);
       dw_accum(ds, LDS, eh, LDG, PT, slab, net.l[VIS21]);
       __syncthreads();
-      clk(TP_DW);
       dense(ds, LDS, PT, a.WT, a.Z, tr(net.l[VIS21]),
             [&](int r, int c, float x) {
               eh[r * LDG + c] = f2b(x * elu_d(b2f(eh[r * LDG + c])));
             });
       __syncthreads();
-      clk(TP_TRANS);
       grad_layer(eh, LDG, xv, LDG, PT, slab, wt, net.l[VIS20]);
       __syncthreads();
-      clk(TP_DW);
       dense(eh, LDG, PT, a.WT, a.Z, tr(net.l[VIS20]),
             [&](int r, int c, float x) { xv[r * LDG + c] = f2b(x); });
       __syncthreads();
-      clk(TP_TRANS);
       // xv = x * vis0, x = x0 + t[:128]: d_x and d_t, one warp per point
       for (int r = warp; r < PT; r += NW) {
         const int p = p0 + r;
@@ -295,23 +260,18 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         }
       }
       __syncthreads();
-      clk(TP_ELEM);
       grad_layer(tb, LDT, ch, LDG, PT, slab, wt, net.l[VIS1]);
       __syncthreads();
-      clk(TP_DW);
       dense(tb, LDT, PT, a.WT, a.Z, tr(net.l[VIS1]),
             [&](int r, int c, float x) {
               ch[r * LDG + c] = f2b(x * elu_d(b2f(ch[r * LDG + c])));
             });
       __syncthreads();
-      clk(TP_TRANS);
       grad_layer(ch, LDG, xw, LDG, PT, slab, wt, net.l[VIS0]);
       __syncthreads();
-      clk(TP_DW);
       dense(ch, LDG, PT, a.WT, a.Z, tr(net.l[VIS0]),
             [&](int r, int c, float x) { xw[r * LDG + c] = f2b(x); });
       __syncthreads();
-      clk(TP_TRANS);
       // xw = x0 * w_v; d_x0 = d_x + w_v d_xw, through base_fc's last ELU
       for (int r = warp; r < PT; r += NW) {
         const int p = p0 + r;
@@ -332,19 +292,15 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         }
       }
       __syncthreads();
-      clk(TP_ELEM);
       grad_layer(x0, LDG, ah, LDH, PT, slab, wt, net.l[BASE1]);
       __syncthreads();
-      clk(TP_DW);
       dense(x0, LDG, PT, a.WT, a.Z, tr(net.l[BASE1]),
             [&](int r, int c, float x) {
               ah[r * LDH + c] = f2b(x * elu_d(b2f(ah[r * LDH + c])));
             });
       __syncthreads();
-      clk(TP_TRANS);
       grad_layer(ah, LDH, xin, LDX, PT, slab, wt, net.l[BASE0]);
       __syncthreads();
-      clk(TP_DW);
       dense(ah, LDH, PT, a.WT, a.Z, tr(net.l[BASE0]),
             [&](int r, int c, float x) {
               const int p = p0 + r;
@@ -354,7 +310,6 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
                 a.drf[ws.vp(v, p) * CR + c - 2 * CR] = x;
             });
       __syncthreads();
-      clk(TP_TRANS);
     }
 
     // ---- pooling-1 backward ----
@@ -376,11 +331,7 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
           if (a.anti_alias)
             atomicAdd(&sm_dw[v * PT + r],
                       rf * dme + (rf - mean) * (rf - mean) * dvr);
-          if (INMLP && c < C)
-            a.d_rgbfeat[ig] =
-                dt + (c < 3 ? a.dmisc[ws.vp(v, p) * 8 + 1 + c] : 0.f);
-          else
-            a.drf[iv] = dt;
+          a.drf[iv] = dt;
         } else {
           a.d_rgbfeat[ig] = dt;
           dsum += dt;
@@ -389,109 +340,7 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
       if (!STATIC) a.d_dirfeat[(size_t)p * C + c] = dsum;
     }
     __syncthreads();
-    clk(TP_POOL1_BWD);
     if (!STATIC) return;
-
-    // ---- K5b: input MLP (ray_dir_fc) recompute + transpose ----
-    if constexpr (INMLP) {
-      float* dh = (float*)xw;                 // [PT][72] f32 over xw, xv
-      const int kin = net.l[RAYDIR0].k;
-      // d_reffeat | d_ptspe
-      for (int e = tid; e < PT * LDF; e += NT) dgf[e] = 0.f;
-      for (int e = tid; e < PT * 3; e += NT) {
-        const int r = e / 3, c = e % 3, p = p0 + r;
-        const float x = p < P ? a.pts[3 * (size_t)p + c] : 0.f;
-        r_pts[e] = x;
-        pe5(xin + r * LDX, 3, c, x);
-      }
-      for (int v = 0; v < V; ++v) {
-        for (int e = tid; e < PT * 6; e += NT) {
-          const int r = e / 6, c = e % 6, p = p0 + r;
-          pe5(xin + r * LDX + 33, 6, c,
-              p < P ? a.srcpl[((size_t)p * V + v) * 6 + c] : 0.f);
-        }
-        for (int e = tid; e < PT * (kin - 99); e += NT) {
-          const int r = e / (kin - 99), j = e % (kin - 99), p = p0 + r;
-          xin[r * LDX + 99 + j] = f2b(
-              j < 4 && p < P ? a.raydiff[((size_t)p * V + v) * 4 + j] : 0.f);
-        }
-        __syncthreads();
-        clk(TP_INMLP);
-        dense(xin, LDX, PT, a.W, a.B, net.l[RAYDIR0],
-              [&](int r, int c, float x) { ah[r * LDH + c] = f2b(elu(x)); });
-        __syncthreads();
-        clk(TP_INMLP);
-        // sf = ray_dir_fc(.); rf[C:] = sf * reffeat
-        dense(ah, LDH, PT, a.W, a.B, net.l[RAYDIR1],
-              [&](int r, int c, float x) {
-                const int p = p0 + r;
-                float dsf = 0.f;
-                if (c < C && p < P) {
-                  const float dc = a.drf[ws.vp(v, p) * CR + C + c];
-                  dsf = dc * a.reffeat[(size_t)(p / a.S) * C + c];
-                  dgf[r * LDF + c] += dc * x;
-                }
-                x0[r * LDG + c] = f2b(dsf);
-              });
-        __syncthreads();
-        clk(TP_INMLP);
-        grad_layer(x0, LDG, ah, LDH, PT, slab, wt, net.l[RAYDIR1]);
-        __syncthreads();
-        clk(TP_INMLP_DW);
-        dense(x0, LDG, PT, a.WT, a.Z, tr(net.l[RAYDIR1]),
-              [&](int r, int c, float x) {
-                ah[r * LDH + c] = f2b(x * elu_d(b2f(ah[r * LDH + c])));
-              });
-        __syncthreads();
-        clk(TP_INMLP);
-        grad_layer(ah, LDH, xin, LDX, PT, slab, wt, net.l[RAYDIR0]);
-        __syncthreads();
-        clk(TP_INMLP_DW);
-        dense(ah, LDH, PT, a.WT, a.Z, tr(net.l[RAYDIR0]),
-              [&](int r, int c, float x) {
-                if (c < 33) {
-                  int chn;
-                  const float d = pe_geo_bwd(r_pts + 3 * r, 3, 5, c, x, &chn);
-                  atomicAdd(&dgf[r * LDF + 48 + chn], d);
-                } else if (c < 103) {
-                  dh[r * 72 + c - 33] = x;
-                }
-              });
-        __syncthreads();
-        clk(TP_INMLP);
-        for (int e = tid; e < PT * 10; e += NT) {
-          const int r = e / 10, j = e % 10, p = p0 + r;
-          if (p >= P) continue;
-          const size_t pv = (size_t)p * V + v;
-          const float* d = dh + r * 72;
-          if (j < 6) {           // source Plücker coordinate j, through its PE
-            const float x = a.srcpl[pv * 6 + j];
-            float g = d[j];
-            for (int f = 0; f < 5; ++f) {
-              const float fr = (float)(1 << f);
-              float sn, cs;
-              sincosf(fr * x, &sn, &cs);
-              g += fr * (d[36 + 6 * f + j] * cs - d[6 + 6 * f + j] * sn);
-            }
-            a.d_srcpl[pv * 6 + j] = g;
-          } else {
-            const int k = j - 6;
-            a.d_raydiff[pv * 4 + k] =
-                d[66 + k] + a.dmisc[ws.vp(v, p) * 8 + 4 + k];
-          }
-        }
-        __syncthreads();
-        clk(TP_INMLP);
-      }
-      for (int e = tid; e < PT * C; e += NT) {
-        const int r = e / C, c = e % C, p = p0 + r;
-        if (p < P) a.d_reffeat[(size_t)p * C + c] = dgf[r * LDF + c];
-      }
-      for (int e = tid; e < PT * 3; e += NT) {
-        const int r = e / 3, p = p0 + r;
-        if (p < P) a.d_pts[3 * (size_t)p + e % 3] = dgf[r * LDF + 48 + e % 3];
-      }
-    }
 
     // ---- anti-alias weight chain -> d_dot (ray_diff[..., 3]) and d_s ----
     for (int r = tid; r < PT; r += NT) {
@@ -499,8 +348,7 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
       if (p >= P) continue;
       if (!a.anti_alias) {
         a.d_s[p] = 0.f;
-        if (!INMLP)
-          for (int v = 0; v < V; ++v) a.d_dot[ws.vp(v, p)] = 0.f;
+        for (int v = 0; v < V; ++v) a.d_dot[ws.vp(v, p)] = 0.f;
         continue;
       }
       float sw = 0.f, emin = sm_ed[r];
@@ -526,24 +374,20 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         // the min over views splits its cotangent evenly among ties
         const float ded =
             sm_dw[v * PT + r] + (ed == emin ? dem / cnt : 0.f);
-        if (INMLP)
-          a.d_raydiff[pv * 4 + 3] += ded * ed * s_abs;
-        else
-          a.d_dot[ws.vp(v, p)] = ded * ed * s_abs;
+        a.d_dot[ws.vp(v, p)] = ded * ed * s_abs;
         dsl += ded * ed * (a.raydiff[pv * 4 + 3] - 1.f);
       }
       a.d_s[p] = dsl * (s_val > 0.f ? 1.f : (s_val < 0.f ? -1.f : 0.f));
     }
     __syncthreads();
-    clk(TP_AA);
   }
 }
 
-// <false, false> is K4b, <true, true> K5b, <true, false> K5c.
-template <bool STATIC, bool INMLP>
+// <false> is K4b, <true> K5c.
+template <bool STATIC>
 __global__ void __launch_bounds__(NT, 1) trunk_bwd_kernel(TrunkBwdArgs a) {
   for (int blk = blockIdx.x; blk < (a.P + PT - 1) / PT; blk += gridDim.x)
-    trunk_bwd_block<STATIC, INMLP>(a, blk * PT, WsMap{a.P, 0});
+    trunk_bwd_block<STATIC>(a, blk * PT, WsMap{a.P, 0});
 }
 
 }  // namespace agg

@@ -14,7 +14,10 @@ Forward kernels (take the inputs of the matching module's ``forward``,
 Backward kernels (csrc/static_agg_bwd.cu, csrc/static_agg_bwd3.cu,
 csrc/dynamic_agg_bwd.cu), a ray-side and a trunk-side launch as in
 ``pallas_agg_bwd.py``: K4a/K4b (dynamic, :514/:733) and K5a/K5b (static,
-:879/:1109).  The dynamic backward's route "pallas" is one launch instead
+:879/:1109).  K5a/K5b are written for Hopper (wgmma on weight slabs staged
+in shared memory by bulk copies) and read the weights in the tiled layout
+of ``tile_weights``; the other kernels read the row-major pack and its
+transposes.  The dynamic backward's route "pallas" is one launch instead
 (csrc/dynamic_agg_bwd1.cu): K4s replaces ``pallas_agg_bwd.py:163
 dynamic_bwd_kernel``; its forward K3p (``_dynamic_kernel`` under
 ``_make_dyn_core_diff``, pallas_agg.py:925) is the K3 launch with no
@@ -60,7 +63,8 @@ N_LAYERS = 23
 _LN, _AA_S = 14, 22
 _MAX_VIEWS, _MAX_SAMPLES, _MAX_CH = 14, 128, 40   # csrc VMAX, SMAX, CMAX
 _MAX_CH_STATIC_BWD = 36          # 2·(3+C) <= 72 f32 columns in K5b/K5c
-_SCRATCH_LD = 128 + 128 + 272    # csrc/ray_bwd.cuh kScratchLd
+_SCRATCH_LD = 128 + 128 + 272    # csrc kScratchLd, kRayScratchLd
+_TRUNK_LDF = 144                 # csrc/trunk_bwd_sm90.cuh kTrunkLdf
 _N_SLABS = 16                    # csrc/agg_bwd_common.cuh kSlabs
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -68,8 +72,8 @@ _STATIC_ARGS = [_P] * 9 + [_I] * 2 + [_P] * 7 + [_I] * 4 + [_P]
 _DYNAMIC_ARGS = [_P] * 9 + [_F] + [_P] * 6 + [_I] * 4 + [_P]
 _DYN_RAY_ARGS = [_P] * 19 + [_I] * 7 + [_P]
 _DYN_TRUNK_ARGS = [_P] * 14 + [_I] * 7 + [_P]
-_ST_RAY_ARGS = [_P] * 16 + [_I] * 7 + [_P]
-_ST_TRUNK_ARGS = [_P] * 12 + [_I] * 2 + [_P] * 10 + [_I] * 7 + [_P]
+_ST_RAY_ARGS = [_P] * 15 + [_I] * 7 + [_P]
+_ST_TRUNK_ARGS = [_P] * 10 + [_I] * 2 + [_P] * 11 + [_I] * 7 + [_P]
 _ST_TRUNK3_ARGS = [_P] * 9 + [_I] * 2 + [_P] * 6 + [_I] * 7 + [_P]
 _ST_INMLP_ARGS = [_P] * 18 + [_I] * 7 + [_P]
 _DYN_SINGLE_ARGS = [_P] * 25 + [_I] * 7 + [_P]
@@ -166,6 +170,39 @@ def pack_weights(net: nn.Module, static: bool):
             torch.cat(wt_parts).to(torch.bfloat16).contiguous())
   net._kernel_pack = (key, packed)
   return packed
+
+
+def tile_weights(w: torch.Tensor, meta: np.ndarray) -> torch.Tensor:
+  """The packed weights laid out for the Hopper kernels K5a/K5b
+  (csrc/sm90_common.cuh): each padded layer [N, K] at its offset, cut into
+  blocks of at most 64 x 64 stored one after the other (row blocks, then
+  column blocks), each block's 8x8 core matrices row-major, each 8 rows of
+  8 consecutive k.  A block is one bulk copy and serves the forward and
+  the transposed products."""
+  out = torch.empty_like(w)
+  for w_off, _, kp, np_ in (tuple(int(x) for x in row) for row in meta):
+    if w_off < 0 or np_ == 0:       # LayerNorm / scalar / empty slots
+      continue
+    layer = w[w_off:w_off + np_ * kp].view(np_, kp)
+    parts = []
+    for n0 in range(0, np_, 64):
+      bn = min(64, np_ - n0)
+      for k0 in range(0, kp, 64):
+        bk = min(64, kp - k0)
+        blk = layer[n0:n0 + bn, k0:k0 + bk].reshape(bn // 8, 8, bk // 8, 8)
+        parts.append(blk.permute(0, 2, 1, 3).reshape(-1))
+    out[w_off:w_off + np_ * kp] = torch.cat(parts)
+  return out
+
+
+def pack_tiled(net: nn.Module, static: bool) -> torch.Tensor:
+  """``tile_weights`` of ``pack_weights``, cached with the pack."""
+  w, _, meta, _ = pack_weights(net, static)
+  cached = getattr(net, "_kernel_tiled", None)
+  if cached is None or cached[0] is not w:
+    cached = (w, tile_weights(w, meta))
+    net._kernel_tiled = cached
+  return cached[1]
 
 
 def unpack_grads(net: nn.Module, static: bool, meta: np.ndarray,
@@ -431,7 +468,7 @@ def dynamic_forward_primal(net, pts, dirfeat, dirpe, rgb_feat, mask):
 # --------------------------------------------------------------------------
 
 def _ray_common(packed, ws, cot, dev):
-  """The leading arguments of both ray-side backward entries."""
+  """The leading arguments of the dynamic ray-side backward entry."""
   w, b, meta, wt = packed
   return [w.data_ptr(), wt.data_ptr(), b.data_ptr(), _zeros(dev).data_ptr(),
           _meta_ptr(meta), ws["gf"].data_ptr(), ws["x"].data_ptr(),
@@ -441,36 +478,42 @@ def _ray_common(packed, ws, cot, dev):
 def static_backward_ray(net, ws, cot, slabs, nblk, w_total):
   """K5a: ray-side static backward.  Returns d_x [V,P,128] bf16 and
   d_misc [V,P,8] (d_vis | d_rgb | d_ray_diff); weight grads go to the
-  slabs."""
+  slabs.  Reads the tiled weights (``pack_tiled``)."""
   dev = cot.device
   r, s, v, c = ws["rgb_feat"].shape
-  packed = pack_weights(net, True)
+  _, b, meta, _ = pack_weights(net, True)
+  f32 = dict(dtype=torch.float32, device=dev)
   dx = torch.empty((v, r * s, 128), dtype=torch.bfloat16, device=dev)
-  dmisc = torch.zeros((v, r * s, 8), dtype=torch.float32, device=dev)
-  scratch = torch.empty((nblk, _MAX_SAMPLES, _SCRATCH_LD),
-                        dtype=torch.float32, device=dev)
+  dmisc = torch.zeros((v, r * s, 8), **f32)
+  scratch = torch.empty((nblk, _MAX_SAMPLES, _SCRATCH_LD), **f32)
+  stats = torch.empty((nblk, 12, _MAX_SAMPLES), **f32)
   fn = _fn("static_agg_bwd", "dyn_static_agg_bwd_ray", _ST_RAY_ARGS)
-  build.check(fn(*_ray_common(packed, ws, cot, dev),
-                 ws["ray_diff"].data_ptr(), ws["rgb_feat"].data_ptr(),
-                 dx.data_ptr(), dmisc.data_ptr(), scratch.data_ptr(),
-                 slabs.data_ptr(), slabs.shape[1], w_total, r, s, v, c, nblk,
-                 _stream(dev)), "static aggregator backward (ray)")
+  build.check(fn(pack_tiled(net, True).data_ptr(), b.data_ptr(),
+                 _meta_ptr(meta), ws["gf"].data_ptr(), ws["x"].data_ptr(),
+                 ws["vm"][0].data_ptr(), ws["vm"][1].data_ptr(),
+                 cot.data_ptr(), ws["ray_diff"].data_ptr(),
+                 ws["rgb_feat"].data_ptr(), dx.data_ptr(), dmisc.data_ptr(),
+                 scratch.data_ptr(), stats.data_ptr(), slabs.data_ptr(),
+                 slabs.shape[1], w_total, r, s, v, c, nblk, _stream(dev)),
+              "static aggregator backward (ray)")
   static_backward_ray.launches += 1
   return dx, dmisc
 
 
 def static_backward_trunk(net, ws, dx, dmisc, slabs, nblk, w_total):
   """K5b: trunk-side static backward, then the slab reduction.  Returns
-  the packed f32 gradients and the input cotangents."""
+  the packed f32 gradients and the input cotangents.  Reads the tiled
+  weights (``pack_tiled``)."""
   dev = dx.device
   r, s, v, c = ws["rgb_feat"].shape
   p = r * s
   if c > _MAX_CH_STATIC_BWD:
     raise ValueError(f"static backward kernel limit 3+C<={_MAX_CH_STATIC_BWD}"
                      f"; got {c}")
-  w, b, meta, wt = pack_weights(net, True)
+  _, b, meta, _ = pack_weights(net, True)
   f32 = dict(dtype=torch.float32, device=dev)
   drf = torch.empty((v, p, 2 * c), **f32)
+  dgf = torch.empty((nblk, 64, _TRUNK_LDF), **f32)
   out = dict(rgb_feat=torch.empty((p, v, c), **f32),
              ray_diff=torch.empty((p, v, 4), **f32),
              src_pl=torch.empty((p, v, 6), **f32),
@@ -478,14 +521,14 @@ def static_backward_trunk(net, ws, dx, dmisc, slabs, nblk, w_total):
              reffeat=torch.empty((p, c), **f32),
              s=torch.empty((p,), **f32))
   fn = _fn("static_agg_bwd", "dyn_static_agg_bwd_trunk", _ST_TRUNK_ARGS)
-  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
-                 _zeros(dev).data_ptr(), _meta_ptr(meta),
+  build.check(fn(pack_tiled(net, True).data_ptr(), b.data_ptr(),
+                 _meta_ptr(meta),
                  ws["rgb_feat"].data_ptr(), ws["mask"].data_ptr(),
                  ws["pts"].data_ptr(), ws["reffeat"].data_ptr(),
                  ws["ray_diff"].data_ptr(), ws["src_pl"].data_ptr(),
                  ws["rf"].data_ptr(), int(net.anti_alias_pooling),
                  int(net.mask_rgb), dx.data_ptr(), dmisc.data_ptr(),
-                 drf.data_ptr(), out["rgb_feat"].data_ptr(),
+                 drf.data_ptr(), dgf.data_ptr(), out["rgb_feat"].data_ptr(),
                  out["ray_diff"].data_ptr(), out["src_pl"].data_ptr(),
                  out["pts"].data_ptr(), out["reffeat"].data_ptr(),
                  out["s"].data_ptr(), slabs.data_ptr(), slabs.shape[1],

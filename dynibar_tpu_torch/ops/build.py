@@ -45,28 +45,27 @@ def _nvcc() -> str:
                      "machine with the CUDA toolkit")
 
 
-def _flags(name: str):
-  return NVCC_FLAGS + (PHASE_FLAGS if name in _PHASES else ())
-
-
 def use_phase_clocks(names: Iterable[str]) -> None:
-  """Load (and build) these libraries from their phase-clock build."""
+  """Load these libraries from their phase-clock build."""
   for name in names:
     _PHASES.add(name)
     _LIBS.pop(name, None)
 
 
-def library_path(name: str) -> Path:
-  digest = hashlib.sha256(" ".join(_flags(name)).encode())
+def library_path(name: str, phases: bool = False) -> Path:
+  flags = NVCC_FLAGS + (PHASE_FLAGS if phases else ())
+  digest = hashlib.sha256(" ".join(flags).encode())
   for src in sorted(CSRC.glob("*.cu*")):
     if src.suffix == ".cuh" or src.stem == name:
       digest.update(src.read_bytes())
-  tag = "-phases" if name in _PHASES else ""
+  tag = "-phases" if phases else ""
   return BUILD_DIR / f"{name}{tag}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
-  """Compile every missing library in parallel; return seconds per name.
+def build(names: Iterable[str] = KERNEL_SOURCES,
+          phases: bool = False) -> Dict[str, float]:
+  """Compile every missing library in parallel (their phase-clock builds
+  if `phases`); return seconds per name.
 
   The compiler's output (with ``-Xptxas -v``: registers, shared memory
   and spills per kernel) is kept beside each library as ``.log``."""
@@ -74,12 +73,13 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
   procs = {}
   t0 = time.perf_counter()
   for name in names:
-    out = library_path(name)
+    out = library_path(name, phases)
     if out.exists():
       continue
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
     log = open(out.with_suffix(".log"), "w")
-    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(PHASE_FLAGS if phases else ()), "-o",
+           str(tmp), str(CSRC / f"{name}.cu")]
     procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
                    tmp, out, log)
   seconds = {}
@@ -97,9 +97,10 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
 def load(name: str) -> ctypes.CDLL:
   """The loaded library of csrc/<name>.cu, built on first use."""
   if name not in _LIBS:
-    path = library_path(name)
+    phases = name in _PHASES
+    path = library_path(name, phases)
     if not path.exists():
-      build([name])
+      build([name], phases)
     _LIBS[name] = ctypes.CDLL(str(path))
   return _LIBS[name]
 

@@ -15,7 +15,8 @@ views, 48 frames, schedule_weights(epoch=2)) on the backward route
 --route: "pallas_split" (K5a + K5b, K4a + K4b), "pallas_split3" (static
 K5a + K5c + K5d) or "pallas" (dynamic K3p forward, K4s backward).  Prints the device time per kernel name (summed over the
 profiled iterations, divided by them), the wall time per iteration and
-the device's busy share of it.  With --phases the static backward's
+the device's busy share of it, and the peak device memory of the
+profiled iterations.  With --phases the static backward's
 library (K5a, K5b) loads from its phase-clock build (ops/build.py
 use_phase_clocks, csrc/phase_clock.cuh): after the profile, one more
 --iters steps run with the clocks zeroed before them, and each kernel's
@@ -52,16 +53,17 @@ from dynibar_tpu_torch.utils.device import (resolve_device,  # noqa: E402
                                             to_device)
 
 
-# phase names of csrc/phase_clock.cuh, the profiler's kernel name and the
-# first counter
+# phase names of csrc/phase_clock.cuh, the profiler's kernel name, the
+# first counter and the counter of thread 0's waits on weight slabs
 PHASES = {
     "K5a": (("A recompute", "B head fwd", "B head transposed",
              "B head dW", "B elementwise", "C attention", "C dW",
-             "D geometry + pooling-2", "D dW"), "ray_bwd_kernel<true>", 0),
+             "D geometry + pooling-2", "D dW"), "static_ray_bwd_kernel", 0,
+            15),
     "K5b": (("masks + pooling-1 fwd", "view fwd recompute",
              "view transposed", "view dW", "view elementwise",
              "pooling-1 bwd", "input MLP", "input MLP dW",
-             "anti-alias chain"), "trunk_bwd_kernel<true, true>", 16)}
+             "anti-alias chain"), "static_trunk_bwd_kernel", 16, 31)}
 PHASE_LIB = "static_agg_bwd"
 
 # --route -> (fused_st_bwd_impl, fused_bwd_impl)
@@ -142,6 +144,7 @@ def _profile(one, args, card: str, what: str) -> int:
   for _ in range(2):
     one()
   torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
   acts = [torch.profiler.ProfilerActivity.CPU,
           torch.profiler.ProfilerActivity.CUDA]
   with torch.profiler.profile(activities=acts) as prof:
@@ -161,15 +164,18 @@ def _profile(one, args, card: str, what: str) -> int:
                    ev.key))
   rows.sort(reverse=True)
   busy = sum(r[0] for r in rows)
+  peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
   if args.phases:
     _phases(one, args, card, rows)
   print(f"card: {card}")
   print(f"{what}: wall {wall * 1e3:.2f} ms, device busy "
-        f"{busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%)")
+        f"{busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), peak memory "
+        f"{peak_gib:.3f} GiB")
   for ms, n, name in rows[:25]:
     print(f"{ms:9.3f} ms  x{n:<4d} {name[:90]}")
   print(json.dumps({"what": what, "wall_ms": wall * 1e3,
-                    "device_busy_ms": busy, "card": card,
+                    "device_busy_ms": busy, "peak_gib": peak_gib,
+                    "card": card,
                     "top": [[name[:60], ms] for ms, _, name in rows[:10]]}))
   return 0
 
@@ -188,7 +194,7 @@ def _phases(one, args, card: str, rows) -> None:
   torch.cuda.synchronize()
   build.check(fn(buf, 1), "phase clocks")
   out = {}
-  for key, (names, kname, first) in PHASES.items():
+  for key, (names, kname, first, wait) in PHASES.items():
     cyc = list(buf)[first:first + len(names)]
     total = max(sum(cyc), 1)
     ms = sum(r[0] for r in rows if kname in r[2])
@@ -196,15 +202,19 @@ def _phases(one, args, card: str, rows) -> None:
           f"profile; {total} clock64 cycles over its blocks) [{card}]")
     for name, c in zip(names, cyc):
       print(f"  {name:28s} {100 * c / total:6.2f}%  {ms * c / total:8.3f} ms")
-    out[key] = dict(ms=ms, cycles=total,
+    for name, c in (("waiting on weight slabs", buf[wait]),
+                    ("the slabs' products", buf[wait - 1]),
+                    ("the products' epilogues", buf[wait - 2])):
+      print(f"  ({name}, thread 0, within the above: {100 * c / total:.2f}%,"
+            f" {ms * c / total:.3f} ms)")
+    out[key] = dict(ms=ms, cycles=total, slab_wait=buf[wait] / total,
+                    slab_mma=buf[wait - 1] / total,
+                    epilogue=buf[wait - 2] / total,
                     share={n: c / total for n, c in zip(names, cyc)})
   print(json.dumps({"phases": out, "card": card}))
   for phases in (False, True):
-    build._PHASES.discard(PHASE_LIB)
-    if phases:
-      build._PHASES.add(PHASE_LIB)
-    build.build([PHASE_LIB])
-    log = build.library_path(PHASE_LIB).with_suffix(".log")
+    build.build([PHASE_LIB], phases)
+    log = build.library_path(PHASE_LIB, phases).with_suffix(".log")
     if log.exists():
       print(f"nvcc resources ({log.name}):")
       for entry, props, regs in _ptxas(log.read_text()):

@@ -128,12 +128,21 @@ def _check_backward(dev, net, static, args, r, s, bwd="pallas_split"):
 
 
 @pytest.mark.parametrize("seed", WEIGHT_SEEDS)
-@pytest.mark.parametrize("r,s,v", [(6, 16, 4), (64, 16, 11), (6, 128, 11),
-                                   (6, 64, 14)])
-def test_static_backward_kernels(dev, r, s, v, seed):
+@pytest.mark.parametrize("r,s,v,anti_alias,mask_rgb", [
+    (6, 16, 4, True, True), (64, 16, 11, True, True),
+    (6, 128, 11, True, True), (6, 64, 14, True, True),
+    # K5a/K5b's edges: P not a multiple of 64 (80, 144 and 336 points),
+    # one view, 48 samples (a row tile under 64), 128 samples with 14
+    # views (both warpgroups on every weight slab), anti-alias pooling and
+    # the rgb mask off; rays 0 and 1 have no and one valid view
+    (5, 16, 1, True, True), (3, 48, 11, True, True),
+    (7, 48, 14, False, False), (3, 128, 14, True, False),
+    (5, 64, 11, False, True), (21, 16, 14, True, True)])
+def test_static_backward_kernels(dev, r, s, v, anti_alias, mask_rgb, seed):
   d = _inputs(dev, s, v, seed=7 * s + v, R=r)
   torch.manual_seed(seed)
-  net = StaticAggregator(F, s).to(dev)
+  net = StaticAggregator(F, s, anti_alias_pooling=anti_alias,
+                         mask_rgb=mask_rgb).to(dev)
   args = [d[k] for k in ("pts", "ref_pl", "src_pl", "rgb_feat", "ray_diff",
                          "mask")]
   _check_backward(dev, net, True, args, r, s)
