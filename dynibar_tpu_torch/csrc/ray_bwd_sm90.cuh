@@ -67,7 +67,7 @@ constexpr int kRayScratchLd = 128 + 128 + 272;
 constexpr size_t kSR1 = (size_t)SMAX * kRayLdg * 2;     // 69,632
 constexpr size_t kSR2 = (size_t)SMAX * (3 * 128 + LDG) * 2;   // 133,120
 constexpr size_t kRayRing = (size_t)kRayStages * kSlabBytes + kRingSmemBytes;
-// the ring (24,832), regions 1 and 2, then the f32 rows: 230,592 bytes
+// the ring (25,600), regions 1 and 2, then the f32 rows: 231,360 bytes
 constexpr size_t kStaticRayBwdSmem =
     kRayRing + kSR1 + kSR2 + (3 * SMAX + 256 + NW * VMAX) * 4;
 static_assert(kStaticRayBwdSmem <= 232448, "one K5a block fits an SM");

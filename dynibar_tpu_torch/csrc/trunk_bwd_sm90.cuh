@@ -72,8 +72,8 @@ constexpr int kTrunkStages = 5;
 constexpr size_t kTrunkRing =
     (size_t)kTrunkStages * kSlabBytes + kRingSmemBytes;
 
-// PT = 64 points: 216,320 + 1,024 V bytes (227,584 at V = 11, 230,656 at
-// 14), the ring's 41,216 included.  One block per SM.
+// PT = 64 points: 217,088 + 1,024 V bytes (228,352 at V = 11, 231,424 at
+// 14), the ring's 41,984 included.  One block per SM.
 constexpr size_t static_trunk_bwd_smem(int V) {
   return kTrunkRing +
          (size_t)PT * (kTrunkLdx + LDH + 5 * LDG + kTrunkLdt + LDS) * 2 +
