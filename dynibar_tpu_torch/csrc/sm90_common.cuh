@@ -277,16 +277,10 @@ struct OpGeom {
   __device__ OpGeom(const Lin& L, int trans)
       : wo(trans ? L.k : L.n), wr(trans ? L.n : L.k),
         ncb((wo + 63) >> 6), nkb((wr + 63) >> 6) {}
-  // Slab order: 64-row products hand the column blocks to the two
-  // warpgroups in turn, so a pair's slabs interleave (cb 2p, 2p+1 for
-  // each kb), an odd last block's follow in kb order; 128-row products
-  // (both warpgroups on every slab) go cb-major.
-  __device__ int index(int cb, int kb, bool both) const {
-    if (both) return cb * nkb + kb;
-    const int np = ncb >> 1;
-    return cb < 2 * np ? (cb >> 1) * 2 * nkb + kb * 2 + (cb & 1)
-                       : np * 2 * nkb + kb;
-  }
+  // Slab s of the op as (cb, kb).  64-row products hand the column
+  // blocks to the two warpgroups in turn, so a pair's slabs interleave
+  // (cb 2p, 2p+1 for each kb), an odd last block's follow in kb order;
+  // 128-row products (both warpgroups on every slab) go cb-major.
   __device__ void block(int s, bool both, int* cb, int* kb) const {
     const int np = ncb >> 1;
     if (both) {
@@ -405,68 +399,77 @@ struct WRing {
     const OpGeom geo(L, trans);
     const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
     const int wq = (threadIdx.x >> 5) & 3;
-    const int ncons = both ? 8 : 4;              // releasing warps
     const int row0 = both ? 64 * wg : 0;
     const uint32_t xrow = sm_u32(X + (size_t)(row0 + wq * 16 + (lane & 15)) *
                                          ldx + (lane >> 4) * 8);
-    for (int cb = both ? 0 : wg; cb < geo.ncb; cb += both ? 1 : 2) {
+    // Every warp waits on every slab in order and releases it, also the
+    // slabs of the other warpgroup's blocks (after the wait, without
+    // reading them): a parity wait tells only two consecutive fills of a
+    // stage apart, so a warpgroup that skipped slabs could pass on the fill
+    // before its own, or wait on one already refilled.
+    float d[32];
+    for (int j = 0; j < geo.ncb * geo.nkb; ++j) {
+      int cb, kb;
+      geo.block(j, both, &cb, &kb);
+      const int g = next + j, stage = g % STAGES;
+#ifdef AGG_PHASE_CLOCKS
+      const long long t0 = clock64();
+#endif
+      mbar_wait(&sm->full[stage], (uint32_t)((g / STAGES) & 1));
+#ifdef AGG_PHASE_CLOCKS
+      if (threadIdx.x == 0)
+        atomicAdd(&g_phase_cycles[wait_phase],
+                  (unsigned long long)(clock64() - t0));
+#endif
+      const bool mine = both || (cb & 1) == wg;
       const int bw = min(64, geo.wo - 64 * cb);
-      float d[32];
+      const int bk = min(64, geo.wr - 64 * kb);
+      if (mine && kb == 0) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) d[i] = 0.f;
-      for (int kb = 0; kb < geo.nkb; ++kb) {
-        const int bk = min(64, geo.wr - 64 * kb);
-        const int g = next + geo.index(cb, kb, both), stage = g % STAGES;
+        for (int i = 0; i < 32; ++i) d[i] = 0.f;
+      }
+      // forward: k8 stride 128 (leading), n8 stride 16 bk; transposed:
+      // n8 (reduction) stride 16 bw (leading), k8 stride 128
+      const uint32_t slab = sm_u32(buf + stage * kSlabBytes);
+      const uint32_t lbo = trans ? 16 * bw : 128, sbo = trans ? 128 : 16 * bk;
+      const uint32_t kst = trans ? 32 * bw : 256;
+      const uint32_t xa = xrow + kb * 128;
+      const int nks = bk >> 4;
 #ifdef AGG_PHASE_CLOCKS
-        const long long t0 = clock64();
+      const long long t1 = clock64();
 #endif
-        mbar_wait(&sm->full[stage], (uint32_t)((g / STAGES) & 1));
-#ifdef AGG_PHASE_CLOCKS
-        if (threadIdx.x == 0)
-          atomicAdd(&g_phase_cycles[wait_phase],
-                    (unsigned long long)(clock64() - t0));
-#endif
-        // forward: k8 stride 128 (leading), n8 stride 16 bk; transposed:
-        // n8 (reduction) stride 16 bw (leading), k8 stride 128
-        const uint32_t slab = sm_u32(buf + stage * kSlabBytes);
-        const uint32_t lbo = trans ? 16 * bw : 128, sbo = trans ? 128 : 16 * bk;
-        const uint32_t kst = trans ? 32 * bw : 256;
-        const uint32_t xa = xrow + kb * 128;
-        const int nks = bk >> 4;
-#ifdef AGG_PHASE_CLOCKS
-        const long long t1 = clock64();
-#endif
-        if (trans) {
-          switch (bw) {
-            case 64: wg_block<64, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
-            case 48: wg_block<48, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
-            case 32: wg_block<32, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
-            default: wg_block<16, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
-          }
-        } else {
-          switch (bw) {
-            case 64: wg_block<64, 0>(d, xa, slab, nks, lbo, sbo, kst); break;
-            case 48: wg_block<48, 0>(d, xa, slab, nks, lbo, sbo, kst); break;
-            case 32: wg_block<32, 0>(d, xa, slab, nks, lbo, sbo, kst); break;
-            default: wg_block<16, 0>(d, xa, slab, nks, lbo, sbo, kst); break;
-          }
+      if (mine && trans) {
+        switch (bw) {
+          case 64: wg_block<64, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
+          case 48: wg_block<48, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
+          case 32: wg_block<32, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
+          default: wg_block<16, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
         }
-#ifdef AGG_PHASE_CLOCKS
-        if (threadIdx.x == 0)
-          atomicAdd(&g_phase_cycles[wait_phase - 1],
-                    (unsigned long long)(clock64() - t1));
-#endif
-        __syncwarp();
-        if (lane == 0 && atomicAdd(&sm->rel[stage], 1) == ncons - 1) {
-          sm->rel[stage] = 0;
-          issue(g + STAGES);
+      } else if (mine) {
+        switch (bw) {
+          case 64: wg_block<64, 0>(d, xa, slab, nks, lbo, sbo, kst); break;
+          case 48: wg_block<48, 0>(d, xa, slab, nks, lbo, sbo, kst); break;
+          case 32: wg_block<32, 0>(d, xa, slab, nks, lbo, sbo, kst); break;
+          default: wg_block<16, 0>(d, xa, slab, nks, lbo, sbo, kst); break;
         }
       }
 #ifdef AGG_PHASE_CLOCKS
+      if (threadIdx.x == 0)
+        atomicAdd(&g_phase_cycles[wait_phase - 1],
+                  (unsigned long long)(clock64() - t1));
+#endif
+      __syncwarp();
+      if (lane == 0 && atomicAdd(&sm->rel[stage], 1) == 7) {   // 8 warps
+        sm->rel[stage] = 0;
+        issue(g + STAGES);
+      }
+      if (!mine || kb < geo.nkb - 1) continue;
+#ifdef AGG_PHASE_CLOCKS
       const long long t2 = clock64();
 #endif
+      // the block's epilogue; its biases first, so that no load waits
+      // behind a store
       const int r = row0 + wq * 16 + (lane >> 2);
-      // the block's biases first, so that no load waits behind a store
       float bias[16];
 #pragma unroll
       for (int h = 0; h < 8; ++h) {
