@@ -27,7 +27,8 @@
 // one row tile each.
 //
 // The ring: STAGES slab buffers of 8 KB, a full mbarrier per stage and a
-// release count (the warps that read the slab).  A segment (an op list
+// release count: all eight warps wait on every slab in order and release
+// it, also the slabs of the other warpgroup's blocks.  A segment (an op list
 // repeated `reps` times, e.g. one view's layer products over the views of
 // a block) is announced by begin(), which issues the first STAGES slabs.
 // The last warp to release a stage issues the copy of the slab STAGES
