@@ -26,16 +26,21 @@
 // warpgroups in turn; 128-row products give both warpgroups every slab,
 // one row tile each.
 //
-// The ring: STAGES slab buffers of 8 KB, a full mbarrier per stage and a
-// release count: all eight warps wait on every slab in order and release
-// it, also the slabs of the other warpgroup's blocks.  A segment (an op list
-// repeated `reps` times, e.g. one view's layer products over the views of
-// a block) is announced by begin(), which issues the first STAGES slabs.
-// The last warp to release a stage issues the copy of the slab STAGES
-// further on, so the consumers find their next slabs in flight while they
-// compute.  Every thread walks the same op list in the same order
-// (consume() traps on a mismatch).  In the phase-clock build, thread 0's
-// waits on slabs, products and epilogues add up in counters of their own.
+// The ring: STAGES slab buffers of 8 KB; per stage a full mbarrier, the
+// index of the slab last issued into it and a release count.  The warps
+// that multiply a slab (its owners: one warpgroup, or both over 128 rows)
+// wait for its index, then on the barrier's parity, and release it; the
+// last owner to release issues the copy of the slab STAGES further on, so
+// the owners find their next slabs in flight while they compute, and the
+// other warpgroup does not wait for them.  A parity wait alone tells only
+// two consecutive fills of a stage apart: the index wait makes it exact
+// (a slab is issued only after every earlier fill of its stage was waited
+// on and released).  A segment (an op list repeated `reps` times, e.g. one
+// view's layer products over the views of a block) is announced by
+// begin(), which issues the first STAGES slabs.  Every thread walks the
+// same op list in the same order (consume() traps on a mismatch).  In the
+// phase-clock build, thread 0's waits on slabs, products and epilogues add
+// up in counters of their own.
 #pragma once
 
 #include "agg_common.cuh"
@@ -82,13 +87,22 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   return ok != 0;
 }
 
-// Wait for the completion of the phase with this parity.  A wait that
-// never completes (a copy that was never issued) traps after ~2^30 polls,
-// so the launch fails with an error instead of hanging the card.
+// Wait for the completion of the phase with this parity.  A wait that has
+// not completed after 2^32 cycles of the SM's clock (about 2 s at 1.98 GHz;
+// a slab's copy takes microseconds) traps, so a copy that was never issued
+// fails the launch with an error instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t a = sm_u32(bar);
-  for (uint32_t n = 0; !mbar_try_wait(a, parity); ++n)
-    if (n == (1u << 30)) __trap();
+  const long long t0 = clock64();
+  while (!mbar_try_wait(a, parity))
+    if (clock64() - t0 > (1ll << 32)) __trap();
+}
+
+// Order this thread's earlier shared-memory accesses (those of the generic
+// proxy, and through the barriers before it the async proxy's reads of
+// completed wgmma) before the async proxy's later writes of a bulk copy.
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- bulk asynchronous copy, global -> shared, completing on `bar` ----
@@ -258,7 +272,7 @@ constexpr int kRingSlabs = 96;       // slabs in one segment repetition
 
 struct RingSmem {
   uint64_t full[kRingMaxStages];
-  int rel[kRingMaxStages];
+  int rel[kRingMaxStages], issued[kRingMaxStages];
   int op_layer[kRingOps], op_trans[kRingOps];
   int slab_src[kRingSlabs], slab_bytes[kRingSlabs];   // the copies, by slab
 };
@@ -328,17 +342,21 @@ struct WRing {
       for (int i = 0; i < STAGES; ++i) {
         mbar_init(&sm->full[i], 1);
         sm->rel[i] = 0;
+        sm->issued[i] = -1;
       }
       fence_mbar_init();
     }
   }
 
-  // Slab g (global index) into its stage, one bulk copy: one thread.
+  // Slab g (global index) into its stage, one bulk copy: one thread.  The
+  // index is published after the stage's reset release count.
   __device__ void issue(int g) {
     const int j = g - base;
     if (j >= total) return;
     const int k = j % per_rep;
     uint64_t* bar = &sm->full[g % STAGES];
+    __threadfence_block();
+    *(volatile int*)&sm->issued[g % STAGES] = g;
     mbar_expect_tx(bar, (uint32_t)sm->slab_bytes[k]);
     bulk_g2s(buf + (g % STAGES) * kSlabBytes, W + sm->slab_src[k],
              (uint32_t)sm->slab_bytes[k], bar);
@@ -379,6 +397,7 @@ struct WRing {
           sm->slab_bytes[k] = 2 * bn * bkk;
         }
       }
+      fence_proxy_async_smem();   // the last segment's reads, synced
       for (int i = 0; i < STAGES && i < total; ++i) issue(base + i);
     }
     __syncthreads();
@@ -403,29 +422,29 @@ struct WRing {
     const int row0 = both ? 64 * wg : 0;
     const uint32_t xrow = sm_u32(X + (size_t)(row0 + wq * 16 + (lane & 15)) *
                                          ldx + (lane >> 4) * 8);
-    // Every warp waits on every slab in order and releases it, also the
-    // slabs of the other warpgroup's blocks (after the wait, without
-    // reading them): a parity wait tells only two consecutive fills of a
-    // stage apart, so a warpgroup that skipped slabs could pass on the fill
-    // before its own, or wait on one already refilled.
+    // A warpgroup waits on and releases only the slabs it multiplies, in
+    // order (see the ring's note).
+    const int owners = both ? 8 : 4;
     float d[32];
     for (int j = 0; j < geo.ncb * geo.nkb; ++j) {
       int cb, kb;
       geo.block(j, both, &cb, &kb);
+      if (!both && (cb & 1) != wg) continue;
       const int g = next + j, stage = g % STAGES;
-#ifdef AGG_PHASE_CLOCKS
       const long long t0 = clock64();
-#endif
+      const volatile int* idx = &sm->issued[stage];
+      while (*idx != g)
+        if (clock64() - t0 > (1ll << 32)) __trap();
+      __threadfence_block();
       mbar_wait(&sm->full[stage], (uint32_t)((g / STAGES) & 1));
 #ifdef AGG_PHASE_CLOCKS
       if (threadIdx.x == 0)
         atomicAdd(&g_phase_cycles[wait_phase],
                   (unsigned long long)(clock64() - t0));
 #endif
-      const bool mine = both || (cb & 1) == wg;
       const int bw = min(64, geo.wo - 64 * cb);
       const int bk = min(64, geo.wr - 64 * kb);
-      if (mine && kb == 0) {
+      if (kb == 0) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) d[i] = 0.f;
       }
@@ -439,14 +458,14 @@ struct WRing {
 #ifdef AGG_PHASE_CLOCKS
       const long long t1 = clock64();
 #endif
-      if (mine && trans) {
+      if (trans) {
         switch (bw) {
           case 64: wg_block<64, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
           case 48: wg_block<48, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
           case 32: wg_block<32, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
           default: wg_block<16, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
         }
-      } else if (mine) {
+      } else {
         switch (bw) {
           case 64: wg_block<64, 0>(d, xa, slab, nks, lbo, sbo, kst); break;
           case 48: wg_block<48, 0>(d, xa, slab, nks, lbo, sbo, kst); break;
@@ -459,12 +478,21 @@ struct WRing {
         atomicAdd(&g_phase_cycles[wait_phase - 1],
                   (unsigned long long)(clock64() - t1));
 #endif
+      // Release: the warp's products have completed (wg_block waits for
+      // them), the fence makes its reads of the slab precede its count;
+      // the last owner acquires the others' counts and fences the async
+      // proxy before its copy overwrites the stage.
       __syncwarp();
-      if (lane == 0 && atomicAdd(&sm->rel[stage], 1) == 7) {   // 8 warps
-        sm->rel[stage] = 0;
-        issue(g + STAGES);
+      if (lane == 0) {
+        __threadfence_block();
+        if (atomicAdd(&sm->rel[stage], 1) == owners - 1) {
+          __threadfence_block();
+          sm->rel[stage] = 0;
+          fence_proxy_async_smem();
+          issue(g + STAGES);
+        }
       }
-      if (!mine || kb < geo.nkb - 1) continue;
+      if (kb < geo.nkb - 1) continue;
 #ifdef AGG_PHASE_CLOCKS
       const long long t2 = clock64();
 #endif

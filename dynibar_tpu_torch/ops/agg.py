@@ -46,6 +46,7 @@ cotangents: ``ref_feature_fc``
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -123,15 +124,15 @@ def kernel_params(net: nn.Module, static: bool) -> List[torch.Tensor]:
 
 
 def pack_weights(net: nn.Module, static: bool):
-  """Packed bf16 weights, f32 biases, the [N_LAYERS, 4] slot table (weight
-  offset, bias offset, padded in, padded out) and the bf16 transposes.
+  """Packed bf16 weights, f32 biases and the [N_LAYERS, 4] slot table
+  (weight offset, bias offset, padded in, padded out).
 
   Each weight is zero-padded to [ceil16(out), ceil16(in)] so the kernels'
   16×16×16 tensor-core tiles need no edge cases; offsets stay multiples of
-  256 elements, which keeps every tile 32-byte aligned.  The transposed
-  pack holds each padded W^T at the same offset: the backward's dX = W^T dY
-  runs on the forward's layer routine.  Cached on the module until a
-  parameter changes (an optimizer step bumps every ``_version``)."""
+  256 elements, which keeps every tile 32-byte aligned.  Cached on the
+  module until a parameter changes (an optimizer step bumps every
+  ``_version``); ``pack_transposed`` and ``pack_tiled`` are the same
+  weights in the other kernels' layouts."""
   params = list(net.parameters())
   key = (params[0].device, tuple(p._version for p in params),
          tuple(p.data_ptr() for p in params))
@@ -139,7 +140,7 @@ def pack_weights(net: nn.Module, static: bool):
   if cached is not None and cached[0] == key:
     return cached[1]
   dev = params[0].device
-  w_parts, wt_parts, b_parts = [], [], []
+  w_parts, b_parts = [], []
   meta = np.zeros((N_LAYERS, 4), np.int32)
   w_off = b_off = 0
   for i, slot in enumerate(_layer_list(net, static)):
@@ -160,16 +161,39 @@ def pack_weights(net: nn.Module, static: bool):
     if b is not None:
       bp[:n] = b.detach()
     w_parts.append(wp.reshape(-1))
-    wt_parts.append(wp.t().reshape(-1))
     b_parts.append(bp)
     meta[i] = (w_off, b_off, kp, np_)
     w_off += np_ * kp
     b_off += np_
   packed = (torch.cat(w_parts).to(torch.bfloat16).contiguous(),
-            torch.cat(b_parts).contiguous(), np.ascontiguousarray(meta),
-            torch.cat(wt_parts).to(torch.bfloat16).contiguous())
+            torch.cat(b_parts).contiguous(), np.ascontiguousarray(meta))
   net._kernel_pack = (key, packed)
   return packed
+
+
+@functools.lru_cache(maxsize=16)
+def _order(meta_bytes: bytes, total: int, tiled: bool,
+           device: torch.device) -> torch.Tensor:
+  """Source index of every element of a relaid pack (see ``tile_weights``
+  and ``pack_transposed``), built once per slot table and device."""
+  meta = np.frombuffer(meta_bytes, np.int32).reshape(-1, 4)
+  idx = np.arange(total)
+  for w_off, _, kp, np_ in (tuple(int(x) for x in row) for row in meta):
+    if w_off < 0 or np_ == 0:       # LayerNorm / scalar / empty slots
+      continue
+    layer = idx[w_off:w_off + np_ * kp].reshape(np_, kp)
+    if not tiled:
+      idx[w_off:w_off + np_ * kp] = layer.T.reshape(-1)
+      continue
+    parts = []
+    for n0 in range(0, np_, 64):
+      bn = min(64, np_ - n0)
+      for k0 in range(0, kp, 64):
+        bk = min(64, kp - k0)
+        blk = layer[n0:n0 + bn, k0:k0 + bk].reshape(bn // 8, 8, bk // 8, 8)
+        parts.append(blk.transpose(0, 2, 1, 3).reshape(-1))
+    idx[w_off:w_off + np_ * kp] = np.concatenate(parts)
+  return torch.from_numpy(idx).to(device)
 
 
 def tile_weights(w: torch.Tensor, meta: np.ndarray) -> torch.Tensor:
@@ -178,31 +202,30 @@ def tile_weights(w: torch.Tensor, meta: np.ndarray) -> torch.Tensor:
   blocks of at most 64 x 64 stored one after the other (row blocks, then
   column blocks), each block's 8x8 core matrices row-major, each 8 rows of
   8 consecutive k.  A block is one bulk copy and serves the forward and
-  the transposed products."""
-  out = torch.empty_like(w)
-  for w_off, _, kp, np_ in (tuple(int(x) for x in row) for row in meta):
-    if w_off < 0 or np_ == 0:       # LayerNorm / scalar / empty slots
-      continue
-    layer = w[w_off:w_off + np_ * kp].view(np_, kp)
-    parts = []
-    for n0 in range(0, np_, 64):
-      bn = min(64, np_ - n0)
-      for k0 in range(0, kp, 64):
-        bk = min(64, kp - k0)
-        blk = layer[n0:n0 + bn, k0:k0 + bk].reshape(bn // 8, 8, bk // 8, 8)
-        parts.append(blk.permute(0, 2, 1, 3).reshape(-1))
-    out[w_off:w_off + np_ * kp] = torch.cat(parts)
-  return out
+  the transposed products.  One gather."""
+  return w[_order(meta.tobytes(), w.numel(), True, w.device)]
+
+
+def _relaid(net: nn.Module, static: bool, attr: str, tiled: bool):
+  w, _, meta = pack_weights(net, static)
+  cached = getattr(net, attr, None)
+  if cached is None or cached[0] is not w:
+    cached = (w, w[_order(meta.tobytes(), w.numel(), tiled, w.device)])
+    setattr(net, attr, cached)
+  return cached[1]
 
 
 def pack_tiled(net: nn.Module, static: bool) -> torch.Tensor:
   """``tile_weights`` of ``pack_weights``, cached with the pack."""
-  w, _, meta, _ = pack_weights(net, static)
-  cached = getattr(net, "_kernel_tiled", None)
-  if cached is None or cached[0] is not w:
-    cached = (w, tile_weights(w, meta))
-    net._kernel_tiled = cached
-  return cached[1]
+  return _relaid(net, static, "_kernel_tiled", True)
+
+
+def pack_transposed(net: nn.Module, static: bool) -> torch.Tensor:
+  """The bf16 transposes of ``pack_weights``: each padded W^T at W's offset,
+  so the backward's dX = W^T dY runs on the forward's layer routine (all
+  backward kernels but K5a/K5b).  Built only when such a kernel runs,
+  cached with the pack."""
+  return _relaid(net, static, "_kernel_wt", False)
 
 
 def unpack_grads(net: nn.Module, static: bool, meta: np.ndarray,
@@ -310,7 +333,7 @@ def _static_launch(net, pts, reffeat, src_pl, rgb_feat, ray_diff, mask):
   r, s, v, c = rgb_feat.shape
   _check_dims(s, v, c)
   dev, p = rgb_feat.device, r * s
-  w, b, meta, _ = pack_weights(net, static=True)
+  w, b, meta = pack_weights(net, static=True)
   args = dict(pts=(pts.detach().float().contiguous(), (r, s, 3)),
               reffeat=(reffeat.detach().float().contiguous(), (r, c)),
               rgb_feat=(rgb_feat.detach().to(torch.bfloat16).contiguous(),
@@ -345,7 +368,7 @@ def _dynamic_launch(net, pts, dirfeat, dirpe, rgb_feat, mask):
   r, s, v, c = rgb_feat.shape
   _check_dims(s, v, c)
   dev, p = rgb_feat.device, r * s
-  w, b, meta, _ = pack_weights(net, static=False)
+  w, b, meta = pack_weights(net, static=False)
   posenc = net.pos_enc[:s].contiguous()                         # [S,128]
   args = dict(pts=(pts.detach().float().contiguous(), (r, s, 3)),
               dirfeat=(dirfeat.detach().float().contiguous(), (r, s, c)),
@@ -467,9 +490,10 @@ def dynamic_forward_primal(net, pts, dirfeat, dirpe, rgb_feat, mask):
 # backward launches (K4a/K4b, K5a/K5b, K5c/K5d)
 # --------------------------------------------------------------------------
 
-def _ray_common(packed, ws, cot, dev):
+def _ray_common(net, ws, cot, dev):
   """The leading arguments of the dynamic ray-side backward entry."""
-  w, b, meta, wt = packed
+  w, b, meta = pack_weights(net, False)
+  wt = pack_transposed(net, False)
   return [w.data_ptr(), wt.data_ptr(), b.data_ptr(), _zeros(dev).data_ptr(),
           _meta_ptr(meta), ws["gf"].data_ptr(), ws["x"].data_ptr(),
           ws["vm"][0].data_ptr(), ws["vm"][1].data_ptr(), cot.data_ptr()]
@@ -481,7 +505,7 @@ def static_backward_ray(net, ws, cot, slabs, nblk, w_total):
   slabs.  Reads the tiled weights (``pack_tiled``)."""
   dev = cot.device
   r, s, v, c = ws["rgb_feat"].shape
-  _, b, meta, _ = pack_weights(net, True)
+  _, b, meta = pack_weights(net, True)
   f32 = dict(dtype=torch.float32, device=dev)
   dx = torch.empty((v, r * s, 128), dtype=torch.bfloat16, device=dev)
   dmisc = torch.zeros((v, r * s, 8), **f32)
@@ -510,7 +534,7 @@ def static_backward_trunk(net, ws, dx, dmisc, slabs, nblk, w_total):
   if c > _MAX_CH_STATIC_BWD:
     raise ValueError(f"static backward kernel limit 3+C<={_MAX_CH_STATIC_BWD}"
                      f"; got {c}")
-  _, b, meta, _ = pack_weights(net, True)
+  _, b, meta = pack_weights(net, True)
   f32 = dict(dtype=torch.float32, device=dev)
   drf = torch.empty((v, p, 2 * c), **f32)
   dgf = torch.empty((nblk, 64, _TRUNK_LDF), **f32)
@@ -549,7 +573,8 @@ def static_backward_trunk3(net, ws, dx, dmisc, slabs, nblk, w_total):
   if c > _MAX_CH_STATIC_BWD:
     raise ValueError(f"static backward kernel limit 3+C<={_MAX_CH_STATIC_BWD}"
                      f"; got {c}")
-  w, b, meta, wt = pack_weights(net, True)
+  w, b, meta = pack_weights(net, True)
+  wt = pack_transposed(net, True)
   f32 = dict(dtype=torch.float32, device=dev)
   drf = torch.empty((v, p, 2 * c), **f32)
   d_dot = torch.empty((v, p), **f32)
@@ -576,7 +601,8 @@ def static_backward_inmlp(net, ws, drf, dmisc, d_dot, slabs, nblk, w_total):
   dev = drf.device
   r, s, v, c = ws["rgb_feat"].shape
   p = r * s
-  w, b, meta, wt = pack_weights(net, True)
+  w, b, meta = pack_weights(net, True)
+  wt = pack_transposed(net, True)
   f32 = dict(dtype=torch.float32, device=dev)
   out = dict(rgb_feat=torch.empty((p, v, c), **f32),
              ray_diff=torch.empty((p, v, 4), **f32),
@@ -627,7 +653,6 @@ def dynamic_backward_ray(net, ws, cot, slabs, nblk, w_total):
   0), d_pts [P,3] and d_dirpe [R,27]."""
   dev = cot.device
   r, s, v, c = ws["rgb_feat"].shape
-  packed = pack_weights(net, False)
   f32 = dict(dtype=torch.float32, device=dev)
   dx = torch.empty((v, r * s, 128), dtype=torch.bfloat16, device=dev)
   dmisc = torch.zeros((v, r * s, 8), **f32)
@@ -635,7 +660,7 @@ def dynamic_backward_ray(net, ws, cot, slabs, nblk, w_total):
   d_dirpe = torch.empty((r, 27), **f32)
   scratch = torch.empty((nblk, _MAX_SAMPLES, _SCRATCH_LD), **f32)
   fn = _fn("dynamic_agg_bwd", "dyn_dynamic_agg_bwd_ray", _DYN_RAY_ARGS)
-  build.check(fn(*_ray_common(packed, ws, cot, dev),
+  build.check(fn(*_ray_common(net, ws, cot, dev),
                  ws["posenc"].data_ptr(), ws["pts"].data_ptr(),
                  ws["dirpe"].data_ptr(), dx.data_ptr(), dmisc.data_ptr(),
                  d_pts.data_ptr(), d_dirpe.data_ptr(), scratch.data_ptr(),
@@ -651,7 +676,8 @@ def dynamic_backward_trunk(net, ws, dx, dmisc, slabs, nblk, w_total):
   dev = dx.device
   r, s, v, c = ws["rgb_feat"].shape
   p = r * s
-  w, b, meta, wt = pack_weights(net, False)
+  w, b, meta = pack_weights(net, False)
+  wt = pack_transposed(net, False)
   f32 = dict(dtype=torch.float32, device=dev)
   drf = torch.empty((v, p, c), **f32)
   d_rgbfeat = torch.empty((p, v, c), **f32)
@@ -678,7 +704,8 @@ def dynamic_backward_single(net, ins, cot):
   r, s, v, c = ins["rgb_feat"].shape
   p = r * s
   packed = pack_weights(net, False)
-  w, b, meta, wt = packed
+  w, b, meta = packed
+  wt = pack_transposed(net, False)
   slabs, nblk, w_total = _slabs(dev, packed)
   f32 = dict(dtype=torch.float32, device=dev)
   bf = dict(dtype=torch.bfloat16, device=dev)
@@ -743,7 +770,7 @@ class _StaticAggFn(torch.autograd.Function):
     r, s, v, c = ws["rgb_feat"].shape
     grads, d = static_backward(net, ws, d_out.float().contiguous(), ctx.bwd)
     del ws
-    w, _, meta, _ = pack_weights(net, True)
+    w, _, meta = pack_weights(net, True)
     d_s = d["s"].sum() if net.anti_alias_pooling else None
     dt = ctx.dtypes
     return (None, None, d["pts"].view(r, s, 3).to(dt[0]),
@@ -810,7 +837,7 @@ class _DynamicAggSingleFn(torch.autograd.Function):
     grads, d_pts, d_dirpe, d_rgbfeat, d_dirfeat = dynamic_backward_single(
         net, ins, d_out.float().contiguous())
     del ins
-    w, _, meta, _ = pack_weights(net, False)
+    w, _, meta = pack_weights(net, False)
     dt = ctx.dtypes
     return (None, d_pts.view(r, s, 3).to(dt[0]),
             d_dirfeat.view(r, s, c).to(dt[1]), d_dirpe.to(dt[2]),

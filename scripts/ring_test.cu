@@ -1,8 +1,11 @@
 // Check of csrc/sm90_common.cuh on the card: the weight ring and its wgmma
 // products (forward and transposed, 48 / 64 / 80 / 128 rows, 3 and 4
 // stages, three repetitions of a six-product segment) against a host
-// reference.  Prints one line per configuration; exit code 0 when all
-// agree.  Needs an sm_90a card and nvcc:
+// reference.  Each configuration runs twice: one block with a block
+// barrier after every product, and 264 blocks with none, where one
+// warpgroup sleeps before every other product so that the warpgroups
+// drift apart inside the segment (the ring alone keeps them in order).
+// Prints one line per configuration; exit code 0 when all agree.  Needs an sm_90a card and nvcc:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O1 \
 //       -o build/ring_test scripts/ring_test.cu && build/ring_test
@@ -22,7 +25,7 @@ struct TArgs {
   const bf16* X[NL];
   const bf16* D[NL];
   float* out;
-  int rows, reps;
+  int rows, reps, sync;
 };
 __host__ __device__ constexpr int ldx_of(int l) {
   return l == 0 ? 88 : l == 1 ? 280 : 72;
@@ -61,10 +64,12 @@ __global__ void __launch_bounds__(256, 1) kern(TArgs a) {
     for (int o = 0; o < OPS; ++o) {
       const int l = ops[o].layer, t = ops[o].trans;
       float* out = a.out + ((size_t)rep * OPS + o) * 128 * 288;
+      if (!a.sync && (threadIdx.x >> 7) == ((rep * OPS + o) & 1))
+        __nanosleep(2000 + 500 * (blockIdx.x & 7));
       r.consume(l, t, t ? ds + doff(l) : xs + xoff(l),
                 t ? ldd_of(l) : ldx_of(l), a.rows, t ? nullptr : a.B,
                 [&](int rr, int c, float x) { out[rr * 288 + c] = x; });
-      __syncthreads();
+      if (a.sync) __syncthreads();
     }
 }
 
@@ -130,22 +135,25 @@ int main() {
   size_t outn = (size_t)reps * OPS * 128 * 288;
   cudaMalloc(&a.out, outn * 4);
   int bad_total = 0;
-  for (int stages : {3, 4}) for (int rows : {64, 48, 128, 80}) {
-    a.rows = rows; a.reps = reps;
+  for (int sync : {1, 0}) for (int stages : {3, 4})
+  for (int rows : {64, 48, 128, 80}) {
+    // every block computes the same products and writes the same values
+    const int blocks = sync ? 1 : 264;
+    a.rows = rows; a.reps = reps; a.sync = sync;
     cudaMemset(a.out, 0, outn * 4);
     size_t sm = stages * kSlabBytes + kRingSmemBytes + (XTOT + DTOT) * 2;
     cudaError_t e;
     if (stages == 3) {
       cudaFuncSetAttribute(kern<3>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
-      kern<3><<<1, 256, sm>>>(a);
+      kern<3><<<blocks, 256, sm>>>(a);
     }
     else {
       cudaFuncSetAttribute(kern<4>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
-      kern<4><<<1, 256, sm>>>(a);
+      kern<4><<<blocks, 256, sm>>>(a);
     }
     e = cudaGetLastError();
     if (e == cudaSuccess) e = cudaDeviceSynchronize();
-    if (e != cudaSuccess) { printf("ring_test: CUDA error %s (stages %d rows %d)\n", cudaGetErrorString(e), stages, rows); return 1; }
+    if (e != cudaSuccess) { printf("ring_test: CUDA error %s (sync %d stages %d rows %d)\n", cudaGetErrorString(e), sync, stages, rows); return 1; }
     std::vector<float> out(outn);
       cudaMemcpy(out.data(), a.out, outn * 4, cudaMemcpyDeviceToHost);
     double maxerr[OPS] = {0};
@@ -169,7 +177,8 @@ int main() {
     int bad = 0;
     for (int o = 0; o < OPS; ++o) bad += maxerr[o] > 1e-2;
     bad_total += bad;
-    printf("ring_test stages %d rows %3d: max abs err per op", stages, rows);
+    printf("ring_test %s stages %d rows %3d: max abs err per op",
+           sync ? "synced " : "drifting", stages, rows);
     for (int o = 0; o < OPS; ++o) printf(" %.3g", maxerr[o]);
     printf("%s\n", bad ? "  MISMATCH" : "  ok");
   }

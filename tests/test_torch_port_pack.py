@@ -40,8 +40,10 @@ def _index(w_off: int, kp: int, np_: int, n: int, k: int) -> int:
 @pytest.mark.parametrize("seed", [0, 1])
 def test_tiled_weights_round_trip(static, anti_alias, seed):
   net = _net(static, anti_alias, seed)
-  w, _, meta, wt = agg.pack_weights(net, static)
+  w, _, meta = agg.pack_weights(net, static)
+  wt = agg.pack_transposed(net, static)
   tiled = agg.tile_weights(w, meta)
+  assert torch.equal(agg.pack_tiled(net, static), tiled)
   assert tiled.dtype == torch.bfloat16 and tiled.shape == w.shape
   for i, slot in enumerate(agg._layer_list(net, static)):
     if slot is None or isinstance(slot[0], str):
@@ -58,12 +60,14 @@ def test_tiled_weights_round_trip(static, anti_alias, seed):
         range(w_off, w_off + np_ * kp))
     # the transposed pack the other kernels read holds the same values
     assert torch.equal(wt[w_off:w_off + np_ * kp].view(kp, np_).t(), back)
-  # a second call returns the cached tiles until a parameter changes
+  # a second call returns the cached layouts until a parameter changes
   assert agg.pack_tiled(net, static) is agg.pack_tiled(net, static)
-  first = agg.pack_tiled(net, static)
+  assert agg.pack_transposed(net, static) is agg.pack_transposed(net, static)
+  first = agg.pack_tiled(net, static), agg.pack_transposed(net, static)
   with torch.no_grad():
     next(net.parameters()).add_(1.0)
-  assert agg.pack_tiled(net, static) is not first
+  assert agg.pack_tiled(net, static) is not first[0]
+  assert agg.pack_transposed(net, static) is not first[1]
 
 
 @pytest.mark.parametrize("static,anti_alias",
@@ -75,7 +79,7 @@ def test_unpack_grads_maps_the_slab_onto_each_parameter(static, anti_alias):
            if static else ("pts", "rgb_feat", "ray_dir", "mask", "time"))
   cot = torch.randn(2, 16, 4, generator=torch.Generator().manual_seed(5))
   (net(*[d[k] for k in names]) * cot).sum().backward()
-  w, b, meta, _ = agg.pack_weights(net, static)
+  w, b, meta = agg.pack_weights(net, static)
   w_total = w.numel()
   slab = torch.full((w_total + b.numel(),), float("nan"))
   params = agg.kernel_params(net, static)
