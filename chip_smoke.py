@@ -24,7 +24,9 @@ is non-zero and the last line below is never printed):
      backward K4s at the same bars, K4s's gradients within a tenth of
      that bar of K4a + K4b's on the same inputs and cotangent (largest
      relative difference printed per tensor, and the split's own
-     run-to-run difference where it is largest), each launch timed;
+     run-to-run difference where it is largest), each launch timed; and
+     route "pallas" at S = 48 (the V = 7 inputs' first 48 samples: K4s
+     masks a ray's last trunk block) at the same bars;
   3. render one 1024-ray chunk (64+64 samples, 7+11 views, 288×512
      sources, bf16) with launch counters zeroed just before and read just
      after, compare its coarse and fine rgb with the plain path, and time
@@ -93,12 +95,12 @@ RAY_SIDE_LAYERS = ("geometry_fc", "ray_attention", "out_geometry_fc",
 TRAIN_SOURCES = {
     "K2r": "dynibar_tpu_torch/csrc/static_agg.cu",
     "K3r": "dynibar_tpu_torch/csrc/dynamic_agg.cu",
-    "K5a": "dynibar_tpu_torch/csrc/static_agg_bwd.cu",
-    "K5b": "dynibar_tpu_torch/csrc/static_agg_bwd.cu",
+    "K5a": "dynibar_tpu_torch/csrc/ray_bwd_sm90.cuh",
+    "K5b": "dynibar_tpu_torch/csrc/trunk_bwd_sm90.cuh",
     "K5c": "dynibar_tpu_torch/csrc/static_agg_bwd3.cu",
     "K5d": "dynibar_tpu_torch/csrc/static_agg_bwd3.cu",
-    "K4a": "dynibar_tpu_torch/csrc/dynamic_agg_bwd.cu",
-    "K4b": "dynibar_tpu_torch/csrc/dynamic_agg_bwd.cu",
+    "K4a": "dynibar_tpu_torch/csrc/ray_bwd_sm90.cuh",
+    "K4b": "dynibar_tpu_torch/csrc/trunk_bwd.cuh",
     "K3p": "dynibar_tpu_torch/csrc/dynamic_agg.cu",
     "K4s": "dynibar_tpu_torch/csrc/dynamic_agg_bwd1.cu"}
 REPLACES = {
@@ -1035,7 +1037,15 @@ def main() -> int:
       res = _check_single_kernels(card, label, net, args, cot)
       if label == "dynamic V=7":
         single_ff = res
-  del ins_t, st_args, dy_args, dy6_args, args, res
+  # route "pallas" at a sample count that is not a multiple of 64
+  args48 = [a if a.dim() == 2 else a[:, :48].contiguous() for a in dy_args]
+  cot48 = torch.randn(n_rand, 48, 4, generator=g_cot, device=dev)
+  k3p_err, _, vs_split, _ = _single_correctness(
+      "dynamic V=7 S=48", model.net_fine_dy, args48, cot48)
+  print(f"dynamic V=7 S=48: K3p max abs err {k3p_err:.3g}; K4s within its "
+        f"bars; largest relative difference from K4a+K4b "
+        f"{max(vs_split.values()):.3g} [{card}]", flush=True)
+  del ins_t, st_args, dy_args, dy6_args, args, res, args48, cot48
   torch.cuda.empty_cache()
 
   # ---- 3: one chunk through the main path ---------------------------------

@@ -14,29 +14,41 @@
 // forward's matmul flops per point (trunk recompute, dX, dW), far above the
 // card's ~295 flop/byte ridge.
 //
-// Design: ray_bwd.cuh and trunk_bwd.cuh (bf16 mma.sync, f32 accumulation
-// and reductions, persistent blocks with private weight-gradient slabs
-// summed by reduce_slabs).  Simple and correct first: no wgmma, no TMA.
+// Design: K4a is ray_bwd_sm90.cuh (K5a's body, with STATIC false), on
+// sm90_common.cuh: every layer product on wgmma from weight slabs that bulk
+// copies stage in shared memory from the tiled pack (ops/agg.py
+// pack_tiled), the attention on mma.sync (attn_mma.cuh).  K4b is
+// trunk_bwd.cuh (bf16 mma.sync with the weights and their transposes read
+// from L2, ops/agg.py pack_transposed): its Hopper design on the weight
+// ring was not faster at the FF step's shape (PERF.md).  Both add weight
+// gradients on mma.sync into per-block slabs summed by reduce_slabs.
 
-#include "ray_bwd.cuh"
+#include "ray_bwd_sm90.cuh"
 #include "trunk_bwd.cuh"
+
+namespace agg {
+
+__global__ void __launch_bounds__(NT, 1)
+    dynamic_ray_bwd_kernel(RayBwd90Args a) {
+  ray_bwd90_rays<false>(a);
+}
+
+}  // namespace agg
 
 using namespace agg;
 
 extern "C" int dyn_dynamic_agg_bwd_ray(
-    const void* W, const void* WT, const void* B, const void* Z,
-    const void* meta, const void* gf, const void* ws_x, const void* ws_vis,
-    const void* ws_m, const void* cot, const void* posenc, const void* pts,
-    const void* dirpe, void* dx, void* dmisc, void* d_pts, void* d_dirpe,
-    void* scratch, void* slabs, int slab_len, int w_total, int R, int S,
-    int V, int C, int nblocks, void* stream) {
+    const void* Wt, const void* B, const void* meta, const void* gf,
+    const void* ws_x, const void* ws_vis, const void* ws_m, const void* cot,
+    const void* posenc, const void* pts, const void* dirpe, void* dx,
+    void* dmisc, void* d_pts, void* d_dirpe, void* scratch, void* stats,
+    void* slabs, int slab_len, int w_total, int R, int S, int V, int C,
+    int nblocks, void* stream) {
   if (V > VMAX || S > SMAX || C > CMAX || V < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
-  RayBwdArgs a{};
-  a.W = (const bf16*)W;
-  a.WT = (const bf16*)WT;
+  RayBwd90Args a{};
+  a.Wt = (const bf16*)Wt;
   a.B = (const float*)B;
-  a.Z = (const float*)Z;
   a.net = load_net((const int*)meta);
   a.gf = (const float*)gf;
   a.ws_x = (const bf16*)ws_x;
@@ -56,11 +68,12 @@ extern "C" int dyn_dynamic_agg_bwd_ray(
   a.d_pts = (float*)d_pts;
   a.d_dirpe = (float*)d_dirpe;
   a.scratch = (float*)scratch;
+  a.stats = (float*)stats;
   a.slabs = (float*)slabs;
   a.slab_len = slab_len;
   a.w_total = w_total;
-  return launch_persistent(ray_bwd_kernel, kRayBwdSmem, a, R, nblocks,
-                           (cudaStream_t)stream);
+  return launch_persistent(dynamic_ray_bwd_kernel, kDynRayBwdSmem, a, R,
+                           nblocks, (cudaStream_t)stream);
 }
 
 extern "C" int dyn_dynamic_agg_bwd_trunk(
@@ -107,10 +120,9 @@ extern "C" int dyn_agg_reduce(const void* slabs, int nslab, int len,
 // The kernels' footprints at V views and the blocks an SM holds:
 // out = {ray bytes, ray blocks, trunk bytes, trunk blocks}.
 extern "C" int dyn_occupancy(int V, int* out) {
-  out[0] = (int)kRayBwdSmem;
-  out[1] = blocks_per_sm(ray_bwd_kernel, kRayBwdSmem);
+  out[0] = (int)kDynRayBwdSmem;
+  out[1] = blocks_per_sm(dynamic_ray_bwd_kernel, kDynRayBwdSmem);
   out[2] = (int)trunk_bwd_smem(V);
-  out[3] = blocks_per_sm(trunk_bwd_kernel<false>,
-                         trunk_bwd_smem(V));
+  out[3] = blocks_per_sm(trunk_bwd_kernel<false>, trunk_bwd_smem(V));
   return (int)cudaGetLastError();
 }

@@ -17,16 +17,21 @@
 // flop/byte ridge.
 //
 // Design: persistent blocks, one ray at a time per block, three phases
-// that are the split route's device code (agg_common.cuh trunk_block,
-// ray_bwd.cuh ray_bwd_ray, trunk_bwd.cuh trunk_bwd_block) run back to back
-// with a block barrier between them.  The recomputed x [V, S, 128] bf16
-// (163,840 B at V = 10, S = 64) does not fit beside the ray phase's shared
-// memory, so the phases hand one ray's workspaces (x, vis, mask, the
-// geometry feature, d_x, d_misc, d_rf) over in a per-block global scratch
+// that are device code of the split route (agg_common.cuh trunk_block,
+// K3's; ray_bwd.cuh ray_bwd_ray, K4a's before its Hopper design, with the
+// attention K4a runs, attn_mma.cuh; trunk_bwd.cuh trunk_bwd_block, K4b's)
+// run back to back with a block barrier between them.  The recomputed x
+// [V, S, 128] bf16 (163,840 B at V = 10, S = 64) does not fit beside the
+// ray phase's shared memory, so the phases hand one ray's workspaces (x,
+// vis, mask, the geometry feature, d_x, d_misc, d_rf) over in a per-block
+// global scratch
 // the wrapper allocates: the split's hand-off inside one launch, at
 // nblocks rays' worth of memory instead of every ray's.  The phases share
 // one dynamic shared-memory buffer sized to the largest of them.  A ray of
-// S = 128 samples is two 64-point trunk blocks.  Simple and correct first:
+// S = 128 samples is two 64-point trunk blocks; at any other S its last
+// trunk block is masked at the ray's end (the trunk phases' point limit is
+// the ray's last point), so the samples are never padded, which would
+// change the ray's attention.  Simple and correct first:
 // one block per SM, no overlap between the phases.
 
 #include "ray_bwd.cuh"
@@ -103,6 +108,7 @@ __global__ void __launch_bounds__(NT, 1)
   for (int ray = blockIdx.x; ray < a.R; ray += gridDim.x) {
     const int first = ray * S;
     const WsMap ws{S, first};
+    f.P = t.P = first + S;           // the ray's last trunk block is masked
     for (int p0 = first; p0 < first + S; p0 += PT) {
       phase_trunk(f, p0, ws);
       __syncthreads();
@@ -127,8 +133,7 @@ extern "C" int dyn_dynamic_agg_bwd_single(
     void* d_pts, void* d_dirpe, void* d_rgbfeat, void* d_dirfeat,
     void* slabs, int slab_len, int w_total, int R, int S, int V, int C,
     int nblocks, void* stream) {
-  if (V > VMAX || S > SMAX || C > CMAX || C > CRMAX || V < 1 || S < PT ||
-      S % PT != 0)
+  if (V > VMAX || S > SMAX || C > CMAX || C > CRMAX || V < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
   SingleBwdArgs a{};
   a.R = R;

@@ -14,7 +14,10 @@ namespace agg {
 
 constexpr int kPhases = 32;
 
-// The two kernels of one library count into separate ranges.
+// The two kernels of one library count into separate ranges: the ray
+// side's RayPhase, the trunk side's TrunkPhase (K5a / K5b in
+// static_agg_bwd, K4a / K4b in dynamic_agg_bwd, which have no input MLP
+// or anti-alias chain).
 // K5b, the static trunk backward: masks, pooling-1 weights and the pooled
 // columns; per view: forward recompute, transposed products, weight
 // gradients (dW products and their flush), elementwise; pooling-1

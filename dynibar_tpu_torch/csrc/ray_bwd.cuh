@@ -1,8 +1,8 @@
-// Ray-side dynamic-aggregator backward (K4a, and the ray phase of K4s):
-// pooling-2 -> geometry_fc -> 4-head ray transformer -> heads, recomputed
-// from the forward's residuals and transposed, one ray (S <= 128 samples)
-// per block, persistent blocks over the rays.  (The static K5a, in these
-// phases, is ray_bwd_sm90.cuh.)
+// Ray-side dynamic-aggregator backward, the ray phase of K4s: pooling-2 ->
+// geometry_fc -> 4-head ray transformer -> heads, recomputed from the
+// forward's residuals and transposed, one ray (S <= 128 samples) at a
+// time.  (K4a and the static K5a, in these phases, are ray_bwd_sm90.cuh;
+// this body was K4a's before it.)
 //
 // Math of dynibar_tpu/ops/pallas_agg_bwd.py:514 dynamic_bwd_ray_kernel;
 // layout of the forward's ray_kernel
@@ -12,17 +12,21 @@
 //   B. the heads in 64-row chunks, forward then transpose; the layer-norm
 //      backward of each chunk gives d_o3;
 //   C. attention backward: probabilities recomputed from q/k and the row
-//      statistics, in f32, one thread per (query, head) for d_q and one per
-//      (key, head) for d_k/d_v.  A query with <= 1 valid view had all its
-//      logits replaced by -1e9, so it attends uniformly and its logit
-//      cotangents are dropped (pallas_agg_bwd.py:28-31);
+//      statistics, on tensor cores (attn_mma.cuh, the attention K4a and
+//      K5a run).  A query with <= 1 valid view had all its logits replaced
+//      by -1e9, so it attends uniformly and its logit cotangents are
+//      dropped (pallas_agg_bwd.py:28-31);
 //   D. geometry_fc backward from the recomputed pooling-2 input, then the
 //      pooling-2 backward per view: d_mean_eff = d_mean - 2 d_var s2,
 //      d_x (bf16) and d_vis (f32).
-// Weight gradients go to the block's slab (agg_bwd_common.cuh).
+// Weight gradients go to the block's slab (agg_bwd_common.cuh).  In the
+// phase-clock build thread 0 adds each phase's cycles up (RayPhase,
+// phase_clock.cuh).
 #pragma once
 
 #include "agg_bwd_common.cuh"
+#include "attn_mma.cuh"
+#include "phase_clock.cuh"
 
 namespace agg {
 
@@ -70,110 +74,6 @@ static_assert((size_t)SMAX * LDA * 2 <= kReg1 &&
                   (size_t)SMAX * (3 * 128 + LDG) * 2 <= kReg2,
               "geometry_fc backward and q/k/v/o fit");
 
-// One head's 32 channels of a q/k/v/o row (64-byte aligned in shared
-// memory), read as four 16-byte words.
-__device__ __forceinline__ void load32(float (&x)[32], const bf16* p) {
-  const uint4* w = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint4 u = w[i];
-    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(b[j]);
-      x[8 * i + 2 * j] = f.x;
-      x[8 * i + 2 * j + 1] = f.y;
-    }
-  }
-}
-
-__device__ __forceinline__ float dot32(const float (&a)[32], const bf16* p) {
-  const uint4* w = reinterpret_cast<const uint4*>(p);
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint4 u = w[i];
-    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(b[j]);
-      s += a[8 * i + 2 * j] * f.x + a[8 * i + 2 * j + 1] * f.y;
-    }
-  }
-  return s;
-}
-
-__device__ __forceinline__ void axpy32(float (&acc)[32], float c,
-                                       const bf16* p) {
-  const uint4* w = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint4 u = w[i];
-    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(b[j]);
-      acc[8 * i + 2 * j] += c * f.x;
-      acc[8 * i + 2 * j + 1] += c * f.y;
-    }
-  }
-}
-
-__device__ __forceinline__ void store32(bf16* p, const float (&x)[32],
-                                        float scale) {
-  uint4* w = reinterpret_cast<uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint4 u;
-    __nv_bfloat162* b = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = __floats2bfloat162_rn(x[8 * i + 2 * j] * scale,
-                                   x[8 * i + 2 * j + 1] * scale);
-    w[i] = u;
-  }
-}
-
-// Softmax attention of every (query, head) over the ray's own samples, as
-// the forward; row statistics (max, sum) kept for the backward if asked.
-__device__ void attn_fwd(const bf16* q, const bf16* k, const bf16* vv,
-                         bf16* ob, const float* snv, int S, int Sp,
-                         float* st_m, float* st_l) {
-  const float scale = 0.17677669529663687f;
-  for (int pr = threadIdx.x; pr < 4 * Sp; pr += NT) {
-    const int h = pr / Sp, i = pr % Sp;
-    float qv[32], acc[32];
-#pragma unroll
-    for (int d = 0; d < 32; ++d) acc[d] = 0.f;
-    if (i >= S) {
-      store32(ob + i * LDG + h * 32, acc, 0.f);
-      continue;
-    }
-    load32(qv, q + i * 128 + h * 32);
-#pragma unroll
-    for (int d = 0; d < 32; ++d) qv[d] *= scale;
-    const bool masked = snv[i] <= 1.f;
-    float mx = 0.f;
-    if (!masked) {
-      mx = -INFINITY;
-      for (int j = 0; j < S; ++j)
-        mx = fmaxf(mx, dot32(qv, k + j * 128 + h * 32));
-    }
-    float sum = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const float l = masked ? 0.f : dot32(qv, k + j * 128 + h * 32) - mx;
-      const float pj = expf(l);
-      sum += pj;
-      axpy32(acc, pj, vv + j * 128 + h * 32);
-    }
-    store32(ob + i * LDG + h * 32, acc, 1.f / sum);
-    if (st_m) {
-      st_m[h * SMAX + i] = mx;
-      st_l[h * SMAX + i] = sum;
-    }
-  }
-}
-
 // The backward of one ray; workspace rows by `ws`.
 __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
                                             const WsMap ws) {
@@ -207,9 +107,9 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
   float* SY = a.scratch + (size_t)blockIdx.x * SMAX * kScratchLd;  // y_hat
   float* SD = SY + SMAX * 128;                 // d_o3, then d_gf1
   float* SG = SD + SMAX * 128;                 // [SMAX][272] d_gin
-  const float scale = 0.17677669529663687f;
   const float* ln_s = a.B + net.l[LN].b;
   const float* ln_b = ln_s + 128;
+  PhaseClock clk;
 
   {                                 // one ray
     const size_t p0 = (size_t)ray * S;
@@ -273,7 +173,7 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
     __syncthreads();
     qkv();
     __syncthreads();
-    attn_fwd(Q, K, Vv, O, snv, S, Sp, nullptr, nullptr);
+    attn_fwd_mma(Q, K, Vv, O, snv, S, Sp, nullptr, nullptr);
     __syncthreads();
     dense(O, LDG, Sp, a.W, a.B, net.l[WFC], [&](int r, int c, float x) {
       SY[r * 128 + c] = x + gf_in(r, c);
@@ -310,6 +210,7 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
       }
     }
     __syncthreads();
+    clk(RP_A);
 
     // ---- B: heads, 64 rows at a time: forward, transpose, LN backward ----
     for (int r0 = 0; r0 < Sp; r0 += 64) {
@@ -326,6 +227,7 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
       dense(rp, LD1, rows, a.W, a.B, net.l[REFPTS0],
             [&](int r, int c, float x) { RH[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
+      clk(RP_HEAD_FWD);
       dense(RH, LDH, rows, a.W, a.B, net.l[REFPTS1],
             [&](int r, int c, float x) { HIN[r * LD2 + c] = f2b(elu(x)); });
       for (int e = tid; e < rows * (k2 - 128); e += NT) {
@@ -335,6 +237,7 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
                                         : 0.f);
       }
       __syncthreads();
+      clk(RP_HEAD_FWD);
       // sigma head: sigma - shift, -1e9 (no gradient) where no view is valid
       dense(HIN, LD2, rows, a.W, a.B, net.l[OG0],
             [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
@@ -346,25 +249,32 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
         D3[e] = f2b(d);
       }
       __syncthreads();
+      clk(RP_HEAD_FWD);
       dw_accum(D3, LDS, H1, LDG, rows, slab, net.l[OG1]);
       __syncthreads();
+      clk(RP_HEAD_DW);
       dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[OG1]),
             [&](int r, int c, float x) {
               H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
             });
       __syncthreads();
+      clk(RP_HEAD_TRANS);
       grad_layer(H1, LDG, HIN, LD2, rows, slab, wt, net.l[OG0]);
       __syncthreads();
+      clk(RP_HEAD_DW);
       dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[OG0]),
             [&](int r, int c, float x) { DF[r * 128 + c] = x; });
       __syncthreads();
+      clk(RP_HEAD_TRANS);
       // rgb head: sigmoid MLP on [gf2 | dir PE], 0 where no view is valid
       dense(HIN, LD2, rows, a.W, a.B, net.l[RGB0],
             [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
+      clk(RP_HEAD_FWD);
       dense(H1, LDG, rows, a.W, a.B, net.l[RGB1],
             [&](int r, int c, float x) { H2[r * LD64 + c] = f2b(elu(x)); });
       __syncthreads();
+      clk(RP_HEAD_FWD);
       dense(H2, LD64, rows, a.W, a.B, net.l[RGB2],
             [&](int r, int c, float x) {
               const int i = r0 + r;
@@ -377,22 +287,28 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
               D3[r * LDS + c] = f2b(d);
             });
       __syncthreads();
+      clk(RP_HEAD_FWD);
       dw_accum(D3, LDS, H2, LD64, rows, slab, net.l[RGB2]);
       __syncthreads();
+      clk(RP_HEAD_DW);
       dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[RGB2]),
             [&](int r, int c, float x) {
               H2[r * LD64 + c] = f2b(x * elu_d(b2f(H2[r * LD64 + c])));
             });
       __syncthreads();
+      clk(RP_HEAD_TRANS);
       grad_layer(H2, LD64, H1, LDG, rows, slab, wt, net.l[RGB1]);
       __syncthreads();
+      clk(RP_HEAD_DW);
       dense(H2, LD64, rows, a.WT, a.Z, tr(net.l[RGB1]),
             [&](int r, int c, float x) {
               H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
             });
       __syncthreads();
+      clk(RP_HEAD_TRANS);
       grad_layer(H1, LDG, HIN, LD2, rows, slab, wt, net.l[RGB0]);
       __syncthreads();
+      clk(RP_HEAD_DW);
       dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[RGB0]),
             [&](int r, int c, float x) {
               if (c < 128)
@@ -401,21 +317,26 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
                 atomicAdd(&sdp[c - 128], x);
             });
       __syncthreads();
+      clk(RP_HEAD_TRANS);
       // ref_pts_fc (ELU output gf2, then its hidden layer)
       for (int e = tid; e < rows * 128; e += NT) {
         const int r = e >> 7, c = e & 127;
         HIN[r * LD2 + c] = f2b(DF[e] * elu_d(b2f(HIN[r * LD2 + c])));
       }
       __syncthreads();
+      clk(RP_HEAD_ELEM);
       grad_layer(HIN, LD2, RH, LDH, rows, slab, wt, net.l[REFPTS1]);
       __syncthreads();
+      clk(RP_HEAD_DW);
       dense(HIN, LD2, rows, a.WT, a.Z, tr(net.l[REFPTS1]),
             [&](int r, int c, float x) {
               RH[r * LDH + c] = f2b(x * elu_d(b2f(RH[r * LDH + c])));
             });
       __syncthreads();
+      clk(RP_HEAD_TRANS);
       grad_layer(RH, LDH, rp, LD1, rows, slab, wt, net.l[REFPTS0]);
       __syncthreads();
+      clk(RP_HEAD_DW);
       dense(RH, LDH, rows, a.WT, a.Z, tr(net.l[REFPTS0]),
             [&](int r, int c, float x) {
               const int i = r0 + r;
@@ -429,12 +350,14 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
               }
             });
       __syncthreads();
+      clk(RP_HEAD_TRANS);
       for (int e = tid; e < rows * 3; e += NT) {
         const int i = r0 + e / 3;
         if (i < S) a.d_pts[(p0 + i) * 3 + e % 3] = spp[e];
       }
       ln_bwd(r0, rows, DF);
       __syncthreads();
+      clk(RP_HEAD_ELEM);
     }
 
     // ---- C: attention backward ----
@@ -442,84 +365,26 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
     __syncthreads();
     qkv();
     __syncthreads();
-    attn_fwd(Q, K, Vv, O, snv, S, Sp, st_m, st_l);
+    attn_fwd_mma(Q, K, Vv, O, snv, S, Sp, st_m, st_l);
     __syncthreads();
+    clk(RP_C);
     dw_accum(DO3, LDG, O, LDG, Sp, slab, net.l[WFC]);
     __syncthreads();
+    clk(RP_C_DW);
     dense(DO3, LDG, Sp, a.WT, a.Z, tr(net.l[WFC]),
           [&](int r, int c, float x) { O[r * LDG + c] = f2b(x); });   // d_o
     __syncthreads();
-    for (int pr = tid; pr < 4 * Sp; pr += NT) {     // d_q, one (query, head)
-      const int h = pr / Sp, i = pr % Sp;
-      float qv[32], dov[32], acc[32];
-#pragma unroll
-      for (int d = 0; d < 32; ++d) acc[d] = 0.f;
-      if (i >= S || snv[i] <= 1.f) {
-        store32(DO3 + i * LDG + h * 32, acc, 0.f);
-        continue;
-      }
-      load32(qv, Q + i * 128 + h * 32);
-      load32(dov, O + i * LDG + h * 32);
-#pragma unroll
-      for (int d = 0; d < 32; ++d) qv[d] *= scale;
-      const float mx = st_m[h * SMAX + i], inv = 1.f / st_l[h * SMAX + i];
-      float D = 0.f;
-      for (int j = 0; j < S; ++j) {
-        const float l = dot32(qv, K + j * 128 + h * 32);
-        const float dp = dot32(dov, Vv + j * 128 + h * 32);
-        D += expf(l - mx) * inv * dp;
-      }
-      st_d[h * SMAX + i] = D;
-      for (int j = 0; j < S; ++j) {
-        const bf16* kj = K + j * 128 + h * 32;
-        const float l = dot32(qv, kj);
-        const float dp = dot32(dov, Vv + j * 128 + h * 32);
-        axpy32(acc, expf(l - mx) * inv * (dp - D) * scale, kj);
-      }
-      store32(DO3 + i * LDG + h * 32, acc, 1.f);
-    }
-    __syncthreads();
-    for (int pr = tid; pr < 4 * Sp; pr += NT) {     // d_k, d_v: (key, head)
-      const int h = pr / Sp, j = pr % Sp;
-      bf16* ko = K + j * 128 + h * 32;
-      bf16* vo = Vv + j * 128 + h * 32;
-      float kj[32], vj[32], acc[32];
-#pragma unroll
-      for (int d = 0; d < 32; ++d) acc[d] = 0.f;
-      if (j >= S) {
-        store32(ko, acc, 0.f);
-        store32(vo, acc, 0.f);
-        continue;
-      }
-      load32(kj, ko);
-      load32(vj, vo);
-      for (int i = 0; i < S; ++i) {
-        if (snv[i] <= 1.f) continue;
-        const bf16* qi = Q + i * 128 + h * 32;
-        const float l = dot32(kj, qi);
-        const float dp = dot32(vj, O + i * LDG + h * 32);
-        const float pij =
-            expf(l * scale - st_m[h * SMAX + i]) / st_l[h * SMAX + i];
-        axpy32(acc, pij * (dp - st_d[h * SMAX + i]) * scale, qi);
-      }
-      store32(ko, acc, 1.f);
-#pragma unroll
-      for (int d = 0; d < 32; ++d) acc[d] = 0.f;
-      for (int i = 0; i < S; ++i) {
-        float pij = 1.f / (float)S;               // masked query: uniform
-        if (snv[i] > 1.f)
-          pij = expf(dot32(kj, Q + i * 128 + h * 32) * scale -
-                     st_m[h * SMAX + i]) / st_l[h * SMAX + i];
-        axpy32(acc, pij, O + i * LDG + h * 32);
-      }
-      store32(vo, acc, 1.f);
-    }
-    __syncthreads();
+    attn_bwd_mma(Q, K, Vv, O, DO3, snv, S, Sp, st_m, st_l, st_d);
     load_gf();                                       // gf1, the q/k/v input
     __syncthreads();
+    clk(RP_C);
     dw_accum(DO3, LDG, O, LDG, Sp, slab, net.l[WQ]);
     dw_accum(K, 128, O, LDG, Sp, slab, net.l[WK]);
     dw_accum(Vv, 128, O, LDG, Sp, slab, net.l[WV]);
+#ifdef AGG_PHASE_CLOCKS
+    __syncthreads();
+    clk(RP_C_DW);
+#endif
     dense(DO3, LDG, Sp, a.WT, a.Z, tr(net.l[WQ]),
           [&](int r, int c, float x) { SD[r * 128 + c] += x; });
     __syncthreads();
@@ -529,6 +394,7 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
     dense(Vv, 128, Sp, a.WT, a.Z, tr(net.l[WV]),
           [&](int r, int c, float x) { SD[r * 128 + c] += x; });
     __syncthreads();
+    clk(RP_C);
 
     // ---- D: geometry_fc and pooling-2 backward ----
     {
@@ -582,20 +448,25 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
       dense(G, LDA, Sp, a.W, a.B, net.l[GEO0],
             [&](int r, int c, float x) { H[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
+      clk(RP_D);
       grad_layer(DG, LDG, H, LDH, Sp, slab, wt, net.l[GEO1]);
       __syncthreads();
+      clk(RP_D_DW);
       dense(DG, LDG, Sp, a.WT, a.Z, tr(net.l[GEO1]),
             [&](int r, int c, float x) {
               H[r * LDH + c] = f2b(x * elu_d(b2f(H[r * LDH + c])));
             });
       __syncthreads();
+      clk(RP_D);
       grad_layer(H, LDH, G, LDA, Sp, slab, wt, net.l[GEO0]);
       __syncthreads();
+      clk(RP_D_DW);
       dense(H, LDH, Sp, a.WT, a.Z, tr(net.l[GEO0]),
             [&](int r, int c, float x) {
               if (c < 257) SG[r * 272 + c] = x;
             });
       __syncthreads();
+      clk(RP_D);
       // pooling-2 backward, one warp per sample, 4 channels per lane
       for (int i = warp; i < S; i += NW) {
         const size_t p = p0 + i;
@@ -661,13 +532,9 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
       for (int c = tid; c < 27; c += NT)
           a.d_dirpe[(size_t)ray * 27 + c] = sdp[c];
       __syncthreads();
+      clk(RP_D);
     }
   }
-}
-
-__global__ void __launch_bounds__(NT, 1) ray_bwd_kernel(RayBwdArgs a) {
-  for (int ray = blockIdx.x; ray < a.R; ray += gridDim.x)
-    ray_bwd_ray(a, ray, WsMap{a.P, 0});
 }
 
 }  // namespace agg

@@ -1,59 +1,80 @@
-// K5a, the static ray backward, for Hopper: pooling-2 -> geometry_fc ->
-// 4-head ray transformer -> sigma head and the per-view blend-logit rgb
-// head with its softmax over views, recomputed from K2r's residuals and
-// transposed, one ray (S <= 128 samples) per block, persistent blocks.
+// K5a and K4a, the static and dynamic ray backward, for Hopper: pooling-2
+// -> geometry_fc -> 4-head ray transformer -> heads, recomputed from the
+// forward's residuals (K2r, K3r) and transposed, one ray (S <= 128
+// samples) per block, persistent blocks.  STATIC picks the heads: the
+// static sigma head and the per-view blend-logit rgb head with its softmax
+// over views, or the dynamic ref_pts_fc, sigma head (sigma - shift) and
+// sigmoid rgb head.
 //
-// Math of dynibar_tpu/ops/pallas_agg_bwd.py:879 static_bwd_ray_kernel, in
-// the phases of the ray-side body K4a keeps (ray_bwd.cuh):
-//   A. geometry feature from K2r's workspace, q/k/v, attention, fc and
-//      layer norm (y_hat kept in a per-block f32 scratch);
-//   B. the heads in 64-row chunks: the sigma head forward and transposed,
-//      the blend logits of every view, their softmax over views, then per
-//      view the rgb head forward again and transposed; the layer-norm
-//      backward of each chunk gives d_o3;
+// Math of dynibar_tpu/ops/pallas_agg_bwd.py:879 static_bwd_ray_kernel and
+// :514 dynamic_bwd_ray_kernel, in the phases of the ray-side body K4s
+// keeps (ray_bwd.cuh):
+//   A. geometry feature from the forward's workspace (dynamic: plus the
+//      positional encoding), q/k/v, attention, fc and layer norm (y_hat
+//      kept in a per-block f32 scratch);
+//   B. the heads in 64-row chunks.  Static: the sigma head forward and
+//      transposed, the blend logits of every view, their softmax over
+//      views, then per view the rgb head forward again and transposed.
+//      Dynamic: ref_pts_fc on [gf_attn | pts PE], the sigma head and the
+//      rgb head on [gf2 | dir PE], forward then transposed, back through
+//      ref_pts_fc (d_pts).  The layer-norm backward of each chunk gives
+//      d_o3;
 //   C. attention backward (probabilities recomputed from q/k and the row
-//      statistics, in f32);
+//      statistics, in f32; a query with <= 1 valid view attends uniformly
+//      and its logit cotangents are dropped, pallas_agg_bwd.py:28-31);
 //   D. geometry_fc backward from the recomputed pooling-2 input, then the
 //      pooling-2 backward per view: d_x (bf16) and d_vis (f32).
 //
 // What bounds it on the H100: operations (3x the ray side's forward matmul
-// flops; the blend head, 261 -> 128 -> 64 -> 1 per (sample, view), is
-// three quarters of them).  The design (sm90_common.cuh): every layer
+// flops; static: the blend head, 261 -> 128 -> 64 -> 1 per (sample, view),
+// is three quarters of them).  The design (sm90_common.cuh): every layer
 // product runs on wgmma m64nNk16 (N up to 64) with its weights streamed
 // through a ring of three 8 KB slabs in shared memory, filled by bulk
 // copies from the tiled pack ahead of the products (no W^T pack, no
 // weight fragment from global memory inside a product).  The attention
-// runs on mma.sync (below).  Segments: A's four products; per
-// chunk the sigma head's three, the logit pass (three per view) and the
-// transposed pass (five per view); C's seven; D's three.  The room: the
-// attention row statistics (12 x 128 f32) live in a per-block global
-// workspace, the geometry_fc input keeps 272 columns, and the dynamic
-// head's buffers are gone from this kernel.  The blend head's weights
-// (88 KB) do not fit beside the phase-B buffers, so they stream through
-// the ring once per view and pass.
+// runs on mma.sync (attn_mma.cuh).  Segments: A's four products; static,
+// per chunk the sigma head's three, the logit pass (three per view) and
+// the transposed pass (five per view); dynamic, the heads' thirteen per
+// chunk, one segment over the chunks; C's seven; D's three.  The room:
+// the attention row statistics (12 x 128 f32) live in a per-block global
+// workspace.  Static: the geometry_fc input keeps 272 columns; the blend
+// head's weights (88 KB) do not fit beside the phase-B buffers, so they
+// stream through the ring once per view and pass.  Dynamic: o (phases A
+// and C) sits over gf_attn, which is dead whenever o is live, so region 2
+// holds only q/k/v or the heads' buffers; none of the heads' 246 KB of
+// weights can be resident (the asserts below), so all of them stream.
 // Weight gradients stay on mma.sync into the slabs (agg_bwd_common.cuh).
 #pragma once
 
 #include "agg_bwd_common.cuh"
+#include "attn_mma.cuh"
 #include "phase_clock.cuh"
 #include "sm90_common.cuh"
 
 namespace agg {
 
-struct StaticRayBwdArgs {
+struct RayBwd90Args {
   const bf16* Wt;        // tiled weights (sm90_common.cuh)
   const float* B;
   Net net;
-  const float* gf;       // [P, 128] geometry_fc output (K2r workspace)
+  const float* gf;       // [P, 128] geometry_fc output (K2r / K3r workspace)
   const bf16* ws_x;      // [V, P, 128]
   const float* ws_vis;   // [V, P]
   const float* ws_m;     // [V, P]
   const float* cot;      // [P, 4] cotangent of raw
   int P, S, V, C, R;
+  // static
   const float* raydiff;  // [P, V, 4]
   const bf16* rgbfeat;   // [P, V, C]
+  // dynamic
+  const float* posenc;   // [S, 128]
+  const float* pts;      // [P, 3]
+  const float* dirpe;    // [R, 27]
+  float* d_pts;          // [P, 3]
+  float* d_dirpe;        // [R, 27]
+  // outputs
   bf16* dx;              // [V, P, 128]
-  float* dmisc;          // [V, P, 8]: d_vis, d_rgb (1:4), d_raydiff (4:8)
+  float* dmisc;          // [V, P, 8]: d_vis; static d_rgb, d_raydiff (1:8)
   float* scratch;        // [gridDim.x, SMAX, kRayScratchLd] f32
   float* stats;          // [gridDim.x, 12, SMAX] attention row statistics
   float* slabs;          // [kSlabs, slab_len] weight gradients
@@ -64,10 +85,12 @@ constexpr int kRayLdg = 272;        // geometry_fc input, 257 -> 272 cols
 constexpr int kRayStages = 3;
 // the per-block f32 scratch rows: y_hat | d_o3, then d_gf1 | d_gin (272)
 constexpr int kRayScratchLd = 128 + 128 + 272;
+constexpr size_t kRayRing = (size_t)kRayStages * kSlabBytes + kRingSmemBytes;
+
+// Static (K5a): the ring (25,600), regions 1 and 2, then the f32 rows:
+// 231,360 bytes.
 constexpr size_t kSR1 = (size_t)SMAX * kRayLdg * 2;     // 69,632
 constexpr size_t kSR2 = (size_t)SMAX * (3 * 128 + LDG) * 2;   // 133,120
-constexpr size_t kRayRing = (size_t)kRayStages * kSlabBytes + kRingSmemBytes;
-// the ring (25,600), regions 1 and 2, then the f32 rows: 231,360 bytes
 constexpr size_t kStaticRayBwdSmem =
     kRayRing + kSR1 + kSR2 + (3 * SMAX + 256 + NW * VMAX) * 4;
 static_assert(kStaticRayBwdSmem <= 232448, "one K5a block fits an SM");
@@ -80,266 +103,58 @@ static_assert((size_t)SMAX * (LDH + LDG) * 2 <= kSR2 &&
                   (size_t)SMAX * (3 * 128 + LDG) * 2 <= kSR2,
               "geometry_fc backward and q/k/v/o fit region 2");
 
-// ---- attention on tensor cores (phases A and C) ----
-// One warp per (head, 16-row tile): logits against every row of the other
-// side by mma.sync m16n8k16 (the 32 head channels are two 16-deep steps),
-// the softmax in f32 on the accumulators, and the products with P or dS
-// from the accumulators (two 8-column tiles make one A fragment) times
-// rows read transposed by ldmatrix.  Row statistics as the scalar
-// attn_fwd keeps them (max of the scaled logits, sum of the exponentials).
+// Dynamic (K4a): region 1 holds [gf_attn | pts PE] (ref_pts_fc's input,
+// 161 -> 176 columns) and d_o3, o over gf_attn, and in phase D the
+// pooling-2 output; region 2 q/k/v, the heads' buffers or the geometry_fc
+// backward; f32 rows (incl. d_dirpe and a chunk's d_pts): 229,184 bytes.
+constexpr int kRayLd1 = 184;        // [gf_attn | pts PE], 176 cols
+constexpr int kRayLd2 = 168;        // [gf2 | dir PE], 160 cols
+constexpr size_t kDDo3 = (size_t)SMAX * kRayLd1 * 2;    // 47,104
+constexpr size_t kDR1 = kDDo3 + (size_t)SMAX * LDG * 2;  // 81,920
+constexpr size_t kDHeads =
+    (size_t)64 * (LDH + kRayLd2 + LDG + LD64 + LDS) * 2 + 64 * 128 * 4;
+constexpr size_t kDR2 = kDHeads;                          // 117,760
+constexpr size_t kDynRayF32 = (3 * SMAX + 256 + 32 + 64 * 3 + NW * VMAX) * 4;
+constexpr size_t kDynRayBwdSmem = kRayRing + kDR1 + kDR2 + kDynRayF32;
+static_assert(kDynRayBwdSmem <= 232448, "one K4a block fits an SM");
+static_assert((size_t)SMAX * LDG * 2 <= kDDo3,
+              "o (phases A and C) fits over gf_attn");
+static_assert((size_t)SMAX * kRayLdg * 2 <= kDR1,
+              "the pooling-2 output (phase D) fits region 1");
+static_assert((size_t)SMAX * 3 * 128 * 2 <= kDR2 &&
+                  (size_t)SMAX * (LDH + LDG) * 2 <= kDR2,
+              "q/k/v and the geometry_fc backward fit region 2");
+// The heads' padded weights (ref_pts_fc 256x176 + 128x256, out_geometry_fc
+// 128x128 + 16x128, rgb_fc 128x160 + 64x128 + 16x64, bf16): 251,904 bytes,
+// more than the block's whole shared memory, let alone the 28,864 bytes
+// its buffers leave: every head weight streams through the ring.
+constexpr size_t kDynHeadWeights =
+    2 * (256 * 176 + 128 * 256 + 128 * 128 + 16 * 128 + 128 * 160 +
+         64 * 128 + 16 * 64);
+static_assert(kDynHeadWeights > 232448 - (kDynRayBwdSmem - kRayRing),
+              "the dynamic heads' weights stream");
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// acc[nt] = X[r0 + 0..15][h32 + 0..31] . Y[8 nt + 0..7][h32 + 0..31]^T for
-// the nt < 2 npair 8-row tiles of Y (ldmatrix, bf16 in shared memory).
-__device__ __forceinline__ void attn_logits(float (&acc)[16][4], const bf16* X,
-                                            int ldx, const bf16* Y, int ldy,
-                                            int r0, int h, int npair) {
-  const int lane = threadIdx.x & 31;
-  uint32_t a[2][4];
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks)
-    ldsm_x4(a[ks], smem_u32(X + (size_t)(r0 + (lane & 15)) * ldx + h * 32 +
-                            ks * 16 + (lane >> 4) * 8));
-#pragma unroll
-  for (int np = 0; np < 8; ++np) {
-    if (np >= npair) break;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[2 * np][e] = acc[2 * np + 1][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      uint32_t b[4];
-      ldsm_x4(b, smem_u32(Y + (size_t)(16 * np + (lane & 7) +
-                                       ((lane >> 4) << 3)) * ldy +
-                          h * 32 + ks * 16 + ((lane >> 3) & 1) * 8));
-      mma16816(acc[2 * np], a[ks], b[0], b[1]);
-      mma16816(acc[2 * np + 1], a[ks], b[2], b[3]);
-    }
-  }
-}
-
-// out[nt] (8 channels each, h32 + 8 nt) = M[16 x 16 npair] (accumulator
-// layout, rounded to bf16) . Z[0..16 npair - 1][h32 + 0..31].
-__device__ __forceinline__ void attn_apply(float (&out)[4][4],
-                                           const float (&m)[16][4],
-                                           const bf16* Z, int ldz, int h,
-                                           int npair) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) out[nt][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-    if (ks >= npair) break;
-    const uint32_t a[4] = {pack_bf16(m[2 * ks][0], m[2 * ks][1]),
-                           pack_bf16(m[2 * ks][2], m[2 * ks][3]),
-                           pack_bf16(m[2 * ks + 1][0], m[2 * ks + 1][1]),
-                           pack_bf16(m[2 * ks + 1][2], m[2 * ks + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < 2; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_t(b, smem_u32(Z + (size_t)(16 * ks + (lane & 7) +
-                                         (((lane >> 3) & 1) << 3)) * ldz +
-                            h * 32 + 16 * dp + (lane >> 4) * 8));
-      mma16816(out[2 * dp], a, b[0], b[1]);
-      mma16816(out[2 * dp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Rows r and r + 8 of a 16-row tile: out (scaled by s0 / s1 per row) into
-// D[row][h32 + ..] as bf16, zero where the row is past `valid`.
-__device__ __forceinline__ void attn_store(bf16* D, int ldd, int r0, int h,
-                                           const float (&out)[4][4], float s0,
-                                           float s1, int valid) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r0 + g + 8 * half;
-    const float sc = row < valid ? (half ? s1 : s0) : 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      *reinterpret_cast<uint32_t*>(D + (size_t)row * ldd + h * 32 + 8 * nt +
-                                   2 * t) =
-          pack_bf16(out[nt][2 * half] * sc, out[nt][2 * half + 1] * sc);
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// The forward: O = softmax(Q K^T / sqrt(32)) V per head over the ray's S
-// samples; a query with at most one valid view attends uniformly
-// (reference mlp_network.py:23-24); rows past S are zero.  Statistics
-// into st_m / st_l ([4][SMAX]) when given.
-__device__ __noinline__ void attn_fwd_mma(const bf16* Q, const bf16* K,
-                                          const bf16* Vv, bf16* O,
-                                          const float* snv, int S, int Sp,
-                                          float* st_m, float* st_l) {
-  const float scale = 0.17677669529663687f;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, npair = Sp >> 4;
-  for (int u = warp; u < 4 * npair; u += NW) {
-    const int h = u & 3, r0 = (u >> 2) * 16;
-    float s[16][4];
-    attn_logits(s, Q, 128, K, 128, r0, h, npair);
-    float mx[2], sum[2];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + g + 8 * half;
-      const bool uni = row >= S || snv[row] <= 1.f;
-      float m = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        if (nt >= 2 * npair) break;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = 8 * nt + 2 * t + e;
-          float& x = s[nt][2 * half + e];
-          x = j >= S ? -INFINITY : (uni ? 0.f : x * scale);
-          m = fmaxf(m, x);
-        }
-      }
-      mx[half] = quad_max(m);
-      float l = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        if (nt >= 2 * npair) break;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[nt][2 * half + e];
-          x = expf(x - mx[half]);
-          l += x;
-        }
-      }
-      sum[half] = quad_sum(l);
-    }
-    float out[4][4];
-    attn_apply(out, s, Vv, 128, h, npair);
-    attn_store(O, LDG, r0, h, out, 1.f / sum[0], 1.f / sum[1], S);
-    if (st_m && t == 0)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = r0 + g + 8 * half;
-        if (row < S) {
-          st_m[h * SMAX + row] = mx[half];
-          st_l[h * SMAX + row] = sum[half];
-        }
-      }
-  }
-}
-
-// The backward from d_o (DO) and the statistics of attn_fwd_mma: d_q into
-// DQ (zero for uniform queries, whose logit cotangents are dropped,
-// pallas_agg_bwd.py:28-31), then d_k and d_v over K and Vv in place; st_d
-// gets D = sum_j p dp per query.  Two passes with the logits recomputed:
-// by query tiles (d_q), then by key tiles (d_k, d_v).
-__device__ __noinline__ void attn_bwd_mma(const bf16* Q, bf16* K, bf16* Vv,
-                                          const bf16* DO, bf16* DQ,
-                                          const float* snv, int S, int Sp,
-                                          const float* st_m,
-                                          const float* st_l, float* st_d) {
-  const float scale = 0.17677669529663687f;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, npair = Sp >> 4;
-  const float uni_p = 1.f / (float)S;
-  for (int u = warp; u < 4 * npair; u += NW) {      // d_q by query tiles
-    const int h = u & 3, r0 = (u >> 2) * 16;
-    float p[16][4], dp[16][4];
-    attn_logits(p, Q, 128, K, 128, r0, h, npair);
-    attn_logits(dp, DO, LDG, Vv, 128, r0, h, npair);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + g + 8 * half;
-      const bool grad = row < S && snv[row] > 1.f;
-      const float m = grad ? st_m[h * SMAX + row] : 0.f;
-      const float il = grad ? 1.f / st_l[h * SMAX + row] : 0.f;
-      float dsum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        if (nt >= 2 * npair) break;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = 8 * nt + 2 * t + e;
-          float& x = p[nt][2 * half + e];
-          x = grad && j < S ? expf(x * scale - m) * il : 0.f;
-          dsum += x * dp[nt][2 * half + e];
-        }
-      }
-      const float D = quad_sum(dsum);
-      if (grad && t == 0) st_d[h * SMAX + row] = D;
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        if (nt >= 2 * npair) break;
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          p[nt][2 * half + e] *= (dp[nt][2 * half + e] - D) * scale;
-      }
-    }
-    float out[4][4];
-    attn_apply(out, p, K, 128, h, npair);
-    attn_store(DQ, LDG, r0, h, out, 1.f, 1.f, S);
-  }
-  __syncthreads();
-  for (int u = warp; u < 4 * npair; u += NW) {      // d_k, d_v by key tiles
-    const int h = u & 3, r0 = (u >> 2) * 16;
-    float p[16][4], ds[16][4];
-    attn_logits(p, K, 128, Q, 128, r0, h, npair);
-    attn_logits(ds, Vv, 128, DO, LDG, r0, h, npair);
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
-      if (nt >= 2 * npair) break;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int i = 8 * nt + 2 * t + e;            // the query
-        const bool valid = i < S, grad = valid && snv[i] > 1.f;
-        const float m = grad ? st_m[h * SMAX + i] : 0.f;
-        const float il = grad ? 1.f / st_l[h * SMAX + i] : 0.f;
-        const float D = grad ? st_d[h * SMAX + i] : 0.f;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          float& x = p[nt][2 * half + e];
-          x = grad ? expf(x * scale - m) * il : (valid ? uni_p : 0.f);
-          float& y = ds[nt][2 * half + e];
-          y = grad ? x * (y - D) * scale : 0.f;
-        }
-      }
-    }
-    float out[4][4];
-    attn_apply(out, p, DO, LDG, h, npair);
-    attn_store(Vv, 128, r0, h, out, 1.f, 1.f, S);
-    attn_apply(out, ds, Q, 128, h, npair);
-    attn_store(K, 128, r0, h, out, 1.f, 1.f, S);
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void static_ray_bwd_ray(
-    const StaticRayBwdArgs& a, int ray, WRing<kRayStages>& ring,
-    unsigned char* smem) {
-  unsigned char* reg2 = smem + kSR1;
-  bf16* GA = (bf16*)smem;                      // [SMAX][LDG] gf_attn
-  bf16* DO3 = GA + SMAX * LDG;                 // [SMAX][LDG] d_o3, then d_q
+template <bool STATIC>
+__device__ __forceinline__ void ray_bwd90_ray(const RayBwd90Args& a, int ray,
+                                              WRing<kRayStages>& ring,
+                                              unsigned char* smem) {
+  constexpr int GLD = STATIC ? LDG : kRayLd1;  // gf_attn's row stride
+  unsigned char* reg2 = smem + (STATIC ? kSR1 : kDR1);
+  bf16* GA = (bf16*)smem;                      // [SMAX][GLD] gf_attn (| PE)
+  bf16* DO3 = (bf16*)(smem + (STATIC ? (size_t)SMAX * LDG * 2 : kDDo3));
   bf16* Q = (bf16*)reg2;                       // [SMAX][128]
   bf16* K = Q + SMAX * 128;
   bf16* Vv = K + SMAX * 128;
-  bf16* O = Vv + SMAX * 128;                   // [SMAX][LDG]
-  float* snv = (float*)(reg2 + kSR2);
+  // [SMAX][LDG]: static after v, dynamic over gf_attn
+  bf16* O = STATIC ? Vv + SMAX * 128 : GA;
+  float* snv = (float*)(reg2 + (STATIC ? kSR2 : kDR2));
   float* sinv = snv + SMAX;
   float* rstd = sinv + SMAX;
   float* lng = rstd + SMAX;                    // [256] LN scale | bias grads
+  float* sdp = lng + 256;                      // dynamic: [32] d_dirpe
+  float* spp = sdp + 32;                       // dynamic: [64][3] d_pts
   // [NW][VMAX] pooling-2 weight cotangents, one row per warp
-  float* sdw = lng + 256;
+  float* sdw = STATIC ? lng + 256 : spp + 64 * 3;
 
   const Net& net = a.net;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -359,7 +174,9 @@ __device__ __forceinline__ void static_ray_bwd_ray(
   const size_t p0 = (size_t)ray * S;
   auto vp = [&](int v, size_t p) -> size_t { return (size_t)v * P + p; };
   auto gf_in = [&](int i, int c) -> float {
-    return i < S ? a.gf[(p0 + i) * 128 + c] : 0.f;
+    if (i >= S) return 0.f;
+    const float g = a.gf[(p0 + i) * 128 + c];
+    return STATIC ? g : g + a.posenc[i * 128 + c];
   };
   auto load_gf = [&]() {
     for (int e = tid; e < Sp * 128; e += NT)
@@ -412,7 +229,7 @@ __device__ __forceinline__ void static_ray_bwd_ray(
     snv[i] = nv;
     sinv[i] = 1.f / (vs + 1e-8f);
   }
-  for (int e = tid; e < 256; e += NT) lng[e] = 0.f;
+  for (int e = tid; e < (STATIC ? 256 : 256 + 32); e += NT) lng[e] = 0.f;
   load_gf();
   const WOp kA[4] = {{WQ, 0}, {WK, 0}, {WV, 0}, {WFC, 0}};
   ring.begin(kA, 4, 1, Sp);
@@ -442,13 +259,23 @@ __device__ __forceinline__ void static_ray_bwd_ray(
       const int c = lane + 32 * j;
       const float yh = (x[j] - mu) * rs;
       SY[i * 128 + c] = yh;
-      GA[i * LDG + c] = f2b(yh * ln_s[c] + ln_b[c]);
+      GA[i * GLD + c] = f2b(yh * ln_s[c] + ln_b[c]);
+    }
+  }
+  if (!STATIC) {                     // ref_pts_fc input: | pts PE | 0 |
+    const int k1 = net.l[REFPTS0].k;
+    for (int e = tid; e < Sp * (k1 - 128); e += NT) {
+      const int i = e / (k1 - 128), col = e % (k1 - 128);
+      GA[i * GLD + 128 + col] =
+          f2b(col < 33 && i < S ? pe_geo(a.pts + (p0 + i) * 3, 3, 5, col)
+                                : 0.f);
     }
   }
   __syncthreads();
   clk(RP_A);
 
   // ---- B: heads, 64 rows at a time: forward, transpose, LN backward ----
+  if constexpr (STATIC) {
   for (int r0 = 0; r0 < Sp; r0 += 64) {
     const int rows = min(64, Sp - r0);
     bf16* HIN = (bf16*)reg2;                   // [64][LDA]
@@ -624,6 +451,157 @@ __device__ __forceinline__ void static_ray_bwd_ray(
     clk(RP_HEAD_ELEM);
   }
 
+  } else {
+  bf16* RH = (bf16*)reg2;                      // [64][LDH] ref_pts_fc hidden
+  bf16* HIN = RH + 64 * LDH;                   // [64][kRayLd2] gf2 | dir PE
+  bf16* H1 = HIN + 64 * kRayLd2;               // [64][LDG]
+  bf16* H2 = H1 + 64 * LDG;                    // [64][LD64]
+  bf16* D3 = H2 + 64 * LD64;                   // [64][LDS]
+  float* DF = (float*)(D3 + 64 * LDS);         // [64][128]
+  const int k2 = net.l[RGB0].k;
+  const WOp kHeads[13] = {
+      {REFPTS0, 0}, {REFPTS1, 0}, {OG0, 0},  {OG1, 1},     {OG0, 1},
+      {RGB0, 0},    {RGB1, 0},    {RGB2, 0}, {RGB2, 1},    {RGB1, 1},
+      {RGB0, 1},    {REFPTS1, 1}, {REFPTS0, 1}};
+  ring.begin(kHeads, 13, (Sp + 63) / 64, 64);
+  for (int r0 = 0; r0 < Sp; r0 += 64) {
+    const int rows = min(64, Sp - r0);
+    const bf16* rp = GA + r0 * GLD;
+    for (int e = tid; e < 64 * 3; e += NT) spp[e] = 0.f;
+    ring.consume(REFPTS0, 0, rp, GLD, rows, a.B,
+                 [&](int r, int c, float x) { RH[r * LDH + c] = f2b(elu(x)); });
+    __syncthreads();
+    clk(RP_HEAD_FWD);
+    ring.consume(REFPTS1, 0, RH, LDH, rows, a.B, [&](int r, int c, float x) {
+      HIN[r * kRayLd2 + c] = f2b(elu(x));
+    });
+    for (int e = tid; e < rows * (k2 - 128); e += NT) {
+      const int r = e / (k2 - 128), col = 128 + e % (k2 - 128);
+      HIN[r * kRayLd2 + col] =
+          f2b(col < 155 && r0 + r < S ? a.dirpe[(size_t)ray * 27 + col - 128]
+                                      : 0.f);
+    }
+    __syncthreads();
+    clk(RP_HEAD_FWD);
+    // sigma head: sigma - shift, -1e9 (no gradient) where no view is valid
+    ring.consume(OG0, 0, HIN, kRayLd2, rows, a.B,
+                 [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
+    for (int e = tid; e < rows * LDS; e += NT) {
+      const int r = e / LDS, c = e % LDS, i = r0 + r;
+      const float d = c == 0 && i < S && snv[i] >= 1.f
+                          ? a.cot[(p0 + i) * 4 + 3] : 0.f;
+      if (d != 0.f) atomicAdd(slab + wt + net.l[OG1].b, d);
+      D3[e] = f2b(d);
+    }
+    __syncthreads();
+    clk(RP_HEAD_FWD);
+    dw_accum(D3, LDS, H1, LDG, rows, slab, net.l[OG1]);
+    __syncthreads();
+    clk(RP_HEAD_DW);
+    ring.consume(OG1, 1, D3, LDS, rows, nullptr, [&](int r, int c, float x) {
+      H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
+    });
+    __syncthreads();
+    clk(RP_HEAD_TRANS);
+    grad_layer(H1, LDG, HIN, kRayLd2, rows, slab, wt, net.l[OG0]);
+    __syncthreads();
+    clk(RP_HEAD_DW);
+    ring.consume(OG0, 1, H1, LDG, rows, nullptr,
+                 [&](int r, int c, float x) { DF[r * 128 + c] = x; });
+    __syncthreads();
+    clk(RP_HEAD_TRANS);
+    // rgb head: sigmoid MLP on [gf2 | dir PE], 0 where no view is valid
+    ring.consume(RGB0, 0, HIN, kRayLd2, rows, a.B,
+                 [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
+    __syncthreads();
+    clk(RP_HEAD_FWD);
+    ring.consume(RGB1, 0, H1, LDG, rows, a.B, [&](int r, int c, float x) {
+      H2[r * LD64 + c] = f2b(elu(x));
+    });
+    __syncthreads();
+    clk(RP_HEAD_FWD);
+    ring.consume(RGB2, 0, H2, LD64, rows, a.B, [&](int r, int c, float x) {
+      const int i = r0 + r;
+      float d = 0.f;
+      if (c < 3 && i < S && snv[i] > 0.f) {
+        const float rg = sigm(x);
+        d = a.cot[(p0 + i) * 4 + c] * rg * (1.f - rg);
+        atomicAdd(slab + wt + net.l[RGB2].b + c, d);
+      }
+      D3[r * LDS + c] = f2b(d);
+    });
+    __syncthreads();
+    clk(RP_HEAD_FWD);
+    dw_accum(D3, LDS, H2, LD64, rows, slab, net.l[RGB2]);
+    __syncthreads();
+    clk(RP_HEAD_DW);
+    ring.consume(RGB2, 1, D3, LDS, rows, nullptr, [&](int r, int c, float x) {
+      H2[r * LD64 + c] = f2b(x * elu_d(b2f(H2[r * LD64 + c])));
+    });
+    __syncthreads();
+    clk(RP_HEAD_TRANS);
+    grad_layer(H2, LD64, H1, LDG, rows, slab, wt, net.l[RGB1]);
+    __syncthreads();
+    clk(RP_HEAD_DW);
+    ring.consume(RGB1, 1, H2, LD64, rows, nullptr, [&](int r, int c, float x) {
+      H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
+    });
+    __syncthreads();
+    clk(RP_HEAD_TRANS);
+    grad_layer(H1, LDG, HIN, kRayLd2, rows, slab, wt, net.l[RGB0]);
+    __syncthreads();
+    clk(RP_HEAD_DW);
+    ring.consume(RGB0, 1, H1, LDG, rows, nullptr, [&](int r, int c, float x) {
+      if (c < 128)
+        DF[r * 128 + c] += x;
+      else if (c < 155 && r0 + r < S)
+        atomicAdd(&sdp[c - 128], x);
+    });
+    __syncthreads();
+    clk(RP_HEAD_TRANS);
+    // ref_pts_fc (ELU output gf2, then its hidden layer)
+    for (int e = tid; e < rows * 128; e += NT) {
+      const int r = e >> 7, c = e & 127;
+      HIN[r * kRayLd2 + c] = f2b(DF[e] * elu_d(b2f(HIN[r * kRayLd2 + c])));
+    }
+    __syncthreads();
+    clk(RP_HEAD_ELEM);
+    grad_layer(HIN, kRayLd2, RH, LDH, rows, slab, wt, net.l[REFPTS1]);
+    __syncthreads();
+    clk(RP_HEAD_DW);
+    ring.consume(REFPTS1, 1, HIN, kRayLd2, rows, nullptr,
+                 [&](int r, int c, float x) {
+                   RH[r * LDH + c] = f2b(x * elu_d(b2f(RH[r * LDH + c])));
+                 });
+    __syncthreads();
+    clk(RP_HEAD_TRANS);
+    grad_layer(RH, LDH, rp, GLD, rows, slab, wt, net.l[REFPTS0]);
+    __syncthreads();
+    clk(RP_HEAD_DW);
+    ring.consume(REFPTS0, 1, RH, LDH, rows, nullptr,
+                 [&](int r, int c, float x) {
+                   const int i = r0 + r;
+                   if (c < 128) {
+                     DF[r * 128 + c] = x;
+                   } else if (c < 161 && i < S) {
+                     int chn;
+                     const float d = pe_geo_bwd(a.pts + (p0 + i) * 3, 3, 5,
+                                                c - 128, x, &chn);
+                     atomicAdd(&spp[r * 3 + chn], d);
+                   }
+                 });
+    __syncthreads();
+    clk(RP_HEAD_TRANS);
+    for (int e = tid; e < rows * 3; e += NT) {
+      const int i = r0 + e / 3;
+      if (i < S) a.d_pts[(p0 + i) * 3 + e % 3] = spp[e];
+    }
+    ln_bwd(r0, rows, DF);
+    __syncthreads();
+    clk(RP_HEAD_ELEM);
+  }
+  }
+
   // ---- C: attention backward ----
   load_gf();
   const WOp kC[7] = {{WQ, 0},  {WK, 0}, {WV, 0}, {WFC, 1},
@@ -782,27 +760,36 @@ __device__ __forceinline__ void static_ray_bwd_ray(
       __align__(8) bf16 outv[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
+        // static: onto the blend head's d_x from phase B
         outv[j] = f2b(w * (dme[j] + 2.f * (x[j] - mean[j]) * dvr[j]) +
-                      b2f(dxo[j]));
+                      (STATIC ? b2f(dxo[j]) : 0.f));
       *reinterpret_cast<uint2*>(dxo) = *reinterpret_cast<uint2*>(outv);
-      if (lane == 0) a.dmisc[pv * 8] = a.dmisc[pv * 8] + inv * dw2[v] + dvsum;
+      if (lane == 0)
+        a.dmisc[pv * 8] =
+            (STATIC ? a.dmisc[pv * 8] : 0.f) + inv * dw2[v] + dvsum;
     }
   }
   for (int c = tid; c < 256; c += NT)
     atomicAdd(slab + wt + net.l[LN].b + c, lng[c]);
+  if (!STATIC)
+    for (int c = tid; c < 27; c += NT)
+      a.d_dirpe[(size_t)ray * 27 + c] = sdp[c];
   __syncthreads();
   clk(RP_D);
 }
 
-__global__ void __launch_bounds__(NT, 1)
-    static_ray_bwd_kernel(StaticRayBwdArgs a) {
+// The kernel's body: its launch file defines the __global__ entry
+// (static_agg_bwd.cu: static_ray_bwd_kernel, dynamic_agg_bwd.cu:
+// dynamic_ray_bwd_kernel), so each library compiles only its own.
+template <bool STATIC>
+__device__ __forceinline__ void ray_bwd90_rays(const RayBwd90Args& a) {
   extern __shared__ __align__(128) unsigned char smem[];
   WRing<kRayStages> ring;
   ring.init((RingSmem*)(smem + kRayStages * kSlabBytes), smem, a.Wt, &a.net,
             RP_RING_WAIT);
   __syncthreads();
   for (int ray = blockIdx.x; ray < a.R; ray += gridDim.x)
-    static_ray_bwd_ray(a, ray, ring, smem + kRayRing);
+    ray_bwd90_ray<STATIC>(a, ray, ring, smem + kRayRing);
 }
 
 }  // namespace agg

@@ -41,6 +41,16 @@
 // same op list in the same order (consume() traps on a mismatch).  In the
 // phase-clock build, thread 0's waits on slabs, products and epilogues add
 // up in counters of their own.
+//
+// The release protocol, AGG_RING_RELEASE (scripts/ring_protocols.py times
+// the three in one run; 2, the fastest on the H100, is the default):
+//   0  each owner warp counts its release; the last one refills the
+//      stage; the count is fenced (membar.cta) before and after;
+//   1  the same count without those two fences;
+//   2  a per-stage "empty" mbarrier: every owner warp arrives on it, and
+//      the stage's first owner warp waits on it and refills the stage;
+//      the barrier's release / acquire order the reads before the copy,
+//      so the ring issues no membar.cta.
 #pragma once
 
 #include "agg_common.cuh"
@@ -48,6 +58,10 @@
 
 #if defined(__CUDA_ARCH__) && !defined(__CUDA_ARCH_FEAT_SM90_ALL)
 #error "sm90_common.cuh needs sm_90a (wgmma): build for compute_90a/sm_90a"
+#endif
+
+#ifndef AGG_RING_RELEASE
+#define AGG_RING_RELEASE 2
 #endif
 
 namespace agg {
@@ -73,6 +87,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
           sm_u32(bar)),
       "r"(bytes)
       : "memory");
+}
+
+// One arrival of `count` on the barrier (release semantics, CTA scope).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   sm_u32(bar)),
+               "r"(count)
+               : "memory");
 }
 
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
@@ -137,11 +159,13 @@ __device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)((sbo & 0x3FFFFu) >> 4) << 32);
 }
 
-// d[64 x N] += A[64 x 16] B[16 x N]: A in registers (this warp's 16 rows
-// as mma.sync's A fragment), B by descriptor; TRANS_B 1 reads B MN-major.
+// d[64 x N] = A[64 x 16] B[16 x N] (+ d if acc): A in registers (this
+// warp's 16 rows as mma.sync's A fragment), B by descriptor; TRANS_B 1
+// reads B MN-major.  acc is wgmma's scale-d operand, so a product's first
+// step needs no zeroing of d outside the wgmma.
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_n16(float* d, const uint32_t (&a)[4],
-                                          uint64_t desc) {
+                                          uint64_t desc, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
@@ -149,14 +173,14 @@ __device__ __forceinline__ void wgmma_n16(float* d, const uint32_t (&a)[4],
       "{%8,%9,%10,%11}, %12, p, 1, 1, %14;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc),
         "n"(TRANS_B)
       : "memory");
 }
 
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_n32(float* d, const uint32_t (&a)[4],
-                                          uint64_t desc) {
+                                          uint64_t desc, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -167,14 +191,14 @@ __device__ __forceinline__ void wgmma_n32(float* d, const uint32_t (&a)[4],
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc),
         "n"(TRANS_B)
       : "memory");
 }
 
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_n48(float* d, const uint32_t (&a)[4],
-                                          uint64_t desc) {
+                                          uint64_t desc, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
@@ -188,14 +212,14 @@ __device__ __forceinline__ void wgmma_n48(float* d, const uint32_t (&a)[4],
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc),
         "n"(TRANS_B)
       : "memory");
 }
 
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_n64(float* d, const uint32_t (&a)[4],
-                                          uint64_t desc) {
+                                          uint64_t desc, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -212,18 +236,18 @@ __device__ __forceinline__ void wgmma_n64(float* d, const uint32_t (&a)[4],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc),
         "n"(TRANS_B)
       : "memory");
 }
 
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma_n(float* d, const uint32_t (&a)[4],
-                                        uint64_t desc) {
-  if constexpr (N == 64) wgmma_n64<TRANS_B>(d, a, desc);
-  else if constexpr (N == 48) wgmma_n48<TRANS_B>(d, a, desc);
-  else if constexpr (N == 32) wgmma_n32<TRANS_B>(d, a, desc);
-  else wgmma_n16<TRANS_B>(d, a, desc);
+                                        uint64_t desc, int acc) {
+  if constexpr (N == 64) wgmma_n64<TRANS_B>(d, a, desc, acc);
+  else if constexpr (N == 48) wgmma_n48<TRANS_B>(d, a, desc, acc);
+  else if constexpr (N == 32) wgmma_n32<TRANS_B>(d, a, desc, acc);
+  else wgmma_n16<TRANS_B>(d, a, desc, acc);
 }
 
 // Keep registers that an in-flight wgmma reads or writes where they are:
@@ -242,11 +266,11 @@ __device__ __forceinline__ void reg_fence(float* d) {
 // A from ldmatrix at xa (+32 bytes a step), B at slab (+kstride a step).
 // The slab's A fragments are loaded first, then its products issue back
 // to back under one fence and one commit.  Accumulates into d (N / 2
-// floats a thread).
+// floats a thread), or overwrites it if `first`.
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wg_block(float* d, uint32_t xa, uint32_t slab,
                                          int nks, uint32_t lbo, uint32_t sbo,
-                                         uint32_t kstride) {
+                                         uint32_t kstride, bool first) {
   uint32_t a[4][4];
   __syncwarp();                     // converged for the .aligned ops
 #pragma unroll
@@ -256,7 +280,8 @@ __device__ __forceinline__ void wg_block(float* d, uint32_t xa, uint32_t slab,
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     if (kk < nks)
-      wgmma_n<N, TRANS_B>(d, a[kk], wg_desc(slab + kk * kstride, lbo, sbo));
+      wgmma_n<N, TRANS_B>(d, a[kk], wg_desc(slab + kk * kstride, lbo, sbo),
+                          kk > 0 || !first);
   wg_commit();
   wg_wait<0>();
 #pragma unroll
@@ -265,13 +290,14 @@ __device__ __forceinline__ void wg_block(float* d, uint32_t xa, uint32_t slab,
 }
 
 // ---- the weight ring ----
-constexpr int kRingOps = 12;         // ops in one segment repetition
+constexpr int kRingOps = 16;         // ops in one segment repetition
 
 constexpr int kRingMaxStages = 8;
-constexpr int kRingSlabs = 96;       // slabs in one segment repetition
+constexpr int kRingSlabs = 80;       // slabs in one segment repetition
 
 struct RingSmem {
   uint64_t full[kRingMaxStages];
+  uint64_t empty[kRingMaxStages];    // AGG_RING_RELEASE 2
   int rel[kRingMaxStages], issued[kRingMaxStages];
   int op_layer[kRingOps], op_trans[kRingOps];
   int slab_src[kRingSlabs], slab_bytes[kRingSlabs];   // the copies, by slab
@@ -341,6 +367,7 @@ struct WRing {
     if (threadIdx.x == 0) {
       for (int i = 0; i < STAGES; ++i) {
         mbar_init(&sm->full[i], 1);
+        mbar_init(&sm->empty[i], 8);   // eight warps' worth of releases
         sm->rel[i] = 0;
         sm->issued[i] = -1;
       }
@@ -355,7 +382,9 @@ struct WRing {
     if (j >= total) return;
     const int k = j % per_rep;
     uint64_t* bar = &sm->full[g % STAGES];
+#if AGG_RING_RELEASE != 2
     __threadfence_block();
+#endif
     *(volatile int*)&sm->issued[g % STAGES] = g;
     mbar_expect_tx(bar, (uint32_t)sm->slab_bytes[k]);
     bulk_g2s(buf + (g % STAGES) * kSlabBytes, W + sm->slab_src[k],
@@ -426,6 +455,8 @@ struct WRing {
     // order (see the ring's note).
     const int owners = both ? 8 : 4;
     float d[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[i] = 0.f;
     for (int j = 0; j < geo.ncb * geo.nkb; ++j) {
       int cb, kb;
       geo.block(j, both, &cb, &kb);
@@ -435,7 +466,9 @@ struct WRing {
       const volatile int* idx = &sm->issued[stage];
       while (*idx != g)
         if (clock64() - t0 > (1ll << 32)) __trap();
+#if AGG_RING_RELEASE != 2
       __threadfence_block();
+#endif
       mbar_wait(&sm->full[stage], (uint32_t)((g / STAGES) & 1));
 #ifdef AGG_PHASE_CLOCKS
       if (threadIdx.x == 0)
@@ -444,10 +477,6 @@ struct WRing {
 #endif
       const int bw = min(64, geo.wo - 64 * cb);
       const int bk = min(64, geo.wr - 64 * kb);
-      if (kb == 0) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) d[i] = 0.f;
-      }
       // forward: k8 stride 128 (leading), n8 stride 16 bk; transposed:
       // n8 (reduction) stride 16 bw (leading), k8 stride 128
       const uint32_t slab = sm_u32(buf + stage * kSlabBytes);
@@ -455,22 +484,23 @@ struct WRing {
       const uint32_t kst = trans ? 32 * bw : 256;
       const uint32_t xa = xrow + kb * 128;
       const int nks = bk >> 4;
+      const bool kb0 = kb == 0;          // the block's first slab
 #ifdef AGG_PHASE_CLOCKS
       const long long t1 = clock64();
 #endif
       if (trans) {
         switch (bw) {
-          case 64: wg_block<64, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
-          case 48: wg_block<48, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
-          case 32: wg_block<32, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
-          default: wg_block<16, 1>(d, xa, slab, nks, lbo, sbo, kst); break;
+          case 64: wg_block<64, 1>(d, xa, slab, nks, lbo, sbo, kst, kb0); break;
+          case 48: wg_block<48, 1>(d, xa, slab, nks, lbo, sbo, kst, kb0); break;
+          case 32: wg_block<32, 1>(d, xa, slab, nks, lbo, sbo, kst, kb0); break;
+          default: wg_block<16, 1>(d, xa, slab, nks, lbo, sbo, kst, kb0); break;
         }
       } else {
         switch (bw) {
-          case 64: wg_block<64, 0>(d, xa, slab, nks, lbo, sbo, kst); break;
-          case 48: wg_block<48, 0>(d, xa, slab, nks, lbo, sbo, kst); break;
-          case 32: wg_block<32, 0>(d, xa, slab, nks, lbo, sbo, kst); break;
-          default: wg_block<16, 0>(d, xa, slab, nks, lbo, sbo, kst); break;
+          case 64: wg_block<64, 0>(d, xa, slab, nks, lbo, sbo, kst, kb0); break;
+          case 48: wg_block<48, 0>(d, xa, slab, nks, lbo, sbo, kst, kb0); break;
+          case 32: wg_block<32, 0>(d, xa, slab, nks, lbo, sbo, kst, kb0); break;
+          default: wg_block<16, 0>(d, xa, slab, nks, lbo, sbo, kst, kb0); break;
         }
       }
 #ifdef AGG_PHASE_CLOCKS
@@ -479,19 +509,38 @@ struct WRing {
                   (unsigned long long)(clock64() - t1));
 #endif
       // Release: the warp's products have completed (wg_block waits for
-      // them), the fence makes its reads of the slab precede its count;
-      // the last owner acquires the others' counts and fences the async
-      // proxy before its copy overwrites the stage.
+      // them).  Protocols 0 and 1: the last owner to count refills the
+      // stage (0: the fences make each warp's reads of the slab precede
+      // its count, and the others' counts precede the refill).  Protocol
+      // 2: every owner warp arrives on the stage's empty barrier (8 /
+      // owners each); the first owner warp waits for the fill's phase
+      // and refills.  Either way the refiller fences the async proxy
+      // before its copy overwrites the stage.
       __syncwarp();
+#if AGG_RING_RELEASE == 2
       if (lane == 0) {
+        mbar_arrive(&sm->empty[stage], 8 / owners);
+        if ((threadIdx.x >> 5) == (both ? 0 : 4 * wg)) {
+          mbar_wait(&sm->empty[stage], (uint32_t)((g / STAGES) & 1));
+          fence_proxy_async_smem();
+          issue(g + STAGES);
+        }
+      }
+#else
+      if (lane == 0) {
+#if AGG_RING_RELEASE == 0
         __threadfence_block();
+#endif
         if (atomicAdd(&sm->rel[stage], 1) == owners - 1) {
+#if AGG_RING_RELEASE == 0
           __threadfence_block();
+#endif
           sm->rel[stage] = 0;
           fence_proxy_async_smem();
           issue(g + STAGES);
         }
       }
+#endif
       if (kb < geo.nkb - 1) continue;
 #ifdef AGG_PHASE_CLOCKS
       const long long t2 = clock64();

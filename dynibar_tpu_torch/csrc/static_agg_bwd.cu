@@ -24,6 +24,15 @@
 #include "ray_bwd_sm90.cuh"
 #include "trunk_bwd_sm90.cuh"
 
+namespace agg {
+
+__global__ void __launch_bounds__(NT, 1)
+    static_ray_bwd_kernel(RayBwd90Args a) {
+  ray_bwd90_rays<true>(a);
+}
+
+}  // namespace agg
+
 using namespace agg;
 
 extern "C" int dyn_static_agg_bwd_ray(
@@ -32,7 +41,7 @@ extern "C" int dyn_static_agg_bwd_ray(
     const void* raydiff, const void* rgbfeat, void* dx, void* dmisc,
     void* scratch, void* stats, void* slabs, int slab_len, int w_total,
     int R, int S, int V, int C, int nblocks, void* stream) {
-  StaticRayBwdArgs a{};
+  RayBwd90Args a{};
   a.net = load_net((const int*)meta);
   if (V > VMAX || S > SMAX || C > CMAX || V < 1 || S < 1)
     return (int)cudaErrorInvalidValue;

@@ -17,10 +17,12 @@
 // per-view d_rf goes to a workspace; after the view loop, pooling-1's
 // backward (d_mean_eff = d_mean - 2 d_var sum_v w_v (rf_v - mean)) adds
 // its part.
-// Mask cotangents are never formed.
+// Mask cotangents are never formed.  In the phase-clock build thread 0
+// adds each phase's cycles up (TrunkPhase, phase_clock.cuh).
 #pragma once
 
 #include "agg_bwd_common.cuh"
+#include "phase_clock.cuh"
 
 namespace agg {
 
@@ -98,6 +100,7 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
   const int wt = a.w_total;
   const float s_val = (STATIC && a.anti_alias) ? a.B[net.l[AA_S].b] : 0.f;
   const float s_abs = fabsf(s_val);
+  PhaseClock clk;
 
   {                                 // one 64-point block
     auto rf_val = [&](int r, int v, int c) -> float {
@@ -169,18 +172,22 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         xin[r * LDX + 2 * CR + c] = f2b(c < CR ? rf_val(r, v, c) : 0.f);
       }
       __syncthreads();
+      clk(v == 0 ? TP_POOL1 : TP_ELEM);
       dense(xin, LDX, PT, a.W, a.B, net.l[BASE0],
             [&](int r, int c, float x) { ah[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
+      clk(TP_FWD);
       dense(ah, LDH, PT, a.W, a.B, net.l[BASE1], [&](int r, int c, float x) {
         const float y = elu(x);
         x0[r * LDG + c] = f2b(y);
         xw[r * LDG + c] = f2b(y * wv[r]);
       });
       __syncthreads();
+      clk(TP_FWD);
       dense(xw, LDG, PT, a.W, a.B, net.l[VIS0],
             [&](int r, int c, float x) { ch[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
+      clk(TP_FWD);
       dense(ch, LDG, PT, a.W, a.B, net.l[VIS1], [&](int r, int c, float x) {
         const float t = elu(x);
         tb[r * LDT + c] = f2b(t);
@@ -191,19 +198,23 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         }
       });
       __syncthreads();
+      clk(TP_FWD);
       for (int e = tid; e < PT * 128; e += NT) {
         const int r = e >> 7, c = e & 127;
         const float x = b2f(f2b(b2f(x0[r * LDG + c]) + b2f(tb[r * LDT + c])));
         xv[r * LDG + c] = f2b(x * r_vis0[r]);
       }
       __syncthreads();
+      clk(TP_ELEM);
       dense(xv, LDG, PT, a.W, a.B, net.l[VIS20],
             [&](int r, int c, float x) { eh[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
+      clk(TP_FWD);
       dense(eh, LDG, PT, a.W, a.B, net.l[VIS21], [&](int r, int c, float x) {
         if (c == 0) r_sg[r] = sigm(x);
       });
       __syncthreads();
+      clk(TP_FWD);
 
       // vis = sigmoid(vh) * m
       for (int e = tid; e < PT * LDS; e += NT) {
@@ -219,18 +230,23 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         ds[e] = f2b(d);
       }
       __syncthreads();
+      clk(TP_ELEM);
       dw_accum(ds, LDS, eh, LDG, PT, slab, net.l[VIS21]);
       __syncthreads();
+      clk(TP_DW);
       dense(ds, LDS, PT, a.WT, a.Z, tr(net.l[VIS21]),
             [&](int r, int c, float x) {
               eh[r * LDG + c] = f2b(x * elu_d(b2f(eh[r * LDG + c])));
             });
       __syncthreads();
+      clk(TP_TRANS);
       grad_layer(eh, LDG, xv, LDG, PT, slab, wt, net.l[VIS20]);
       __syncthreads();
+      clk(TP_DW);
       dense(eh, LDG, PT, a.WT, a.Z, tr(net.l[VIS20]),
             [&](int r, int c, float x) { xv[r * LDG + c] = f2b(x); });
       __syncthreads();
+      clk(TP_TRANS);
       // xv = x * vis0, x = x0 + t[:128]: d_x and d_t, one warp per point
       for (int r = warp; r < PT; r += NW) {
         const int p = p0 + r;
@@ -260,18 +276,23 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         }
       }
       __syncthreads();
+      clk(TP_ELEM);
       grad_layer(tb, LDT, ch, LDG, PT, slab, wt, net.l[VIS1]);
       __syncthreads();
+      clk(TP_DW);
       dense(tb, LDT, PT, a.WT, a.Z, tr(net.l[VIS1]),
             [&](int r, int c, float x) {
               ch[r * LDG + c] = f2b(x * elu_d(b2f(ch[r * LDG + c])));
             });
       __syncthreads();
+      clk(TP_TRANS);
       grad_layer(ch, LDG, xw, LDG, PT, slab, wt, net.l[VIS0]);
       __syncthreads();
+      clk(TP_DW);
       dense(ch, LDG, PT, a.WT, a.Z, tr(net.l[VIS0]),
             [&](int r, int c, float x) { xw[r * LDG + c] = f2b(x); });
       __syncthreads();
+      clk(TP_TRANS);
       // xw = x0 * w_v; d_x0 = d_x + w_v d_xw, through base_fc's last ELU
       for (int r = warp; r < PT; r += NW) {
         const int p = p0 + r;
@@ -292,15 +313,19 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
         }
       }
       __syncthreads();
+      clk(TP_ELEM);
       grad_layer(x0, LDG, ah, LDH, PT, slab, wt, net.l[BASE1]);
       __syncthreads();
+      clk(TP_DW);
       dense(x0, LDG, PT, a.WT, a.Z, tr(net.l[BASE1]),
             [&](int r, int c, float x) {
               ah[r * LDH + c] = f2b(x * elu_d(b2f(ah[r * LDH + c])));
             });
       __syncthreads();
+      clk(TP_TRANS);
       grad_layer(ah, LDH, xin, LDX, PT, slab, wt, net.l[BASE0]);
       __syncthreads();
+      clk(TP_DW);
       dense(ah, LDH, PT, a.WT, a.Z, tr(net.l[BASE0]),
             [&](int r, int c, float x) {
               const int p = p0 + r;
@@ -310,6 +335,7 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
                 a.drf[ws.vp(v, p) * CR + c - 2 * CR] = x;
             });
       __syncthreads();
+      clk(TP_TRANS);
     }
 
     // ---- pooling-1 backward ----
@@ -340,6 +366,7 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
       if (!STATIC) a.d_dirfeat[(size_t)p * C + c] = dsum;
     }
     __syncthreads();
+    clk(TP_POOL1_BWD);
     if (!STATIC) return;
 
     // ---- anti-alias weight chain -> d_dot (ray_diff[..., 3]) and d_s ----
@@ -380,6 +407,7 @@ __device__ __forceinline__ void trunk_bwd_block(const TrunkBwdArgs& a,
       a.d_s[p] = dsl * (s_val > 0.f ? 1.f : (s_val < 0.f ? -1.f : 0.f));
     }
     __syncthreads();
+    clk(TP_AA);
   }
 }
 

@@ -1,9 +1,9 @@
 """LLFF-format pose I/O, recentering, and render-path generation.
 
 Port of the parts of ``dynibar_tpu.data.llff`` that ``load_scene_poses``
-needs (numpy only; the image-shape probe reads the PNG header through
-``data/png.py``).  Behavioral parity targets (reference
-ibrnet/data_loaders/llff_data_utils.py):
+needs (numpy only; the image-shape probe reads the PNG or JPEG header
+through ``data/png.py`` or ``data/jpeg.py``).  Behavioral parity targets
+(reference ibrnet/data_loaders/llff_data_utils.py):
   * ``parse_llff_pose`` axis-swap conventions (:14-25)
   * ``_load_data`` poses_bounds_cvd.npy layout (:57-123)
   * ``recenter_poses`` / ``recenter_poses_mono`` (:173-213)
@@ -19,7 +19,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from dynibar_tpu_torch.data import png
+from dynibar_tpu_torch.data import jpeg, png
 
 
 def _normalize(x):
@@ -69,6 +69,22 @@ def load_poses_bounds(basedir: str, pose_file: str = "poses_bounds_cvd.npy"
 def list_images(imgdir: str) -> List[str]:
   return [os.path.join(imgdir, f) for f in sorted(os.listdir(imgdir))
           if f.lower().endswith(("jpg", "png", "jpeg"))]
+
+
+def _image_reader(path: str):
+  """data/jpeg.py or data/png.py, by the file's magic bytes."""
+  with open(path, "rb") as fh:
+    return jpeg if fh.read(2) == jpeg.SOI else png
+
+
+def read_image(path: str) -> np.ndarray:
+  """A PNG or JPEG frame as imageio reads it (uint8 [H, W(, C)])."""
+  return _image_reader(path).read(path)
+
+
+def read_image_shape(path: str):
+  """(height, width[, channels]) of a PNG or JPEG from its header."""
+  return _image_reader(path).read_shape(path)
 
 
 # --- pose-frame utilities -------------------------------------------------
@@ -232,13 +248,13 @@ def load_scene_poses(
   poses, bds = load_poses_bounds(basedir)
 
   imgdir_base = os.path.join(basedir, "images")
-  sh = png.read_shape(list_images(imgdir_base)[0])
+  sh = read_image_shape(list_images(imgdir_base)[0])
   factor = sh[0] / float(height)
   width = int(round(sh[1] / factor))
   imgdir = os.path.join(basedir, f"images_{width}x{height}")
   imgfiles = list_images(imgdir) if os.path.exists(imgdir) else []
   if imgfiles:
-    sh = png.read_shape(imgfiles[0])
+    sh = read_image_shape(imgfiles[0])
   poses[:2, 4, :] = np.array(sh[:2]).reshape([2, 1])
 
   # axis swap: LLFF [down, right, back] -> [right, up, back] style

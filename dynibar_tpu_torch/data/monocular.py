@@ -2,14 +2,15 @@
 
 Port of ``dynibar_tpu.data.monocular``: the same draws from the same
 ``RandomState`` give the same arrays.  The machine with the card has no
-image library, so images and masks are read by ``data/png.py`` and the
+image library, so images and masks are read by ``data/png.py`` (frames
+also by ``data/jpeg.py``, by their magic bytes: ``llff.read_image``) and the
 two OpenCV calls become numpy / scipy with the same results: the
 nearest-neighbour resize takes source index ``floor(dst * src / dst)``
 with OpenCV's rounding of the factor (``cv2.INTER_NEAREST``) and the
 erosion is
 ``scipy.ndimage.binary_erosion`` with ``border_value=1`` (``cv2.erode``'s
 default border never erodes).  A camera's image size comes from its PNG
-header instead of a decode.
+or JPEG header instead of a decode.
 
 Rebuild of the reference ``MonocularDataset``
 (ibrnet/data_loaders/monocular.py:17-426) emitting the *fixed-shape* ray
@@ -40,14 +41,14 @@ from scipy import ndimage
 
 from dynibar_tpu_torch.config import DynibarConfig, RenderSettings
 from dynibar_tpu_torch.core.cameras import make_camera
-from dynibar_tpu_torch.data import llff, png
+from dynibar_tpu_torch.data import llff
 from dynibar_tpu_torch.data.ray_batch import (ANCHOR_CAND_OFFSETS,
                                               MONO_SRC_OFFSETS)
 from dynibar_tpu_torch.data.view_selection import mono_static_pose_ids
 
 
 def _imread_float(path: str) -> np.ndarray:
-  return png.read(path).astype(np.float32) / 255.0
+  return llff.read_image(path).astype(np.float32) / 255.0
 
 
 def resize_nearest(img: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -121,7 +122,7 @@ class MonocularSceneData:
     return _imread_float(self.rgb_files[idx])[..., :3]
 
   def _camera(self, idx: int) -> np.ndarray:
-    h, w = png.read_shape(self.rgb_files[idx])[:2]
+    h, w = llff.read_image_shape(self.rgb_files[idx])[:2]
     return make_camera(h, w, self.intrinsics[idx], self.c2w[idx])
 
   def _load_disp(self, idx: int) -> np.ndarray:

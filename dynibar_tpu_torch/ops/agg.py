@@ -14,10 +14,11 @@ Forward kernels (take the inputs of the matching module's ``forward``,
 Backward kernels (csrc/static_agg_bwd.cu, csrc/static_agg_bwd3.cu,
 csrc/dynamic_agg_bwd.cu), a ray-side and a trunk-side launch as in
 ``pallas_agg_bwd.py``: K4a/K4b (dynamic, :514/:733) and K5a/K5b (static,
-:879/:1109).  K5a/K5b are written for Hopper (wgmma on weight slabs staged
-in shared memory by bulk copies) and read the weights in the tiled layout
-of ``tile_weights``; the other kernels read the row-major pack and its
-transposes.  The dynamic backward's route "pallas" is one launch instead
+:879/:1109).  K4a and K5a/K5b are written for Hopper (wgmma on weight
+slabs staged in shared memory by bulk copies) and read the weights in the
+tiled layout of ``tile_weights``; the other kernels read the row-major
+pack and (the backwards K4b, K4s, K5c, K5d) its transposes.  The dynamic
+backward's route "pallas" is one launch instead
 (csrc/dynamic_agg_bwd1.cu): K4s replaces ``pallas_agg_bwd.py:163
 dynamic_bwd_kernel``; its forward K3p (``_dynamic_kernel`` under
 ``_make_dyn_core_diff``, pallas_agg.py:925) is the K3 launch with no
@@ -71,7 +72,7 @@ _N_SLABS = 16                    # csrc/agg_bwd_common.cuh kSlabs
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STATIC_ARGS = [_P] * 9 + [_I] * 2 + [_P] * 7 + [_I] * 4 + [_P]
 _DYNAMIC_ARGS = [_P] * 9 + [_F] + [_P] * 6 + [_I] * 4 + [_P]
-_DYN_RAY_ARGS = [_P] * 19 + [_I] * 7 + [_P]
+_DYN_RAY_ARGS = [_P] * 18 + [_I] * 7 + [_P]
 _DYN_TRUNK_ARGS = [_P] * 14 + [_I] * 7 + [_P]
 _ST_RAY_ARGS = [_P] * 15 + [_I] * 7 + [_P]
 _ST_TRUNK_ARGS = [_P] * 10 + [_I] * 2 + [_P] * 11 + [_I] * 7 + [_P]
@@ -197,7 +198,7 @@ def _order(meta_bytes: bytes, total: int, tiled: bool,
 
 
 def tile_weights(w: torch.Tensor, meta: np.ndarray) -> torch.Tensor:
-  """The packed weights laid out for the Hopper kernels K5a/K5b
+  """The packed weights laid out for the Hopper kernels K4a, K5a/K5b
   (csrc/sm90_common.cuh): each padded layer [N, K] at its offset, cut into
   blocks of at most 64 x 64 stored one after the other (row blocks, then
   column blocks), each block's 8x8 core matrices row-major, each 8 rows of
@@ -223,8 +224,8 @@ def pack_tiled(net: nn.Module, static: bool) -> torch.Tensor:
 def pack_transposed(net: nn.Module, static: bool) -> torch.Tensor:
   """The bf16 transposes of ``pack_weights``: each padded W^T at W's offset,
   so the backward's dX = W^T dY runs on the forward's layer routine (all
-  backward kernels but K5a/K5b).  Built only when such a kernel runs,
-  cached with the pack."""
+  backward kernels but K4a and K5a/K5b).  Built only when such a kernel
+  runs, cached with the pack."""
   return _relaid(net, static, "_kernel_wt", False)
 
 
@@ -474,12 +475,8 @@ def dynamic_forward_residuals(net, pts, dirfeat, dirpe, rgb_feat, mask):
 
 def dynamic_forward_primal(net, pts, dirfeat, dirpe, rgb_feat, mask):
   """K3p: the K3 launch under the "pallas" route, which keeps no residuals:
-  returns raw and the converted inputs K4s reads.  K4s runs whole 64-point
-  trunk blocks per ray (csrc/agg_common.cuh PT), so S must be a multiple of
-  64."""
-  if rgb_feat.shape[1] % 64:
-    raise ValueError("the pallas route (K3p/K4s) takes S a multiple of 64; "
-                     f"got S={rgb_feat.shape[1]}")
+  returns raw and the converted inputs K4s reads (any S: K4s masks a ray's
+  last 64-point trunk block at the ray's end)."""
   out, ws = _dynamic_launch(net, pts, dirfeat, dirpe, rgb_feat, mask)
   dynamic_forward_primal.launches += 1
   return out, {k: ws[k] for k in ("pts", "dirfeat", "dirpe", "posenc",
@@ -489,15 +486,6 @@ def dynamic_forward_primal(net, pts, dirfeat, dirpe, rgb_feat, mask):
 # --------------------------------------------------------------------------
 # backward launches (K4a/K4b, K5a/K5b, K5c/K5d)
 # --------------------------------------------------------------------------
-
-def _ray_common(net, ws, cot, dev):
-  """The leading arguments of the dynamic ray-side backward entry."""
-  w, b, meta = pack_weights(net, False)
-  wt = pack_transposed(net, False)
-  return [w.data_ptr(), wt.data_ptr(), b.data_ptr(), _zeros(dev).data_ptr(),
-          _meta_ptr(meta), ws["gf"].data_ptr(), ws["x"].data_ptr(),
-          ws["vm"][0].data_ptr(), ws["vm"][1].data_ptr(), cot.data_ptr()]
-
 
 def static_backward_ray(net, ws, cot, slabs, nblk, w_total):
   """K5a: ray-side static backward.  Returns d_x [V,P,128] bf16 and
@@ -650,22 +638,28 @@ def static_backward(net, ws, cot, bwd: str):
 
 def dynamic_backward_ray(net, ws, cot, slabs, nblk, w_total):
   """K4a: ray-side dynamic backward.  Returns d_x, d_misc (d_vis in slot
-  0), d_pts [P,3] and d_dirpe [R,27]."""
+  0), d_pts [P,3] and d_dirpe [R,27].  Reads the tiled weights
+  (``pack_tiled``)."""
   dev = cot.device
   r, s, v, c = ws["rgb_feat"].shape
+  _, b, meta = pack_weights(net, False)
   f32 = dict(dtype=torch.float32, device=dev)
   dx = torch.empty((v, r * s, 128), dtype=torch.bfloat16, device=dev)
   dmisc = torch.zeros((v, r * s, 8), **f32)
   d_pts = torch.empty((r * s, 3), **f32)
   d_dirpe = torch.empty((r, 27), **f32)
   scratch = torch.empty((nblk, _MAX_SAMPLES, _SCRATCH_LD), **f32)
+  stats = torch.empty((nblk, 12, _MAX_SAMPLES), **f32)
   fn = _fn("dynamic_agg_bwd", "dyn_dynamic_agg_bwd_ray", _DYN_RAY_ARGS)
-  build.check(fn(*_ray_common(net, ws, cot, dev),
-                 ws["posenc"].data_ptr(), ws["pts"].data_ptr(),
-                 ws["dirpe"].data_ptr(), dx.data_ptr(), dmisc.data_ptr(),
-                 d_pts.data_ptr(), d_dirpe.data_ptr(), scratch.data_ptr(),
-                 slabs.data_ptr(), slabs.shape[1], w_total, r, s, v, c, nblk,
-                 _stream(dev)), "dynamic aggregator backward (ray)")
+  build.check(fn(pack_tiled(net, False).data_ptr(), b.data_ptr(),
+                 _meta_ptr(meta), ws["gf"].data_ptr(), ws["x"].data_ptr(),
+                 ws["vm"][0].data_ptr(), ws["vm"][1].data_ptr(),
+                 cot.data_ptr(), ws["posenc"].data_ptr(),
+                 ws["pts"].data_ptr(), ws["dirpe"].data_ptr(), dx.data_ptr(),
+                 dmisc.data_ptr(), d_pts.data_ptr(), d_dirpe.data_ptr(),
+                 scratch.data_ptr(), stats.data_ptr(), slabs.data_ptr(),
+                 slabs.shape[1], w_total, r, s, v, c, nblk, _stream(dev)),
+              "dynamic aggregator backward (ray)")
   dynamic_backward_ray.launches += 1
   return dx, dmisc, d_pts, d_dirpe
 

@@ -10,7 +10,9 @@ import time: the first launch builds, or a caller builds ahead with
 A library named in :func:`use_phase_clocks` loads from its phase-clock
 build instead (``PHASE_FLAGS``, ``<name>-phases-<hash>.so``): the same
 sources with per-phase clock64 sums compiled in (csrc/phase_clock.cuh),
-for ``scripts/port_profile.py --phases`` only.
+for ``scripts/port_profile.py --phases`` only.  :func:`use_build` picks
+any such build, with extra ``-D`` defines too (``scripts/ring_protocols.py``
+builds the weight ring's release protocols side by side that way).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Set
+from typing import Dict, Iterable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -33,7 +35,8 @@ KERNEL_SOURCES = ("sample", "static_agg", "dynamic_agg", "static_agg_bwd",
                   "static_agg_bwd3", "dynamic_agg_bwd", "dynamic_agg_bwd1")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_PHASES: Set[str] = set()
+# name -> (phase clocks, extra defines) of the build load() takes
+_VARIANT: Dict[str, Tuple[bool, Tuple[str, ...]]] = {}
 
 
 def _nvcc() -> str:
@@ -48,47 +51,67 @@ def _nvcc() -> str:
 def use_phase_clocks(names: Iterable[str]) -> None:
   """Load these libraries from their phase-clock build."""
   for name in names:
-    _PHASES.add(name)
-    _LIBS.pop(name, None)
+    use_build(name, phases=True)
 
 
-def library_path(name: str, phases: bool = False) -> Path:
-  flags = NVCC_FLAGS + (PHASE_FLAGS if phases else ())
-  digest = hashlib.sha256(" ".join(flags).encode())
+def use_build(name: str, phases: bool = False,
+              defines: Sequence[str] = ()) -> None:
+  """Load `name` from the build with these flags from now on."""
+  _VARIANT[name] = (phases, tuple(defines))
+  _LIBS.pop(name, None)
+
+
+def _flags(phases: bool, defines: Sequence[str]) -> Tuple[str, ...]:
+  return NVCC_FLAGS + (PHASE_FLAGS if phases else ()) + tuple(defines)
+
+
+def library_path(name: str, phases: bool = False,
+                 defines: Sequence[str] = ()) -> Path:
+  digest = hashlib.sha256(" ".join(_flags(phases, defines)).encode())
   for src in sorted(CSRC.glob("*.cu*")):
     if src.suffix == ".cuh" or src.stem == name:
       digest.update(src.read_bytes())
-  tag = "-phases" if phases else ""
+  tag = ("-phases" if phases else "") + "".join(
+      "-" + d[2:].replace("=", "") for d in defines)
   return BUILD_DIR / f"{name}{tag}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNEL_SOURCES,
-          phases: bool = False) -> Dict[str, float]:
+def build(names: Iterable[str] = KERNEL_SOURCES, phases: bool = False,
+          defines: Sequence[str] = ()) -> Dict[str, float]:
   """Compile every missing library in parallel (their phase-clock builds
-  if `phases`); return seconds per name.
+  if `phases`, with extra `defines`); return seconds per name."""
+  return {name: sec for (name, _, _), sec in
+          build_jobs([(n, phases, tuple(defines)) for n in names]).items()}
+
+
+def build_jobs(jobs: Iterable[Tuple[str, bool, Tuple[str, ...]]]
+               ) -> Dict[Tuple[str, bool, Tuple[str, ...]], float]:
+  """Compile every missing (name, phases, defines) build at once, one nvcc
+  each; return seconds per job.
 
   The compiler's output (with ``-Xptxas -v``: registers, shared memory
   and spills per kernel) is kept beside each library as ``.log``."""
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
   procs = {}
   t0 = time.perf_counter()
-  for name in names:
-    out = library_path(name, phases)
+  for job in jobs:
+    name, phases, defines = job
+    out = library_path(name, phases, defines)
     if out.exists():
       continue
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
     log = open(out.with_suffix(".log"), "w")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(PHASE_FLAGS if phases else ()), "-o",
-           str(tmp), str(CSRC / f"{name}.cu")]
-    procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
-                   tmp, out, log)
+    cmd = [_nvcc(), *_flags(phases, defines), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    procs[job] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                  tmp, out, log)
   seconds = {}
-  for name, (proc, tmp, out, log) in procs.items():
+  for job, (proc, tmp, out, log) in procs.items():
     rc = proc.wait()
     log.close()
-    seconds[name] = time.perf_counter() - t0
+    seconds[job] = time.perf_counter() - t0
     if rc != 0:
-      raise RuntimeError(f"nvcc failed for {name} (rc {rc}):\n"
+      raise RuntimeError(f"nvcc failed for {job[0]} (rc {rc}):\n"
                          + out.with_suffix(".log").read_text()[-4000:])
     os.replace(tmp, out)
   return seconds
@@ -97,10 +120,10 @@ def build(names: Iterable[str] = KERNEL_SOURCES,
 def load(name: str) -> ctypes.CDLL:
   """The loaded library of csrc/<name>.cu, built on first use."""
   if name not in _LIBS:
-    phases = name in _PHASES
-    path = library_path(name, phases)
+    phases, defines = _VARIANT.get(name, (False, ()))
+    path = library_path(name, phases, defines)
     if not path.exists():
-      build([name], phases)
+      build([name], phases, defines)
     _LIBS[name] = ctypes.CDLL(str(path))
   return _LIBS[name]
 

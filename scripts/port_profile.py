@@ -16,14 +16,15 @@ views, 48 frames, schedule_weights(epoch=2)) on the backward route
 K5a + K5c + K5d) or "pallas" (dynamic K3p forward, K4s backward).  Prints the device time per kernel name (summed over the
 profiled iterations, divided by them), the wall time per iteration and
 the device's busy share of it, and the peak device memory of the
-profiled iterations.  With --phases the static backward's
-library (K5a, K5b) loads from its phase-clock build (ops/build.py
-use_phase_clocks, csrc/phase_clock.cuh): after the profile, one more
---iters steps run with the clocks zeroed before them, and each kernel's
-phases are printed as shares of its clock cycles and as ms of its
-profiled device time; also the registers, stack and spills nvcc reported
-for both kernels (production and phase-clock builds).  Needs one card;
-imports nothing of JAX.
+profiled iterations.  With --phases the split backwards' libraries
+(static_agg_bwd: K5a, K5b; dynamic_agg_bwd: K4a, K4b) load from their
+phase-clock builds (ops/build.py use_phase_clocks, csrc/phase_clock.cuh):
+after the profile, one more --iters steps run with the clocks zeroed
+before them, and each kernel's phases are printed as shares of its clock
+cycles and as ms of its profiled device time; also the registers, stack
+and spills nvcc reported for the kernels of both libraries (production
+and phase-clock builds), and any ptxas warning C7520 (wgmma serialized).
+Needs one card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -53,18 +54,26 @@ from dynibar_tpu_torch.utils.device import (resolve_device,  # noqa: E402
                                             to_device)
 
 
-# phase names of csrc/phase_clock.cuh, the profiler's kernel name, the
-# first counter and the counter of thread 0's waits on weight slabs
+# phase names of csrc/phase_clock.cuh, the library, a pattern of the
+# profiler's kernel name (the Hopper kernels' and the dynamic parent's),
+# the first counter and the counter of thread 0's waits on weight slabs
+RAY_PHASES = ("A recompute", "B head fwd", "B head transposed", "B head dW",
+              "B elementwise", "C attention", "C dW",
+              "D geometry + pooling-2", "D dW")
+TRUNK_PHASES = ("masks + pooling-1 fwd", "view fwd recompute",
+                "view transposed", "view dW", "view elementwise",
+                "pooling-1 bwd", "input MLP", "input MLP dW",
+                "anti-alias chain")
 PHASES = {
-    "K5a": (("A recompute", "B head fwd", "B head transposed",
-             "B head dW", "B elementwise", "C attention", "C dW",
-             "D geometry + pooling-2", "D dW"), "static_ray_bwd_kernel", 0,
+    "K5a": (RAY_PHASES, "static_agg_bwd", r"agg::static_ray_bwd_kernel", 0,
             15),
-    "K5b": (("masks + pooling-1 fwd", "view fwd recompute",
-             "view transposed", "view dW", "view elementwise",
-             "pooling-1 bwd", "input MLP", "input MLP dW",
-             "anti-alias chain"), "static_trunk_bwd_kernel", 16, 31)}
-PHASE_LIB = "static_agg_bwd"
+    "K5b": (TRUNK_PHASES, "static_agg_bwd", r"agg::static_trunk_bwd_kernel",
+            16, 31),
+    "K4a": (RAY_PHASES, "dynamic_agg_bwd",
+            r"agg::(dynamic_)?ray_bwd_kernel\b", 0, 15),
+    "K4b": (TRUNK_PHASES, "dynamic_agg_bwd", r"agg::trunk_bwd_kernel<false>",
+            16, 31)}
+PHASE_LIBS = ("static_agg_bwd", "dynamic_agg_bwd")
 
 # --route -> (fused_st_bwd_impl, fused_bwd_impl)
 ROUTES = {"pallas_split": ("pallas_split", "pallas_split"),
@@ -81,17 +90,22 @@ def main() -> int:
   ap.add_argument("--route", default="pallas_split", choices=sorted(ROUTES),
                   help="the mono step's backward route")
   ap.add_argument("--phases", action="store_true",
-                  help="per-phase clocks of K5a/K5b (with --train or --mono)")
+                  help="per-phase clocks of K5a/K5b and K4a/K4b (with "
+                  "--train or --mono)")
   args = ap.parse_args()
   if args.phases:
     if not (args.train or args.mono):
       ap.error("--phases needs --train or --mono")
-    build.use_phase_clocks([PHASE_LIB])
+    build.use_phase_clocks(PHASE_LIBS)
   dev = resolve_device(None)
   card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                          "--format=csv,noheader"], capture_output=True,
                         text=True, check=True).stdout.strip()
-  build.build()
+  if hasattr(build, "build_jobs"):
+    build.build_jobs([(n, False, ()) for n in build.KERNEL_SOURCES]
+                     + [(n, True, ()) for n in PHASE_LIBS if args.phases])
+  else:                             # an older checkout's build module
+    build.build()
   if args.mono:
     cfg = mono_render_settings(num_source_views=7, num_vv=3, n_samples=64,
                                num_basis=6, compute_dtype="bfloat16",
@@ -183,23 +197,30 @@ def _profile(one, args, card: str, what: str) -> int:
 def _phases(one, args, card: str, rows) -> None:
   """--iters more steps with the phase clocks zeroed before them; print
   each kernel's phases and nvcc's resource lines."""
-  fn = build.load(PHASE_LIB).dyn_phase_clocks
-  fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
-  fn.restype = ctypes.c_int
-  buf = (ctypes.c_ulonglong * 32)()
+  fns, bufs = {}, {}
+  for lib in PHASE_LIBS:
+    fns[lib] = build.load(lib).dyn_phase_clocks
+    fns[lib].argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+    fns[lib].restype = ctypes.c_int
+    bufs[lib] = (ctypes.c_ulonglong * 32)()
   torch.cuda.synchronize()
-  build.check(fn(buf, 1), "phase clocks")
+  for lib in PHASE_LIBS:
+    build.check(fns[lib](bufs[lib], 1), "phase clocks")
   for _ in range(args.iters):
     one()
   torch.cuda.synchronize()
-  build.check(fn(buf, 1), "phase clocks")
+  for lib in PHASE_LIBS:
+    build.check(fns[lib](bufs[lib], 1), "phase clocks")
   out = {}
-  for key, (names, kname, first, wait) in PHASES.items():
+  for key, (names, lib, pattern, first, wait) in PHASES.items():
+    buf = bufs[lib]
     cyc = list(buf)[first:first + len(names)]
     total = max(sum(cyc), 1)
-    ms = sum(r[0] for r in rows if kname in r[2])
-    print(f"{key} phases ({kname}: {ms:.3f} ms device time per step in the "
-          f"profile; {total} clock64 cycles over its blocks) [{card}]")
+    ms = sum(r[0] for r in rows if re.search(pattern, r[2]))
+    if ms == 0 and sum(cyc) == 0:
+      continue                    # not on this step's route
+    print(f"{key} phases ({pattern}: {ms:.3f} ms device time per step in "
+          f"the profile; {total} clock64 cycles over its blocks) [{card}]")
     for name, c in zip(names, cyc):
       print(f"  {name:28s} {100 * c / total:6.2f}%  {ms * c / total:8.3f} ms")
     for name, c in (("waiting on weight slabs", buf[wait]),
@@ -212,13 +233,16 @@ def _phases(one, args, card: str, rows) -> None:
                     epilogue=buf[wait - 2] / total,
                     share={n: c / total for n, c in zip(names, cyc)})
   print(json.dumps({"phases": out, "card": card}))
-  for phases in (False, True):
-    build.build([PHASE_LIB], phases)
-    log = build.library_path(PHASE_LIB, phases).with_suffix(".log")
-    if log.exists():
-      print(f"nvcc resources ({log.name}):")
-      for entry, props, regs in _ptxas(log.read_text()):
-        print(f"  {entry}: {props}; {regs}")
+  for lib in PHASE_LIBS:
+    for phases in (False, True):
+      log = build.library_path(lib, phases).with_suffix(".log")
+      if log.exists():
+        print(f"nvcc resources ({log.name}):")
+        for entry, props, regs in _ptxas(log.read_text()):
+          print(f"  {entry}: {props}; {regs}")
+        for line in log.read_text().splitlines():
+          if "C7520" in line:
+            print(f"  ptxas: {line.strip()[:200]}")
 
 
 def _ptxas(text: str):

@@ -9,6 +9,8 @@ each parameter's gradient: the slab is filled from the f32 twin's autograd
 gradients and compared exactly.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -107,3 +109,85 @@ def test_unpack_grads_maps_the_slab_onto_each_parameter(static, anti_alias):
   for g, p in zip(got, params):
     assert g.shape == p.shape
     assert torch.equal(g, p.grad)
+
+
+def _ring_segments():
+  """Every weight-ring segment of the Hopper kernels, parsed from their
+  headers: (header, name, [(slot, transposed)])."""
+  csrc = agg.build.CSRC
+  names = re.search(r"enum Layer \{(.*?)\};",
+                    (csrc / "agg_common.cuh").read_text(), re.S).group(1)
+  slot = {n.strip(): i for i, n in enumerate(
+      re.sub(r"//[^\n]*", "", names).replace("\n", " ").split(","))
+          if n.strip()}
+  out = []
+  for header in ("ray_bwd_sm90.cuh", "trunk_bwd_sm90.cuh"):
+    text = (csrc / header).read_text()
+    for name, body in re.findall(r"const WOp (k\w+)\[\d+\] = \{(.*?)\};",
+                                 text, re.S):
+      ops = [(slot[l], int(t)) for l, t in
+             re.findall(r"\{(\w+), ([01])\}", body)]
+      out.append((header, name, ops))
+  return out
+
+
+def _ring_limits():
+  text = (agg.build.CSRC / "sm90_common.cuh").read_text()
+  return tuple(int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
+               for k in ("kRingOps", "kRingSlabs"))
+
+
+@pytest.mark.parametrize("static", [True, False])
+@pytest.mark.parametrize("both", [False, True])
+def test_ring_slabs_are_the_tiled_blocks(static, both):
+  """Each slab the ring's begin() copies for a segment (csrc/sm90_common.cuh
+  OpGeom::block, the copy's source offset and bytes) is exactly the 64 x
+  64 block of W that the product expects, in the tiled pack; every
+  segment of the kernels that read this net's pack fits the ring's op and
+  slab tables (begin() traps past them)."""
+  net = _net(static, True, 0)
+  w, _, meta = agg.pack_weights(net, static)
+  tiled = agg.tile_weights(w, meta)
+  max_ops, max_slabs = _ring_limits()
+  # the dynamic net's pack serves K4a (ray_bwd_sm90.cuh) and its own
+  # heads' segment; the static net's, K5a and K5b
+  segments = [seg for seg in _ring_segments()
+              if (seg[1] != "kHeads") == static
+              or (not static and seg[0] == "ray_bwd_sm90.cuh"
+                  and seg[1] in ("kA", "kC", "kD"))]
+  assert any(name == ("kView" if static else "kHeads")
+             for _, name, _ in segments)
+  for hdr, name, ops in segments:
+    assert len(ops) <= max_ops, (hdr, name)
+    slabs = 0
+    for layer, trans in ops:
+      w_off, _, kp, np_ = (int(x) for x in meta[layer])
+      assert np_ > 0, (hdr, name, layer)
+      wo, wr = (kp, np_) if trans else (np_, kp)
+      ncb, nkb = -(-wo // 64), -(-wr // 64)
+      blocks = []
+      for s in range(ncb * nkb):       # OpGeom::block
+        np2 = ncb >> 1
+        if both:
+          cb, kb = s // nkb, s % nkb
+        elif s < np2 * 2 * nkb:
+          rem = s % (2 * nkb)
+          cb, kb = 2 * (s // (2 * nkb)) + (rem & 1), rem >> 1
+        else:
+          cb, kb = ncb - 1, s - np2 * 2 * nkb
+        blocks.append((cb, kb))
+      assert sorted(blocks) == [(c, k) for c in range(ncb)
+                                for k in range(nkb)]
+      layer_w = w[w_off:w_off + np_ * kp].view(np_, kp)
+      for cb, kb in blocks:
+        bw, bk = min(64, wo - 64 * cb), min(64, wr - 64 * kb)
+        n0, bn = (64 * kb, bk) if trans else (64 * cb, bw)
+        k0, bkk = (64 * cb, bw) if trans else (64 * kb, bk)
+        src, count = w_off + n0 * kp + bn * k0, bn * bkk
+        got = tiled[src:src + count].view(bn // 8, bkk // 8, 8, 8)
+        want = layer_w[n0:n0 + bn, k0:k0 + bkk].reshape(
+            bn // 8, 8, bkk // 8, 8).permute(0, 2, 1, 3)
+        assert torch.equal(got, want), (hdr, name, layer, cb, kb)
+        assert 2 * count <= 64 * 64 * 2
+      slabs += ncb * nkb
+    assert slabs <= max_slabs, (hdr, name, slabs)
