@@ -33,6 +33,62 @@ __global__ void __launch_bounds__(NT, 1)
   ray_bwd90_rays<false>(a);
 }
 
+// K4a's attention alone (attn_mma.cuh, with the buffers' strides of
+// ray_bwd_sm90.cuh), for holding it against a plain attention on the card
+// (utils/kernel_check.py ray_attention): one ray per block, q / k / v /
+// d_o [R, S, 128] bf16 and each query's count of valid views [R, S] in;
+// o, d_q, d_k, d_v [R, S, 128] bf16 and the row statistics [R, 12, SMAX]
+// (max, sum, D) out.
+struct AttnCheckArgs {
+  const bf16 *q, *k, *v, *d_o;
+  const float* nvalid;
+  bf16 *o, *dq, *dk, *dv;
+  float* stats;
+  int S;
+};
+
+constexpr size_t kAttnCheckSmem =
+    (size_t)SMAX * (3 * 128 + 3 * LDG) * 2 + SMAX * 4;
+
+__global__ void __launch_bounds__(NT, 1)
+    attn_check_kernel(AttnCheckArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Q = (bf16*)smem;
+  bf16* K = Q + SMAX * 128;
+  bf16* Vv = K + SMAX * 128;
+  bf16* O = Vv + SMAX * 128;                   // [SMAX][LDG] each
+  bf16* DO = O + SMAX * LDG;
+  bf16* DQ = DO + SMAX * LDG;
+  float* snv = (float*)(DQ + SMAX * LDG);
+  const int S = a.S, Sp = (S + 15) & ~15;
+  const size_t p0 = (size_t)blockIdx.x * S;
+  for (int e = threadIdx.x; e < Sp * 128; e += NT) {
+    const int r = e >> 7, c = e & 127;
+    const size_t g = (p0 + r) * 128 + c;
+    const bf16 z = __float2bfloat16(0.f);
+    Q[e] = r < S ? a.q[g] : z;
+    K[e] = r < S ? a.k[g] : z;
+    Vv[e] = r < S ? a.v[g] : z;
+    DO[r * LDG + c] = r < S ? a.d_o[g] : z;
+  }
+  for (int i = threadIdx.x; i < Sp; i += NT)
+    snv[i] = i < S ? a.nvalid[p0 + i] : 0.f;
+  __syncthreads();
+  float* st_m = a.stats + (size_t)blockIdx.x * 12 * SMAX;
+  attn_fwd_mma(Q, K, Vv, O, snv, S, Sp, st_m, st_m + 4 * SMAX);
+  __syncthreads();
+  attn_bwd_mma(Q, K, Vv, DO, DQ, snv, S, Sp, st_m, st_m + 4 * SMAX,
+               st_m + 8 * SMAX);
+  for (int e = threadIdx.x; e < S * 128; e += NT) {
+    const int r = e >> 7, c = e & 127;
+    const size_t g = (p0 + r) * 128 + c;
+    a.o[g] = O[r * LDG + c];
+    a.dq[g] = DQ[r * LDG + c];
+    a.dk[g] = K[e];
+    a.dv[g] = Vv[e];
+  }
+}
+
 }  // namespace agg
 
 using namespace agg;
@@ -74,6 +130,19 @@ extern "C" int dyn_dynamic_agg_bwd_ray(
   a.w_total = w_total;
   return launch_persistent(dynamic_ray_bwd_kernel, kDynRayBwdSmem, a, R,
                            nblocks, (cudaStream_t)stream);
+}
+
+extern "C" int dyn_attention_check(const void* q, const void* k,
+                                   const void* v, const void* d_o,
+                                   const void* nvalid, void* o, void* dq,
+                                   void* dk, void* dv, void* stats, int R,
+                                   int S, void* stream) {
+  if (S > SMAX || S < 1) return (int)cudaErrorInvalidValue;
+  AttnCheckArgs a{(const bf16*)q, (const bf16*)k, (const bf16*)v,
+                  (const bf16*)d_o, (const float*)nvalid, (bf16*)o,
+                  (bf16*)dq, (bf16*)dk, (bf16*)dv, (float*)stats, S};
+  return launch_persistent(attn_check_kernel, kAttnCheckSmem, a, R, R,
+                           (cudaStream_t)stream);
 }
 
 extern "C" int dyn_dynamic_agg_bwd_trunk(

@@ -19,14 +19,11 @@
 //   D. geometry_fc backward from the recomputed pooling-2 input, then the
 //      pooling-2 backward per view: d_mean_eff = d_mean - 2 d_var s2,
 //      d_x (bf16) and d_vis (f32).
-// Weight gradients go to the block's slab (agg_bwd_common.cuh).  In the
-// phase-clock build thread 0 adds each phase's cycles up (RayPhase,
-// phase_clock.cuh).
+// Weight gradients go to the block's slab (agg_bwd_common.cuh).
 #pragma once
 
 #include "agg_bwd_common.cuh"
 #include "attn_mma.cuh"
-#include "phase_clock.cuh"
 
 namespace agg {
 
@@ -109,7 +106,6 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
   float* SG = SD + SMAX * 128;                 // [SMAX][272] d_gin
   const float* ln_s = a.B + net.l[LN].b;
   const float* ln_b = ln_s + 128;
-  PhaseClock clk;
 
   {                                 // one ray
     const size_t p0 = (size_t)ray * S;
@@ -210,7 +206,6 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
       }
     }
     __syncthreads();
-    clk(RP_A);
 
     // ---- B: heads, 64 rows at a time: forward, transpose, LN backward ----
     for (int r0 = 0; r0 < Sp; r0 += 64) {
@@ -227,7 +222,6 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
       dense(rp, LD1, rows, a.W, a.B, net.l[REFPTS0],
             [&](int r, int c, float x) { RH[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
-      clk(RP_HEAD_FWD);
       dense(RH, LDH, rows, a.W, a.B, net.l[REFPTS1],
             [&](int r, int c, float x) { HIN[r * LD2 + c] = f2b(elu(x)); });
       for (int e = tid; e < rows * (k2 - 128); e += NT) {
@@ -237,7 +231,6 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
                                         : 0.f);
       }
       __syncthreads();
-      clk(RP_HEAD_FWD);
       // sigma head: sigma - shift, -1e9 (no gradient) where no view is valid
       dense(HIN, LD2, rows, a.W, a.B, net.l[OG0],
             [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
@@ -249,32 +242,25 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
         D3[e] = f2b(d);
       }
       __syncthreads();
-      clk(RP_HEAD_FWD);
       dw_accum(D3, LDS, H1, LDG, rows, slab, net.l[OG1]);
       __syncthreads();
-      clk(RP_HEAD_DW);
       dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[OG1]),
             [&](int r, int c, float x) {
               H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
             });
       __syncthreads();
-      clk(RP_HEAD_TRANS);
       grad_layer(H1, LDG, HIN, LD2, rows, slab, wt, net.l[OG0]);
       __syncthreads();
-      clk(RP_HEAD_DW);
       dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[OG0]),
             [&](int r, int c, float x) { DF[r * 128 + c] = x; });
       __syncthreads();
-      clk(RP_HEAD_TRANS);
       // rgb head: sigmoid MLP on [gf2 | dir PE], 0 where no view is valid
       dense(HIN, LD2, rows, a.W, a.B, net.l[RGB0],
             [&](int r, int c, float x) { H1[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
-      clk(RP_HEAD_FWD);
       dense(H1, LDG, rows, a.W, a.B, net.l[RGB1],
             [&](int r, int c, float x) { H2[r * LD64 + c] = f2b(elu(x)); });
       __syncthreads();
-      clk(RP_HEAD_FWD);
       dense(H2, LD64, rows, a.W, a.B, net.l[RGB2],
             [&](int r, int c, float x) {
               const int i = r0 + r;
@@ -287,28 +273,22 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
               D3[r * LDS + c] = f2b(d);
             });
       __syncthreads();
-      clk(RP_HEAD_FWD);
       dw_accum(D3, LDS, H2, LD64, rows, slab, net.l[RGB2]);
       __syncthreads();
-      clk(RP_HEAD_DW);
       dense(D3, LDS, rows, a.WT, a.Z, tr(net.l[RGB2]),
             [&](int r, int c, float x) {
               H2[r * LD64 + c] = f2b(x * elu_d(b2f(H2[r * LD64 + c])));
             });
       __syncthreads();
-      clk(RP_HEAD_TRANS);
       grad_layer(H2, LD64, H1, LDG, rows, slab, wt, net.l[RGB1]);
       __syncthreads();
-      clk(RP_HEAD_DW);
       dense(H2, LD64, rows, a.WT, a.Z, tr(net.l[RGB1]),
             [&](int r, int c, float x) {
               H1[r * LDG + c] = f2b(x * elu_d(b2f(H1[r * LDG + c])));
             });
       __syncthreads();
-      clk(RP_HEAD_TRANS);
       grad_layer(H1, LDG, HIN, LD2, rows, slab, wt, net.l[RGB0]);
       __syncthreads();
-      clk(RP_HEAD_DW);
       dense(H1, LDG, rows, a.WT, a.Z, tr(net.l[RGB0]),
             [&](int r, int c, float x) {
               if (c < 128)
@@ -317,26 +297,21 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
                 atomicAdd(&sdp[c - 128], x);
             });
       __syncthreads();
-      clk(RP_HEAD_TRANS);
       // ref_pts_fc (ELU output gf2, then its hidden layer)
       for (int e = tid; e < rows * 128; e += NT) {
         const int r = e >> 7, c = e & 127;
         HIN[r * LD2 + c] = f2b(DF[e] * elu_d(b2f(HIN[r * LD2 + c])));
       }
       __syncthreads();
-      clk(RP_HEAD_ELEM);
       grad_layer(HIN, LD2, RH, LDH, rows, slab, wt, net.l[REFPTS1]);
       __syncthreads();
-      clk(RP_HEAD_DW);
       dense(HIN, LD2, rows, a.WT, a.Z, tr(net.l[REFPTS1]),
             [&](int r, int c, float x) {
               RH[r * LDH + c] = f2b(x * elu_d(b2f(RH[r * LDH + c])));
             });
       __syncthreads();
-      clk(RP_HEAD_TRANS);
       grad_layer(RH, LDH, rp, LD1, rows, slab, wt, net.l[REFPTS0]);
       __syncthreads();
-      clk(RP_HEAD_DW);
       dense(RH, LDH, rows, a.WT, a.Z, tr(net.l[REFPTS0]),
             [&](int r, int c, float x) {
               const int i = r0 + r;
@@ -350,14 +325,12 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
               }
             });
       __syncthreads();
-      clk(RP_HEAD_TRANS);
       for (int e = tid; e < rows * 3; e += NT) {
         const int i = r0 + e / 3;
         if (i < S) a.d_pts[(p0 + i) * 3 + e % 3] = spp[e];
       }
       ln_bwd(r0, rows, DF);
       __syncthreads();
-      clk(RP_HEAD_ELEM);
     }
 
     // ---- C: attention backward ----
@@ -367,24 +340,17 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
     __syncthreads();
     attn_fwd_mma(Q, K, Vv, O, snv, S, Sp, st_m, st_l);
     __syncthreads();
-    clk(RP_C);
     dw_accum(DO3, LDG, O, LDG, Sp, slab, net.l[WFC]);
     __syncthreads();
-    clk(RP_C_DW);
     dense(DO3, LDG, Sp, a.WT, a.Z, tr(net.l[WFC]),
           [&](int r, int c, float x) { O[r * LDG + c] = f2b(x); });   // d_o
     __syncthreads();
     attn_bwd_mma(Q, K, Vv, O, DO3, snv, S, Sp, st_m, st_l, st_d);
     load_gf();                                       // gf1, the q/k/v input
     __syncthreads();
-    clk(RP_C);
     dw_accum(DO3, LDG, O, LDG, Sp, slab, net.l[WQ]);
     dw_accum(K, 128, O, LDG, Sp, slab, net.l[WK]);
     dw_accum(Vv, 128, O, LDG, Sp, slab, net.l[WV]);
-#ifdef AGG_PHASE_CLOCKS
-    __syncthreads();
-    clk(RP_C_DW);
-#endif
     dense(DO3, LDG, Sp, a.WT, a.Z, tr(net.l[WQ]),
           [&](int r, int c, float x) { SD[r * 128 + c] += x; });
     __syncthreads();
@@ -394,7 +360,6 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
     dense(Vv, 128, Sp, a.WT, a.Z, tr(net.l[WV]),
           [&](int r, int c, float x) { SD[r * 128 + c] += x; });
     __syncthreads();
-    clk(RP_C);
 
     // ---- D: geometry_fc and pooling-2 backward ----
     {
@@ -448,25 +413,20 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
       dense(G, LDA, Sp, a.W, a.B, net.l[GEO0],
             [&](int r, int c, float x) { H[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
-      clk(RP_D);
       grad_layer(DG, LDG, H, LDH, Sp, slab, wt, net.l[GEO1]);
       __syncthreads();
-      clk(RP_D_DW);
       dense(DG, LDG, Sp, a.WT, a.Z, tr(net.l[GEO1]),
             [&](int r, int c, float x) {
               H[r * LDH + c] = f2b(x * elu_d(b2f(H[r * LDH + c])));
             });
       __syncthreads();
-      clk(RP_D);
       grad_layer(H, LDH, G, LDA, Sp, slab, wt, net.l[GEO0]);
       __syncthreads();
-      clk(RP_D_DW);
       dense(H, LDH, Sp, a.WT, a.Z, tr(net.l[GEO0]),
             [&](int r, int c, float x) {
               if (c < 257) SG[r * 272 + c] = x;
             });
       __syncthreads();
-      clk(RP_D);
       // pooling-2 backward, one warp per sample, 4 channels per lane
       for (int i = warp; i < S; i += NW) {
         const size_t p = p0 + i;
@@ -532,7 +492,6 @@ __device__ __forceinline__ void ray_bwd_ray(const RayBwdArgs& a, int ray,
       for (int c = tid; c < 27; c += NT)
           a.d_dirpe[(size_t)ray * 27 + c] = sdp[c];
       __syncthreads();
-      clk(RP_D);
     }
   }
 }

@@ -26,13 +26,16 @@
 // warpgroups in turn; 128-row products give both warpgroups every slab,
 // one row tile each.
 //
-// The ring: STAGES slab buffers of 8 KB; per stage a full mbarrier, the
-// index of the slab last issued into it and a release count.  The warps
+// The ring: STAGES slab buffers of 8 KB; per stage a full mbarrier, an
+// empty mbarrier and the index of the slab last issued into it.  The warps
 // that multiply a slab (its owners: one warpgroup, or both over 128 rows)
-// wait for its index, then on the barrier's parity, and release it; the
-// last owner to release issues the copy of the slab STAGES further on, so
-// the owners find their next slabs in flight while they compute, and the
-// other warpgroup does not wait for them.  A parity wait alone tells only
+// wait for its index, then on the full barrier's parity, and release it
+// by arriving on the empty barrier; the stage's first owner warp waits on
+// that barrier and issues the copy of the slab STAGES further on, so the
+// owners find their next slabs in flight while they compute, and the
+// other warpgroup does not wait for them.  The empty barrier's release /
+// acquire order the owners' reads before the copy, so the ring issues no
+// membar.cta.  A parity wait alone tells only
 // two consecutive fills of a stage apart: the index wait makes it exact
 // (a slab is issued only after every earlier fill of its stage was waited
 // on and released).  A segment (an op list repeated `reps` times, e.g. one
@@ -41,16 +44,6 @@
 // same op list in the same order (consume() traps on a mismatch).  In the
 // phase-clock build, thread 0's waits on slabs, products and epilogues add
 // up in counters of their own.
-//
-// The release protocol, AGG_RING_RELEASE (scripts/ring_protocols.py times
-// the three in one run; 2, the fastest on the H100, is the default):
-//   0  each owner warp counts its release; the last one refills the
-//      stage; the count is fenced (membar.cta) before and after;
-//   1  the same count without those two fences;
-//   2  a per-stage "empty" mbarrier: every owner warp arrives on it, and
-//      the stage's first owner warp waits on it and refills the stage;
-//      the barrier's release / acquire order the reads before the copy,
-//      so the ring issues no membar.cta.
 #pragma once
 
 #include "agg_common.cuh"
@@ -58,10 +51,6 @@
 
 #if defined(__CUDA_ARCH__) && !defined(__CUDA_ARCH_FEAT_SM90_ALL)
 #error "sm90_common.cuh needs sm_90a (wgmma): build for compute_90a/sm_90a"
-#endif
-
-#ifndef AGG_RING_RELEASE
-#define AGG_RING_RELEASE 2
 #endif
 
 namespace agg {
@@ -297,8 +286,8 @@ constexpr int kRingSlabs = 80;       // slabs in one segment repetition
 
 struct RingSmem {
   uint64_t full[kRingMaxStages];
-  uint64_t empty[kRingMaxStages];    // AGG_RING_RELEASE 2
-  int rel[kRingMaxStages], issued[kRingMaxStages];
+  uint64_t empty[kRingMaxStages];
+  int issued[kRingMaxStages];
   int op_layer[kRingOps], op_trans[kRingOps];
   int slab_src[kRingSlabs], slab_bytes[kRingSlabs];   // the copies, by slab
 };
@@ -368,23 +357,18 @@ struct WRing {
       for (int i = 0; i < STAGES; ++i) {
         mbar_init(&sm->full[i], 1);
         mbar_init(&sm->empty[i], 8);   // eight warps' worth of releases
-        sm->rel[i] = 0;
         sm->issued[i] = -1;
       }
       fence_mbar_init();
     }
   }
 
-  // Slab g (global index) into its stage, one bulk copy: one thread.  The
-  // index is published after the stage's reset release count.
+  // Slab g (global index) into its stage, one bulk copy: one thread.
   __device__ void issue(int g) {
     const int j = g - base;
     if (j >= total) return;
     const int k = j % per_rep;
     uint64_t* bar = &sm->full[g % STAGES];
-#if AGG_RING_RELEASE != 2
-    __threadfence_block();
-#endif
     *(volatile int*)&sm->issued[g % STAGES] = g;
     mbar_expect_tx(bar, (uint32_t)sm->slab_bytes[k]);
     bulk_g2s(buf + (g % STAGES) * kSlabBytes, W + sm->slab_src[k],
@@ -466,9 +450,6 @@ struct WRing {
       const volatile int* idx = &sm->issued[stage];
       while (*idx != g)
         if (clock64() - t0 > (1ll << 32)) __trap();
-#if AGG_RING_RELEASE != 2
-      __threadfence_block();
-#endif
       mbar_wait(&sm->full[stage], (uint32_t)((g / STAGES) & 1));
 #ifdef AGG_PHASE_CLOCKS
       if (threadIdx.x == 0)
@@ -509,15 +490,10 @@ struct WRing {
                   (unsigned long long)(clock64() - t1));
 #endif
       // Release: the warp's products have completed (wg_block waits for
-      // them).  Protocols 0 and 1: the last owner to count refills the
-      // stage (0: the fences make each warp's reads of the slab precede
-      // its count, and the others' counts precede the refill).  Protocol
-      // 2: every owner warp arrives on the stage's empty barrier (8 /
-      // owners each); the first owner warp waits for the fill's phase
-      // and refills.  Either way the refiller fences the async proxy
-      // before its copy overwrites the stage.
+      // them).  Every owner warp arrives on the stage's empty barrier (8 /
+      // owners each); the first owner warp waits for the fill's phase,
+      // fences the async proxy and refills the stage.
       __syncwarp();
-#if AGG_RING_RELEASE == 2
       if (lane == 0) {
         mbar_arrive(&sm->empty[stage], 8 / owners);
         if ((threadIdx.x >> 5) == (both ? 0 : 4 * wg)) {
@@ -526,21 +502,6 @@ struct WRing {
           issue(g + STAGES);
         }
       }
-#else
-      if (lane == 0) {
-#if AGG_RING_RELEASE == 0
-        __threadfence_block();
-#endif
-        if (atomicAdd(&sm->rel[stage], 1) == owners - 1) {
-#if AGG_RING_RELEASE == 0
-          __threadfence_block();
-#endif
-          sm->rel[stage] = 0;
-          fence_proxy_async_smem();
-          issue(g + STAGES);
-        }
-      }
-#endif
       if (kb < geo.nkb - 1) continue;
 #ifdef AGG_PHASE_CLOCKS
       const long long t2 = clock64();

@@ -113,13 +113,20 @@ class MonocularSceneData:
     self.src_vv_c2w = llff.batch_parse_vv_poses(scene_meta["src_vv_poses"])
     self.num_frames = len(self.rgb_files)
     assert self.num_frames == poses.shape[0]
+    self._rgb8: Dict[int, np.ndarray] = {}   # decoded frames, uint8
 
   def set_epoch(self, epoch: int):
     self.current_epoch = epoch
 
   # ------------------------------------------------------------------ IO --
   def _load_rgb(self, idx: int) -> np.ndarray:
-    return _imread_float(self.rgb_files[idx])[..., :3]
+    # each frame is decoded once: data/jpeg.py decodes in Python, and a
+    # step reads 10-15 frames
+    img = self._rgb8.get(idx)
+    if img is None:
+      img = self._rgb8.setdefault(idx,
+                                  llff.read_image(self.rgb_files[idx]))
+    return img[..., :3].astype(np.float32) / 255.0
 
   def _camera(self, idx: int) -> np.ndarray:
     h, w = llff.read_image_shape(self.rgb_files[idx])[:2]

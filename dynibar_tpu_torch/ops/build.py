@@ -10,9 +10,7 @@ import time: the first launch builds, or a caller builds ahead with
 A library named in :func:`use_phase_clocks` loads from its phase-clock
 build instead (``PHASE_FLAGS``, ``<name>-phases-<hash>.so``): the same
 sources with per-phase clock64 sums compiled in (csrc/phase_clock.cuh),
-for ``scripts/port_profile.py --phases`` only.  :func:`use_build` picks
-any such build, with extra ``-D`` defines too (``scripts/ring_protocols.py``
-builds the weight ring's release protocols side by side that way).
+for ``scripts/port_profile.py --phases`` only.
 """
 
 from __future__ import annotations
@@ -24,7 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, Set, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -35,8 +33,7 @@ KERNEL_SOURCES = ("sample", "static_agg", "dynamic_agg", "static_agg_bwd",
                   "static_agg_bwd3", "dynamic_agg_bwd", "dynamic_agg_bwd1")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# name -> (phase clocks, extra defines) of the build load() takes
-_VARIANT: Dict[str, Tuple[bool, Tuple[str, ...]]] = {}
+_PHASES: Set[str] = set()
 
 
 def _nvcc() -> str:
@@ -51,43 +48,32 @@ def _nvcc() -> str:
 def use_phase_clocks(names: Iterable[str]) -> None:
   """Load these libraries from their phase-clock build."""
   for name in names:
-    use_build(name, phases=True)
+    _PHASES.add(name)
+    _LIBS.pop(name, None)
 
 
-def use_build(name: str, phases: bool = False,
-              defines: Sequence[str] = ()) -> None:
-  """Load `name` from the build with these flags from now on."""
-  _VARIANT[name] = (phases, tuple(defines))
-  _LIBS.pop(name, None)
-
-
-def _flags(phases: bool, defines: Sequence[str]) -> Tuple[str, ...]:
-  return NVCC_FLAGS + (PHASE_FLAGS if phases else ()) + tuple(defines)
-
-
-def library_path(name: str, phases: bool = False,
-                 defines: Sequence[str] = ()) -> Path:
-  digest = hashlib.sha256(" ".join(_flags(phases, defines)).encode())
+def library_path(name: str, phases: bool = False) -> Path:
+  flags = NVCC_FLAGS + (PHASE_FLAGS if phases else ())
+  digest = hashlib.sha256(" ".join(flags).encode())
   for src in sorted(CSRC.glob("*.cu*")):
     if src.suffix == ".cuh" or src.stem == name:
       digest.update(src.read_bytes())
-  tag = ("-phases" if phases else "") + "".join(
-      "-" + d[2:].replace("=", "") for d in defines)
+  tag = "-phases" if phases else ""
   return BUILD_DIR / f"{name}{tag}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNEL_SOURCES, phases: bool = False,
-          defines: Sequence[str] = ()) -> Dict[str, float]:
+def build(names: Iterable[str] = KERNEL_SOURCES,
+          phases: bool = False) -> Dict[str, float]:
   """Compile every missing library in parallel (their phase-clock builds
-  if `phases`, with extra `defines`); return seconds per name."""
-  return {name: sec for (name, _, _), sec in
-          build_jobs([(n, phases, tuple(defines)) for n in names]).items()}
+  if `phases`); return seconds per name."""
+  return {name: sec for (name, _), sec in
+          build_jobs([(n, phases) for n in names]).items()}
 
 
-def build_jobs(jobs: Iterable[Tuple[str, bool, Tuple[str, ...]]]
-               ) -> Dict[Tuple[str, bool, Tuple[str, ...]], float]:
-  """Compile every missing (name, phases, defines) build at once, one nvcc
-  each; return seconds per job.
+def build_jobs(jobs: Iterable[Tuple[str, bool]]
+               ) -> Dict[Tuple[str, bool], float]:
+  """Compile every missing (name, phases) build at once, one nvcc each;
+  return seconds per job.
 
   The compiler's output (with ``-Xptxas -v``: registers, shared memory
   and spills per kernel) is kept beside each library as ``.log``."""
@@ -95,14 +81,14 @@ def build_jobs(jobs: Iterable[Tuple[str, bool, Tuple[str, ...]]]
   procs = {}
   t0 = time.perf_counter()
   for job in jobs:
-    name, phases, defines = job
-    out = library_path(name, phases, defines)
+    name, phases = job
+    out = library_path(name, phases)
     if out.exists():
       continue
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
     log = open(out.with_suffix(".log"), "w")
-    cmd = [_nvcc(), *_flags(phases, defines), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(PHASE_FLAGS if phases else ()), "-o",
+           str(tmp), str(CSRC / f"{name}.cu")]
     procs[job] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
                   tmp, out, log)
   seconds = {}
@@ -120,10 +106,10 @@ def build_jobs(jobs: Iterable[Tuple[str, bool, Tuple[str, ...]]]
 def load(name: str) -> ctypes.CDLL:
   """The loaded library of csrc/<name>.cu, built on first use."""
   if name not in _LIBS:
-    phases, defines = _VARIANT.get(name, (False, ()))
-    path = library_path(name, phases, defines)
+    phases = name in _PHASES
+    path = library_path(name, phases)
     if not path.exists():
-      build([name], phases, defines)
+      build([name], phases)
     _LIBS[name] = ctypes.CDLL(str(path))
   return _LIBS[name]
 

@@ -19,18 +19,24 @@ point of per-point terms of both signs.  Its ratio to ``|g_f32|`` would
 swing with how far those terms cancel, so ``s`` is held twice: per point
 (``s.per_point``, the gradient each point adds, under the bar above) and as
 the sum, with its error scaled by the sum of the f32 terms' magnitudes.
+
+The ray transformer's attention, which K5a, K4a and K4s share
+(csrc/attn_mma.cuh), is also held on its own: :func:`ray_attention`
+launches it alone and :func:`ray_attention_plain` rounds at the same
+points in plain PyTorch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 from typing import Dict, Iterator, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from dynibar_tpu_torch.ops import agg
+from dynibar_tpu_torch.ops import agg, build
 
 STATIC_INPUTS = ("pts", "ref_pl", "src_pl", "rgb_feat", "ray_diff", "mask")
 DYNAMIC_INPUTS = ("pts", "rgb_feat", "ray_dir", "mask", "time")
@@ -227,3 +233,77 @@ def sliced_twin(net: nn.Module, rays: int = TWIN_RAYS) -> Iterator[None]:
     yield
   finally:
     del net.forward
+
+
+ATTN_FIELDS = ("o", "dq", "dk", "dv", "m", "l")
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+  return x.to(torch.bfloat16).float()
+
+
+def attention_inputs(dev, r: int, s: int, seed: int):
+  """q, k, v, d_o [R,S,128] bf16 and per-query valid-view counts [R,S]
+  from a seed: ray 0 with no valid view, ray 1 with one at every sample,
+  the others 0-4 (a quarter or so attend uniformly)."""
+  g = torch.Generator().manual_seed(seed)
+  qkvo = [torch.randn(r, s, 128, generator=g).to(torch.bfloat16)
+          for _ in range(4)]
+  nvalid = torch.randint(0, 5, (r, s), generator=g).float()
+  nvalid[0] = 0.0
+  nvalid[1] = 1.0
+  return [t.to(dev) for t in qkvo + [nvalid]]
+
+
+def ray_attention_plain(q, k, v, d_o, nvalid) -> Dict[str, torch.Tensor]:
+  """The ray transformer's attention, forward and backward, in f32 with
+  bf16 rounding where csrc/attn_mma.cuh rounds (the JAX bodies' points):
+  the exponentials before the product with v, the probabilities and the
+  logit cotangents before theirs, and every output.  q, k, v, d_o
+  [R,S,128] bf16 (4 heads of 32); nvalid [R,S], each query's count of
+  valid views: a query with at most one attends uniformly and drops its
+  logit cotangents.  Returns o, dq, dk, dv [R,S,128] bf16 and each
+  query's max logit m and sum of exponentials l [R,4,S]."""
+  r, s, _ = q.shape
+  heads = [t.float().reshape(r, s, 4, 32).transpose(1, 2)
+           for t in (q, k, v, d_o)]
+  qh, kh, vh, doh = heads
+  scale = 0.17677669529663687
+  uni = (nvalid <= 1.0)[:, None, :, None]
+  x = torch.where(uni, 0.0, (qh @ kh.transpose(-1, -2)) * scale)
+  m = x.amax(-1, keepdim=True)
+  e = torch.exp(x - m)
+  l = e.sum(-1, keepdim=True)
+  o = (_bf16(e) @ vh) * (1.0 / l)
+  p = torch.where(uni, 0.0, e * (1.0 / l))
+  dp = doh @ vh.transpose(-1, -2)
+  ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
+  dq = _bf16(ds) @ kh
+  dk = _bf16(ds).transpose(-1, -2) @ qh
+  dv = _bf16(torch.where(uni, 1.0 / s, p)).transpose(-1, -2) @ doh
+  out = {n: t.transpose(1, 2).reshape(r, s, 128).to(torch.bfloat16)
+         for n, t in zip(ATTN_FIELDS, (o, dq, dk, dv))}
+  out.update(m=m[..., 0], l=l[..., 0])
+  return out
+
+
+def ray_attention(q, k, v, d_o, nvalid) -> Dict[str, torch.Tensor]:
+  """K4a's attention functions (csrc/attn_mma.cuh, launched alone from
+  the K4a library) on CUDA tensors, as :func:`ray_attention_plain` returns
+  them; on the CPU the plain version."""
+  if q.device.type != "cuda":
+    return ray_attention_plain(q, k, v, d_o, nvalid)
+  r, s, _ = q.shape
+  ins = [t.to(torch.bfloat16).contiguous() for t in (q, k, v, d_o)]
+  nv = nvalid.float().contiguous()
+  outs = [torch.empty_like(ins[0]) for _ in range(4)]
+  stats = torch.empty((r, 12, agg._MAX_SAMPLES), dtype=torch.float32,
+                      device=q.device)
+  fn = agg._fn("dynamic_agg_bwd", "dyn_attention_check",
+               [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+               + [ctypes.c_void_p])
+  build.check(fn(*(t.data_ptr() for t in ins + [nv] + outs + [stats]),
+                 r, s, agg._stream(q.device)), "K4a attention check")
+  out = dict(zip(ATTN_FIELDS, outs))
+  out.update(m=stats[:, 0:4, :s], l=stats[:, 4:8, :s])
+  return out

@@ -55,8 +55,8 @@ from dynibar_tpu_torch.utils.device import (resolve_device,  # noqa: E402
 
 
 # phase names of csrc/phase_clock.cuh, the library, a pattern of the
-# profiler's kernel name (the Hopper kernels' and the dynamic parent's),
-# the first counter and the counter of thread 0's waits on weight slabs
+# profiler's kernel name, the first counter and the counter of thread 0's
+# waits on weight slabs
 RAY_PHASES = ("A recompute", "B head fwd", "B head transposed", "B head dW",
               "B elementwise", "C attention", "C dW",
               "D geometry + pooling-2", "D dW")
@@ -70,7 +70,7 @@ PHASES = {
     "K5b": (TRUNK_PHASES, "static_agg_bwd", r"agg::static_trunk_bwd_kernel",
             16, 31),
     "K4a": (RAY_PHASES, "dynamic_agg_bwd",
-            r"agg::(dynamic_)?ray_bwd_kernel\b", 0, 15),
+            r"agg::dynamic_ray_bwd_kernel", 0, 15),
     "K4b": (TRUNK_PHASES, "dynamic_agg_bwd", r"agg::trunk_bwd_kernel<false>",
             16, 31)}
 PHASE_LIBS = ("static_agg_bwd", "dynamic_agg_bwd")
@@ -101,11 +101,8 @@ def main() -> int:
   card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                          "--format=csv,noheader"], capture_output=True,
                         text=True, check=True).stdout.strip()
-  if hasattr(build, "build_jobs"):
-    build.build_jobs([(n, False, ()) for n in build.KERNEL_SOURCES]
-                     + [(n, True, ()) for n in PHASE_LIBS if args.phases])
-  else:                             # an older checkout's build module
-    build.build()
+  build.build_jobs([(n, False) for n in build.KERNEL_SOURCES]
+                   + [(n, True) for n in PHASE_LIBS if args.phases])
   if args.mono:
     cfg = mono_render_settings(num_source_views=7, num_vv=3, n_samples=64,
                                num_basis=6, compute_dtype="bfloat16",

@@ -32,10 +32,14 @@ from dynibar_tpu_torch.ops import agg
 from dynibar_tpu_torch.ops.agg import (fused_dynamic_aggregator,
                                        fused_static_aggregator)
 from dynibar_tpu_torch.ops.sample import sample_views, sample_views_plain
-from dynibar_tpu_torch.utils.kernel_check import (aggregator_grads,
+from dynibar_tpu_torch.utils.kernel_check import (ATTN_FIELDS,
+                                                  aggregator_grads,
                                                   all_grads,
+                                                  attention_inputs,
                                                   check_grad_errors,
-                                                  grad_errors, random_inputs)
+                                                  grad_errors, random_inputs,
+                                                  ray_attention,
+                                                  ray_attention_plain)
 
 pytestmark = pytest.mark.cuda
 R, F = 6, 32
@@ -265,7 +269,7 @@ def test_dynamic_single_backward_kernel(dev, r, s, v, seed):
 
 
 @pytest.mark.parametrize("s", [40, 48])
-def test_single_backward_refuses_odd_sample_counts(dev, s):
+def test_single_backward_any_sample_count(dev, s):
   """S not a multiple of 64 on route "pallas": K3p + K4s (whose last trunk
   block of a ray is masked at the ray's end) vs the twins, and against
   K3r + K4a + K4b within 1e-3 of each gradient's f32 scale, as
@@ -280,3 +284,31 @@ def test_single_backward_refuses_odd_sample_counts(dev, s):
   for name, want in g2.items():
     err = float((g1[name] - want).abs().max())
     assert err <= 1e-3 * float(g_f[name].abs().max()) + 1e-7, (name, err)
+
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("r,s", [(5, 48), (5, 64), (3, 128), (4, 40)])
+def test_ray_attention_kernel(dev, r, s, seed):
+  """K4a's attention (csrc/attn_mma.cuh, which K5a and K4s run as well, so
+  the cross-check of K4s against K4a + K4b does not test it) launched
+  alone, against the plain attention that rounds at the same points
+  (utils/kernel_check.py ray_attention_plain; tests/test_torch_port_attention.py
+  holds that against float64).  Only f32 summation order and exp differ,
+  so a bf16 output may round the other way: each output within two bf16
+  ulps of its tensor's largest magnitude (2^-6 of it) and on average
+  within 2^-12 of its mean magnitude; the row statistics within 1e-5.
+  Ray 0 has no valid view, ray 1 one; S = 40 pads a row tile."""
+  ins = attention_inputs(dev, r, s, seed)
+  got = ray_attention(*ins)
+  want = ray_attention_plain(*ins)
+  for name in ATTN_FIELDS:
+    g, w = got[name].float(), want[name].float()
+    assert g.shape == w.shape, name
+    err = (g - w).abs()
+    if name in ("m", "l"):
+      assert float(err.max()) <= 1e-5 * float(w.abs().max()), name
+      continue
+    assert float(err.max()) <= 2.0 ** -6 * float(w.abs().max()), name
+    assert float(err.mean()) <= 2.0 ** -12 * float(w.abs().mean()), name
+  for name in ("dq", "dk"):
+    assert float(got[name][:2].float().abs().max()) == 0.0, name

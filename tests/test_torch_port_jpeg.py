@@ -145,3 +145,25 @@ def test_a_jpeg_scene_loads_as_in_the_jax_package(jpeg_scene):
         assert diff.mean() <= MEAN_DIFF, k
       else:
         np.testing.assert_array_equal(x, y, err_msg=k)
+
+
+def test_frames_decode_once(jpeg_scene, monkeypatch):
+  """MonocularSceneData decodes each frame once and keeps it: its batches
+  equal those of a dataset that decodes every frame on every read."""
+  cfg = _configs(jpeg_scene, DynibarConfig)
+  cached, fresh = (MonocularSceneData(cfg, "s") for _ in range(2))
+  reads = []
+  plain_read = llff.read_image
+  monkeypatch.setattr(llff, "read_image",
+                      lambda path: reads.append(path) or plain_read(path))
+  for seed in range(3):
+    before = len(reads)
+    fresh._rgb8.clear()
+    want = fresh.sample_batch(np.random.RandomState(seed), 24, "uniform")
+    del reads[before:]
+    got = cached.sample_batch(np.random.RandomState(seed), 24, "uniform")
+    for k in want:
+      np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]),
+                                    err_msg=k)
+  frames = [p for p in reads if p in cached.rgb_files]
+  assert frames and len(frames) == len(set(frames))
