@@ -1,17 +1,20 @@
-"""8-bit sequential JPEG decoding with numpy and the standard library.
+"""8-bit Huffman JPEG decoding with numpy and the standard library.
 
 The machine with the card has no image library, and scenes in the
 reference layout may store their frames as JPEGs (``images/*.jpg``), which
 the JAX package reads through imageio.  This module decodes what such
 scenes hold: baseline and extended-Huffman sequential JPEG (SOF0, SOF1)
-with 8-bit samples, grayscale or YCbCr (and RGB-coded, per the Adobe
-marker or the component ids), 4:4:4, 4:2:2 or 4:2:0 sampling, interleaved
-or one scan per component, with restart markers.  It reproduces libjpeg's
+and progressive JPEG (SOF2: spectral selection, successive approximation
+and EOB runs, ITU T.81 G.1.2) with 8-bit samples, grayscale or YCbCr (and
+RGB-coded, per the Adobe marker or the component ids), 4:4:4, 4:2:2 or
+4:2:0 sampling, interleaved or one scan per component, with restart
+markers.  Once every scan has run, both kinds share one back end, which
+reproduces libjpeg's
 default decode (the library behind imageio's): the integer "slow" inverse
 DCT (jidctint.c), the "fancy" triangle-filter chroma upsampling
 (jdsample.c h2v1 / h2v2) and the fixed-point YCbCr -> RGB tables
 (jdcolor.c).  Returns uint8 [H, W] for grayscale, [H, W, 3] otherwise, as
-imageio does.  Progressive, arithmetic-coded, lossless, 12-bit and CMYK
+imageio does.  Arithmetic-coded, lossless, hierarchical, 12-bit and CMYK
 files, and other sampling layouts, raise ValueError naming the file.
 """
 
@@ -30,8 +33,9 @@ _ZIGZAG = np.array([
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+_ZZ = tuple(int(z) for z in _ZIGZAG)
 
-_SOF_NAMES = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical",
+_SOF_NAMES = {0xC3: "lossless", 0xC5: "hierarchical",
               0xC6: "hierarchical", 0xC7: "hierarchical",
               0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded",
               0xCB: "arithmetic-coded", 0xCD: "arithmetic-coded",
@@ -39,8 +43,10 @@ _SOF_NAMES = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical",
 
 
 class _Frame:
-  def __init__(self, h: int, w: int, comps: List[Tuple[int, int, int, int]]):
+  def __init__(self, h: int, w: int, comps: List[Tuple[int, int, int, int]],
+               progressive: bool = False):
     self.h, self.w = h, w
+    self.progressive = progressive
     self.ids = [c[0] for c in comps]
     self.hs = [c[1] for c in comps]
     self.vs = [c[2] for c in comps]
@@ -51,6 +57,11 @@ class _Frame:
     # each component's coefficient blocks, the whole MCU grid
     self.coef = [np.zeros((self.mcuy * v, self.mcux * hh, 64), np.int32)
                  for hh, v in zip(self.hs, self.vs)]
+    # a progressive file's blocks as lists of 64 ints while its scans
+    # refine them (faster to index from Python), moved into coef after
+    self.lists = ([[[[0] * 64 for _ in range(c.shape[1])]
+                    for _ in range(c.shape[0])] for c in self.coef]
+                  if progressive else None)
 
   def comp_size(self, i: int) -> Tuple[int, int]:
     """(height, width) of component i's samples (jdinput.c)."""
@@ -125,6 +136,110 @@ def _decode_segment(win: List[int], units, dc_tabs, ac_tabs, pred,
       blk[_ZIGZAG[k]] = _extend(win[pos] >> (16 - s), s)
       pos += s
       k += 1
+
+
+def _receive(win: List[int], pos: int, n: int) -> int:
+  """n (<= 16) raw bits from bit position pos."""
+  return win[pos] >> (16 - n) if n else 0
+
+
+def _dc_first(win, blocks, tabs, al: int, pred) -> None:
+  """A progressive DC first scan (jdphuff.c decode_mcu_DC_first): the
+  predicted DC, scaled by 2^al, into coefficient 0 of each block."""
+  pos = 0
+  for ci, blk in blocks:
+    lens, syms = tabs[ci]
+    w = win[pos]
+    t = syms[w]
+    pos += lens[w]
+    if t:
+      pred[ci] += _extend(_receive(win, pos, t), t)
+      pos += t
+    blk[0] = pred[ci] << al
+
+
+def _dc_refine(win, blocks, al: int) -> None:
+  """A DC refinement scan: one raw bit per block, bit al of its DC."""
+  for pos, (_, blk) in enumerate(blocks):
+    if win[pos] >> 15:
+      blk[0] |= 1 << al
+
+
+def _ac_first(win, blocks, tab, ss: int, se: int, al: int) -> None:
+  """A progressive AC first scan (decode_mcu_AC_first) of one component:
+  coefficients ss..se scaled by 2^al, with end-of-band runs."""
+  lens, syms = tab
+  pos = eobrun = 0
+  for _, blk in blocks:
+    if eobrun:
+      eobrun -= 1
+      continue
+    k = ss
+    while k <= se:
+      w = win[pos]
+      rs = syms[w]
+      pos += lens[w]
+      r, s = rs >> 4, rs & 15
+      if s:
+        k += r
+        blk[_ZZ[k]] = _extend(_receive(win, pos, s), s) << al
+        pos += s
+        k += 1
+      elif r == 15:
+        k += 16
+      else:
+        eobrun = (1 << r) - 1 + _receive(win, pos, r)
+        pos += r
+        break
+
+
+def _ac_refine(win, blocks, tab, ss: int, se: int, al: int) -> None:
+  """A progressive AC refinement scan (decode_mcu_AC_refine): one
+  correction bit for every coefficient already nonzero that it passes,
+  and new coefficients of magnitude 2^al placed after r zero ones."""
+  lens, syms = tab
+  p1, m1 = 1 << al, -1 << al
+  pos = eobrun = 0
+  for _, blk in blocks:
+    k = ss
+    if not eobrun:
+      while k <= se:
+        w = win[pos]
+        rs = syms[w]
+        pos += lens[w]
+        r, s = rs >> 4, rs & 15
+        if s:
+          s = p1 if win[pos] >> 15 else m1
+          pos += 1
+        elif r != 15:
+          eobrun = (1 << r) + _receive(win, pos, r)
+          pos += r
+          break
+        while k <= se:
+          z = _ZZ[k]
+          c = blk[z]
+          if c:
+            if win[pos] >> 15 and not c & p1:
+              blk[z] = c + (p1 if c >= 0 else m1)
+            pos += 1
+          else:
+            r -= 1
+            if r < 0:
+              break
+          k += 1
+        if s:
+          blk[_ZZ[k]] = s
+        k += 1
+    if eobrun:
+      while k <= se:
+        z = _ZZ[k]
+        c = blk[z]
+        if c:
+          if win[pos] >> 15 and not c & p1:
+            blk[z] = c + (p1 if c >= 0 else m1)
+          pos += 1
+        k += 1
+      eobrun -= 1
 
 
 # jidctint.c constants (CONST_BITS 13, PASS1_BITS 2)
@@ -272,7 +387,7 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
     length = int.from_bytes(data[pos:pos + 2], "big")
     body = data[pos + 2:pos + length]
     pos += length
-    if marker in (0xC0, 0xC1):                   # SOF0 / SOF1
+    if marker in (0xC0, 0xC1, 0xC2):             # SOF0 / SOF1 / SOF2
       if body[0] != 8:
         raise ValueError(f"{name}: {body[0]}-bit JPEG samples (8 only)")
       h = int.from_bytes(body[1:3], "big")
@@ -280,10 +395,10 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
       comps = [(body[6 + 3 * i], body[7 + 3 * i] >> 4,
                 body[7 + 3 * i] & 15, body[8 + 3 * i])
                for i in range(body[5])]
-      frame = _Frame(h, w, comps)
+      frame = _Frame(h, w, comps, progressive=marker == 0xC2)
     elif marker in _SOF_NAMES:
       raise ValueError(f"{name}: {_SOF_NAMES[marker]} JPEG is not "
-                       "supported (baseline / extended sequential only)")
+                       "supported (Huffman sequential or progressive only)")
     elif marker == 0xC4:                         # DHT
       i = 0
       while i < len(body):
@@ -318,18 +433,28 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
       sel = [(frame.ids.index(body[1 + 2 * i]), body[2 + 2 * i] >> 4,
               body[2 + 2 * i] & 15) for i in range(ns)]
       parts, pos = _segments(data, pos)
-      _decode_scan(frame, sel, parts, restart, dc, ac)
+      if frame.progressive:
+        ss, se = body[1 + 2 * ns], body[2 + 2 * ns]
+        ah, al = body[3 + 2 * ns] >> 4, body[3 + 2 * ns] & 15
+        if ss and ns != 1:
+          raise ValueError(f"{name}: a progressive AC scan of {ns} "
+                           "components")
+        _decode_progressive_scan(frame, sel, (ss, se, ah, al), parts,
+                                 restart, dc, ac)
+      else:
+        _decode_scan(frame, sel, parts, restart, dc, ac)
   if frame is None:
     raise ValueError(f"{name}: no frame header")
+  if frame.progressive:
+    for coef, lists in zip(frame.coef, frame.lists):
+      coef[...] = np.asarray(lists, np.int32)
   return _assemble(frame, qt, adobe, name)
 
 
-def _decode_scan(frame: _Frame, sel, parts: List[bytes], restart: int,
-                 dc, ac) -> None:
-  """Decode one sequential scan of the components `sel` (index, DC table,
-  AC table) into the frame's coefficient blocks."""
-  comps = [c for c, _, _ in sel]
-  if len(sel) == 1:                              # non-interleaved
+def _scan_units(frame: _Frame, comps: List[int]):
+  """A scan's blocks (component, block row, block column), one list per
+  MCU: the component's own block grid when it is scanned alone."""
+  if len(comps) == 1:                            # non-interleaved
     ci = comps[0]
     ch, cw = frame.comp_size(ci)
     nby, nbx = -(-ch // 8), -(-cw // 8)
@@ -344,6 +469,15 @@ def _decode_scan(frame: _Frame, sel, parts: List[bytes], restart: int,
           mcu += [(ci, my * v + y, mx * hh + x)
                   for y in range(v) for x in range(hh)]
         units.append(mcu)
+  return units
+
+
+def _decode_scan(frame: _Frame, sel, parts: List[bytes], restart: int,
+                 dc, ac) -> None:
+  """Decode one sequential scan of the components `sel` (index, DC table,
+  AC table) into the frame's coefficient blocks."""
+  comps = [c for c, _, _ in sel]
+  units = _scan_units(frame, comps)
   per = restart if restart else len(units)
   dc_tabs = {c: dc[d] for c, d, _ in sel}
   ac_tabs = {c: ac[a] for c, _, a in sel}
@@ -354,6 +488,33 @@ def _decode_scan(frame: _Frame, sel, parts: List[bytes], restart: int,
     pred = {c: 0 for c in comps}
     _decode_segment(_windows(part), [u for mcu in group for u in mcu],
                     dc_tabs, ac_tabs, pred, frame)
+
+
+def _decode_progressive_scan(frame: _Frame, sel, band, parts: List[bytes],
+                             restart: int, dc, ac) -> None:
+  """Decode one progressive scan: `band` is (Ss, Se, Ah, Al), the spectral
+  band and the successive-approximation bits (T.81 G.1.2).  DC predictors
+  and end-of-band runs restart at each restart marker."""
+  ss, se, ah, al = band
+  comps = [c for c, _, _ in sel]
+  units = _scan_units(frame, comps)
+  per = restart if restart else len(units)
+  for k, part in enumerate(parts):
+    group = units[k * per:(k + 1) * per]
+    if not group:
+      break
+    win = _windows(part)
+    blocks = [(ci, frame.lists[ci][by][bx])
+              for mcu in group for ci, by, bx in mcu]
+    if ss == 0 and ah == 0:
+      _dc_first(win, blocks, {c: dc[d] for c, d, _ in sel}, al,
+                {c: 0 for c in comps})
+    elif ss == 0:
+      _dc_refine(win, blocks, al)
+    elif ah == 0:
+      _ac_first(win, blocks, ac[sel[0][2]], ss, se, al)
+    else:
+      _ac_refine(win, blocks, ac[sel[0][2]], ss, se, al)
 
 
 def _assemble(frame: _Frame, qt, adobe: Optional[int],

@@ -6,9 +6,11 @@ absolute difference at most 0.5 of 255.  (The decoder reproduces
 libjpeg's integer inverse DCT, fancy upsampling and color tables, so it
 usually meets the bar with no difference at all.)  Files are written by
 PIL and OpenCV at several qualities and chroma subsamplings, with odd
-sizes and restart markers; progressive files raise, naming the file.  A
-monocular scene whose frames are JPEGs gives the JAX package's poses and
-batches (rgb within the bar, everything else exactly).
+sizes and restart markers, sequential and progressive; the kinds neither
+package writes (lossless, arithmetic-coded, hierarchical, 12-bit, CMYK)
+raise, naming the file.  A monocular scene whose frames are JPEGs
+(sequential or progressive) gives the JAX package's poses and batches
+(rgb within the bar, everything else exactly).
 """
 
 import io
@@ -39,6 +41,12 @@ def _image(h, w, channels, seed):
   img = img + rng.normal(0, 15, img.shape)
   img = np.clip(img, 0, 255).astype(np.uint8)
   return img[..., 0] if channels == 1 else img
+
+
+def _pil_jpeg(img, **kw) -> bytes:
+  buf = io.BytesIO()
+  Image.fromarray(img).save(buf, format="JPEG", **kw)
+  return buf.getvalue()
 
 
 def _check(got, want):
@@ -81,7 +89,51 @@ def test_decodes_restart_markers(interval):
   _check(jpeg.decode(data), imageio.imread(io.BytesIO(data)))
 
 
+@pytest.mark.parametrize("quality", [30, 75, 95])
+@pytest.mark.parametrize("subsampling", [0, 1, 2])    # 4:4:4, 4:2:2, 4:2:0
+@pytest.mark.parametrize("size", [(61, 93), (16, 16), (33, 8)])
+def test_decodes_progressive(quality, subsampling, size):
+  """Progressive files (SOF2: DC and AC first and refinement scans,
+  spectral selection, EOB runs), as PIL writes them."""
+  img = _image(*size, 3, seed=quality + subsampling + 7)
+  data = _pil_jpeg(img, quality=quality, subsampling=subsampling,
+                   progressive=True)
+  assert b"\xff\xc2" in data
+  _check(jpeg.decode(data), imageio.imread(io.BytesIO(data)))
+
+
+@pytest.mark.parametrize("quality", [50, 90])
+def test_decodes_progressive_grayscale(quality):
+  img = _image(45, 70, 1, seed=quality + 3)
+  data = _pil_jpeg(img, quality=quality, progressive=True)
+  got = jpeg.decode(data)
+  assert got.ndim == 2
+  _check(got, imageio.imread(io.BytesIO(data)))
+
+
+@pytest.mark.parametrize("encoder", ["pil", "cv2"])
+@pytest.mark.parametrize("interval", [1, 5, 16])
+def test_decodes_progressive_restart_markers(encoder, interval):
+  """Restart markers reset the DC predictors and the EOB runs."""
+  img = _image(72, 101, 3, seed=interval + 11)
+  if encoder == "pil":
+    data = _pil_jpeg(img, quality=85, subsampling=2, progressive=True,
+                     restart_marker_blocks=interval)
+  else:
+    ok, enc = cv2.imencode(".jpg", img, [
+        cv2.IMWRITE_JPEG_QUALITY, 85, cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+        cv2.IMWRITE_JPEG_RST_INTERVAL, interval])
+    assert ok
+    data = enc.tobytes()
+  assert b"\xff\xc2" in data
+  assert any(bytes([0xFF, 0xD0 + i]) in data for i in range(8))
+  _check(jpeg.decode(data), imageio.imread(io.BytesIO(data)))
+
+
 def test_reads_files_and_refuses_progressive(tmp_path):
+  """Files read from disk, sequential and progressive, and their shapes
+  from the frame header; what is not a JPEG is refused.  (Progressive
+  files were refused until the decoder learned them: now they decode.)"""
   img = _image(40, 64, 3, seed=1)
   path = str(tmp_path / "frame.jpg")
   imageio.imwrite(path, img, quality=90)
@@ -90,15 +142,51 @@ def test_reads_files_and_refuses_progressive(tmp_path):
   assert llff.read_image_shape(path) == (40, 64, 3)
   prog = str(tmp_path / "prog.jpg")
   Image.fromarray(img).save(prog, format="JPEG", progressive=True)
-  with pytest.raises(ValueError, match="prog.jpg: progressive"):
-    jpeg.read(prog)
+  _check(jpeg.read(prog), imageio.imread(prog))
+  assert jpeg.read_shape(prog) == (40, 64, 3)
+  assert llff.read_image_shape(prog) == (40, 64, 3)
+  gray = str(tmp_path / "gray.jpg")
+  Image.fromarray(img[..., 0]).save(gray, format="JPEG", progressive=True)
+  assert jpeg.read_shape(gray) == (40, 64)
   with pytest.raises(ValueError, match="not a JPEG"):
     jpeg.decode(b"\x89PNG\r\n\x1a\n")
 
 
-@pytest.fixture(scope="module")
-def jpeg_scene(tmp_path_factory):
-  """A monocular scene whose frames are JPEGs (4:2:0, quality 90)."""
+def _frame_header(marker: int, bits: int = 8) -> bytes:
+  """SOI and a one-component 8x8 frame header with the given SOF marker."""
+  body = bytes([bits, 0, 8, 0, 8, 1, 1, 0x11, 0])
+  return b"\xff\xd8\xff" + bytes([marker]) + (len(body) + 2).to_bytes(
+      2, "big") + body
+
+
+@pytest.mark.parametrize("marker,kind", [
+    (0xC3, "lossless"), (0xC5, "hierarchical"), (0xC9, "arithmetic-coded"),
+    (0xCA, "arithmetic-coded")])
+def test_refuses_what_neither_package_writes(tmp_path, marker, kind):
+  path = tmp_path / "odd.jpg"
+  path.write_bytes(_frame_header(marker) + b"\xff\xd9")
+  with pytest.raises(ValueError, match=f"odd.jpg: {kind}"):
+    jpeg.read(str(path))
+
+
+@pytest.mark.parametrize("marker", [0xC1, 0xC2])
+def test_refuses_12_bit_samples(tmp_path, marker):
+  path = tmp_path / "deep.jpg"
+  path.write_bytes(_frame_header(marker, bits=12) + b"\xff\xd9")
+  with pytest.raises(ValueError, match="deep.jpg: 12-bit"):
+    jpeg.read(str(path))
+
+
+@pytest.mark.parametrize("progressive", [False, True])
+def test_refuses_cmyk(tmp_path, progressive):
+  path = str(tmp_path / "cmyk.jpg")
+  Image.fromarray(_image(16, 24, 3, seed=5)).convert("CMYK").save(
+      path, format="JPEG", progressive=progressive)
+  with pytest.raises(ValueError, match="cmyk.jpg: 4-component"):
+    jpeg.read(path)
+
+
+def _jpeg_scene(tmp_path_factory, progressive):
   root = tmp_path_factory.mktemp("jpeg_scene")
   synthetic_scene.write_synthetic_scene(str(root), "s", num_frames=FRAMES,
                                         height=H, width=W)
@@ -108,9 +196,22 @@ def jpeg_scene(tmp_path_factory):
   for png_path in frames:
     img = imageio.imread(png_path)
     Image.fromarray(img).save(png_path.with_suffix(".jpg"), format="JPEG",
-                              quality=90, subsampling=2)
+                              quality=90, subsampling=2,
+                              progressive=progressive)
     png_path.unlink()
   return root
+
+
+@pytest.fixture(scope="module")
+def jpeg_scene(tmp_path_factory):
+  """A monocular scene whose frames are JPEGs (4:2:0, quality 90)."""
+  return _jpeg_scene(tmp_path_factory, progressive=False)
+
+
+@pytest.fixture(scope="module")
+def progressive_scene(tmp_path_factory):
+  """The same scene with progressive JPEG frames."""
+  return _jpeg_scene(tmp_path_factory, progressive=True)
 
 
 def _configs(root, cls):
@@ -120,6 +221,16 @@ def _configs(root, cls):
 
 
 def test_a_jpeg_scene_loads_as_in_the_jax_package(jpeg_scene):
+  _loads_as_in_the_jax_package(jpeg_scene)
+
+
+def test_a_progressive_scene_loads_as_in_the_jax_package(progressive_scene):
+  first = sorted((progressive_scene / "s" / "dense").glob("images*/*.jpg"))
+  assert b"\xff\xc2" in first[0].read_bytes()
+  _loads_as_in_the_jax_package(progressive_scene)
+
+
+def _loads_as_in_the_jax_package(jpeg_scene):
   dense = str(jpeg_scene / "s" / "dense")
   got = llff.load_scene_poses(dense, height=H, with_vv=True)
   want = jllff.load_scene_poses(dense, height=H, with_vv=True)
