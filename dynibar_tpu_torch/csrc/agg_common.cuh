@@ -29,6 +29,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "phase_clock.cuh"
+
 namespace agg {
 
 using bf16 = __nv_bfloat16;
@@ -272,6 +274,7 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
   float* sm_vis = sm_w + V * PT;                   // visibility (trunk)
   float* sm_e = sm_vis;                            // AA scores (pooling 1)
   float* sm_row = sm_vis + V * PT;                 // [PT]
+  PhaseClock clk;
 
   // ---- per-view input features rf, masks and anti-alias scores ----
   if (STATIC) {
@@ -391,6 +394,7 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
       buf0[r * LDA + 2 * CR + c] = f2b(c < CR ? rf_val(r, v, c) : 0.f);
     }
     __syncthreads();
+    clk(v == 0 ? FT_IN : FT_ELEM);
     dense(buf0, LDA, PT, a.W, a.B, net.l[BASE0],
           [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
     __syncthreads();
@@ -411,11 +415,13 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
             else if (c == 128) sm_row[r] = sigm(t) * mk[r];
           });
     __syncthreads();
+    clk(FT_PROD);
     for (int e = tid; e < PT * 128; e += NT) {
       const int r = e >> 7, c = e & 127;
       buf2[r * LDG + c] = f2b(b2f(xb[r * LDG + c]) * sm_row[r]);
     }
     __syncthreads();
+    clk(FT_ELEM);
     dense(buf2, LDG, PT, a.W, a.B, net.l[VIS20],
           [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
     __syncthreads();
@@ -424,6 +430,7 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
             if (c == 0) sm_vis[v * PT + r] = sigm(x) * mk[r];
           });
     __syncthreads();
+    clk(FT_PROD);
     for (int e = tid; e < PT * 16; e += NT) {      // 16-byte row pieces
       const int r = e >> 4, q = (e & 15) * 8, p = p0 + r;
       if (p < P)
@@ -439,6 +446,7 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
     }
   }
   __syncthreads();
+  clk(FT_ELEM);
 
   // ---- visibility re-pooling and geometry_fc ----
   for (int r = tid; r < PT; r += NT) {
@@ -495,6 +503,7 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
           const int p = p0 + r;
           if (p < P) a.ws_gf[ws.pt(p) * 128 + c] = elu(x);
         });
+  clk(FT_POOL2);
 }
 
 template <bool STATIC>
@@ -541,6 +550,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
   const int tid = threadIdx.x, ray = blockIdx.x;
   const int S = a.S, V = a.V, P = a.P, Sp = (S + 15) & ~15;
   const size_t p0 = (size_t)ray * S;
+  PhaseClock clk;
 
   auto gf_in = [&](int i, int c) -> float {
     if (i >= S) return 0.f;
@@ -563,6 +573,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
   dense(gfb, LDG, Sp, a.W, a.B, net.l[WV],
         [&](int r, int c, float x) { vv[r * 128 + c] = f2b(x); });
   __syncthreads();
+  clk(FR_QKV);
   const float scale = 0.17677669529663687f;       // 1 / sqrt(32)
   for (int pr = tid; pr < 4 * Sp; pr += NT) {
     const int h = pr / Sp, i = pr % Sp;
@@ -607,6 +618,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
     for (int d = 0; d < 32; ++d) o[d] = f2b(acc[d] * inv);
   }
   __syncthreads();
+  clk(FR_ATTN);
   float* fo = (float*)r2;                          // [SMAX][128] f32
   dense(ob, LDG, Sp, a.W, a.B, net.l[WFC],
         [&](int r, int c, float x) { fo[r * 128 + c] = x + gf_in(r, c); });
@@ -639,6 +651,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
     }
   }
   __syncthreads();
+  clk(FR_FC_LN);
 
   // ---- heads, 64 rows at a time ----
   for (int r0 = 0; r0 < Sp; r0 += 64) {
@@ -658,6 +671,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
                 a.out[(p0 + i) * 4 + 3] = snv[i] < 1.f ? -1e9f : x;
             });
       __syncthreads();
+      clk(FR_SIGMA);
       const int kr = net.l[RGB0].k;
       for (int v = 0; v < V; ++v) {
         // [gf' (128) | x_v (128)] as 16-byte copies, then vis, ray_diff
@@ -715,6 +729,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
         for (int c = 0; c < 3; ++c) a.out[(p0 + i) * 4 + c] = rgb[c] / bsum;
       }
       __syncthreads();
+      clk(FR_HEAD);
     } else {
       constexpr int LD1 = 184, LD2 = 168;
       bf16* in1 = (bf16*)r2;                       // [64][LD1]
@@ -758,6 +773,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
                     snv[i] < 1.f ? -1e9f : x - a.shift;
             });
       __syncthreads();
+      clk(FR_SIGMA);
       dense(in2, LD2, rows, a.W, a.B, net.l[RGB0],
             [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
@@ -771,6 +787,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
                 a.out[(p0 + i) * 4 + c] = snv[i] > 0.f ? sigm(x) : 0.f;
             });
       __syncthreads();
+      clk(FR_HEAD);
     }
   }
 }

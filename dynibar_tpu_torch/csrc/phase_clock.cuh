@@ -34,6 +34,15 @@ enum TrunkPhase { TP_POOL1 = 16, TP_FWD, TP_TRANS, TP_DW, TP_ELEM, TP_POOL1_BWD,
 // inside the other phases' time.
 enum RayPhase { RP_A, RP_HEAD_FWD, RP_HEAD_TRANS, RP_HEAD_DW, RP_HEAD_ELEM,
                 RP_C, RP_C_DW, RP_D, RP_D_DW, RP_RING_WAIT = 15 };
+// The forwards K2/K3 (static_agg, dynamic_agg; K4s's trunk phase runs the
+// same trunk_block).  Trunk: per-view input features and pooling-1; per
+// view, the dense layers' products (with their epilogues) and the
+// elementwise work between them (the rf_v columns, x * vis, the workspace
+// stores); the visibility re-pooling and geometry_fc.  Ray: q/k/v; the
+// attention; fc and the layer norm; the sigma head; the RGB (dynamic) or
+// per-view blend head (static) and its softmax over views.
+enum FwdTrunkPhase { FT_IN = 16, FT_PROD, FT_ELEM, FT_POOL2 };
+enum FwdRayPhase { FR_QKV, FR_ATTN, FR_FC_LN, FR_SIGMA, FR_HEAD };
 
 #ifdef AGG_PHASE_CLOCKS
 __device__ unsigned long long g_phase_cycles[kPhases];

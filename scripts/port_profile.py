@@ -4,7 +4,9 @@
     python3 scripts/port_profile.py --train [--chunk 3072] [--iters 2]
     python3 scripts/port_profile.py --mono [--route pallas_split3|pallas]
         [--chunk 3072] [--iters 2]
-    python3 scripts/port_profile.py --phases (--train | --mono) [...]
+    python3 scripts/port_profile.py --forward [--iters 3]
+    python3 scripts/port_profile.py --phases [fwd|bwd] [--train | --mono |
+        --forward] [...]
 
 Renders one chunk (64+64 samples, 7+11 views, 288x512 sources, bf16,
 random weights from a seed) through the kernel path on the CUDA card under
@@ -13,18 +15,25 @@ anchor, 11 static views, N_rand = --chunk); with --mono runs mono train
 steps at bench.py's width (64 samples, 9 dynamic, 10 anchor, 14 static
 views, 48 frames, schedule_weights(epoch=2)) on the backward route
 --route: "pallas_split" (K5a + K5b, K4a + K4b), "pallas_split3" (static
-K5a + K5c + K5d) or "pallas" (dynamic K3p forward, K4s backward).  Prints the device time per kernel name (summed over the
-profiled iterations, divided by them), the wall time per iteration and
-the device's busy share of it, and the peak device memory of the
-profiled iterations.  With --phases the split backwards' libraries
-(static_agg_bwd: K5a, K5b; dynamic_agg_bwd: K4a, K4b) load from their
-phase-clock builds (ops/build.py use_phase_clocks, csrc/phase_clock.cuh):
-after the profile, one more --iters steps run with the clocks zeroed
-before them, and each kernel's phases are printed as shares of its clock
-cycles and as ms of its profiled device time; also the registers, stack
-and spills nvcc reported for the kernels of both libraries (production
-and phase-clock builds), and any ptxas warning C7520 (wgmma serialized).
-Needs one card; imports nothing of JAX.
+K5a + K5c + K5d) or "pallas" (dynamic K3p forward, K4s backward); with
+--forward launches the forward aggregators K2 and K3 alone (no grad,
+random inputs and weights from a seed) at the shapes of FORWARD_SHAPES:
+the FF eval fine stage, the FF step's fine stage and the mono step.
+Prints the device time per kernel name (summed over the profiled
+iterations, divided by them), the wall time per iteration and the
+device's busy share of it, and the peak device memory of the profiled
+iterations (--forward: per shape, each kernel's device ms per launch).
+With --phases the aggregator libraries load from their phase-clock builds
+(ops/build.py use_phase_clocks, csrc/phase_clock.cuh): "bwd" the split
+backwards (static_agg_bwd: K5a, K5b; dynamic_agg_bwd: K4a, K4b), "fwd"
+the forwards (static_agg: K2/K2r, dynamic_agg: K3/K3r/K3p, trunk and ray
+launch each), no value both.  After the profile, one more --iters
+iterations run with the clocks zeroed before them, and each kernel's
+phases are printed as shares of its clock cycles and as ms of its
+profiled device time; also the registers, stack and spills nvcc reported
+for the kernels of the clocked libraries (production and phase-clock
+builds), and any ptxas warning C7520 (wgmma serialized).  Needs one card;
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -46,10 +55,14 @@ from dynibar_tpu_torch.config import (RenderSettings,  # noqa: E402
                                       TrainSettings, mono_render_settings)
 from dynibar_tpu_torch.data.ray_batch import (  # noqa: E402
     synthetic_ff_batch, synthetic_mono_batch)
+from dynibar_tpu_torch.models.aggregators import (  # noqa: E402
+    DynamicAggregator, StaticAggregator)
 from dynibar_tpu_torch.models.dynibar import FFModel, MonoModel  # noqa: E402
+from dynibar_tpu_torch.ops import agg  # noqa: E402
 from dynibar_tpu_torch.ops import build  # noqa: E402
 from dynibar_tpu_torch.render.render_rays import render_rays_mv  # noqa: E402
 from dynibar_tpu_torch.train import losses, trainer  # noqa: E402
+from dynibar_tpu_torch.utils import kernel_check  # noqa: E402
 from dynibar_tpu_torch.utils.device import (resolve_device,  # noqa: E402
                                             to_device)
 
@@ -64,6 +77,10 @@ TRUNK_PHASES = ("masks + pooling-1 fwd", "view fwd recompute",
                 "view transposed", "view dW", "view elementwise",
                 "pooling-1 bwd", "input MLP", "input MLP dW",
                 "anti-alias chain")
+FWD_RAY_PHASES = ("q/k/v", "attention", "fc + layer norm", "sigma head",
+                  "rgb / blend head + softmax")
+FWD_TRUNK_PHASES = ("input features + pooling-1", "view products",
+                    "view elementwise", "re-pooling + geometry_fc")
 PHASES = {
     "K5a": (RAY_PHASES, "static_agg_bwd", r"agg::static_ray_bwd_kernel", 0,
             15),
@@ -72,8 +89,27 @@ PHASES = {
     "K4a": (RAY_PHASES, "dynamic_agg_bwd",
             r"agg::dynamic_ray_bwd_kernel", 0, 15),
     "K4b": (TRUNK_PHASES, "dynamic_agg_bwd", r"agg::trunk_bwd_kernel<false>",
-            16, 31)}
-PHASE_LIBS = ("static_agg_bwd", "dynamic_agg_bwd")
+            16, 31),
+    "K2 trunk": (FWD_TRUNK_PHASES, "static_agg", r"agg::trunk_kernel<true>",
+                 16, None),
+    "K2 ray": (FWD_RAY_PHASES, "static_agg", r"agg::ray_kernel<true>", 0,
+               None),
+    "K3 trunk": (FWD_TRUNK_PHASES, "dynamic_agg",
+                 r"agg::trunk_kernel<false>", 16, None),
+    "K3 ray": (FWD_RAY_PHASES, "dynamic_agg", r"agg::ray_kernel<false>", 0,
+               None)}
+PHASE_LIBS = {"bwd": ("static_agg_bwd", "dynamic_agg_bwd"),
+              "fwd": ("static_agg", "dynamic_agg")}
+PHASE_LIBS["all"] = PHASE_LIBS["bwd"] + PHASE_LIBS["fwd"]
+
+# --forward: (label, [(static, rays, samples, views), ...]); K2 and K2r,
+# K3, K3r and K3p are the same two launches
+FORWARD_SHAPES = (
+    ("FF eval fine", ((True, 1024, 128, 11), (False, 1024, 128, 7))),
+    ("FF step", ((True, 3072, 128, 11), (False, 3072, 128, 7),
+                 (False, 3072, 128, 6))),
+    ("mono step", ((True, 3072, 64, 14), (False, 3072, 64, 9),
+                   (False, 3072, 64, 10))))
 
 # --route -> (fused_st_bwd_impl, fused_bwd_impl)
 ROUTES = {"pallas_split": ("pallas_split", "pallas_split"),
@@ -89,20 +125,26 @@ def main() -> int:
   ap.add_argument("--mono", action="store_true")
   ap.add_argument("--route", default="pallas_split", choices=sorted(ROUTES),
                   help="the mono step's backward route")
-  ap.add_argument("--phases", action="store_true",
-                  help="per-phase clocks of K5a/K5b and K4a/K4b (with "
-                  "--train or --mono)")
+  ap.add_argument("--forward", action="store_true",
+                  help="the forward aggregators alone at FORWARD_SHAPES")
+  ap.add_argument("--phases", nargs="?", const="all", default=None,
+                  choices=sorted(PHASE_LIBS),
+                  help="per-phase clocks of the backwards K5a/K5b, K4a/K4b "
+                  "(bwd), the forwards K2, K3 (fwd) or both (no value)")
   args = ap.parse_args()
-  if args.phases:
-    if not (args.train or args.mono):
-      ap.error("--phases needs --train or --mono")
-    build.use_phase_clocks(PHASE_LIBS)
+  args.phase_libs = PHASE_LIBS[args.phases] if args.phases else ()
+  build.use_phase_clocks(args.phase_libs)
   dev = resolve_device(None)
   card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                          "--format=csv,noheader"], capture_output=True,
                         text=True, check=True).stdout.strip()
-  build.build_jobs([(n, False) for n in build.KERNEL_SOURCES]
-                   + [(n, True) for n in PHASE_LIBS if args.phases])
+  libs = (("static_agg", "dynamic_agg") if args.forward
+          else build.KERNEL_SOURCES if args.train or args.mono
+          else ("sample", "static_agg", "dynamic_agg"))
+  build.build_jobs([(n, False) for n in libs]
+                   + [(n, True) for n in args.phase_libs])
+  if args.forward:
+    return _forward(args, card, dev)
   if args.mono:
     cfg = mono_render_settings(num_source_views=7, num_vv=3, n_samples=64,
                                num_basis=6, compute_dtype="bfloat16",
@@ -149,6 +191,28 @@ def main() -> int:
                   else f"chunk {args.chunk}")
 
 
+def _forward(args, card: str, dev) -> int:
+  """K2 and K3 alone at each of FORWARD_SHAPES, one profile per shape."""
+  for label, shapes in FORWARD_SHAPES:
+    for static, r, s, v in shapes:
+      torch.manual_seed(0)
+      net = (StaticAggregator(32, s) if static
+             else DynamicAggregator(32, s, shift=0.0)).to(dev).eval()
+      d = kernel_check.random_inputs(dev, r, s, v, seed=r + s + v, c=35)
+      names = (kernel_check.STATIC_INPUTS if static
+               else kernel_check.DYNAMIC_INPUTS)
+      ins = [d[k] for k in names]
+      fused = (agg.fused_static_aggregator if static
+               else agg.fused_dynamic_aggregator)
+
+      def one(fused=fused, net=net, ins=ins):
+        with torch.no_grad():
+          fused(net, *ins)
+      _profile(one, args, card, f"{label}: {'K2' if static else 'K3'} "
+               f"R {r} S {s} V {v}")
+  return 0
+
+
 def _profile(one, args, card: str, what: str) -> int:
   """Two warm-up iterations, then --iters under torch.profiler; prints the
   table and a JSON line."""
@@ -176,7 +240,7 @@ def _profile(one, args, card: str, what: str) -> int:
   rows.sort(reverse=True)
   busy = sum(r[0] for r in rows)
   peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-  if args.phases:
+  if args.phase_libs:
     _phases(one, args, card, rows)
   print(f"card: {card}")
   print(f"{what}: wall {wall * 1e3:.2f} ms, device busy "
@@ -195,21 +259,24 @@ def _phases(one, args, card: str, rows) -> None:
   """--iters more steps with the phase clocks zeroed before them; print
   each kernel's phases and nvcc's resource lines."""
   fns, bufs = {}, {}
-  for lib in PHASE_LIBS:
+  libs = args.phase_libs
+  for lib in libs:
     fns[lib] = build.load(lib).dyn_phase_clocks
     fns[lib].argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
     fns[lib].restype = ctypes.c_int
     bufs[lib] = (ctypes.c_ulonglong * 32)()
   torch.cuda.synchronize()
-  for lib in PHASE_LIBS:
+  for lib in libs:
     build.check(fns[lib](bufs[lib], 1), "phase clocks")
   for _ in range(args.iters):
     one()
   torch.cuda.synchronize()
-  for lib in PHASE_LIBS:
+  for lib in libs:
     build.check(fns[lib](bufs[lib], 1), "phase clocks")
   out = {}
   for key, (names, lib, pattern, first, wait) in PHASES.items():
+    if lib not in libs:
+      continue
     buf = bufs[lib]
     cyc = list(buf)[first:first + len(names)]
     total = max(sum(cyc), 1)
@@ -220,17 +287,20 @@ def _phases(one, args, card: str, rows) -> None:
           f"the profile; {total} clock64 cycles over its blocks) [{card}]")
     for name, c in zip(names, cyc):
       print(f"  {name:28s} {100 * c / total:6.2f}%  {ms * c / total:8.3f} ms")
+    out[key] = dict(ms=ms, cycles=total,
+                    share={n: c / total for n, c in zip(names, cyc)})
+    if wait is None:              # the forwards have no weight ring
+      continue
     for name, c in (("waiting on weight slabs", buf[wait]),
                     ("the slabs' products", buf[wait - 1]),
                     ("the products' epilogues", buf[wait - 2])):
       print(f"  ({name}, thread 0, within the above: {100 * c / total:.2f}%,"
             f" {ms * c / total:.3f} ms)")
-    out[key] = dict(ms=ms, cycles=total, slab_wait=buf[wait] / total,
+    out[key].update(slab_wait=buf[wait] / total,
                     slab_mma=buf[wait - 1] / total,
-                    epilogue=buf[wait - 2] / total,
-                    share={n: c / total for n, c in zip(names, cyc)})
+                    epilogue=buf[wait - 2] / total)
   print(json.dumps({"phases": out, "card": card}))
-  for lib in PHASE_LIBS:
+  for lib in libs:
     for phases in (False, True):
       log = build.library_path(lib, phases).with_suffix(".log")
       if log.exists():
