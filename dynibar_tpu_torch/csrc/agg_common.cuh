@@ -506,292 +506,6 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
   clk(FT_POOL2);
 }
 
-template <bool STATIC>
-__global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
-  trunk_block<STATIC>(a, blockIdx.x * PT, WsMap{a.P, 0});
-}
-
-struct RayArgs {
-  const bf16* W;
-  const float* B;
-  Net net;
-  const float* gf;       // [P, 128]
-  const float* nv;       // [P]
-  int P, S, V, C;
-  // static aggregator
-  const bf16* ws_x;      // [V, P, 128]
-  const float* ws_vis;   // [V, P]
-  const float* ws_m;     // [V, P]
-  const float* raydiff;  // [P, V, 4]
-  const bf16* rgbfeat;   // [P, V, C]
-  // dynamic aggregator
-  const float* posenc;   // [S, 128] sample-axis encoding
-  const float* pts;      // [P, 3]
-  const float* dirpe;    // [R, 27]
-  float shift;
-  float* out;            // [P, 4]
-};
-
-constexpr size_t kRegion2 = 3 * (size_t)SMAX * 128 * 2;
-constexpr size_t kRaySmem = (size_t)SMAX * LDG * 2 + kRegion2 +
-                            (size_t)SMAX * LDG * 2 + (size_t)VMAX * 64 * 4 +
-                            SMAX * 4;
-
-template <bool STATIC>
-__global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* gfb = (bf16*)smem;                         // [SMAX][LDG]
-  unsigned char* r2 = smem + (size_t)SMAX * LDG * 2;
-  bf16* ob = (bf16*)(r2 + kRegion2);               // [SMAX][LDG]
-  float* lg = (float*)(ob + SMAX * LDG);           // [VMAX][64]
-  float* snv = lg + VMAX * 64;                     // [SMAX]
-
-  const Net& net = a.net;
-  const int tid = threadIdx.x, ray = blockIdx.x;
-  const int S = a.S, V = a.V, P = a.P, Sp = (S + 15) & ~15;
-  const size_t p0 = (size_t)ray * S;
-  PhaseClock clk;
-
-  auto gf_in = [&](int i, int c) -> float {
-    if (i >= S) return 0.f;
-    const float g = a.gf[(p0 + i) * 128 + c];
-    return STATIC ? g : g + a.posenc[i * 128 + c];
-  };
-  for (int e = tid; e < Sp * 128; e += NT)
-    gfb[(e >> 7) * LDG + (e & 127)] = f2b(gf_in(e >> 7, e & 127));
-  for (int i = tid; i < Sp; i += NT) snv[i] = i < S ? a.nv[p0 + i] : 0.f;
-  __syncthreads();
-
-  // ---- ray transformer: projections, per-ray attention, fc, layer norm --
-  bf16* q = (bf16*)r2;
-  bf16* k = q + SMAX * 128;
-  bf16* vv = k + SMAX * 128;
-  dense(gfb, LDG, Sp, a.W, a.B, net.l[WQ],
-        [&](int r, int c, float x) { q[r * 128 + c] = f2b(x); });
-  dense(gfb, LDG, Sp, a.W, a.B, net.l[WK],
-        [&](int r, int c, float x) { k[r * 128 + c] = f2b(x); });
-  dense(gfb, LDG, Sp, a.W, a.B, net.l[WV],
-        [&](int r, int c, float x) { vv[r * 128 + c] = f2b(x); });
-  __syncthreads();
-  clk(FR_QKV);
-  const float scale = 0.17677669529663687f;       // 1 / sqrt(32)
-  for (int pr = tid; pr < 4 * Sp; pr += NT) {
-    const int h = pr / Sp, i = pr % Sp;
-    bf16* o = ob + i * LDG + h * 32;
-    if (i >= S) {
-      for (int d = 0; d < 32; ++d) o[d] = f2b(0.f);
-      continue;
-    }
-    float qv[32], acc[32];
-    for (int d = 0; d < 32; ++d) {
-      qv[d] = b2f(q[i * 128 + h * 32 + d]) * scale;
-      acc[d] = 0.f;
-    }
-    // query-row masking (reference mlp_network.py:23-24): a query with at
-    // most one valid view has every logit REPLACED by -1e9, i.e. uniform
-    // attention over its ray
-    const bool masked = snv[i] <= 1.f;
-    float mx = 0.f;
-    if (!masked) {
-      mx = -INFINITY;
-      for (int j = 0; j < S; ++j) {
-        const bf16* kj = k + j * 128 + h * 32;
-        float l = 0.f;
-        for (int d = 0; d < 32; ++d) l += qv[d] * b2f(kj[d]);
-        mx = fmaxf(mx, l);
-      }
-    }
-    float sum = 0.f;
-    for (int j = 0; j < S; ++j) {
-      float l = 0.f;
-      if (!masked) {
-        const bf16* kj = k + j * 128 + h * 32;
-        for (int d = 0; d < 32; ++d) l += qv[d] * b2f(kj[d]);
-        l -= mx;
-      }
-      const float pj = expf(l);
-      sum += pj;
-      const bf16* vj = vv + j * 128 + h * 32;
-      for (int d = 0; d < 32; ++d) acc[d] += pj * b2f(vj[d]);
-    }
-    const float inv = 1.f / sum;
-    for (int d = 0; d < 32; ++d) o[d] = f2b(acc[d] * inv);
-  }
-  __syncthreads();
-  clk(FR_ATTN);
-  float* fo = (float*)r2;                          // [SMAX][128] f32
-  dense(ob, LDG, Sp, a.W, a.B, net.l[WFC],
-        [&](int r, int c, float x) { fo[r * 128 + c] = x + gf_in(r, c); });
-  __syncthreads();
-  {
-    const int warp = tid >> 5, lane = tid & 31;
-    const float* ln_s = a.B + net.l[LN].b;
-    const float* ln_b = ln_s + 128;
-    for (int i = warp; i < Sp; i += NW) {
-      float x[4], s = 0.f;
-      for (int j = 0; j < 4; ++j) {
-        x[j] = fo[i * 128 + lane + 32 * j];
-        s += x[j];
-      }
-      for (int off = 16; off; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      const float mu = s / 128.f;
-      float var = 0.f;
-      for (int j = 0; j < 4; ++j) {
-        const float d = x[j] - mu;
-        var += d * d;
-      }
-      for (int off = 16; off; off >>= 1)
-        var += __shfl_xor_sync(0xffffffffu, var, off);
-      const float rs = rsqrtf(var / 128.f + 1e-6f);
-      for (int j = 0; j < 4; ++j) {
-        const int c = lane + 32 * j;
-        gfb[i * LDG + c] = f2b((x[j] - mu) * rs * ln_s[c] + ln_b[c]);
-      }
-    }
-  }
-  __syncthreads();
-  clk(FR_FC_LN);
-
-  // ---- heads, 64 rows at a time ----
-  for (int r0 = 0; r0 < Sp; r0 += 64) {
-    const int rows = min(64, Sp - r0);
-    const bf16* g = gfb + r0 * LDG;
-    if (STATIC) {
-      bf16* hin = (bf16*)r2;                       // [64][LDA]
-      bf16* h1 = hin + 64 * LDA;                   // [64][LDG]
-      bf16* h2 = h1 + 64 * LDG;                    // [64][LD64]
-      dense(g, LDG, rows, a.W, a.B, net.l[OG0],
-            [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
-      __syncthreads();
-      dense(h1, LDG, rows, a.W, a.B, net.l[OG1],
-            [&](int r, int c, float x) {
-              const int i = r0 + r;
-              if (c == 0 && i < S)
-                a.out[(p0 + i) * 4 + 3] = snv[i] < 1.f ? -1e9f : x;
-            });
-      __syncthreads();
-      clk(FR_SIGMA);
-      const int kr = net.l[RGB0].k;
-      for (int v = 0; v < V; ++v) {
-        // [gf' (128) | x_v (128)] as 16-byte copies, then vis, ray_diff
-        for (int e = tid; e < rows * 32; e += NT) {
-          const int r = e >> 5, q = e & 31, i = r0 + r;
-          uint4 val = make_uint4(0u, 0u, 0u, 0u);
-          if (q < 16)
-            val = *reinterpret_cast<const uint4*>(g + r * LDG + q * 8);
-          else if (i < S)
-            val = *reinterpret_cast<const uint4*>(
-                a.ws_x + ((size_t)v * P + p0 + i) * 128 + (q - 16) * 8);
-          *reinterpret_cast<uint4*>(hin + r * LDA + q * 8) = val;
-        }
-        for (int e = tid; e < rows * (kr - 256); e += NT) {
-          const int r = e / (kr - 256), col = 256 + e % (kr - 256);
-          const int i = r0 + r;
-          const size_t p = p0 + i;
-          float val = 0.f;
-          if (i < S) {
-            if (col == 256) val = a.ws_vis[(size_t)v * P + p];
-            else if (col < 261) val = a.raydiff[(p * V + v) * 4 + col - 257];
-          }
-          hin[r * LDA + col] = f2b(val);
-        }
-        __syncthreads();
-        dense(hin, LDA, rows, a.W, a.B, net.l[RGB0],
-              [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
-        __syncthreads();
-        dense(h1, LDG, rows, a.W, a.B, net.l[RGB1],
-              [&](int r, int c, float x) { h2[r * LD64 + c] = f2b(elu(x)); });
-        __syncthreads();
-        dense(h2, LD64, rows, a.W, a.B, net.l[RGB2],
-              [&](int r, int c, float x) {
-                const int i = r0 + r;
-                if (c == 0)
-                  lg[v * 64 + r] =
-                      (i < S && a.ws_m[(size_t)v * P + p0 + i] == 0.f) ? -1e9f
-                                                                       : x;
-              });
-        __syncthreads();
-      }
-      // blending: softmax over views in f32, then the views' source colors
-      for (int r = tid; r < rows; r += NT) {
-        const int i = r0 + r;
-        if (i >= S) continue;
-        float lmax = -INFINITY;
-        for (int v = 0; v < V; ++v) lmax = fmaxf(lmax, lg[v * 64 + r]);
-        float bsum = 0.f, rgb[3] = {0.f, 0.f, 0.f};
-        for (int v = 0; v < V; ++v) {
-          const float b = expf(lg[v * 64 + r] - lmax);
-          const bf16* src = a.rgbfeat + ((p0 + i) * V + v) * a.C;
-          bsum += b;
-          for (int c = 0; c < 3; ++c) rgb[c] += b * b2f(src[c]);
-        }
-        for (int c = 0; c < 3; ++c) a.out[(p0 + i) * 4 + c] = rgb[c] / bsum;
-      }
-      __syncthreads();
-      clk(FR_HEAD);
-    } else {
-      constexpr int LD1 = 184, LD2 = 168;
-      bf16* in1 = (bf16*)r2;                       // [64][LD1]
-      bf16* h256 = in1 + 64 * LD1;                 // [64][LDH]
-      bf16* g2 = h256 + 64 * LDH;                  // [64][LDG]
-      bf16* h1 = g2 + 64 * LDG;                    // [64][LDG]
-      bf16* h2 = ob;                               // [64][LD64]
-      bf16* in2 = ob + 64 * LD64;                  // [64][LD2]
-      const int k1 = net.l[REFPTS0].k, k2 = net.l[RGB0].k;
-      for (int e = tid; e < rows * k1; e += NT) {
-        const int r = e / k1, col = e % k1, i = r0 + r;
-        bf16 val = f2b(0.f);
-        if (col < 128) val = g[r * LDG + col];
-        else if (col < 161 && i < S)
-          val = f2b(pe_geo(a.pts + (p0 + i) * 3, 3, 5, col - 128));
-        in1[r * LD1 + col] = val;
-      }
-      __syncthreads();
-      dense(in1, LD1, rows, a.W, a.B, net.l[REFPTS0],
-            [&](int r, int c, float x) { h256[r * LDH + c] = f2b(elu(x)); });
-      __syncthreads();
-      dense(h256, LDH, rows, a.W, a.B, net.l[REFPTS1],
-            [&](int r, int c, float x) { g2[r * LDG + c] = f2b(elu(x)); });
-      __syncthreads();
-      dense(g2, LDG, rows, a.W, a.B, net.l[OG0],
-            [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
-      for (int e = tid; e < rows * k2; e += NT) {
-        const int r = e / k2, col = e % k2, i = r0 + r;
-        bf16 val = f2b(0.f);
-        if (col < 128) val = g2[r * LDG + col];
-        else if (col < 155 && i < S)
-          val = f2b(a.dirpe[(size_t)ray * 27 + col - 128]);
-        in2[r * LD2 + col] = val;
-      }
-      __syncthreads();
-      dense(h1, LDG, rows, a.W, a.B, net.l[OG1],
-            [&](int r, int c, float x) {
-              const int i = r0 + r;
-              if (c == 0 && i < S)
-                a.out[(p0 + i) * 4 + 3] =
-                    snv[i] < 1.f ? -1e9f : x - a.shift;
-            });
-      __syncthreads();
-      clk(FR_SIGMA);
-      dense(in2, LD2, rows, a.W, a.B, net.l[RGB0],
-            [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
-      __syncthreads();
-      dense(h1, LDG, rows, a.W, a.B, net.l[RGB1],
-            [&](int r, int c, float x) { h2[r * LD64 + c] = f2b(elu(x)); });
-      __syncthreads();
-      dense(h2, LD64, rows, a.W, a.B, net.l[RGB2],
-            [&](int r, int c, float x) {
-              const int i = r0 + r;
-              if (c < 3 && i < S)
-                a.out[(p0 + i) * 4 + c] = snv[i] > 0.f ? sigm(x) : 0.f;
-            });
-      __syncthreads();
-      clk(FR_HEAD);
-    }
-  }
-}
-
 // Blocks of `kernel` one SM holds at NT threads and `smem` bytes of dynamic
 // shared memory (the occupancy calculator), or -1 on an error.
 template <typename Kern>
@@ -803,28 +517,6 @@ int blocks_per_sm(Kern kernel, size_t smem) {
           cudaSuccess)
     return -1;
   return n;
-}
-
-// Both launches of one aggregator on `stream`; returns the cudaError_t.
-template <bool STATIC>
-int launch(const TrunkArgs& ta, const RayArgs& ra, int R, cudaStream_t s) {
-  if (ta.V > VMAX || ta.S > SMAX || ta.C > CMAX || ta.V < 1 || ta.S < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t trunk_bytes = trunk_smem(ta.V);
-  cudaError_t err = cudaFuncSetAttribute(
-      trunk_kernel<STATIC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)trunk_smem(VMAX));
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(ray_kernel<STATIC>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kRaySmem);
-  if (err != cudaSuccess) return (int)err;
-  if (ta.P == 0) return 0;
-  trunk_kernel<STATIC><<<(ta.P + PT - 1) / PT, NT, trunk_bytes, s>>>(ta);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ray_kernel<STATIC><<<R, NT, kRaySmem, s>>>(ra);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace agg

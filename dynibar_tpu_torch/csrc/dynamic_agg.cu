@@ -17,7 +17,7 @@
 // tiles, f32 accumulation and reductions, per-view trunk outputs stashed in
 // a global workspace, one block per ray for attention and the heads).
 
-#include "agg_common.cuh"
+#include "agg_fwd.cuh"
 
 extern "C" int dyn_dynamic_agg(
     const void* W, const void* B, const void* meta, const void* pts,

@@ -22,7 +22,7 @@
 // block per ray runs attention and the heads.  Simple and correct first:
 // no wgmma, no TMA.
 
-#include "agg_common.cuh"
+#include "agg_fwd.cuh"
 
 extern "C" int dyn_static_agg(
     const void* W, const void* B, const void* meta, const void* pts,
