@@ -103,20 +103,27 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // One warp's unit of a dense layer: a 16-column tile times NRT 16-row
-// tiles.  A (ldmatrix from shared memory) and B (32-bit weight words from
-// global memory, L2-resident) for k-step kk+1 are loaded while the MMAs
-// of step kk run.
-template <int NRT, typename EP>
+// tiles.  A (ldmatrix from shared memory) and B (weight words from global
+// memory, L2-resident) for k-step kk+1 are loaded while the MMAs of step
+// kk run.  B from the row-major pack (FRAG false) is four 32-bit loads
+// per lane and k-step, each spread over eight weight rows; from the
+// fragment-major pack (ops/agg.py pack_frag, FRAG true) one 16-byte load,
+// the warp's 512 bytes contiguous.
+template <int NRT, bool FRAG, typename EP>
 __device__ __forceinline__ void dense_unit(const bf16* X, int ldx,
                                            const bf16* W, const float* B,
                                            const Lin& L, int nt, int rt0,
-                                           EP& ep) {
+                                           EP& ep, int k0, int nk,
+                                           bool bias) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int nk = L.k >> 4;
   // this lane's weight words: rows nt*16+g and +8, k pair 2t (+8)
   const uint32_t* w0 =
-      (const uint32_t*)(W + L.w + (size_t)(nt * 16 + g) * L.k) + t;
+      (const uint32_t*)(W + L.w + (size_t)(nt * 16 + g) * L.k + k0) + t;
   const uint32_t* w1 = w0 + 4 * L.k;
+  // its 16 bytes per k-step in the fragment-major pack
+  const uint4* wf = reinterpret_cast<const uint4*>(
+                        W + L.w + (size_t)nt * 16 * L.k) +
+                    (k0 >> 4) * 32 + lane;
   const uint32_t xs = (uint32_t)__cvta_generic_to_shared(
       X + (size_t)(rt0 * 16 + (lane & 15)) * ldx + (lane >> 4) * 8);
   const uint32_t tile = 16 * ldx * 2;       // bytes between row tiles
@@ -129,10 +136,18 @@ __device__ __forceinline__ void dense_unit(const bf16* X, int ldx,
       for (int j = 0; j < 4; ++j) acc[i][h][j] = 0.f;
   uint32_t a0[NRT][4], a1[NRT][4], b0[4], b1[4];
   auto load = [&](uint32_t (&a)[NRT][4], uint32_t (&b)[4], int kk) {
-    b[0] = __ldg(w0 + 8 * kk);
-    b[1] = __ldg(w0 + 8 * kk + 4);
-    b[2] = __ldg(w1 + 8 * kk);
-    b[3] = __ldg(w1 + 8 * kk + 4);
+    if (FRAG) {
+      const uint4 v = __ldg(wf + 32 * kk);
+      b[0] = v.x;
+      b[1] = v.y;
+      b[2] = v.z;
+      b[3] = v.w;
+    } else {
+      b[0] = __ldg(w0 + 8 * kk);
+      b[1] = __ldg(w0 + 8 * kk + 4);
+      b[2] = __ldg(w1 + 8 * kk);
+      b[3] = __ldg(w1 + 8 * kk + 4);
+    }
 #pragma unroll
     for (int i = 0; i < NRT; ++i) ldsm_x4(a[i], xs + i * tile + 32 * kk);
   };
@@ -157,7 +172,8 @@ __device__ __forceinline__ void dense_unit(const bf16* X, int ldx,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = nt * 16 + h * 8 + 2 * t, r = (rt0 + i) * 16 + g;
-      const float bias0 = B[L.b + c], bias1 = B[L.b + c + 1];
+      const float bias0 = bias ? B[L.b + c] : 0.f;
+      const float bias1 = bias ? B[L.b + c + 1] : 0.f;
       ep(r, c, acc[i][h][0] + bias0);
       ep(r, c + 1, acc[i][h][1] + bias1);
       ep(r + 8, c, acc[i][h][2] + bias0);
@@ -168,14 +184,19 @@ __device__ __forceinline__ void dense_unit(const bf16* X, int ldx,
 
 // Y = X @ W^T + b over `rows` rows (a multiple of 16) of X [rows, L.k]
 // (bf16 in shared memory, row stride ldx, 16-byte aligned rows), W
-// [L.n, L.k] bf16 in global memory, calling ep(row, col, value) for every
+// [L.n, L.k] bf16 in global memory (row-major, or fragment-major when
+// FRAG), calling ep(row, col, value) for every
 // (padded) output column straight from the accumulator registers.  A warp
 // owns one 16-column tile and up to four 16-row tiles, so each B fragment
 // feeds up to eight MMAs; narrow layers drop to one row tile per warp so
-// that every warp has work.  Ends without a block barrier.
-template <typename EP>
+// that every warp has work.  Optionally over the weight columns [k0, k0 +
+// kn) only (X's columns 0..kn) and without the bias.  Ends without a block
+// barrier.
+template <bool FRAG = false, typename EP>
 __device__ void dense(const bf16* X, int ldx, int rows, const bf16* W,
-                      const float* B, const Lin L, EP ep) {
+                      const float* B, const Lin L, EP ep, int k0 = 0,
+                      int kn = -1, bool bias = true) {
+  const int nk = (kn < 0 ? L.k - k0 : kn) >> 4;
   const int warp = threadIdx.x >> 5;
   const int ntile = L.n >> 4, rtiles = rows >> 4;
   const int rpu = ntile * ((rtiles + 3) >> 2) >= NW ? 4 : 1;
@@ -183,10 +204,17 @@ __device__ void dense(const bf16* X, int ldx, int rows, const bf16* W,
   for (int u = warp; u < units; u += NW) {
     const int nt = u % ntile, rt0 = (u / ntile) * rpu;
     switch (min(rpu, rtiles - rt0)) {
-      case 4: dense_unit<4>(X, ldx, W, B, L, nt, rt0, ep); break;
-      case 3: dense_unit<3>(X, ldx, W, B, L, nt, rt0, ep); break;
-      case 2: dense_unit<2>(X, ldx, W, B, L, nt, rt0, ep); break;
-      default: dense_unit<1>(X, ldx, W, B, L, nt, rt0, ep); break;
+      case 4:
+        dense_unit<4, FRAG>(X, ldx, W, B, L, nt, rt0, ep, k0, nk, bias);
+        break;
+      case 3:
+        dense_unit<3, FRAG>(X, ldx, W, B, L, nt, rt0, ep, k0, nk, bias);
+        break;
+      case 2:
+        dense_unit<2, FRAG>(X, ldx, W, B, L, nt, rt0, ep, k0, nk, bias);
+        break;
+      default:
+        dense_unit<1, FRAG>(X, ldx, W, B, L, nt, rt0, ep, k0, nk, bias);
     }
   }
 }
@@ -211,7 +239,7 @@ struct WsMap {
 };
 
 struct TrunkArgs {
-  const bf16* W;
+  const bf16* W;         // fragment-major (ops/agg.py pack_frag)
   const float* B;
   Net net;
   const bf16* rgbfeat;   // [P, V, C]
@@ -313,6 +341,7 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
         sm_m[v * PT + r] = m;
         sm_e[v * PT + r] = ex;
       }
+#pragma unroll 4
       for (int e = tid; e < PT * C; e += NT) {
         const int r = e / C, c = e % C, p = p0 + r;
         if (p < P)
@@ -320,10 +349,11 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
               a.rgbfeat[((size_t)p * V + v) * C + c];
       }
       __syncthreads();
-      dense(buf0, LDA, PT, a.W, a.B, net.l[RAYDIR0],
+      clk(FT_IN);
+      dense<true>(buf0, LDA, PT, a.W, a.B, net.l[RAYDIR0],
             [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
-      dense(buf1, LDH, PT, a.W, a.B, net.l[RAYDIR1],
+      dense<true>(buf1, LDH, PT, a.W, a.B, net.l[RAYDIR1],
             [&](int r, int c, float x) {
               const int p = p0 + r;
               if (c < C && p < P)
@@ -331,6 +361,7 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
                     f2b(x * a.reffeat[(size_t)(p / a.S) * C + c]);
             });
       __syncthreads();
+      clk(FT_IN_PROD);
     }
   } else {
     for (int e = tid; e < V * PT; e += NT) {
@@ -338,6 +369,7 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
       sm_m[v * PT + r] = p < P ? a.mask[(size_t)p * V + v] : 0.f;
     }
     __syncthreads();
+    clk(FT_IN);
   }
 
   auto rf_val = [&](int r, int v, int c) -> float {
@@ -372,10 +404,13 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
   __syncthreads();
   // base_fc input [mean (CR) | var (CR) | rf_v (CR)]: the pooled columns
   // stay in buf0 for every view, only rf_v is rewritten per view
+  // (the view loops unrolled so that their L2 reads go out together)
   for (int e = tid; e < PT * CR; e += NT) {
     const int r = e / CR, c = e % CR;
     float mean = 0.f, var = 0.f;
+#pragma unroll 4
     for (int v = 0; v < V; ++v) mean += sm_w[v * PT + r] * rf_val(r, v, c);
+#pragma unroll 4
     for (int v = 0; v < V; ++v) {
       const float d = rf_val(r, v, c) - mean;
       var += sm_w[v * PT + r] * d * d;
@@ -383,32 +418,34 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
     buf0[r * LDA + c] = f2b(mean);
     buf0[r * LDA + CR + c] = f2b(var);
   }
+  clk.sync(FT_POOL1);
 
   // ---- per-view trunk: base_fc, vis_fc, vis_fc2 ----
   const int kb = net.l[BASE0].k;
   for (int v = 0; v < V; ++v) {
     const float* wv = sm_w + v * PT;
     const float* mk = sm_m + v * PT;
+#pragma unroll 4
     for (int e = tid; e < PT * (kb - 2 * CR); e += NT) {
       const int r = e / (kb - 2 * CR), c = e % (kb - 2 * CR);
       buf0[r * LDA + 2 * CR + c] = f2b(c < CR ? rf_val(r, v, c) : 0.f);
     }
     __syncthreads();
-    clk(v == 0 ? FT_IN : FT_ELEM);
-    dense(buf0, LDA, PT, a.W, a.B, net.l[BASE0],
+    clk(FT_ELEM);
+    dense<true>(buf0, LDA, PT, a.W, a.B, net.l[BASE0],
           [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
     __syncthreads();
-    dense(buf1, LDH, PT, a.W, a.B, net.l[BASE1],
+    dense<true>(buf1, LDH, PT, a.W, a.B, net.l[BASE1],
           [&](int r, int c, float x) {
             const float y = elu(x);
             xb[r * LDG + c] = f2b(y);
             buf2[r * LDG + c] = f2b(y * wv[r]);
           });
     __syncthreads();
-    dense(buf2, LDG, PT, a.W, a.B, net.l[VIS0],
+    dense<true>(buf2, LDG, PT, a.W, a.B, net.l[VIS0],
           [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
     __syncthreads();
-    dense(buf1, LDH, PT, a.W, a.B, net.l[VIS1],
+    dense<true>(buf1, LDH, PT, a.W, a.B, net.l[VIS1],
           [&](int r, int c, float x) {
             const float t = elu(x);
             if (c < 128) xb[r * LDG + c] = f2b(b2f(xb[r * LDG + c]) + t);
@@ -422,10 +459,10 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
     }
     __syncthreads();
     clk(FT_ELEM);
-    dense(buf2, LDG, PT, a.W, a.B, net.l[VIS20],
+    dense<true>(buf2, LDG, PT, a.W, a.B, net.l[VIS20],
           [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
     __syncthreads();
-    dense(buf1, LDH, PT, a.W, a.B, net.l[VIS21],
+    dense<true>(buf1, LDH, PT, a.W, a.B, net.l[VIS21],
           [&](int r, int c, float x) {
             if (c == 0) sm_vis[v * PT + r] = sigm(x) * mk[r];
           });
@@ -469,6 +506,7 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
     for (int j = 0; j < 8; ++j) mean[j] = var[j] = 0.f;
     if (p < P) {
       for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll 4
         for (int v = 0; v < V; ++v) {
           const uint4 raw = *reinterpret_cast<const uint4*>(
               a.ws_x + ws.vp(v, p) * 128 + c0);
@@ -495,10 +533,10 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
     buf0[r * LDA + 256 + j] = f2b(j == 0 ? sm_row[r] : 0.f);
   }
   __syncthreads();
-  dense(buf0, LDA, PT, a.W, a.B, net.l[GEO0],
+  dense<true>(buf0, LDA, PT, a.W, a.B, net.l[GEO0],
         [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
   __syncthreads();
-  dense(buf1, LDH, PT, a.W, a.B, net.l[GEO1],
+  dense<true>(buf1, LDH, PT, a.W, a.B, net.l[GEO1],
         [&](int r, int c, float x) {
           const int p = p0 + r;
           if (p < P) a.ws_gf[ws.pt(p) * 128 + c] = elu(x);

@@ -21,7 +21,7 @@ __global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
 }
 
 struct RayArgs {
-  const bf16* W;
+  const bf16* W;         // fragment-major (ops/agg.py pack_frag)
   const float* B;
   Net net;
   const float* gf;       // [P, 128]
@@ -75,11 +75,11 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
   bf16* q = (bf16*)r2;
   bf16* k = q + SMAX * 128;
   bf16* vv = k + SMAX * 128;
-  dense(gfb, LDG, Sp, a.W, a.B, net.l[WQ],
+  dense<true>(gfb, LDG, Sp, a.W, a.B, net.l[WQ],
         [&](int r, int c, float x) { q[r * 128 + c] = f2b(x); });
-  dense(gfb, LDG, Sp, a.W, a.B, net.l[WK],
+  dense<true>(gfb, LDG, Sp, a.W, a.B, net.l[WK],
         [&](int r, int c, float x) { k[r * 128 + c] = f2b(x); });
-  dense(gfb, LDG, Sp, a.W, a.B, net.l[WV],
+  dense<true>(gfb, LDG, Sp, a.W, a.B, net.l[WV],
         [&](int r, int c, float x) { vv[r * 128 + c] = f2b(x); });
   __syncthreads();
   clk(FR_QKV);
@@ -89,7 +89,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
   __syncthreads();
   clk(FR_ATTN);
   float* fo = (float*)r2;                          // [SMAX][128] f32
-  dense(ob, LDG, Sp, a.W, a.B, net.l[WFC],
+  dense<true>(ob, LDG, Sp, a.W, a.B, net.l[WFC],
         [&](int r, int c, float x) { fo[r * 128 + c] = x + gf_in(r, c); });
   __syncthreads();
   {
@@ -127,13 +127,19 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
     const int rows = min(64, Sp - r0);
     const bf16* g = gfb + r0 * LDG;
     if (STATIC) {
-      bf16* hin = (bf16*)r2;                       // [64][LDA]
-      bf16* h1 = hin + 64 * LDA;                   // [64][LDG]
+      // rgb_fc's first layer on [gf' (128) | x_v (128) | vis, ray_diff]:
+      // the gf' columns are the same for every view, so their product
+      // (with the bias) is taken once per chunk into gg, and each view's
+      // product runs over the other 144 columns only
+      constexpr int LDI = 152;
+      float* gg = (float*)r2;                      // [64][128] f32
+      bf16* hin = (bf16*)(gg + 64 * 128);          // [64][LDI]
+      bf16* h1 = hin + 64 * LDI;                   // [64][LDG]
       bf16* h2 = h1 + 64 * LDG;                    // [64][LD64]
-      dense(g, LDG, rows, a.W, a.B, net.l[OG0],
+      dense<true>(g, LDG, rows, a.W, a.B, net.l[OG0],
             [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
-      dense(h1, LDG, rows, a.W, a.B, net.l[OG1],
+      dense<true>(h1, LDG, rows, a.W, a.B, net.l[OG1],
             [&](int r, int c, float x) {
               const int i = r0 + r;
               if (c == 0 && i < S)
@@ -141,38 +147,45 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
             });
       __syncthreads();
       clk(FR_SIGMA);
-      const int kr = net.l[RGB0].k;
+      dense<true>(g, LDG, rows, a.W, a.B, net.l[RGB0],
+            [&](int r, int c, float x) { gg[r * 128 + c] = x; }, 0, 128);
+      clk.sync(FR_HEAD_PROD);
+      const int kr = net.l[RGB0].k - 128;
       for (int v = 0; v < V; ++v) {
-        // [gf' (128) | x_v (128)] as 16-byte copies, then vis, ray_diff
-        for (int e = tid; e < rows * 32; e += NT) {
-          const int r = e >> 5, q = e & 31, i = r0 + r;
+        // x_v as 16-byte copies, then vis and ray_diff (the loops unrolled
+        // so that their reads go out together)
+#pragma unroll 4
+        for (int e = tid; e < rows * 16; e += NT) {
+          const int r = e >> 4, q = e & 15, i = r0 + r;
           uint4 val = make_uint4(0u, 0u, 0u, 0u);
-          if (q < 16)
-            val = *reinterpret_cast<const uint4*>(g + r * LDG + q * 8);
-          else if (i < S)
+          if (i < S)
             val = *reinterpret_cast<const uint4*>(
-                a.ws_x + ((size_t)v * P + p0 + i) * 128 + (q - 16) * 8);
-          *reinterpret_cast<uint4*>(hin + r * LDA + q * 8) = val;
+                a.ws_x + ((size_t)v * P + p0 + i) * 128 + q * 8);
+          *reinterpret_cast<uint4*>(hin + r * LDI + q * 8) = val;
         }
-        for (int e = tid; e < rows * (kr - 256); e += NT) {
-          const int r = e / (kr - 256), col = 256 + e % (kr - 256);
+#pragma unroll 4
+        for (int e = tid; e < rows * (kr - 128); e += NT) {
+          const int r = e / (kr - 128), col = 128 + e % (kr - 128);
           const int i = r0 + r;
           const size_t p = p0 + i;
           float val = 0.f;
           if (i < S) {
-            if (col == 256) val = a.ws_vis[(size_t)v * P + p];
-            else if (col < 261) val = a.raydiff[(p * V + v) * 4 + col - 257];
+            if (col == 128) val = a.ws_vis[(size_t)v * P + p];
+            else if (col < 133) val = a.raydiff[(p * V + v) * 4 + col - 129];
           }
-          hin[r * LDA + col] = f2b(val);
+          hin[r * LDI + col] = f2b(val);
         }
         __syncthreads();
-        dense(hin, LDA, rows, a.W, a.B, net.l[RGB0],
-              [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
+        clk(FR_HEAD_IN);
+        dense<true>(hin, LDI, rows, a.W, a.B, net.l[RGB0],
+              [&](int r, int c, float x) {
+                h1[r * LDG + c] = f2b(elu(x + gg[r * 128 + c]));
+              }, 128, kr, false);
         __syncthreads();
-        dense(h1, LDG, rows, a.W, a.B, net.l[RGB1],
+        dense<true>(h1, LDG, rows, a.W, a.B, net.l[RGB1],
               [&](int r, int c, float x) { h2[r * LD64 + c] = f2b(elu(x)); });
         __syncthreads();
-        dense(h2, LD64, rows, a.W, a.B, net.l[RGB2],
+        dense<true>(h2, LD64, rows, a.W, a.B, net.l[RGB2],
               [&](int r, int c, float x) {
                 const int i = r0 + r;
                 if (c == 0)
@@ -181,6 +194,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
                                                                        : x;
               });
         __syncthreads();
+        clk(FR_HEAD_PROD);
       }
       // blending: softmax over views in f32, then the views' source colors
       for (int r = tid; r < rows; r += NT) {
@@ -188,17 +202,28 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
         if (i >= S) continue;
         float lmax = -INFINITY;
         for (int v = 0; v < V; ++v) lmax = fmaxf(lmax, lg[v * 64 + r]);
+        // every view's source color read at once, then summed in order
+        float src[VMAX][3];
+#pragma unroll
+        for (int v = 0; v < VMAX; ++v) {
+          if (v < V) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+              src[v][c] = b2f(a.rgbfeat[((p0 + i) * V + v) * a.C + c]);
+          }
+        }
         float bsum = 0.f, rgb[3] = {0.f, 0.f, 0.f};
-        for (int v = 0; v < V; ++v) {
+#pragma unroll
+        for (int v = 0; v < VMAX; ++v) {
+          if (v >= V) break;
           const float b = expf(lg[v * 64 + r] - lmax);
-          const bf16* src = a.rgbfeat + ((p0 + i) * V + v) * a.C;
           bsum += b;
-          for (int c = 0; c < 3; ++c) rgb[c] += b * b2f(src[c]);
+          for (int c = 0; c < 3; ++c) rgb[c] += b * src[v][c];
         }
         for (int c = 0; c < 3; ++c) a.out[(p0 + i) * 4 + c] = rgb[c] / bsum;
       }
       __syncthreads();
-      clk(FR_HEAD);
+      clk(FR_HEAD_OUT);
     } else {
       constexpr int LD1 = 184, LD2 = 168;
       bf16* in1 = (bf16*)r2;                       // [64][LD1]
@@ -217,13 +242,14 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
         in1[r * LD1 + col] = val;
       }
       __syncthreads();
-      dense(in1, LD1, rows, a.W, a.B, net.l[REFPTS0],
+      clk(FR_HEAD_IN);
+      dense<true>(in1, LD1, rows, a.W, a.B, net.l[REFPTS0],
             [&](int r, int c, float x) { h256[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
-      dense(h256, LDH, rows, a.W, a.B, net.l[REFPTS1],
+      dense<true>(h256, LDH, rows, a.W, a.B, net.l[REFPTS1],
             [&](int r, int c, float x) { g2[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
-      dense(g2, LDG, rows, a.W, a.B, net.l[OG0],
+      dense<true>(g2, LDG, rows, a.W, a.B, net.l[OG0],
             [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
       for (int e = tid; e < rows * k2; e += NT) {
         const int r = e / k2, col = e % k2, i = r0 + r;
@@ -234,7 +260,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
         in2[r * LD2 + col] = val;
       }
       __syncthreads();
-      dense(h1, LDG, rows, a.W, a.B, net.l[OG1],
+      dense<true>(h1, LDG, rows, a.W, a.B, net.l[OG1],
             [&](int r, int c, float x) {
               const int i = r0 + r;
               if (c == 0 && i < S)
@@ -243,20 +269,20 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
             });
       __syncthreads();
       clk(FR_SIGMA);
-      dense(in2, LD2, rows, a.W, a.B, net.l[RGB0],
+      dense<true>(in2, LD2, rows, a.W, a.B, net.l[RGB0],
             [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
-      dense(h1, LDG, rows, a.W, a.B, net.l[RGB1],
+      dense<true>(h1, LDG, rows, a.W, a.B, net.l[RGB1],
             [&](int r, int c, float x) { h2[r * LD64 + c] = f2b(elu(x)); });
       __syncthreads();
-      dense(h2, LD64, rows, a.W, a.B, net.l[RGB2],
+      dense<true>(h2, LD64, rows, a.W, a.B, net.l[RGB2],
             [&](int r, int c, float x) {
               const int i = r0 + r;
               if (c < 3 && i < S)
                 a.out[(p0 + i) * 4 + c] = snv[i] > 0.f ? sigm(x) : 0.f;
             });
       __syncthreads();
-      clk(FR_HEAD);
+      clk(FR_HEAD_PROD);
     }
   }
 }

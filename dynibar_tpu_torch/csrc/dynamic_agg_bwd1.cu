@@ -125,7 +125,8 @@ __global__ void __launch_bounds__(NT, 1)
 }  // namespace
 
 extern "C" int dyn_dynamic_agg_bwd_single(
-    const void* W, const void* WT, const void* B, const void* Z,
+    const void* W, const void* WT, const void* WF, const void* B,
+    const void* Z,
     const void* meta, const void* pts, const void* dirfeat,
     const void* dirpe, const void* posenc, const void* rgbfeat,
     const void* mask, const void* cot, void* sx, void* sdx, void* svm,
@@ -142,7 +143,7 @@ extern "C" int dyn_dynamic_agg_bwd_single(
   a.C = C;
   const Net net = load_net((const int*)meta);
   TrunkArgs& f = a.f;
-  f.W = (const bf16*)W;
+  f.W = (const bf16*)WF;          // the forward trunk's fragment-major pack
   f.B = (const float*)B;
   f.net = net;
   f.rgbfeat = (const bf16*)rgbfeat;
@@ -153,7 +154,7 @@ extern "C" int dyn_dynamic_agg_bwd_single(
   f.C = C;
   f.dirfeat = (const float*)dirfeat;
   RayBwdArgs& r = a.r;
-  r.W = f.W;
+  r.W = (const bf16*)W;
   r.WT = (const bf16*)WT;
   r.B = f.B;
   r.Z = (const float*)Z;
@@ -174,7 +175,7 @@ extern "C" int dyn_dynamic_agg_bwd_single(
   r.slab_len = slab_len;
   r.w_total = w_total;
   TrunkBwdArgs& t = a.t;
-  t.W = f.W;
+  t.W = r.W;
   t.WT = r.WT;
   t.B = f.B;
   t.Z = r.Z;

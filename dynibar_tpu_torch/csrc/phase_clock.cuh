@@ -35,14 +35,18 @@ enum TrunkPhase { TP_POOL1 = 16, TP_FWD, TP_TRANS, TP_DW, TP_ELEM, TP_POOL1_BWD,
 enum RayPhase { RP_A, RP_HEAD_FWD, RP_HEAD_TRANS, RP_HEAD_DW, RP_HEAD_ELEM,
                 RP_C, RP_C_DW, RP_D, RP_D_DW, RP_RING_WAIT = 15 };
 // The forwards K2/K3 (static_agg, dynamic_agg; K4s's trunk phase runs the
-// same trunk_block).  Trunk: per-view input features and pooling-1; per
-// view, the dense layers' products (with their epilogues) and the
-// elementwise work between them (the rf_v columns, x * vis, the workspace
-// stores); the visibility re-pooling and geometry_fc.  Ray: q/k/v; the
-// attention; fc and the layer norm; the sigma head; the RGB (dynamic) or
-// per-view blend head (static) and its softmax over views.
-enum FwdTrunkPhase { FT_IN = 16, FT_PROD, FT_ELEM, FT_POOL2 };
-enum FwdRayPhase { FR_QKV, FR_ATTN, FR_FC_LN, FR_SIGMA, FR_HEAD };
+// same trunk_block).  Trunk: the per-view input features (static: the
+// encodings, masks and copies, then the input MLP ray_dir_fc's products);
+// pooling-1; per view, the dense layers' products (with their epilogues)
+// and the elementwise work between them (the rf_v columns, x * vis, the
+// workspace stores); the visibility re-pooling and geometry_fc.  Ray:
+// q/k/v; the attention; fc and the layer norm; the sigma head (dynamic:
+// with ref_pts_fc); the heads' input rows, products, and (static) the
+// softmax over views.
+enum FwdTrunkPhase { FT_IN = 16, FT_IN_PROD, FT_POOL1, FT_PROD, FT_ELEM,
+                     FT_POOL2 };
+enum FwdRayPhase { FR_QKV, FR_ATTN, FR_FC_LN, FR_SIGMA, FR_HEAD_IN,
+                   FR_HEAD_PROD, FR_HEAD_OUT };
 
 #ifdef AGG_PHASE_CLOCKS
 __device__ unsigned long long g_phase_cycles[kPhases];
@@ -56,10 +60,16 @@ struct PhaseClock {
       atomicAdd(&g_phase_cycles[phase], (unsigned long long)(t - t0));
     t0 = t;
   }
+  // a mark where the kernel itself has no block barrier: this build adds one
+  __device__ __forceinline__ void sync(int phase) {
+    __syncthreads();
+    (*this)(phase);
+  }
 };
 #else
 struct PhaseClock {
   __device__ __forceinline__ void operator()(int) const {}
+  __device__ __forceinline__ void sync(int) const {}
 };
 #endif
 

@@ -78,7 +78,7 @@ _ST_RAY_ARGS = [_P] * 15 + [_I] * 7 + [_P]
 _ST_TRUNK_ARGS = [_P] * 10 + [_I] * 2 + [_P] * 11 + [_I] * 7 + [_P]
 _ST_TRUNK3_ARGS = [_P] * 9 + [_I] * 2 + [_P] * 6 + [_I] * 7 + [_P]
 _ST_INMLP_ARGS = [_P] * 18 + [_I] * 7 + [_P]
-_DYN_SINGLE_ARGS = [_P] * 25 + [_I] * 7 + [_P]
+_DYN_SINGLE_ARGS = [_P] * 26 + [_I] * 7 + [_P]
 _REDUCE_ARGS = [_P, _I, _I, _P, _P]
 
 
@@ -172,19 +172,33 @@ def pack_weights(net: nn.Module, static: bool):
   return packed
 
 
+def _frag_order(np_: int, kp: int) -> np.ndarray:
+  """Row-major index [N, K] of every element of ``pack_frag``'s layer."""
+  nt, kk, lane, j, e = np.meshgrid(np.arange(np_ // 16), np.arange(kp // 16),
+                                   np.arange(32), np.arange(4), np.arange(2),
+                                   indexing="ij")
+  row = nt * 16 + lane // 4 + 8 * (j // 2)
+  col = kk * 16 + 8 * (j % 2) + 2 * (lane % 4) + e
+  return (row * kp + col).reshape(-1)
+
+
 @functools.lru_cache(maxsize=16)
-def _order(meta_bytes: bytes, total: int, tiled: bool,
+def _order(meta_bytes: bytes, total: int, layout: str,
            device: torch.device) -> torch.Tensor:
-  """Source index of every element of a relaid pack (see ``tile_weights``
-  and ``pack_transposed``), built once per slot table and device."""
+  """Source index of every element of a relaid pack (``layout``: "tiled",
+  see ``tile_weights``; "transposed", ``pack_transposed``; "frag",
+  ``pack_frag``), built once per slot table and device."""
   meta = np.frombuffer(meta_bytes, np.int32).reshape(-1, 4)
   idx = np.arange(total)
   for w_off, _, kp, np_ in (tuple(int(x) for x in row) for row in meta):
     if w_off < 0 or np_ == 0:       # LayerNorm / scalar / empty slots
       continue
     layer = idx[w_off:w_off + np_ * kp].reshape(np_, kp)
-    if not tiled:
+    if layout == "transposed":
       idx[w_off:w_off + np_ * kp] = layer.T.reshape(-1)
+      continue
+    if layout == "frag":
+      idx[w_off:w_off + np_ * kp] = layer.reshape(-1)[_frag_order(np_, kp)]
       continue
     parts = []
     for n0 in range(0, np_, 64):
@@ -204,21 +218,22 @@ def tile_weights(w: torch.Tensor, meta: np.ndarray) -> torch.Tensor:
   column blocks), each block's 8x8 core matrices row-major, each 8 rows of
   8 consecutive k.  A block is one bulk copy and serves the forward and
   the transposed products.  One gather."""
-  return w[_order(meta.tobytes(), w.numel(), True, w.device)]
+  return w[_order(meta.tobytes(), w.numel(), "tiled", w.device)]
 
 
-def _relaid(net: nn.Module, static: bool, attr: str, tiled: bool):
+def _relaid(net: nn.Module, static: bool, layout: str):
   w, _, meta = pack_weights(net, static)
+  attr = f"_kernel_{layout}"
   cached = getattr(net, attr, None)
   if cached is None or cached[0] is not w:
-    cached = (w, w[_order(meta.tobytes(), w.numel(), tiled, w.device)])
+    cached = (w, w[_order(meta.tobytes(), w.numel(), layout, w.device)])
     setattr(net, attr, cached)
   return cached[1]
 
 
 def pack_tiled(net: nn.Module, static: bool) -> torch.Tensor:
   """``tile_weights`` of ``pack_weights``, cached with the pack."""
-  return _relaid(net, static, "_kernel_tiled", True)
+  return _relaid(net, static, "tiled")
 
 
 def pack_transposed(net: nn.Module, static: bool) -> torch.Tensor:
@@ -226,7 +241,17 @@ def pack_transposed(net: nn.Module, static: bool) -> torch.Tensor:
   so the backward's dX = W^T dY runs on the forward's layer routine (all
   backward kernels but K4a and K5a/K5b).  Built only when such a kernel
   runs, cached with the pack."""
-  return _relaid(net, static, "_kernel_wt", False)
+  return _relaid(net, static, "transposed")
+
+
+def pack_frag(net: nn.Module, static: bool) -> torch.Tensor:
+  """``pack_weights`` laid out as the forwards' products read it
+  (csrc/agg_common.cuh dense<true>): each padded layer [N, K] at its
+  offset as [N/16][K/16][32 lanes][8], a lane's eight values the four
+  bf16 pairs of its mma.sync B fragments for one 16x16 tile (rows g and
+  g + 8, columns 2t and 8 + 2t, with g = lane / 4, t = lane % 4), so one
+  16-byte load per lane and k-step fetches them.  Cached with the pack."""
+  return _relaid(net, static, "frag")
 
 
 def unpack_grads(net: nn.Module, static: bool, meta: np.ndarray,
@@ -334,7 +359,8 @@ def _static_launch(net, pts, reffeat, src_pl, rgb_feat, ray_diff, mask):
   r, s, v, c = rgb_feat.shape
   _check_dims(s, v, c)
   dev, p = rgb_feat.device, r * s
-  w, b, meta = pack_weights(net, static=True)
+  _, b, meta = pack_weights(net, static=True)
+  w = pack_frag(net, static=True)
   args = dict(pts=(pts.detach().float().contiguous(), (r, s, 3)),
               reffeat=(reffeat.detach().float().contiguous(), (r, c)),
               rgb_feat=(rgb_feat.detach().to(torch.bfloat16).contiguous(),
@@ -369,7 +395,8 @@ def _dynamic_launch(net, pts, dirfeat, dirpe, rgb_feat, mask):
   r, s, v, c = rgb_feat.shape
   _check_dims(s, v, c)
   dev, p = rgb_feat.device, r * s
-  w, b, meta = pack_weights(net, static=False)
+  _, b, meta = pack_weights(net, static=False)
+  w = pack_frag(net, static=False)
   posenc = net.pos_enc[:s].contiguous()                         # [S,128]
   args = dict(pts=(pts.detach().float().contiguous(), (r, s, 3)),
               dirfeat=(dirfeat.detach().float().contiguous(), (r, s, c)),
@@ -568,7 +595,7 @@ def static_backward_trunk3(net, ws, dx, dmisc, slabs, nblk, w_total):
   d_dot = torch.empty((v, p), **f32)
   d_s = torch.empty((p,), **f32)
   fn = _fn("static_agg_bwd3", "dyn_static_agg_bwd_trunk3", _ST_TRUNK3_ARGS)
-  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
+  build.check(fn(w.data_ptr(), wt.data_ptr(), wf.data_ptr(), b.data_ptr(),
                  _zeros(dev).data_ptr(), _meta_ptr(meta),
                  ws["rgb_feat"].data_ptr(), ws["mask"].data_ptr(),
                  ws["ray_diff"].data_ptr(), ws["rf"].data_ptr(),
@@ -598,7 +625,7 @@ def static_backward_inmlp(net, ws, drf, dmisc, d_dot, slabs, nblk, w_total):
              pts=torch.empty((p, 3), **f32),
              reffeat=torch.empty((p, c), **f32))
   fn = _fn("static_agg_bwd3", "dyn_static_agg_bwd_inmlp", _ST_INMLP_ARGS)
-  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
+  build.check(fn(w.data_ptr(), wt.data_ptr(), wf.data_ptr(), b.data_ptr(),
                  _zeros(dev).data_ptr(), _meta_ptr(meta),
                  ws["pts"].data_ptr(), ws["reffeat"].data_ptr(),
                  ws["ray_diff"].data_ptr(), ws["src_pl"].data_ptr(),
@@ -677,7 +704,7 @@ def dynamic_backward_trunk(net, ws, dx, dmisc, slabs, nblk, w_total):
   d_rgbfeat = torch.empty((p, v, c), **f32)
   d_dirfeat = torch.empty((p, c), **f32)
   fn = _fn("dynamic_agg_bwd", "dyn_dynamic_agg_bwd_trunk", _DYN_TRUNK_ARGS)
-  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
+  build.check(fn(w.data_ptr(), wt.data_ptr(), wf.data_ptr(), b.data_ptr(),
                  _zeros(dev).data_ptr(), _meta_ptr(meta),
                  ws["rgb_feat"].data_ptr(), ws["mask"].data_ptr(),
                  ws["dirfeat"].data_ptr(), dx.data_ptr(), dmisc.data_ptr(),
@@ -700,6 +727,7 @@ def dynamic_backward_single(net, ins, cot):
   packed = pack_weights(net, False)
   w, b, meta = packed
   wt = pack_transposed(net, False)
+  wf = pack_frag(net, False)              # the recomputed trunk's layout
   slabs, nblk, w_total = _slabs(dev, packed)
   f32 = dict(dtype=torch.float32, device=dev)
   bf = dict(dtype=torch.bfloat16, device=dev)
@@ -716,7 +744,7 @@ def dynamic_backward_single(net, ins, cot):
   d_rgbfeat = torch.empty((p, v, c), **f32)
   d_dirfeat = torch.empty((p, c), **f32)
   fn = _fn("dynamic_agg_bwd1", "dyn_dynamic_agg_bwd_single", _DYN_SINGLE_ARGS)
-  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
+  build.check(fn(w.data_ptr(), wt.data_ptr(), wf.data_ptr(), b.data_ptr(),
                  _zeros(dev).data_ptr(), _meta_ptr(meta),
                  *(ins[k].data_ptr() for k in ("pts", "dirfeat", "dirpe",
                                                "posenc", "rgb_feat", "mask")),

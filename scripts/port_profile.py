@@ -78,9 +78,10 @@ TRUNK_PHASES = ("masks + pooling-1 fwd", "view fwd recompute",
                 "pooling-1 bwd", "input MLP", "input MLP dW",
                 "anti-alias chain")
 FWD_RAY_PHASES = ("q/k/v", "attention", "fc + layer norm", "sigma head",
-                  "rgb / blend head + softmax")
-FWD_TRUNK_PHASES = ("input features + pooling-1", "view products",
-                    "view elementwise", "re-pooling + geometry_fc")
+                  "head inputs", "head products", "blend softmax")
+FWD_TRUNK_PHASES = ("input features", "input MLP products", "pooling-1",
+                    "view products", "view elementwise",
+                    "re-pooling + geometry_fc")
 PHASES = {
     "K5a": (RAY_PHASES, "static_agg_bwd", r"agg::static_ray_bwd_kernel", 0,
             15),

@@ -83,8 +83,12 @@ def _compare(got, want, atol):
   assert bool(((g - w).abs() <= atol + 2e-2 * w.abs()).all())
 
 
+# the forward's edges: S = 40, 48, 64 and 128 (ragged 16-row attention
+# tiles and 64-row head chunks), V = 1 to 14; random_inputs gives ray 0 no
+# valid view and ray 1 exactly one
 @pytest.mark.parametrize("s,v", [(16, 4), (64, 11), (40, 11), (64, 14),
-                                 (16, 14)])
+                                 (16, 14), (48, 7), (128, 11), (128, 14),
+                                 (64, 1), (128, 1), (40, 14)])
 def test_static_kernel(dev, s, v):
   d = _inputs(dev, s, v, seed=s + v)
   net = StaticAggregator(F, s).to(dev).eval()
@@ -94,7 +98,9 @@ def test_static_kernel(dev, s, v):
     _compare(fused_static_aggregator(net, *args), net(*args), 2e-2)
 
 
-@pytest.mark.parametrize("s,v", [(16, 3), (128, 7), (40, 7)])
+@pytest.mark.parametrize("s,v", [(16, 3), (128, 7), (40, 7), (48, 11),
+                                 (64, 9), (64, 10), (128, 14), (64, 1),
+                                 (48, 1), (128, 6)])
 def test_dynamic_kernel(dev, s, v):
   d = _inputs(dev, s, v, seed=s + v)
   net = DynamicAggregator(F, s, shift=0.0).to(dev).eval()

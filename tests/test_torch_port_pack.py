@@ -3,7 +3,8 @@ they write, on the CPU (ops/agg.py).
 
 ``tile_weights`` (the layout of the Hopper kernels K5a/K5b,
 csrc/sm90_common.cuh) holds every parameter of every slot exactly, at the
-index the CUDA header documents; ``unpack_grads`` maps a slab laid out as
+index the CUDA header documents, and so does ``pack_frag`` (the forwards'
+B fragments, csrc/agg_common.cuh); ``unpack_grads`` maps a slab laid out as
 the kernels write it (padded row-major weights, then the biases) back onto
 each parameter's gradient: the slab is filled from the f32 twin's autograd
 gradients and compared exactly.
@@ -70,6 +71,51 @@ def test_tiled_weights_round_trip(static, anti_alias, seed):
     next(net.parameters()).add_(1.0)
   assert agg.pack_tiled(net, static) is not first[0]
   assert agg.pack_transposed(net, static) is not first[1]
+
+
+@pytest.mark.parametrize("static,anti_alias",
+                         [(True, True), (True, False), (False, False)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fragment_weights_hold_each_lanes_b_fragments(static, anti_alias,
+                                                       seed):
+  """``pack_frag``, the layout of the forwards' products
+  (csrc/agg_common.cuh dense<true>): lane l's 16 bytes for 16x16 tile
+  (nt, kk) of a layer are the bf16 pairs its mma.sync B fragments take
+  from the row-major layer, rows nt*16 + g (+ 8), columns kk*16 + 2t (+ 8)
+  and the next, g = l / 4 and t = l % 4, in that order."""
+  net = _net(static, anti_alias, seed)
+  w, _, meta = agg.pack_weights(net, static)
+  frag = agg.pack_frag(net, static)
+  assert frag.dtype == torch.bfloat16 and frag.shape == w.shape
+  seen = 0
+  for i, slot in enumerate(agg._layer_list(net, static)):
+    if slot is None or isinstance(slot[0], str):
+      continue
+    w_off, _, kp, np_ = (int(x) for x in meta[i])
+    layer = w[w_off:w_off + np_ * kp].view(np_, kp)
+    got = frag[w_off:w_off + np_ * kp].view(np_ // 16, kp // 16, 32, 8)
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    for nt in range(np_ // 16):
+      for kk in range(kp // 16):
+        rows = nt * 16 + g
+        cols = kk * 16 + 2 * t
+        want = torch.stack([layer[rows, cols], layer[rows, cols + 1],
+                            layer[rows, cols + 8], layer[rows, cols + 9],
+                            layer[rows + 8, cols], layer[rows + 8, cols + 1],
+                            layer[rows + 8, cols + 8],
+                            layer[rows + 8, cols + 9]], 1)
+        assert torch.equal(got[nt, kk], want), (i, nt, kk)
+    # every element of the layer once: the layout is a permutation
+    assert sorted(agg._frag_order(np_, kp).tolist()) == list(
+        range(np_ * kp))
+    seen += 1
+  assert seen >= 15
+  assert agg.pack_frag(net, static) is agg.pack_frag(net, static)
+  first = agg.pack_frag(net, static)
+  with torch.no_grad():
+    next(net.parameters()).add_(1.0)
+  assert agg.pack_frag(net, static) is not first
 
 
 @pytest.mark.parametrize("static,anti_alias",
