@@ -219,6 +219,88 @@ __device__ void dense(const bf16* X, int ldx, int rows, const bf16* W,
   }
 }
 
+// The trunk's dense layer (trunk_block, which K4s's trunk phase runs
+// too), on the fragment-major pack: two trunk blocks per SM leave the L1
+// too little room to keep the weights, so every weight fragment is an L2
+// round trip, and one step of prefetch (dense) left each k-step waiting
+// on it.  Here a ring of kBD fragments in registers keeps the loads kBD
+// k-steps ahead of their MMAs; A (ldmatrix from shared memory) is read
+// at its step.  The same products, added in the same order as dense's.
+constexpr int kBD = 8;
+
+template <int NRT, typename EP>
+__device__ __forceinline__ void dense_unit_deep(const bf16* X, int ldx,
+                                                const bf16* W, const float* B,
+                                                const Lin& L, int nt, int rt0,
+                                                EP& ep) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nk = L.k >> 4;
+  const uint4* wf = reinterpret_cast<const uint4*>(
+                        W + L.w + (size_t)nt * 16 * L.k) + lane;
+  const uint32_t xs = (uint32_t)__cvta_generic_to_shared(
+      X + (size_t)(rt0 * 16 + (lane & 15)) * ldx + (lane >> 4) * 8);
+  const uint32_t tile = 16 * ldx * 2;       // bytes between row tiles
+  float acc[NRT][2][4];
+#pragma unroll
+  for (int i = 0; i < NRT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][h][e] = 0.f;
+  uint4 b[kBD];
+#pragma unroll
+  for (int d = 0; d < kBD; ++d)
+    if (d < nk) b[d] = __ldg(wf + 32 * d);
+  for (int k0 = 0; k0 < nk; k0 += kBD) {
+#pragma unroll
+    for (int d = 0; d < kBD; ++d) {
+      const int kk = k0 + d;
+      if (kk < nk) {
+        uint32_t a[NRT][4];
+#pragma unroll
+        for (int i = 0; i < NRT; ++i) ldsm_x4(a[i], xs + i * tile + 32 * kk);
+#pragma unroll
+        for (int i = 0; i < NRT; ++i) {
+          mma16816(acc[i][0], a[i], b[d].x, b[d].y);
+          mma16816(acc[i][1], a[i], b[d].z, b[d].w);
+        }
+        if (kk + kBD < nk) b[d] = __ldg(wf + 32 * (kk + kBD));
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NRT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = nt * 16 + h * 8 + 2 * t, r = (rt0 + i) * 16 + g;
+      const float bias0 = B[L.b + c], bias1 = B[L.b + c + 1];
+      ep(r, c, acc[i][h][0] + bias0);
+      ep(r, c + 1, acc[i][h][1] + bias1);
+      ep(r + 8, c, acc[i][h][2] + bias0);
+      ep(r + 8, c + 1, acc[i][h][3] + bias1);
+    }
+  }
+}
+
+// dense's unit schedule with dense_unit_deep.
+template <typename EP>
+__device__ void dense_deep(const bf16* X, int ldx, int rows, const bf16* W,
+                           const float* B, const Lin L, EP ep) {
+  const int warp = threadIdx.x >> 5;
+  const int ntile = L.n >> 4, rtiles = rows >> 4;
+  const int rpu = ntile * ((rtiles + 3) >> 2) >= NW ? 4 : 1;
+  const int units = ntile * ((rtiles + rpu - 1) / rpu);
+  for (int u = warp; u < units; u += NW) {
+    const int nt = u % ntile, rt0 = (u / ntile) * rpu;
+    switch (min(rpu, rtiles - rt0)) {
+      case 4: dense_unit_deep<4>(X, ldx, W, B, L, nt, rt0, ep); break;
+      case 3: dense_unit_deep<3>(X, ldx, W, B, L, nt, rt0, ep); break;
+      case 2: dense_unit_deep<2>(X, ldx, W, B, L, nt, rt0, ep); break;
+      default: dense_unit_deep<1>(X, ldx, W, B, L, nt, rt0, ep); break;
+    }
+  }
+}
+
 inline Net load_net(const int* meta) {
   Net net;
   for (int i = 0; i < NLAYERS; ++i)
@@ -350,10 +432,10 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
       }
       __syncthreads();
       clk(FT_IN);
-      dense<true>(buf0, LDA, PT, a.W, a.B, net.l[RAYDIR0],
+      dense_deep(buf0, LDA, PT, a.W, a.B, net.l[RAYDIR0],
             [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
-      dense<true>(buf1, LDH, PT, a.W, a.B, net.l[RAYDIR1],
+      dense_deep(buf1, LDH, PT, a.W, a.B, net.l[RAYDIR1],
             [&](int r, int c, float x) {
               const int p = p0 + r;
               if (c < C && p < P)
@@ -432,20 +514,20 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
     }
     __syncthreads();
     clk(FT_ELEM);
-    dense<true>(buf0, LDA, PT, a.W, a.B, net.l[BASE0],
+    dense_deep(buf0, LDA, PT, a.W, a.B, net.l[BASE0],
           [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
     __syncthreads();
-    dense<true>(buf1, LDH, PT, a.W, a.B, net.l[BASE1],
+    dense_deep(buf1, LDH, PT, a.W, a.B, net.l[BASE1],
           [&](int r, int c, float x) {
             const float y = elu(x);
             xb[r * LDG + c] = f2b(y);
             buf2[r * LDG + c] = f2b(y * wv[r]);
           });
     __syncthreads();
-    dense<true>(buf2, LDG, PT, a.W, a.B, net.l[VIS0],
+    dense_deep(buf2, LDG, PT, a.W, a.B, net.l[VIS0],
           [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
     __syncthreads();
-    dense<true>(buf1, LDH, PT, a.W, a.B, net.l[VIS1],
+    dense_deep(buf1, LDH, PT, a.W, a.B, net.l[VIS1],
           [&](int r, int c, float x) {
             const float t = elu(x);
             if (c < 128) xb[r * LDG + c] = f2b(b2f(xb[r * LDG + c]) + t);
@@ -459,10 +541,10 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
     }
     __syncthreads();
     clk(FT_ELEM);
-    dense<true>(buf2, LDG, PT, a.W, a.B, net.l[VIS20],
+    dense_deep(buf2, LDG, PT, a.W, a.B, net.l[VIS20],
           [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
     __syncthreads();
-    dense<true>(buf1, LDH, PT, a.W, a.B, net.l[VIS21],
+    dense_deep(buf1, LDH, PT, a.W, a.B, net.l[VIS21],
           [&](int r, int c, float x) {
             if (c == 0) sm_vis[v * PT + r] = sigm(x) * mk[r];
           });
@@ -533,10 +615,10 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
     buf0[r * LDA + 256 + j] = f2b(j == 0 ? sm_row[r] : 0.f);
   }
   __syncthreads();
-  dense<true>(buf0, LDA, PT, a.W, a.B, net.l[GEO0],
+  dense_deep(buf0, LDA, PT, a.W, a.B, net.l[GEO0],
         [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
   __syncthreads();
-  dense<true>(buf1, LDH, PT, a.W, a.B, net.l[GEO1],
+  dense_deep(buf1, LDH, PT, a.W, a.B, net.l[GEO1],
         [&](int r, int c, float x) {
           const int p = p0 + r;
           if (p < P) a.ws_gf[ws.pt(p) * 128 + c] = elu(x);

@@ -42,6 +42,11 @@ struct RayArgs {
 };
 
 constexpr size_t kRegion2 = 3 * (size_t)SMAX * 128 * 2;
+// the static head's gg [64][128] f32 and, for two views, hin [128][152],
+// h1 [128][LDG] and h2 [128][LD64] bf16 span region 2 and o
+static_assert((size_t)64 * 128 * 4 + (size_t)128 * (152 + LDG + LD64) * 2 <=
+                  kRegion2 + (size_t)SMAX * LDG * 2,
+              "the static head's two-view buffers fit region 2 and o");
 constexpr size_t kRaySmem = (size_t)SMAX * LDG * 2 + kRegion2 +
                             (size_t)SMAX * LDG * 2 + (size_t)VMAX * 64 * 4 +
                             SMAX * 4;
@@ -131,11 +136,15 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
       // the gf' columns are the same for every view, so their product
       // (with the bias) is taken once per chunk into gg, and each view's
       // product runs over the other 144 columns only
+      // Two views per pass: the layers' units cover 2 x rows rows, so the
+      // narrow second and third layers give every warp one unit of twice
+      // the rows, and each view pays half the passes' barriers.  Region 2
+      // and o (dead after fc) hold gg, the inputs and the hidden rows.
       constexpr int LDI = 152;
       float* gg = (float*)r2;                      // [64][128] f32
-      bf16* hin = (bf16*)(gg + 64 * 128);          // [64][LDI]
-      bf16* h1 = hin + 64 * LDI;                   // [64][LDG]
-      bf16* h2 = h1 + 64 * LDG;                    // [64][LD64]
+      bf16* hin = (bf16*)(gg + 64 * 128);          // [128][LDI]
+      bf16* h1 = hin + 128 * LDI;                  // [128][LDG]
+      bf16* h2 = h1 + 128 * LDG;                   // [128][LD64]
       dense<true>(g, LDG, rows, a.W, a.B, net.l[OG0],
             [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
@@ -151,45 +160,60 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
             [&](int r, int c, float x) { gg[r * 128 + c] = x; }, 0, 128);
       clk.sync(FR_HEAD_PROD);
       const int kr = net.l[RGB0].k - 128;
-      for (int v = 0; v < V; ++v) {
-        // x_v as 16-byte copies, then vis and ray_diff (the loops unrolled
-        // so that their reads go out together)
+      // a pass row's view (r / rows) and row in the chunk (r % rows)
+      auto vrow = [&](int r, int* rr) {
+        const int j = rows == 64 ? r >> 6 : r / rows;
+        *rr = r - j * rows;
+        return j;
+      };
+      for (int v0 = 0; v0 < V; v0 += 2) {
+        const int nv = min(2, V - v0), prow = nv * rows;
+        // x_v as 16-byte copies, then vis and ray_diff, for view v0 + j in
+        // rows j * rows.. (the loops unrolled so that their reads go out
+        // together; streaming loads, which leave the L1 to the weights)
 #pragma unroll 4
-        for (int e = tid; e < rows * 16; e += NT) {
-          const int r = e >> 4, q = e & 15, i = r0 + r;
+        for (int e = tid; e < prow * 16; e += NT) {
+          const int rr = e >> 4, q = e & 15;
+          int ri;
+          const int v = v0 + vrow(rr, &ri), i = r0 + ri;
           uint4 val = make_uint4(0u, 0u, 0u, 0u);
           if (i < S)
-            val = *reinterpret_cast<const uint4*>(
-                a.ws_x + ((size_t)v * P + p0 + i) * 128 + q * 8);
-          *reinterpret_cast<uint4*>(hin + r * LDI + q * 8) = val;
+            val = __ldcs(reinterpret_cast<const uint4*>(
+                a.ws_x + ((size_t)v * P + p0 + i) * 128 + q * 8));
+          *reinterpret_cast<uint4*>(hin + rr * LDI + q * 8) = val;
         }
 #pragma unroll 4
-        for (int e = tid; e < rows * (kr - 128); e += NT) {
-          const int r = e / (kr - 128), col = 128 + e % (kr - 128);
-          const int i = r0 + r;
+        for (int e = tid; e < prow * (kr - 128); e += NT) {
+          const int rr = e / (kr - 128), col = 128 + e % (kr - 128);
+          int ri;
+          const int v = v0 + vrow(rr, &ri), i = r0 + ri;
           const size_t p = p0 + i;
           float val = 0.f;
           if (i < S) {
-            if (col == 128) val = a.ws_vis[(size_t)v * P + p];
-            else if (col < 133) val = a.raydiff[(p * V + v) * 4 + col - 129];
+            if (col == 128) val = __ldcs(a.ws_vis + (size_t)v * P + p);
+            else if (col < 133)
+              val = __ldcs(a.raydiff + (p * V + v) * 4 + col - 129);
           }
-          hin[r * LDI + col] = f2b(val);
+          hin[rr * LDI + col] = f2b(val);
         }
         __syncthreads();
         clk(FR_HEAD_IN);
-        dense<true>(hin, LDI, rows, a.W, a.B, net.l[RGB0],
+        dense<true>(hin, LDI, prow, a.W, a.B, net.l[RGB0],
               [&](int r, int c, float x) {
-                h1[r * LDG + c] = f2b(elu(x + gg[r * 128 + c]));
+                int rr;
+                vrow(r, &rr);
+                h1[r * LDG + c] = f2b(elu(x + gg[rr * 128 + c]));
               }, 128, kr, false);
         __syncthreads();
-        dense<true>(h1, LDG, rows, a.W, a.B, net.l[RGB1],
+        dense<true>(h1, LDG, prow, a.W, a.B, net.l[RGB1],
               [&](int r, int c, float x) { h2[r * LD64 + c] = f2b(elu(x)); });
         __syncthreads();
-        dense<true>(h2, LD64, rows, a.W, a.B, net.l[RGB2],
+        dense<true>(h2, LD64, prow, a.W, a.B, net.l[RGB2],
               [&](int r, int c, float x) {
-                const int i = r0 + r;
+                int rr;
+                const int v = v0 + vrow(r, &rr), i = r0 + rr;
                 if (c == 0)
-                  lg[v * 64 + r] =
+                  lg[v * 64 + rr] =
                       (i < S && a.ws_m[(size_t)v * P + p0 + i] == 0.f) ? -1e9f
                                                                        : x;
               });

@@ -595,7 +595,7 @@ def static_backward_trunk3(net, ws, dx, dmisc, slabs, nblk, w_total):
   d_dot = torch.empty((v, p), **f32)
   d_s = torch.empty((p,), **f32)
   fn = _fn("static_agg_bwd3", "dyn_static_agg_bwd_trunk3", _ST_TRUNK3_ARGS)
-  build.check(fn(w.data_ptr(), wt.data_ptr(), wf.data_ptr(), b.data_ptr(),
+  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
                  _zeros(dev).data_ptr(), _meta_ptr(meta),
                  ws["rgb_feat"].data_ptr(), ws["mask"].data_ptr(),
                  ws["ray_diff"].data_ptr(), ws["rf"].data_ptr(),
@@ -625,7 +625,7 @@ def static_backward_inmlp(net, ws, drf, dmisc, d_dot, slabs, nblk, w_total):
              pts=torch.empty((p, 3), **f32),
              reffeat=torch.empty((p, c), **f32))
   fn = _fn("static_agg_bwd3", "dyn_static_agg_bwd_inmlp", _ST_INMLP_ARGS)
-  build.check(fn(w.data_ptr(), wt.data_ptr(), wf.data_ptr(), b.data_ptr(),
+  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
                  _zeros(dev).data_ptr(), _meta_ptr(meta),
                  ws["pts"].data_ptr(), ws["reffeat"].data_ptr(),
                  ws["ray_diff"].data_ptr(), ws["src_pl"].data_ptr(),
@@ -704,7 +704,7 @@ def dynamic_backward_trunk(net, ws, dx, dmisc, slabs, nblk, w_total):
   d_rgbfeat = torch.empty((p, v, c), **f32)
   d_dirfeat = torch.empty((p, c), **f32)
   fn = _fn("dynamic_agg_bwd", "dyn_dynamic_agg_bwd_trunk", _DYN_TRUNK_ARGS)
-  build.check(fn(w.data_ptr(), wt.data_ptr(), wf.data_ptr(), b.data_ptr(),
+  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
                  _zeros(dev).data_ptr(), _meta_ptr(meta),
                  ws["rgb_feat"].data_ptr(), ws["mask"].data_ptr(),
                  ws["dirfeat"].data_ptr(), dx.data_ptr(), dmisc.data_ptr(),
