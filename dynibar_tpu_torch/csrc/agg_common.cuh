@@ -1,6 +1,6 @@
 // Shared device code of the fused aggregators K2 (static_agg.cu) and K3
-// (dynamic_agg.cu): a tensor-core dense layer, the per-point trunk kernel
-// and the per-ray attention + heads kernel.
+// (dynamic_agg.cu) and their backwards: the tensor-core dense layers and
+// the per-point trunk block (the launches: agg_fwd.cuh).
 //
 // Math from dynibar_tpu/ops/pallas_agg.py (_vis_pooling, _attention and the
 // two kernel bodies); layout from the GPU.  Matmul operands are bf16 with
@@ -8,7 +8,8 @@
 // reductions, softmaxes and the layer norm run in f32, as
 // pallas_agg.py:27-30 states for the TPU kernels.  Weights come packed by
 // ops/agg.py: each layer zero-padded to [ceil16(out), ceil16(in)] bf16,
-// biases f32, one slot table (Net).
+// biases f32, one slot table (Net); the forwards read them
+// fragment-major (pack_frag), the backwards row-major.
 //
 // Each aggregator is two launches on the caller's stream:
 //   1. trunk_kernel, 64 points per block, all views of those points:
@@ -301,6 +302,62 @@ __device__ void dense_deep(const bf16* X, int ldx, int rows, const bf16* W,
   }
 }
 
+
+// One output column `col` of layer L (fragment-major pack) with its bias,
+// for the trunk's layers whose other output columns are padding or
+// computed apart (vis_fc's visibility logit, vis_fc2): a warp per four
+// rows at a time, each lane the k pairs 2 lane + 64 m, summed in f32
+// across the warp (the four rows' shuffle chains interleaved); ep(row,
+// value) on lane 0.  A 16-column MMA layer would pay a whole k-loop of L2
+// waits for one column.  L.k <= 256.  Ends without a block barrier.
+template <typename EP>
+__device__ void dot_rows(const bf16* X, int ldx, int rows, const bf16* W,
+                         const float* B, const Lin& L, int col, EP ep) {
+  constexpr int kRows = 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nkt = L.k >> 4, nt = col >> 4, g = col & 7;
+  const int jh = (col & 8) ? 2 : 0;
+  float2 w[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int k = 64 * m + 2 * lane, kk = k >> 4, cc = k & 15;
+    const int idx = ((nt * nkt + kk) * 32 + g * 4 + ((cc & 7) >> 1)) * 8 +
+                    (jh + (cc >> 3)) * 2;
+    w[m] = k < L.k ? __bfloat1622float2(
+                         *reinterpret_cast<const __nv_bfloat162*>(W + L.w +
+                                                                  idx))
+                   : make_float2(0.f, 0.f);
+  }
+  const float bias = B[L.b + col];
+  for (int r0 = warp * kRows; r0 < rows; r0 += NW * kRows) {
+    float sum[kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      sum[j] = 0.f;
+      const int r = min(r0 + j, rows - 1);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int k = 64 * m + 2 * lane;
+        if (k < L.k) {
+          const float2 x = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(X + (size_t)r * ldx +
+                                                       k));
+          sum[j] += x.x * w[m].x + x.y * w[m].y;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < kRows; ++j)
+        sum[j] += __shfl_xor_sync(0xffffffffu, sum[j], off);
+    if (lane == 0)
+#pragma unroll
+      for (int j = 0; j < kRows; ++j)
+        if (r0 + j < rows) ep(r0 + j, sum[j] + bias);
+  }
+}
+
 inline Net load_net(const int* meta) {
   Net net;
   for (int i = 0; i < NLAYERS; ++i)
@@ -527,12 +584,16 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
     dense_deep(buf2, LDG, PT, a.W, a.B, net.l[VIS0],
           [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
     __syncthreads();
-    dense_deep(buf1, LDH, PT, a.W, a.B, net.l[VIS1],
-          [&](int r, int c, float x) {
-            const float t = elu(x);
-            if (c < 128) xb[r * LDG + c] = f2b(b2f(xb[r * LDG + c]) + t);
-            else if (c == 128) sm_row[r] = sigm(t) * mk[r];
-          });
+    {
+      Lin vis1 = net.l[VIS1];
+      vis1.n = 128;                // column 128, the visibility logit, apart
+      dense_deep(buf1, LDH, PT, a.W, a.B, vis1,
+            [&](int r, int c, float x) {
+              xb[r * LDG + c] = f2b(b2f(xb[r * LDG + c]) + elu(x));
+            });
+    }
+    dot_rows(buf1, LDH, PT, a.W, a.B, net.l[VIS1], 128,
+             [&](int r, float x) { sm_row[r] = sigm(elu(x)) * mk[r]; });
     __syncthreads();
     clk(FT_PROD);
     for (int e = tid; e < PT * 128; e += NT) {
@@ -544,10 +605,8 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
     dense_deep(buf2, LDG, PT, a.W, a.B, net.l[VIS20],
           [&](int r, int c, float x) { buf1[r * LDH + c] = f2b(elu(x)); });
     __syncthreads();
-    dense_deep(buf1, LDH, PT, a.W, a.B, net.l[VIS21],
-          [&](int r, int c, float x) {
-            if (c == 0) sm_vis[v * PT + r] = sigm(x) * mk[r];
-          });
+    dot_rows(buf1, LDH, PT, a.W, a.B, net.l[VIS21], 0,
+             [&](int r, float x) { sm_vis[v * PT + r] = sigm(x) * mk[r]; });
     __syncthreads();
     clk(FT_PROD);
     for (int e = tid; e < PT * 16; e += NT) {      // 16-byte row pieces

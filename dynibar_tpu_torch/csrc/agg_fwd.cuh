@@ -1,19 +1,46 @@
-// The forwards K2 (static_agg.cu) and K3 (dynamic_agg.cu): the trunk
-// launch (agg_common.cuh trunk_block, 64 points per block) and the ray
-// launch, one ray per block, on Hopper.
+// The forwards K2 (static_agg.cu) and K3 (dynamic_agg.cu), for Hopper:
+// the trunk launch (agg_common.cuh trunk_block, 64 points per block, two
+// blocks per SM) and the ray launch, one ray per block.  They replace
+// dynibar_tpu/ops/pallas_agg.py:225 _static_kernel and :325
+// _dynamic_kernel, with and without residuals (K2/K2r; K3/K3r/K3p).
 //
-// The ray launch: q/k/v projections, the ray transformer's attention on
-// tensor cores (attn_mma.cuh attn_fwd_mma, the function the ray-side
-// backwards K5a, K4a and K4s recompute it with, so the forward and every
-// backward round q, k, v and the probabilities at the same points, those
-// of dynibar_tpu/ops/pallas_agg.py:122-124,152-153), fc and the residual
-// layer norm, then the sigma and RGB heads in 64-row chunks.
+// What bounds them on the H100: operations (their products are far above
+// the card's flop/byte ridge); what held them back, by their phase clocks
+// (scripts/port_profile.py --forward --phases fwd): the products' k-steps
+// waiting on weight fragments from L2 (two trunk blocks per SM leave the
+// L1 too little room to keep the weights), the scalar attention (one
+// thread per head and query), and the narrow heads' serial, barrier-bound
+// layers.  The design: every product on mma.sync, the weights read
+// fragment-major (ops/agg.py pack_frag: one 16-byte load per lane and
+// k-step), in the trunk through a ring of eight fragments ahead of their
+// MMAs (dense_deep), the trunk's one-column outputs (vis_fc's visibility
+// logit, vis_fc2) as warp dot products (dot_rows); in the ray launch the
+// attention on tensor cores (attn_mma.cuh attn_fwd_mma, the function the
+// ray-side backwards K5a, K4a and K4s recompute it with, so the forward
+// and every backward round q, k, v and the probabilities at the same
+// points, those of dynibar_tpu/ops/pallas_agg.py:122-124,152-153), fc and
+// the residual layer norm, then the sigma and RGB heads in 64-row chunks:
+// the static blend head takes its first layer's product over the
+// geometry feature once per chunk, runs two views' rows per pass and
+// copies their inputs by cp.async.
 #pragma once
 
 #include "agg_common.cuh"
 #include "attn_mma.cuh"
 
 namespace agg {
+
+// 16 bytes from global to shared memory by cp.async (L2 only, not kept in
+// the L1), zeros where !valid; cp_async_wait waits for all of the thread's.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
 template <bool STATIC>
 __global__ void __launch_bounds__(NT, 2) trunk_kernel(TrunkArgs a) {
@@ -168,19 +195,18 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
       };
       for (int v0 = 0; v0 < V; v0 += 2) {
         const int nv = min(2, V - v0), prow = nv * rows;
-        // x_v as 16-byte copies, then vis and ray_diff, for view v0 + j in
-        // rows j * rows.. (the loops unrolled so that their reads go out
-        // together; streaming loads, which leave the L1 to the weights)
-#pragma unroll 4
+        // x_v as 16-byte asynchronous copies (which leave the L1 to the
+        // weights), then vis and ray_diff (streaming loads, the loop
+        // unrolled so that they go out together), for view v0 + j in rows
+        // j * rows..
         for (int e = tid; e < prow * 16; e += NT) {
           const int rr = e >> 4, q = e & 15;
           int ri;
           const int v = v0 + vrow(rr, &ri), i = r0 + ri;
-          uint4 val = make_uint4(0u, 0u, 0u, 0u);
-          if (i < S)
-            val = __ldcs(reinterpret_cast<const uint4*>(
-                a.ws_x + ((size_t)v * P + p0 + i) * 128 + q * 8));
-          *reinterpret_cast<uint4*>(hin + rr * LDI + q * 8) = val;
+          cp_async16(hin + rr * LDI + q * 8,
+                     a.ws_x + ((size_t)v * P + p0 + min(i, S - 1)) * 128 +
+                         q * 8,
+                     i < S);
         }
 #pragma unroll 4
         for (int e = tid; e < prow * (kr - 128); e += NT) {
@@ -196,6 +222,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
           }
           hin[rr * LDI + col] = f2b(val);
         }
+        cp_async_wait();
         __syncthreads();
         clk(FR_HEAD_IN);
         dense<true>(hin, LDI, prow, a.W, a.B, net.l[RGB0],

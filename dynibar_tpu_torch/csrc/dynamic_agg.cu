@@ -13,9 +13,9 @@
 // What bounds it on the H100: operations.  About 2 MFLOP per point at V=7,
 // far above the card's ~295 flop/byte ridge.
 //
-// Design: the shared trunk and ray kernels of agg_common.cuh (bf16 mma.sync
-// tiles, f32 accumulation and reductions, per-view trunk outputs stashed in
-// a global workspace, one block per ray for attention and the heads).
+// Design: agg_fwd.cuh (the Hopper forward: mma.sync on fragment-major
+// weights, the trunk's weights prefetched eight k-steps ahead, the
+// attention on tensor cores) over agg_common.cuh's trunk_block.
 
 #include "agg_fwd.cuh"
 

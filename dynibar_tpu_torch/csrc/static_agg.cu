@@ -15,12 +15,10 @@
 // V=11 (the per-view MLPs), against ~0.8 KB of input per point; it sits far
 // above the card's ~295 flop/byte ridge, so only tensor-core rate matters.
 //
-// Design (agg_common.cuh): bf16 mma.sync tiles with f32 accumulation for every
-// dense layer, f32 reductions; 64-point trunk blocks (two per SM) keep one
-// view's activations in shared memory and stash the per-view trunk output
-// in a global workspace (L2-resident while the block re-reads it); one
-// block per ray runs attention and the heads.  Simple and correct first:
-// no wgmma, no TMA.
+// Design: agg_fwd.cuh (the Hopper forward: mma.sync on fragment-major
+// weights, the trunk's weights prefetched eight k-steps ahead, the
+// attention on tensor cores, the blend head's shared product hoisted and
+// two views per pass) over agg_common.cuh's trunk_block.
 
 #include "agg_fwd.cuh"
 

@@ -16,8 +16,10 @@ csrc/dynamic_agg_bwd.cu), a ray-side and a trunk-side launch as in
 ``pallas_agg_bwd.py``: K4a/K4b (dynamic, :514/:733) and K5a/K5b (static,
 :879/:1109).  K4a and K5a/K5b are written for Hopper (wgmma on weight
 slabs staged in shared memory by bulk copies) and read the weights in the
-tiled layout of ``tile_weights``; the other kernels read the row-major
-pack and (the backwards K4b, K4s, K5c, K5d) its transposes.  The dynamic
+tiled layout of ``tile_weights``; the forwards K2/K3 (and K4s's
+recomputed trunk) read them fragment-major (``pack_frag``); the other
+kernels read the row-major pack and (the backwards K4b, K4s, K5c, K5d)
+its transposes.  The dynamic
 backward's route "pallas" is one launch instead
 (csrc/dynamic_agg_bwd1.cu): K4s replaces ``pallas_agg_bwd.py:163
 dynamic_bwd_kernel``; its forward K3p (``_dynamic_kernel`` under
