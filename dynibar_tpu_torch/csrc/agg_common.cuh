@@ -283,13 +283,22 @@ __device__ __forceinline__ void dense_unit_deep(const bf16* X, int ldx,
   }
 }
 
-// dense's unit schedule with dense_unit_deep.
+// Units of dense_unit_deep: as many row tiles per unit (4, 2 or 1) as
+// keeps the fewest rounds of units over the warps, the most units among
+// those (a unit's k-loop is a chain of L2 waits, so a layer takes about
+// rounds x k-steps of them: ray_dir_fc's 48-column second layer runs six
+// units of two row tiles in one round, not twelve of one in two).
 template <typename EP>
 __device__ void dense_deep(const bf16* X, int ldx, int rows, const bf16* W,
                            const float* B, const Lin L, EP ep) {
   const int warp = threadIdx.x >> 5;
   const int ntile = L.n >> 4, rtiles = rows >> 4;
-  const int rpu = ntile * ((rtiles + 3) >> 2) >= NW ? 4 : 1;
+  auto rounds = [&](int r) {
+    return (ntile * ((rtiles + r - 1) / r) + NW - 1) / NW;
+  };
+  int rpu = 4;
+  if (rounds(2) <= rounds(rpu)) rpu = 2;
+  if (rounds(1) <= rounds(rpu)) rpu = 1;
   const int units = ntile * ((rtiles + rpu - 1) / rpu);
   for (int u = warp; u < units; u += NW) {
     const int nt = u % ntile, rt0 = (u / ntile) * rpu;
