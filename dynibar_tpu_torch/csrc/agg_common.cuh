@@ -104,27 +104,20 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // One warp's unit of a dense layer: a 16-column tile times NRT 16-row
-// tiles.  A (ldmatrix from shared memory) and B (weight words from global
-// memory, L2-resident) for k-step kk+1 are loaded while the MMAs of step
-// kk run.  B from the row-major pack (FRAG false) is four 32-bit loads
-// per lane and k-step, each spread over eight weight rows; from the
-// fragment-major pack (ops/agg.py pack_frag, FRAG true) one 16-byte load,
-// the warp's 512 bytes contiguous.
-template <int NRT, bool FRAG, typename EP>
+// tiles.  A (ldmatrix from shared memory) and B (32-bit weight words from
+// global memory, L2-resident) for k-step kk+1 are loaded while the MMAs
+// of step kk run.
+template <int NRT, typename EP>
 __device__ __forceinline__ void dense_unit(const bf16* X, int ldx,
                                            const bf16* W, const float* B,
                                            const Lin& L, int nt, int rt0,
-                                           EP& ep, int k0, int nk,
-                                           bool bias) {
+                                           EP& ep) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nk = L.k >> 4;
   // this lane's weight words: rows nt*16+g and +8, k pair 2t (+8)
   const uint32_t* w0 =
-      (const uint32_t*)(W + L.w + (size_t)(nt * 16 + g) * L.k + k0) + t;
+      (const uint32_t*)(W + L.w + (size_t)(nt * 16 + g) * L.k) + t;
   const uint32_t* w1 = w0 + 4 * L.k;
-  // its 16 bytes per k-step in the fragment-major pack
-  const uint4* wf = reinterpret_cast<const uint4*>(
-                        W + L.w + (size_t)nt * 16 * L.k) +
-                    (k0 >> 4) * 32 + lane;
   const uint32_t xs = (uint32_t)__cvta_generic_to_shared(
       X + (size_t)(rt0 * 16 + (lane & 15)) * ldx + (lane >> 4) * 8);
   const uint32_t tile = 16 * ldx * 2;       // bytes between row tiles
@@ -137,18 +130,10 @@ __device__ __forceinline__ void dense_unit(const bf16* X, int ldx,
       for (int j = 0; j < 4; ++j) acc[i][h][j] = 0.f;
   uint32_t a0[NRT][4], a1[NRT][4], b0[4], b1[4];
   auto load = [&](uint32_t (&a)[NRT][4], uint32_t (&b)[4], int kk) {
-    if (FRAG) {
-      const uint4 v = __ldg(wf + 32 * kk);
-      b[0] = v.x;
-      b[1] = v.y;
-      b[2] = v.z;
-      b[3] = v.w;
-    } else {
-      b[0] = __ldg(w0 + 8 * kk);
-      b[1] = __ldg(w0 + 8 * kk + 4);
-      b[2] = __ldg(w1 + 8 * kk);
-      b[3] = __ldg(w1 + 8 * kk + 4);
-    }
+    b[0] = __ldg(w0 + 8 * kk);
+    b[1] = __ldg(w0 + 8 * kk + 4);
+    b[2] = __ldg(w1 + 8 * kk);
+    b[3] = __ldg(w1 + 8 * kk + 4);
 #pragma unroll
     for (int i = 0; i < NRT; ++i) ldsm_x4(a[i], xs + i * tile + 32 * kk);
   };
@@ -173,8 +158,7 @@ __device__ __forceinline__ void dense_unit(const bf16* X, int ldx,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = nt * 16 + h * 8 + 2 * t, r = (rt0 + i) * 16 + g;
-      const float bias0 = bias ? B[L.b + c] : 0.f;
-      const float bias1 = bias ? B[L.b + c + 1] : 0.f;
+      const float bias0 = B[L.b + c], bias1 = B[L.b + c + 1];
       ep(r, c, acc[i][h][0] + bias0);
       ep(r, c + 1, acc[i][h][1] + bias1);
       ep(r + 8, c, acc[i][h][2] + bias0);
@@ -185,19 +169,14 @@ __device__ __forceinline__ void dense_unit(const bf16* X, int ldx,
 
 // Y = X @ W^T + b over `rows` rows (a multiple of 16) of X [rows, L.k]
 // (bf16 in shared memory, row stride ldx, 16-byte aligned rows), W
-// [L.n, L.k] bf16 in global memory (row-major, or fragment-major when
-// FRAG), calling ep(row, col, value) for every
+// [L.n, L.k] bf16 in global memory, calling ep(row, col, value) for every
 // (padded) output column straight from the accumulator registers.  A warp
 // owns one 16-column tile and up to four 16-row tiles, so each B fragment
 // feeds up to eight MMAs; narrow layers drop to one row tile per warp so
-// that every warp has work.  Optionally over the weight columns [k0, k0 +
-// kn) only (X's columns 0..kn) and without the bias.  Ends without a block
-// barrier.
-template <bool FRAG = false, typename EP>
+// that every warp has work.  Ends without a block barrier.
+template <typename EP>
 __device__ void dense(const bf16* X, int ldx, int rows, const bf16* W,
-                      const float* B, const Lin L, EP ep, int k0 = 0,
-                      int kn = -1, bool bias = true) {
-  const int nk = (kn < 0 ? L.k - k0 : kn) >> 4;
+                      const float* B, const Lin L, EP ep) {
   const int warp = threadIdx.x >> 5;
   const int ntile = L.n >> 4, rtiles = rows >> 4;
   const int rpu = ntile * ((rtiles + 3) >> 2) >= NW ? 4 : 1;
@@ -205,39 +184,36 @@ __device__ void dense(const bf16* X, int ldx, int rows, const bf16* W,
   for (int u = warp; u < units; u += NW) {
     const int nt = u % ntile, rt0 = (u / ntile) * rpu;
     switch (min(rpu, rtiles - rt0)) {
-      case 4:
-        dense_unit<4, FRAG>(X, ldx, W, B, L, nt, rt0, ep, k0, nk, bias);
-        break;
-      case 3:
-        dense_unit<3, FRAG>(X, ldx, W, B, L, nt, rt0, ep, k0, nk, bias);
-        break;
-      case 2:
-        dense_unit<2, FRAG>(X, ldx, W, B, L, nt, rt0, ep, k0, nk, bias);
-        break;
-      default:
-        dense_unit<1, FRAG>(X, ldx, W, B, L, nt, rt0, ep, k0, nk, bias);
+      case 4: dense_unit<4>(X, ldx, W, B, L, nt, rt0, ep); break;
+      case 3: dense_unit<3>(X, ldx, W, B, L, nt, rt0, ep); break;
+      case 2: dense_unit<2>(X, ldx, W, B, L, nt, rt0, ep); break;
+      default: dense_unit<1>(X, ldx, W, B, L, nt, rt0, ep); break;
     }
   }
 }
 
-// The trunk's dense layer (trunk_block, which K4s's trunk phase runs
-// too), on the fragment-major pack: two trunk blocks per SM leave the L1
-// too little room to keep the weights, so every weight fragment is an L2
-// round trip, and one step of prefetch (dense) left each k-step waiting
-// on it.  Here a ring of kBD fragments in registers keeps the loads kBD
-// k-steps ahead of their MMAs; A (ldmatrix from shared memory) is read
-// at its step.  The same products, added in the same order as dense's.
+// The forwards' dense layer (trunk_block, which K4s's trunk phase runs
+// too, and the ray launch), on the fragment-major pack (ops/agg.py
+// pack_frag: a lane's B-fragment words of one 16x16 weight tile are one
+// 16-byte load, the warp's 512 bytes contiguous).  Two trunk blocks per
+// SM leave the L1 too little room to keep the weights, so every weight
+// fragment is an L2 round trip, and one step of prefetch (dense) left
+// each k-step waiting on it.  Here a ring of kBD fragments in registers
+// keeps the loads kBD k-steps ahead of their MMAs; A (ldmatrix from
+// shared memory) is read at its step.  The same products, added in the
+// same order as dense's.
 constexpr int kBD = 8;
 
 template <int NRT, typename EP>
 __device__ __forceinline__ void dense_unit_deep(const bf16* X, int ldx,
                                                 const bf16* W, const float* B,
                                                 const Lin& L, int nt, int rt0,
-                                                EP& ep) {
+                                                EP& ep, int k0, int nk,
+                                                bool bias) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int nk = L.k >> 4;
   const uint4* wf = reinterpret_cast<const uint4*>(
-                        W + L.w + (size_t)nt * 16 * L.k) + lane;
+                        W + L.w + (size_t)nt * 16 * L.k) +
+                    (k0 >> 4) * 32 + lane;
   const uint32_t xs = (uint32_t)__cvta_generic_to_shared(
       X + (size_t)(rt0 * 16 + (lane & 15)) * ldx + (lane >> 4) * 8);
   const uint32_t tile = 16 * ldx * 2;       // bytes between row tiles
@@ -274,7 +250,8 @@ __device__ __forceinline__ void dense_unit_deep(const bf16* X, int ldx,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = nt * 16 + h * 8 + 2 * t, r = (rt0 + i) * 16 + g;
-      const float bias0 = B[L.b + c], bias1 = B[L.b + c + 1];
+      const float bias0 = bias ? B[L.b + c] : 0.f;
+      const float bias1 = bias ? B[L.b + c + 1] : 0.f;
       ep(r, c, acc[i][h][0] + bias0);
       ep(r, c + 1, acc[i][h][1] + bias1);
       ep(r + 8, c, acc[i][h][2] + bias0);
@@ -283,14 +260,19 @@ __device__ __forceinline__ void dense_unit_deep(const bf16* X, int ldx,
   }
 }
 
-// Units of dense_unit_deep: as many row tiles per unit (4, 2 or 1) as
-// keeps the fewest rounds of units over the warps, the most units among
-// those (a unit's k-loop is a chain of L2 waits, so a layer takes about
-// rounds x k-steps of them: ray_dir_fc's 48-column second layer runs six
-// units of two row tiles in one round, not twelve of one in two).
+// Y = X @ W^T + b as dense computes it, in units of dense_unit_deep: as
+// many row tiles per unit (4, 2 or 1) as keeps the fewest rounds of units
+// over the warps, the most units among those (a unit's k-loop is a chain
+// of L2 waits, so a layer takes about rounds x k-steps of them:
+// ray_dir_fc's 48-column second layer runs six units of two row tiles in
+// one round, not twelve of one in two).  Optionally over the weight
+// columns [k0, k0 + kn) only (X's columns 0..kn) and without the bias.
+// Ends without a block barrier.
 template <typename EP>
 __device__ void dense_deep(const bf16* X, int ldx, int rows, const bf16* W,
-                           const float* B, const Lin L, EP ep) {
+                           const float* B, const Lin L, EP ep, int k0 = 0,
+                           int kn = -1, bool bias = true) {
+  const int nk = (kn < 0 ? L.k - k0 : kn) >> 4;
   const int warp = threadIdx.x >> 5;
   const int ntile = L.n >> 4, rtiles = rows >> 4;
   auto rounds = [&](int r) {
@@ -303,10 +285,17 @@ __device__ void dense_deep(const bf16* X, int ldx, int rows, const bf16* W,
   for (int u = warp; u < units; u += NW) {
     const int nt = u % ntile, rt0 = (u / ntile) * rpu;
     switch (min(rpu, rtiles - rt0)) {
-      case 4: dense_unit_deep<4>(X, ldx, W, B, L, nt, rt0, ep); break;
-      case 3: dense_unit_deep<3>(X, ldx, W, B, L, nt, rt0, ep); break;
-      case 2: dense_unit_deep<2>(X, ldx, W, B, L, nt, rt0, ep); break;
-      default: dense_unit_deep<1>(X, ldx, W, B, L, nt, rt0, ep); break;
+      case 4:
+        dense_unit_deep<4>(X, ldx, W, B, L, nt, rt0, ep, k0, nk, bias);
+        break;
+      case 3:
+        dense_unit_deep<3>(X, ldx, W, B, L, nt, rt0, ep, k0, nk, bias);
+        break;
+      case 2:
+        dense_unit_deep<2>(X, ldx, W, B, L, nt, rt0, ep, k0, nk, bias);
+        break;
+      default:
+        dense_unit_deep<1>(X, ldx, W, B, L, nt, rt0, ep, k0, nk, bias);
     }
   }
 }

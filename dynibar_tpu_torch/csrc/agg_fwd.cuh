@@ -107,11 +107,11 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
   bf16* q = (bf16*)r2;
   bf16* k = q + SMAX * 128;
   bf16* vv = k + SMAX * 128;
-  dense<true>(gfb, LDG, Sp, a.W, a.B, net.l[WQ],
+  dense_deep(gfb, LDG, Sp, a.W, a.B, net.l[WQ],
         [&](int r, int c, float x) { q[r * 128 + c] = f2b(x); });
-  dense<true>(gfb, LDG, Sp, a.W, a.B, net.l[WK],
+  dense_deep(gfb, LDG, Sp, a.W, a.B, net.l[WK],
         [&](int r, int c, float x) { k[r * 128 + c] = f2b(x); });
-  dense<true>(gfb, LDG, Sp, a.W, a.B, net.l[WV],
+  dense_deep(gfb, LDG, Sp, a.W, a.B, net.l[WV],
         [&](int r, int c, float x) { vv[r * 128 + c] = f2b(x); });
   __syncthreads();
   clk(FR_QKV);
@@ -121,7 +121,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
   __syncthreads();
   clk(FR_ATTN);
   float* fo = (float*)r2;                          // [SMAX][128] f32
-  dense<true>(ob, LDG, Sp, a.W, a.B, net.l[WFC],
+  dense_deep(ob, LDG, Sp, a.W, a.B, net.l[WFC],
         [&](int r, int c, float x) { fo[r * 128 + c] = x + gf_in(r, c); });
   __syncthreads();
   {
@@ -172,10 +172,10 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
       bf16* hin = (bf16*)(gg + 64 * 128);          // [128][LDI]
       bf16* h1 = hin + 128 * LDI;                  // [128][LDG]
       bf16* h2 = h1 + 128 * LDG;                   // [128][LD64]
-      dense<true>(g, LDG, rows, a.W, a.B, net.l[OG0],
+      dense_deep(g, LDG, rows, a.W, a.B, net.l[OG0],
             [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
-      dense<true>(h1, LDG, rows, a.W, a.B, net.l[OG1],
+      dense_deep(h1, LDG, rows, a.W, a.B, net.l[OG1],
             [&](int r, int c, float x) {
               const int i = r0 + r;
               if (c == 0 && i < S)
@@ -183,7 +183,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
             });
       __syncthreads();
       clk(FR_SIGMA);
-      dense<true>(g, LDG, rows, a.W, a.B, net.l[RGB0],
+      dense_deep(g, LDG, rows, a.W, a.B, net.l[RGB0],
             [&](int r, int c, float x) { gg[r * 128 + c] = x; }, 0, 128);
       clk.sync(FR_HEAD_PROD);
       const int kr = net.l[RGB0].k - 128;
@@ -225,17 +225,17 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
         cp_async_wait();
         __syncthreads();
         clk(FR_HEAD_IN);
-        dense<true>(hin, LDI, prow, a.W, a.B, net.l[RGB0],
+        dense_deep(hin, LDI, prow, a.W, a.B, net.l[RGB0],
               [&](int r, int c, float x) {
                 int rr;
                 vrow(r, &rr);
                 h1[r * LDG + c] = f2b(elu(x + gg[rr * 128 + c]));
               }, 128, kr, false);
         __syncthreads();
-        dense<true>(h1, LDG, prow, a.W, a.B, net.l[RGB1],
+        dense_deep(h1, LDG, prow, a.W, a.B, net.l[RGB1],
               [&](int r, int c, float x) { h2[r * LD64 + c] = f2b(elu(x)); });
         __syncthreads();
-        dense<true>(h2, LD64, prow, a.W, a.B, net.l[RGB2],
+        dense_deep(h2, LD64, prow, a.W, a.B, net.l[RGB2],
               [&](int r, int c, float x) {
                 int rr;
                 const int v = v0 + vrow(r, &rr), i = r0 + rr;
@@ -294,13 +294,13 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
       }
       __syncthreads();
       clk(FR_HEAD_IN);
-      dense<true>(in1, LD1, rows, a.W, a.B, net.l[REFPTS0],
+      dense_deep(in1, LD1, rows, a.W, a.B, net.l[REFPTS0],
             [&](int r, int c, float x) { h256[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
-      dense<true>(h256, LDH, rows, a.W, a.B, net.l[REFPTS1],
+      dense_deep(h256, LDH, rows, a.W, a.B, net.l[REFPTS1],
             [&](int r, int c, float x) { g2[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
-      dense<true>(g2, LDG, rows, a.W, a.B, net.l[OG0],
+      dense_deep(g2, LDG, rows, a.W, a.B, net.l[OG0],
             [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
       for (int e = tid; e < rows * k2; e += NT) {
         const int r = e / k2, col = e % k2, i = r0 + r;
@@ -311,7 +311,7 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
         in2[r * LD2 + col] = val;
       }
       __syncthreads();
-      dense<true>(h1, LDG, rows, a.W, a.B, net.l[OG1],
+      dense_deep(h1, LDG, rows, a.W, a.B, net.l[OG1],
             [&](int r, int c, float x) {
               const int i = r0 + r;
               if (c == 0 && i < S)
@@ -320,13 +320,13 @@ __global__ void __launch_bounds__(NT, 1) ray_kernel(RayArgs a) {
             });
       __syncthreads();
       clk(FR_SIGMA);
-      dense<true>(in2, LD2, rows, a.W, a.B, net.l[RGB0],
+      dense_deep(in2, LD2, rows, a.W, a.B, net.l[RGB0],
             [&](int r, int c, float x) { h1[r * LDG + c] = f2b(elu(x)); });
       __syncthreads();
-      dense<true>(h1, LDG, rows, a.W, a.B, net.l[RGB1],
+      dense_deep(h1, LDG, rows, a.W, a.B, net.l[RGB1],
             [&](int r, int c, float x) { h2[r * LD64 + c] = f2b(elu(x)); });
       __syncthreads();
-      dense<true>(h2, LD64, rows, a.W, a.B, net.l[RGB2],
+      dense_deep(h2, LD64, rows, a.W, a.B, net.l[RGB2],
             [&](int r, int c, float x) {
               const int i = r0 + r;
               if (c < 3 && i < S)

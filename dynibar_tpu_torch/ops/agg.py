@@ -248,7 +248,7 @@ def pack_transposed(net: nn.Module, static: bool) -> torch.Tensor:
 
 def pack_frag(net: nn.Module, static: bool) -> torch.Tensor:
   """``pack_weights`` laid out as the forwards' products read it
-  (csrc/agg_common.cuh dense<true>): each padded layer [N, K] at its
+  (csrc/agg_common.cuh dense_deep): each padded layer [N, K] at its
   offset as [N/16][K/16][32 lanes][8], a lane's eight values the four
   bf16 pairs of its mma.sync B fragments for one 16x16 tile (rows g and
   g + 8, columns 2t and 8 + 2t, with g = lane / 4, t = lane % 4), so one

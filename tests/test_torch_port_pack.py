@@ -79,7 +79,7 @@ def test_tiled_weights_round_trip(static, anti_alias, seed):
 def test_fragment_weights_hold_each_lanes_b_fragments(static, anti_alias,
                                                        seed):
   """``pack_frag``, the layout of the forwards' products
-  (csrc/agg_common.cuh dense<true>): lane l's 16 bytes for 16x16 tile
+  (csrc/agg_common.cuh dense_deep): lane l's 16 bytes for 16x16 tile
   (nt, kk) of a layer are the bf16 pairs its mma.sync B fragments take
   from the row-major layer, rows nt*16 + g (+ 8), columns kk*16 + 2t (+ 8)
   and the next, g = l / 4 and t = l % 4, in that order."""
