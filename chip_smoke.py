@@ -12,9 +12,12 @@ is non-zero and the last line below is never printed):
      parallel); print each kernel's footprint and blocks per SM;
   2. hold each eval kernel against its plain PyTorch twin at the main
      path's shapes (K2/K3 at both the coarse and the fine stage) and time
-     kernel, twin and (K1) the library call;
-  2b. hold the training kernels against their twins at the train step's
-     fine-stage shapes, N_rand = 3072 rays: K2r/K3r forwards and the
+     kernel, twin and (K1) the library call; K2/K3 at the fine stage also
+     with their two launches' device ms (trunk_kernel, ray_kernel, from
+     torch.profiler), the previous design's recorded ms and the bound;
+  2b. K2/K3 (no grad) at the train step's fine-stage shapes as in 2 (V =
+     11, 7 and 6); hold the training kernels against their twins at those
+     shapes, N_rand = 3072 rays: K2r/K3r forwards and the
      K5a/K5b, K4a/K4b backwards (V = 11 static, 7 and 6 dynamic) through
      the autograd Functions vs the f32 modules under autograd (run in
      512-ray slices), per tensor within twice the bf16 twin's error plus
@@ -41,7 +44,8 @@ is non-zero and the last line below is never printed):
      with a falling loss;
   6. the mono model at bench.py's width (64 samples, 9 dynamic, 10 anchor
      and 14 static views, 288×512 sources, 48 frames, bf16):
-     a. K2 at V = 14 against its twin; the training kernels at the mono
+     a. K2 at V = 14 and K3 at V = 9 and 10 against their twins, and
+        reported as in 2 at those shapes; the training kernels at the mono
         step's 3072 rays as in 2b: static V = 14 on both backward routes
         (K2r/K5a/K5b and K2r/K5a/K5c/K5d), dynamic V = 9 and V = 10 on
         both dynamic routes (K3r/K4a/K4b; a': K3p/K4s as in 2b, with four
@@ -66,8 +70,8 @@ is non-zero and the last line below is never printed):
      with the last checkpoint's weights held against a plain-path render
      of the same view (rgb within 3e-2); then a second run that resumes
      at the saved step with the saved parameters and runs one more epoch;
-  7. print the kernels line (13 kernels), the card line, then the result
-     line.
+  7. print the kernels line (13 kernels; K2 and K3 with their forward
+     reports of 2, 2b and 6a), the card line, then the result line.
 
 Weights are random, from a seed.  Needs one card and no network.
 """
@@ -93,15 +97,15 @@ SEED = 0
 RAY_SIDE_LAYERS = ("geometry_fc", "ray_attention", "out_geometry_fc",
                    "rgb_fc", "ref_pts_fc")
 TRAIN_SOURCES = {
-    "K2r": "dynibar_tpu_torch/csrc/static_agg.cu",
-    "K3r": "dynibar_tpu_torch/csrc/dynamic_agg.cu",
+    "K2r": "dynibar_tpu_torch/csrc/agg_fwd.cuh",
+    "K3r": "dynibar_tpu_torch/csrc/agg_fwd.cuh",
     "K5a": "dynibar_tpu_torch/csrc/ray_bwd_sm90.cuh",
     "K5b": "dynibar_tpu_torch/csrc/trunk_bwd_sm90.cuh",
     "K5c": "dynibar_tpu_torch/csrc/static_agg_bwd3.cu",
     "K5d": "dynibar_tpu_torch/csrc/static_agg_bwd3.cu",
     "K4a": "dynibar_tpu_torch/csrc/ray_bwd_sm90.cuh",
     "K4b": "dynibar_tpu_torch/csrc/trunk_bwd.cuh",
-    "K3p": "dynibar_tpu_torch/csrc/dynamic_agg.cu",
+    "K3p": "dynibar_tpu_torch/csrc/agg_fwd.cuh",
     "K4s": "dynibar_tpu_torch/csrc/dynamic_agg_bwd1.cu"}
 REPLACES = {
     "K2r": "dynibar_tpu/ops/pallas_agg.py:225",
@@ -191,6 +195,75 @@ def _compare_raw(name, got, want, atol, rtol):
                          f"outside atol {atol} rtol {rtol}; max abs err "
                          f"{float(err.max())}")
   return float(err.max())
+
+
+# K2 / K3 before their Hopper redesign (mma.sync with weight fragments
+# from L2 one k-step ahead, the scalar attention): trunk_kernel +
+# ray_kernel device ms per launch pair at each forward shape, the mean of
+# two turns of scripts/port_profile.py --forward (random inputs) in one
+# call on an H100 80GB HBM3 at 700 W
+FWD_PARENT_MS = {
+    "K2 FF eval fine R=1024 S=128 V=11": 11.4645,
+    "K3 FF eval fine R=1024 S=128 V=7": 4.9575,
+    "K2 FF step R=3072 S=128 V=11": 33.520,
+    "K3 FF step R=3072 S=128 V=7": 14.239,
+    "K3 FF step R=3072 S=128 V=6": 13.772,
+    "K2 mono step R=3072 S=64 V=14": 20.5025,
+    "K3 mono step R=3072 S=64 V=9": 7.528,
+    "K3 mono step R=3072 S=64 V=10": 8.1015}
+FWD_SOURCE = "dynibar_tpu_torch/csrc/agg_fwd.cuh"
+
+
+def _kernel_split(fn, iters: int = 3):
+  """Device ms per call of the forward's two launches (trunk_kernel,
+  ray_kernel), from torch.profiler over `iters` calls after one."""
+  fn()
+  torch.cuda.synchronize()
+  acts = [torch.profiler.ProfilerActivity.CPU,
+          torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=acts) as prof:
+    for _ in range(iters):
+      fn()
+    torch.cuda.synchronize()
+  out = {"trunk": 0.0, "ray": 0.0}
+  for ev in prof.key_averages():
+    if not str(ev.device_type).endswith("CUDA"):
+      continue
+    us = getattr(ev, "self_device_time_total",
+                 getattr(ev, "self_cuda_time_total", 0.0))
+    for part in out:
+      if f"agg::{part}_kernel" in ev.key:
+        out[part] += us / iters / 1e3
+  return out
+
+
+def _forward_bound(static, net, args):
+  from dynibar_tpu_torch.ops import agg
+  r, s, v, c = args[3 if static else 1].shape
+  wts = agg.pack_weights(net, static)
+  return _bound_ms(_nbytes(*[a for a in args if torch.is_tensor(a)], *wts[:2])
+                   + r * s * 4 * 4, agg.aggregator_flops(static, r, s, v, c),
+                   PEAK_BF16_FLOPS)
+
+
+def _forward_report(card, label, static, net, args):
+  """K2 or K3 (no grad) at one shape: ms per call, its launches' split,
+  the bound and the previous design's ms; printed and returned."""
+  from dynibar_tpu_torch.ops import agg
+  fused = (agg.fused_static_aggregator if static
+           else agg.fused_dynamic_aggregator)
+  key = "K2" if static else "K3"
+  with torch.no_grad():
+    ms = _time_ms(lambda: fused(net, *args), iters=5)
+    split = _kernel_split(lambda: fused(net, *args))
+  bound, by = _forward_bound(static, net, args)
+  parent = FWD_PARENT_MS.get(f"{key} {label}")
+  print(f"{key} {label}: {ms:.3f} ms per call; trunk_kernel "
+        f"{split['trunk']:.3f} + ray_kernel {split['ray']:.3f} ms (previous "
+        f"design {'not recorded' if parent is None else f'{parent:.3f} ms'});"
+        f" bound {bound:.4f} ms by {by} [{card}]", flush=True)
+  return dict(ms=ms, parent_ms=parent, trunk_ms=split["trunk"],
+              ray_ms=split["ray"], bound_ms=bound)
 
 
 def _counters():
@@ -537,6 +610,24 @@ def _mono_phases(card, dev, h, w, n_rand, t_cfg):
                                model.net_coarse_st(*part), 2e-2, 2e-2))
     print(f"K2 at the mono step's shapes ({n_rand} rays, S=64, V=14): max "
           f"abs err {max(errs):.3g} [{card}]", flush=True)
+    for dy in (dy9, dy10):
+      v = dy[1].shape[2]
+      got = agg.fused_dynamic_aggregator(model.net_coarse_dy, *dy)
+      errs = [_compare_raw(f"K3 (mono V={v})", got[i:i + kc.TWIN_RAYS],
+                           model.net_coarse_dy(
+                               *[a[i:i + kc.TWIN_RAYS] for a in dy]),
+                           1e-2, 2e-2)
+              for i in range(0, n_rand, kc.TWIN_RAYS)]
+      print(f"K3 at the mono step's shapes ({n_rand} rays, S=64, V={v}): "
+            f"max abs err {max(errs):.3g} [{card}]", flush=True)
+  fwd_shapes = {"K2": {}, "K3": {}}
+  for static, net, args in ((True, model.net_coarse_st, st),
+                            (False, model.net_coarse_dy, dy9),
+                            (False, model.net_coarse_dy, dy10)):
+    r, s, v = args[3 if static else 1].shape[:3]
+    label = f"mono step R={r} S={s} V={v}"
+    fwd_shapes["K2" if static else "K3"][label] = _forward_report(
+        card, label, static, net, args)
   del rb, rb_a, fm, ins, got
   g_cot = torch.Generator(device=dev).manual_seed(SEED + 2)
   results = {}
@@ -699,7 +790,7 @@ def _mono_phases(card, dev, h, w, n_rand, t_cfg):
           f"launches {boot}", flush=True)
     del model, opt, step, loss_fn, loss, metrics
     torch.cuda.empty_cache()
-  return results, step_launches, step_stats
+  return results, step_launches, step_stats, fwd_shapes
 
 
 def _cli_phases(logs):
@@ -984,21 +1075,21 @@ def main() -> int:
       err = max(errs)
       ms = _time_ms(lambda: fused(net, *args), iters=5)
       plain_ms = _time_ms(lambda: net(*args), iters=3, warmup=1)
-      r, s, v, c = args[3 if static else 1].shape
-      wts = agg.pack_weights(net, static)
-      bound, by = _bound_ms(
-          _nbytes(*[a for a in args if torch.is_tensor(a)], *wts[:2])
-          + r * s * 4 * 4, agg.aggregator_flops(static, r, s, v, c),
-          PEAK_BF16_FLOPS)
+      bound, by = _forward_bound(static, net, args)
       results[key] = dict(
           name=("fused_static_aggregator" if static
                 else "fused_dynamic_aggregator"), route="cuda",
-          source=("dynibar_tpu_torch/csrc/static_agg.cu" if static
-                  else "dynibar_tpu_torch/csrc/dynamic_agg.cu"),
+          source=FWD_SOURCE,
           replaces=("dynibar_tpu/ops/pallas_agg.py:225" if static
                     else "dynibar_tpu/ops/pallas_agg.py:325"),
           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
           bound_by=by, library_ms=None)
+  fwd_shapes = {"K2": {}, "K3": {}}
+  for key, static, net, args in (("K2", True, model.net_fine_st, ins["st"]),
+                                 ("K3", False, model.net_fine_dy, ins["dy"])):
+    r, s, v = args[3 if static else 1].shape[:3]
+    label = f"FF eval fine R={r} S={s} V={v}"
+    fwd_shapes[key][label] = _forward_report(card, label, static, net, args)
   for key, res in results.items():
     print(f"{key} {res['name']}: {res['ms']:.3f} ms "
           f"(plain {res['plain_ms']:.3f} ms, library {res['library_ms']}, "
@@ -1025,6 +1116,13 @@ def main() -> int:
   dy6_args[1] = dy_args[1][:, :, :6].contiguous()
   dy6_args[3] = dy_args[3][:, :, :6].contiguous()
   train_results, single_ff = {}, {}
+  for static, net, args in ((True, model.net_fine_st, st_args),
+                            (False, model.net_fine_dy, dy_args),
+                            (False, model.net_fine_dy, dy6_args)):
+    r, s, v = args[3 if static else 1].shape[:3]
+    label = f"FF step R={r} S={s} V={v}"
+    fwd_shapes["K2" if static else "K3"][label] = _forward_report(
+        card, label, static, net, args)
   for label, static, net, args in (
       ("static V=11", True, model.net_fine_st, st_args),
       ("dynamic V=7", False, model.net_fine_dy, dy_args),
@@ -1203,8 +1301,8 @@ def main() -> int:
   torch.cuda.empty_cache()
 
   # ---- 6: the mono model --------------------------------------------------
-  mono_results, mono_launches, mono_stats = _mono_phases(card, dev, h, w,
-                                                        n_rand, t_cfg)
+  mono_results, mono_launches, mono_stats, mono_fwd = _mono_phases(
+      card, dev, h, w, n_rand, t_cfg)
 
   # ---- 8: the training CLI from an on-disk scene --------------------------
   cli_launches = _cli_phase(card, dev, h, w)
@@ -1220,6 +1318,8 @@ def main() -> int:
   for key in ("K1", "K2", "K3"):
     res = dict(results[key])
     res["launches"] = launches[key]
+    if key != "K1":
+      res["forward_shapes"] = dict(fwd_shapes[key], **mono_fwd[key])
     kernels.append(res)
   for key in ("K2r", "K5a", "K5b", "K3r", "K4a", "K4b", "K5c", "K5d"):
     res = dict(train_results[key] if key in train_results

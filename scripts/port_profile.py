@@ -5,6 +5,7 @@
     python3 scripts/port_profile.py --mono [--route pallas_split3|pallas]
         [--chunk 3072] [--iters 2]
     python3 scripts/port_profile.py --forward [--iters 3]
+    python3 scripts/port_profile.py --frame [--iters 3]
     python3 scripts/port_profile.py --phases [fwd|bwd] [--train | --mono |
         --forward] [...]
 
@@ -18,7 +19,10 @@ views, 48 frames, schedule_weights(epoch=2)) on the backward route
 K5a + K5c + K5d) or "pallas" (dynamic K3p forward, K4s backward); with
 --forward launches the forward aggregators K2 and K3 alone (no grad,
 random inputs and weights from a seed) at the shapes of FORWARD_SHAPES:
-the FF eval fine stage, the FF step's fine stage and the mono step.
+the FF eval fine stage, the FF step's fine stage and the mono step; with
+--frame renders 288x512 FF frames (render_image_ff at chunk 4096, the
+featmap encode included) and prints their host-clock seconds (one
+warm-up, then --iters frames; no profiler).
 Prints the device time per kernel name (summed over the profiled
 iterations, divided by them), the wall time per iteration and the
 device's busy share of it, and the peak device memory of the profiled
@@ -128,6 +132,8 @@ def main() -> int:
                   help="the mono step's backward route")
   ap.add_argument("--forward", action="store_true",
                   help="the forward aggregators alone at FORWARD_SHAPES")
+  ap.add_argument("--frame", action="store_true",
+                  help="host-clock seconds per 288x512 FF frame")
   ap.add_argument("--phases", nargs="?", const="all", default=None,
                   choices=sorted(PHASE_LIBS),
                   help="per-phase clocks of the backwards K5a/K5b, K4a/K4b "
@@ -146,6 +152,8 @@ def main() -> int:
                    + [(n, True) for n in args.phase_libs])
   if args.forward:
     return _forward(args, card, dev)
+  if args.frame:
+    return _frame(args, card, dev)
   if args.mono:
     cfg = mono_render_settings(num_source_views=7, num_vv=3, n_samples=64,
                                num_basis=6, compute_dtype="bfloat16",
@@ -190,6 +198,40 @@ def main() -> int:
   return _profile(one, args, card,
                   f"train step N_rand {args.chunk}" if args.train
                   else f"chunk {args.chunk}")
+
+
+def _frame(args, card: str, dev) -> int:
+  """--iters full frames after one warm-up, timed on the host clock."""
+  from dynibar_tpu_torch.render.render_image import (full_image_ray_batch,
+                                                     render_image_ff)
+  h, w = 288, 512
+  cfg = RenderSettings(n_samples=64, n_importance=64, num_views_dy=7,
+                       num_views_anchor=0, num_views_static=11, num_basis=6,
+                       inv_uniform=True, compute_dtype="bfloat16")
+  model = FFModel(cfg, num_frames=48, seed=0)
+  rb = to_device(synthetic_ff_batch(cfg, n_rays=1024, h=h, w=w,
+                                    num_frames=48, scanline=True), dev)
+  frame_rb = full_image_ray_batch(rb, rb["camera"])
+
+  def one():
+    with torch.no_grad():
+      c, f = model.encode_featmaps(rb["src_rgbs"], rb["static_src_rgbs"])
+    render_image_ff(model, frame_rb, c, f, cfg, chunk_size=4096, height=h,
+                    width=w)
+
+  one()
+  torch.cuda.synchronize()
+  secs = []
+  for _ in range(args.iters):
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    secs.append(time.perf_counter() - t0)
+  print(f"card: {card}")
+  print(f"frame {h}x{w}: {sum(secs) / len(secs):.4f} s/frame, mean of "
+        f"{len(secs)} (min {min(secs):.4f}, max {max(secs):.4f})")
+  print(json.dumps({"what": "frame", "s_per_frame": secs, "card": card}))
+  return 0
 
 
 def _forward(args, card: str, dev) -> int:
