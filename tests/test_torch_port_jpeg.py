@@ -131,9 +131,11 @@ def test_decodes_progressive_restart_markers(encoder, interval):
 
 
 def test_reads_files_and_refuses_progressive(tmp_path):
-  """Files read from disk, sequential and progressive, and their shapes
-  from the frame header; what is not a JPEG is refused.  (Progressive
-  files were refused until the decoder learned them: now they decode.)"""
+  """Files read from disk, sequential and progressive (Huffman, 8-bit),
+  and their shapes from the frame header; refused are what is not a JPEG
+  and the progressive kinds neither package writes (arithmetic-coded,
+  12-bit).  Until the decoder learned SOF2 this test held every
+  progressive file to a refusal; it keeps its name."""
   img = _image(40, 64, 3, seed=1)
   path = str(tmp_path / "frame.jpg")
   imageio.imwrite(path, img, quality=90)
@@ -150,6 +152,12 @@ def test_reads_files_and_refuses_progressive(tmp_path):
   assert jpeg.read_shape(gray) == (40, 64)
   with pytest.raises(ValueError, match="not a JPEG"):
     jpeg.decode(b"\x89PNG\r\n\x1a\n")
+  for marker, bits, kind in ((0xCA, 8, "arithmetic-coded"),
+                             (0xC2, 12, "12-bit")):
+    odd = tmp_path / f"prog_{marker:x}_{bits}.jpg"
+    odd.write_bytes(_frame_header(marker, bits) + b"\xff\xd9")
+    with pytest.raises(ValueError, match=f"{odd.name}: {kind}"):
+      jpeg.read(str(odd))
 
 
 def _frame_header(marker: int, bits: int = 8) -> bytes:
