@@ -22,7 +22,9 @@ is non-zero and the last line below is never printed):
      the autograd Functions vs the f32 modules under autograd (run in
      512-ray slices), per tensor within twice the bf16 twin's error plus
      0.02, the anti-alias scalar per point and as a sum scaled by its
-     terms; time fwd+bwd and each launch.  The dynamic shapes also on the
+     terms; time fwd+bwd and each launch (K4b, and K4s below, also with
+     its bound and the previous design's ms as recorded, not measured).
+     The dynamic shapes also on the
      route "pallas": K3p (the K3 forward, no residuals) and the one-launch
      backward K4s at the same bars, K4s's gradients within a tenth of
      that bar of K4a + K4b's on the same inputs and cotangent (largest
@@ -212,6 +214,31 @@ FWD_PARENT_MS = {
     "K3 mono step R=3072 S=64 V=9": 7.528,
     "K3 mono step R=3072 S=64 V=10": 8.1015}
 FWD_SOURCE = "dynibar_tpu_torch/csrc/agg_fwd.cuh"
+# K4b and K4s before their Hopper redesign (K4b: the first trunk body,
+# row-major weights one k-step ahead; K4s: its ray phase on the pre-Hopper
+# ray body): ms per call at the training shapes, as recorded on an H100
+# 80GB HBM3 at 700 W, by label: (ms, the script that measured it)
+BWD_PARENT_MS = {
+    ("K4b", "dynamic V=7"): (35.33, "chip_smoke.py, CUDA events"),
+    ("K4b", "dynamic V=6"): (29.88, "scripts/port_profile.py --backward, "
+                             "device time, two runs"),
+    ("K4b", "mono dynamic V=9"): (23.27, "chip_smoke.py, CUDA events"),
+    ("K4b", "mono dynamic V=10"): (25.57, "scripts/port_profile.py "
+                                   "--backward, device time, two runs"),
+    ("K4s", "dynamic V=7"): (96.61, "chip_smoke.py, CUDA events"),
+    ("K4s", "mono dynamic V=9"): (57.15, "chip_smoke.py, CUDA events"),
+    ("K4s", "mono dynamic V=10"): (61.83, "chip_smoke.py, CUDA events")}
+
+
+def _redesign_report(card, key, label, ms, bound):
+  """A redesigned backward's ms per call beside its bound and, printed
+  only, the previous design's recorded ms (BWD_PARENT_MS)."""
+  parent, source = BWD_PARENT_MS.get((key, label), (None, ""))
+  print(f"{key} {label}: {ms:.3f} ms per call; bound {bound[0]:.4f} ms by "
+        f"{bound[1]} [{card}]; previous design "
+        + ("not recorded" if parent is None else
+           f"{parent:.3f} ms as recorded, not measured in this run "
+           f"({source}, H100 80GB HBM3 at 700 W)"), flush=True)
 
 
 def _kernel_split(fn, iters: int = 3):
@@ -393,6 +420,8 @@ def _check_training_kernels(card, label, static, net, args, cot,
         + ", ".join(f"{k} {times[k]:.3f} / {bounds[k][0]:.3f} "
                     f"({100 * bounds[k][0] / times[k]:.1f}%)" for k in keys)
         + f" [{card}]", flush=True)
+  if not static:
+    _redesign_report(card, "K4b", label, times["K4b"], bounds["K4b"])
   worst = sorted(errs.items(), key=lambda kv: kv[1][0] - kv[1][2])[-3:]
   print(f"{label}: gradient ratios closest to their bars (kernel, bf16 "
         f"twin, bar): {[(n, [round(x, 4) for x in e]) for n, e in worst]}",
@@ -529,6 +558,7 @@ def _check_single_kernels(card, label, net, args, cot, seeds=()):
         f"{times['K3p']:.3f} ms, K4s {times['K4s']:.3f} ms; K3p max abs err "
         f"{fwd_err:.3g}; weight seeds {[0] + list(seeds)} within the bars "
         f"[{card}]", flush=True)
+  _redesign_report(card, "K4s", label, times["K4s"], bounds["K4s"])
   print(f"{label}: K4s gradient closest to its bar (kernel, bf16 twin, "
         f"bar): {worst} {[round(x, 4) for x in errs[worst]]}; largest "
         f"relative difference from K4a+K4b per tensor: "

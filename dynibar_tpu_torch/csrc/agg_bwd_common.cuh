@@ -5,16 +5,17 @@
 // Math from dynibar_tpu/ops/pallas_agg_bwd.py (module docstring :12-37):
 //   y = W x + b  =>  dX = W^T dY, dW += dY^T X, db += sum_rows dY;
 //   ELU'(pre) from the post-activation y: 1 if y > 0 else y + 1.
-// dX reuses the forward's `dense` on a transposed copy of the packed
-// weights (ops/agg.py packs W^T at the same offsets), so every product
-// is bf16 mma.sync with f32 accumulation.  dW runs on the same tensor-core
-// instruction with both operands read transposed by ldmatrix.trans from
-// shared memory.
+// dX reuses a forward product routine on a transposed copy of the packed
+// weights (ops/agg.py pack_frag_t for dense_deep, pack_transposed for
+// dense: W^T at W's offset), so every product is bf16 mma.sync with f32
+// accumulation.  dW runs on the same tensor-core instruction with both
+// operands read transposed by ldmatrix.trans from shared memory.
 //
 // Weight gradients: the persistent blocks add every tile they compute into
 // one of kSlabs f32 slabs of the whole packed layout ([weights | biases]),
 // block b into slab b % kSlabs, with vector reductions (red.global.add on
-// float2) that the L2 performs: the warp does not wait for them, and 16
+// float2; float4 in the trunk backward's grad_layer_wide) that the L2
+// performs: the warp does not wait for them, and 16
 // slabs of the largest layout (1.7 MB each) stay in the 50 MB L2.  A small
 // reduce kernel sums the slabs afterwards.  No library GEMM.
 #pragma once
@@ -102,6 +103,89 @@ __device__ __forceinline__ void grad_layer(const bf16* dY, int ldy,
   db_accum(dY, ldy, rows, slab + w_total, L.b, L.n);
 }
 
+// One warp's MT x NT2 tiles of 16 x 16 of dW = dY^T X over `rows` rows (a
+// multiple of 16) from (m0, n0): A = dY^T and B = X both from
+// ldmatrix.trans (PTX fragment layouts: A[m][k] = dY[k][m], B[k][n] =
+// X[k][n]), bases a_base / b_base the lane's ldmatrix rows.  Each tile goes
+// to gw with 16-byte reductions: lanes t and t ^ 1 trade a half row so that
+// each holds four consecutive columns of one row.
+template <int MT, int NT2>
+__device__ __forceinline__ void dw_unit(uint32_t a_base, int ldy,
+                                        uint32_t b_base, int ldx, int rows,
+                                        float* gw, const Lin& L, int m0,
+                                        int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float acc[MT][2 * NT2][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2 * NT2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][h][e] = 0.f;
+  for (int k0 = 0; k0 < rows; k0 += 16) {
+    uint32_t a[MT][4], b[NT2][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      ldsm_x4_t(a[i], a_base + (uint32_t)(k0 * ldy + m0 + 16 * i) * 2u);
+#pragma unroll
+    for (int j = 0; j < NT2; ++j)
+      ldsm_x4_t(b[j], b_base + (uint32_t)(k0 * ldx + n0 + 16 * j) * 2u);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT2; ++j) {
+        mma16816(acc[i][2 * j], a[i], b[j][0], b[j][1]);
+        mma16816(acc[i][2 * j + 1], a[i], b[j][2], b[j][3]);
+      }
+  }
+  const bool odd = t & 1;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2 * NT2; ++h) {
+      const float* c = acc[i][h];
+      // even t keeps row g, odd t row g + 8, of columns 2 (t & ~1) .. + 3
+      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
+      const int row = m0 + 16 * i + g + (odd ? 8 : 0);
+      const int col = n0 + 8 * h + 2 * (t & ~1);
+      atomicAdd(reinterpret_cast<float4*>(gw + L.w + (size_t)row * L.k + col),
+                odd ? make_float4(r0, r1, c[2], c[3])
+                    : make_float4(c[0], c[1], r0, r1));
+    }
+}
+
+// dw_accum for the trunk backward's wide layers (every layer with at least
+// one 32 x 32 block per warp): a warp owns a 32 x 32 block of dW (16 wide
+// at a ragged edge), 8 MMAs for 4 ldmatrix per k-step, flushed with
+// 16-byte reductions; then the bias as db_accum (no layer is over NT
+// columns wide).  NTH: the block's threads.  Ends without a block barrier.
+template <int NTH>
+__device__ void grad_layer_wide(const bf16* dY, int ldy, const bf16* X,
+                                int ldx, int rows, float* slab, int w_total,
+                                const Lin L) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = lane >> 3, r8 = lane & 7;
+  const uint32_t a_base =
+      smem_u32(dY + (size_t)(r8 + ((j >> 1) & 1) * 8) * ldy + (j & 1) * 8);
+  const uint32_t b_base =
+      smem_u32(X + (size_t)(r8 + (j & 1) * 8) * ldx + (j >> 1) * 8);
+  const int mu = (L.n + 31) >> 5, nu = (L.k + 31) >> 5;
+  for (int u = warp; u < mu * nu; u += NTH / 32) {
+    const int m0 = (u % mu) * 32, n0 = (u / mu) * 32;
+    const bool m2 = m0 + 32 <= L.n, n2 = n0 + 32 <= L.k;
+    if (m2 && n2)
+      dw_unit<2, 2>(a_base, ldy, b_base, ldx, rows, slab, L, m0, n0);
+    else if (m2)
+      dw_unit<2, 1>(a_base, ldy, b_base, ldx, rows, slab, L, m0, n0);
+    else if (n2)
+      dw_unit<1, 2>(a_base, ldy, b_base, ldx, rows, slab, L, m0, n0);
+    else
+      dw_unit<1, 1>(a_base, ldy, b_base, ldx, rows, slab, L, m0, n0);
+  }
+  db_accum(dY, ldy, rows, slab + w_total, L.b, L.n);
+}
+
 // out[i] = sum_b slabs[b * len + i]
 __global__ void reduce_slabs(const float* slabs, int nslab, int len,
                              float* out) {
@@ -138,15 +222,15 @@ __device__ __forceinline__ float pe_geo_bwd(const float* x, int nch,
 }
 
 // Set the kernel's shared-memory size and launch min(nblocks, work)
-// persistent blocks on `s`; returns the cudaError_t.
+// persistent blocks of `threads` on `s`; returns the cudaError_t.
 template <typename Kern, typename Args>
 int launch_persistent(Kern kernel, size_t smem, const Args& args, int work,
-                      int nblocks, cudaStream_t s) {
+                      int nblocks, cudaStream_t s, int threads = NT) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (work <= 0) return 0;
-  kernel<<<work < nblocks ? work : nblocks, NT, smem, s>>>(args);
+  kernel<<<work < nblocks ? work : nblocks, threads, smem, s>>>(args);
   return (int)cudaGetLastError();
 }
 

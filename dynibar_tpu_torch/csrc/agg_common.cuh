@@ -8,8 +8,9 @@
 // reductions, softmaxes and the layer norm run in f32, as
 // pallas_agg.py:27-30 states for the TPU kernels.  Weights come packed by
 // ops/agg.py: each layer zero-padded to [ceil16(out), ceil16(in)] bf16,
-// biases f32, one slot table (Net); the forwards read them
-// fragment-major (pack_frag), the backwards row-major.
+// biases f32, one slot table (Net); the forwards and the trunk backwards
+// read them fragment-major (pack_frag; the trunk backwards' transposed
+// products pack_frag_t), K5d row-major through `dense`.
 //
 // Each aggregator is two launches on the caller's stream:
 //   1. trunk_kernel, 64 points per block, all views of those points:
@@ -193,7 +194,8 @@ __device__ void dense(const bf16* X, int ldx, int rows, const bf16* W,
 }
 
 // The forwards' dense layer (trunk_block, which K4s's trunk phase runs
-// too, and the ray launch), on the fragment-major pack (ops/agg.py
+// too, and the ray launch) and the trunk backwards' (trunk_bwd.cuh, the
+// transposes on pack_frag_t), on the fragment-major pack (ops/agg.py
 // pack_frag: a lane's B-fragment words of one 16x16 weight tile are one
 // 16-byte load, the warp's 512 bytes contiguous).  Two trunk blocks per
 // SM leave the L1 too little room to keep the weights, so every weight
@@ -203,6 +205,15 @@ __device__ void dense(const bf16* X, int ldx, int rows, const bf16* W,
 // shared memory) is read at its step.  The same products, added in the
 // same order as dense's.
 constexpr int kBD = 8;
+
+// Where the fragment-major pack keeps W[n][k] of layer L: tile (n/16,
+// k/16), lane 4 (n % 8) + (k % 8) / 2, pair 2 (n % 16 / 8) + (k % 16 / 8),
+// element k % 2.
+__device__ __forceinline__ int frag_index(const Lin& L, int n, int k) {
+  return L.w + ((((n >> 4) * (L.k >> 4) + (k >> 4)) * 32 + (n & 7) * 4 +
+                 ((k & 7) >> 1)) * 4 + ((n >> 3) & 1) * 2 + ((k >> 3) & 1)) *
+                   2 + (k & 1);
+}
 
 template <int NRT, typename EP>
 __device__ __forceinline__ void dense_unit_deep(const bf16* X, int ldx,
@@ -267,22 +278,24 @@ __device__ __forceinline__ void dense_unit_deep(const bf16* X, int ldx,
 // ray_dir_fc's 48-column second layer runs six units of two row tiles in
 // one round, not twelve of one in two).  Optionally over the weight
 // columns [k0, k0 + kn) only (X's columns 0..kn) and without the bias.
-// Ends without a block barrier.
-template <typename EP>
+// NTH: the block's threads (the trunk backward runs 512).  Ends without a
+// block barrier.
+template <int NTH = NT, typename EP>
 __device__ void dense_deep(const bf16* X, int ldx, int rows, const bf16* W,
                            const float* B, const Lin L, EP ep, int k0 = 0,
                            int kn = -1, bool bias = true) {
+  constexpr int NWB = NTH / 32;
   const int nk = (kn < 0 ? L.k - k0 : kn) >> 4;
   const int warp = threadIdx.x >> 5;
   const int ntile = L.n >> 4, rtiles = rows >> 4;
   auto rounds = [&](int r) {
-    return (ntile * ((rtiles + r - 1) / r) + NW - 1) / NW;
+    return (ntile * ((rtiles + r - 1) / r) + NWB - 1) / NWB;
   };
   int rpu = 4;
   if (rounds(2) <= rounds(rpu)) rpu = 2;
   if (rounds(1) <= rounds(rpu)) rpu = 1;
   const int units = ntile * ((rtiles + rpu - 1) / rpu);
-  for (int u = warp; u < units; u += NW) {
+  for (int u = warp; u < units; u += NWB) {
     const int nt = u % ntile, rt0 = (u / ntile) * rpu;
     switch (min(rpu, rtiles - rt0)) {
       case 4:
@@ -313,17 +326,13 @@ __device__ void dot_rows(const bf16* X, int ldx, int rows, const bf16* W,
                          const float* B, const Lin& L, int col, EP ep) {
   constexpr int kRows = 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nkt = L.k >> 4, nt = col >> 4, g = col & 7;
-  const int jh = (col & 8) ? 2 : 0;
   float2 w[4];
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
-    const int k = 64 * m + 2 * lane, kk = k >> 4, cc = k & 15;
-    const int idx = ((nt * nkt + kk) * 32 + g * 4 + ((cc & 7) >> 1)) * 8 +
-                    (jh + (cc >> 3)) * 2;
+    const int k = 64 * m + 2 * lane;
     w[m] = k < L.k ? __bfloat1622float2(
-                         *reinterpret_cast<const __nv_bfloat162*>(W + L.w +
-                                                                  idx))
+                         *reinterpret_cast<const __nv_bfloat162*>(
+                             W + frag_index(L, col, k)))
                    : make_float2(0.f, 0.f);
   }
   const float bias = B[L.b + col];
@@ -683,14 +692,15 @@ __device__ __forceinline__ void trunk_block(const TrunkArgs& a, int p0,
   clk(FT_POOL2);
 }
 
-// Blocks of `kernel` one SM holds at NT threads and `smem` bytes of dynamic
-// shared memory (the occupancy calculator), or -1 on an error.
+// Blocks of `kernel` one SM holds at `threads` threads and `smem` bytes of
+// dynamic shared memory (the occupancy calculator), or -1 on an error.
 template <typename Kern>
-int blocks_per_sm(Kern kernel, size_t smem) {
+int blocks_per_sm(Kern kernel, size_t smem, int threads = NT) {
   int n = 0;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, NT, smem) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                    smem) !=
           cudaSuccess)
     return -1;
   return n;

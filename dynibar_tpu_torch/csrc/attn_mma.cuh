@@ -1,6 +1,6 @@
 // The ray transformer's attention on tensor cores, forward and backward,
-// for the ray-side backwards (K5a, K4a: ray_bwd_sm90.cuh; K4s's ray phase:
-// ray_bwd.cuh): one function, so every kernel that holds its gradients
+// for the ray-side backwards (K5a, K4a and K4s's ray phase:
+// ray_bwd_sm90.cuh): one function, so every kernel that holds its gradients
 // against another's rounds the attention at the same points, those of
 // the JAX bodies (dynibar_tpu/ops/pallas_agg_bwd.py: bf16 q, k, v, d_o,
 // probabilities and logit cotangents; f32 logits, softmax and sums).

@@ -18,10 +18,11 @@
 // sm90_common.cuh: every layer product on wgmma from weight slabs that bulk
 // copies stage in shared memory from the tiled pack (ops/agg.py
 // pack_tiled), the attention on mma.sync (attn_mma.cuh).  K4b is
-// trunk_bwd.cuh (bf16 mma.sync with the weights and their transposes read
-// from L2, ops/agg.py pack_transposed): its Hopper design on the weight
-// ring was not faster at the FF step's shape (PERF.md).  Both add weight
-// gradients on mma.sync into per-block slabs summed by reduce_slabs.
+// trunk_bwd.cuh: bf16 mma.sync with the weights and their transposes read
+// fragment-major from L2 (ops/agg.py pack_frag, pack_frag_t) eight k-steps
+// ahead, 512 threads per block (a weight ring on wgmma was not faster,
+// PERF.md).  Both add weight gradients on mma.sync into per-block slabs
+// summed by reduce_slabs.
 
 #include "ray_bwd_sm90.cuh"
 #include "trunk_bwd.cuh"
@@ -146,7 +147,7 @@ extern "C" int dyn_attention_check(const void* q, const void* k,
 }
 
 extern "C" int dyn_dynamic_agg_bwd_trunk(
-    const void* W, const void* WT, const void* B, const void* Z,
+    const void* WF, const void* WTF, const void* B,
     const void* meta, const void* rgbfeat, const void* mask,
     const void* dirfeat, const void* dx, const void* dmisc, void* drf,
     void* d_rgbfeat, void* d_dirfeat, void* slabs, int slab_len, int w_total,
@@ -154,10 +155,9 @@ extern "C" int dyn_dynamic_agg_bwd_trunk(
   if (V > VMAX || S > SMAX || C > CRMAX || V < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
   TrunkBwdArgs a{};
-  a.W = (const bf16*)W;
-  a.WT = (const bf16*)WT;
+  a.WF = (const bf16*)WF;
+  a.WTF = (const bf16*)WTF;
   a.B = (const float*)B;
-  a.Z = (const float*)Z;
   a.net = load_net((const int*)meta);
   a.rgbfeat = (const bf16*)rgbfeat;
   a.mask = (const float*)mask;
@@ -174,10 +174,9 @@ extern "C" int dyn_dynamic_agg_bwd_trunk(
   a.slabs = (float*)slabs;
   a.slab_len = slab_len;
   a.w_total = w_total;
-  return launch_persistent(trunk_bwd_kernel<false>,
-                           trunk_bwd_smem(V), a,
+  return launch_persistent(trunk_bwd_kernel<false>, trunk_bwd_smem(V), a,
                            (a.P + PT - 1) / PT, nblocks,
-                           (cudaStream_t)stream);
+                           (cudaStream_t)stream, kTrunkBwdThreads);
 }
 
 extern "C" int dyn_agg_reduce(const void* slabs, int nslab, int len,
@@ -192,6 +191,7 @@ extern "C" int dyn_occupancy(int V, int* out) {
   out[0] = (int)kDynRayBwdSmem;
   out[1] = blocks_per_sm(dynamic_ray_bwd_kernel, kDynRayBwdSmem);
   out[2] = (int)trunk_bwd_smem(V);
-  out[3] = blocks_per_sm(trunk_bwd_kernel<false>, trunk_bwd_smem(V));
+  out[3] = blocks_per_sm(trunk_bwd_kernel<false>, trunk_bwd_smem(V),
+                         kTrunkBwdThreads);
   return (int)cudaGetLastError();
 }

@@ -17,24 +17,29 @@
 // flop/byte ridge.
 //
 // Design: persistent blocks, one ray at a time per block, three phases
-// that are device code of the split route (agg_common.cuh trunk_block,
-// K3's; ray_bwd.cuh ray_bwd_ray, K4a's before its Hopper design, with the
-// attention K4a runs, attn_mma.cuh; trunk_bwd.cuh trunk_bwd_block, K4b's)
-// run back to back with a block barrier between them.  The recomputed x
-// [V, S, 128] bf16 (163,840 B at V = 10, S = 64) does not fit beside the
+// that are the split route's device code: the K3 trunk (agg_common.cuh
+// trunk_block), K4a's Hopper ray body (ray_bwd_sm90.cuh ray_bwd90_ray:
+// every layer product on wgmma from the weight ring, the attention on
+// mma.sync, attn_mma.cuh) and K4b's trunk body (trunk_bwd.cuh
+// trunk_bwd_block at 256 threads), back to back with a block barrier
+// between them, so K4s computes the split's arithmetic.  The recomputed
+// x [V, S, 128] bf16 (163,840 B at V = 10, S = 64) does not fit beside the
 // ray phase's shared memory, so the phases hand one ray's workspaces (x,
 // vis, mask, the geometry feature, d_x, d_misc, d_rf) over in a per-block
-// global scratch
-// the wrapper allocates: the split's hand-off inside one launch, at
-// nblocks rays' worth of memory instead of every ray's.  The phases share
-// one dynamic shared-memory buffer sized to the largest of them.  A ray of
-// S = 128 samples is two 64-point trunk blocks; at any other S its last
-// trunk block is masked at the ray's end (the trunk phases' point limit is
-// the ray's last point), so the samples are never padded, which would
-// change the ray's attention.  Simple and correct first:
-// one block per SM, no overlap between the phases.
+// global scratch the wrapper allocates: the split's hand-off inside one
+// launch, at nblocks rays' worth of memory instead of every ray's.  The
+// phases share one dynamic shared-memory buffer sized to the largest of
+// them; the ring's slabs are its first 24 KB, which the trunk phases
+// overwrite (the ring is empty between rays: every slab a ray phase
+// issues, it consumes), and the ring's mbarriers sit past every phase's
+// buffer, so they live across rays.  A ray of S = 128 samples is two
+// 64-point trunk blocks; at any other S its last trunk block is masked at
+// the ray's end (the trunk phases' point limit is the ray's last point),
+// so the samples are never padded, which would change the ray's
+// attention.  In the phase-clock build thread 0 adds up the phases'
+// cycles and its waits at the barriers between them (SinglePhase).
 
-#include "ray_bwd.cuh"
+#include "ray_bwd_sm90.cuh"
 #include "trunk_bwd.cuh"
 
 using namespace agg;
@@ -43,9 +48,10 @@ namespace {
 
 struct SingleBwdArgs {
   TrunkArgs f;           // forward trunk (its workspace pointers: scratch)
-  RayBwdArgs r;
+  RayBwd90Args r;
   TrunkBwdArgs t;
   int R, S, V, C;
+  int ring_off;          // the ring's bookkeeping: single_ring_off(V)
   // per-block scratch, one ray's rows each
   bf16* sx;              // [nblocks, V, S, 128] trunk output x
   bf16* sdx;             // [nblocks, V, S, 128] its cotangent
@@ -60,36 +66,31 @@ __host__ __device__ constexpr size_t cmax(size_t a, size_t b) {
   return a > b ? a : b;
 }
 
+// the ring's bookkeeping, past every phase's buffer
+constexpr size_t single_ring_off(int V) {
+  return cmax(cmax(trunk_smem(V), kDynRayBwdSmem), trunk_bwd_smem(V));
+}
 constexpr size_t single_smem(int V) {
-  return cmax(cmax(trunk_smem(V), kRayBwdSmem), trunk_bwd_smem(V));
+  return single_ring_off(V) + kRingSmemBytes;
 }
 static_assert(single_smem(VMAX) <= 232448, "one K4s block fits an SM");
 
-// The three phases as calls, not inlined into one body: the compiler
-// allocates registers for three functions of the split kernels' size, not
-// for one of their sum (inlined: 6,032 B of spill loads in the kernel and
-// a 374 s build of this library, against 135 s for the split's).
+// The forward trunk as a call, the two backward phases inlined: as calls
+// they read their arguments (and the ray phase its ring) from local memory
+// and spilled, and K4s ran 6-8% slower; inlining the trunk too gained
+// 0-2% more for a build half as long again (PERF.md).
 __device__ __noinline__ void phase_trunk(const TrunkArgs& f, int p0,
                                          const WsMap ws) {
   trunk_block<false>(f, p0, ws);
 }
 
-__device__ __noinline__ void phase_ray(const RayBwdArgs& r, int ray,
-                                       const WsMap ws) {
-  ray_bwd_ray(r, ray, ws);
-}
-
-__device__ __noinline__ void phase_trunk_bwd(const TrunkBwdArgs& t, int p0,
-                                             const WsMap ws) {
-  trunk_bwd_block<false>(t, p0, ws);
-}
-
 __global__ void __launch_bounds__(NT, 1)
     dynamic_bwd_single_kernel(SingleBwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const int S = a.S, V = a.V;
   const size_t b = blockIdx.x, vs = (size_t)V * S;
   TrunkArgs f = a.f;
-  RayBwdArgs r = a.r;
+  RayBwd90Args r = a.r;
   TrunkBwdArgs t = a.t;
   f.ws_x = a.sx + b * vs * 128;
   f.ws_vis = a.svm + b * 2 * vs;
@@ -105,19 +106,30 @@ __global__ void __launch_bounds__(NT, 1)
   t.dx = r.dx;
   t.dmisc = r.dmisc;
   t.drf = a.sdrf + b * vs * a.C;
+  WRing<kRayStages> ring;
+  ring.init((RingSmem*)(smem + a.ring_off), smem, r.Wt, &r.net,
+            RP_RING_WAIT);
+  __syncthreads();
+  PhaseClock clk;
   for (int ray = blockIdx.x; ray < a.R; ray += gridDim.x) {
     const int first = ray * S;
     const WsMap ws{S, first};
     f.P = t.P = first + S;           // the ray's last trunk block is masked
     for (int p0 = first; p0 < first + S; p0 += PT) {
       phase_trunk(f, p0, ws);
+      clk(SP_TRUNK);
       __syncthreads();
+      clk(SP_HANDOFF);
     }
-    phase_ray(r, ray, ws);
+    ray_bwd90_ray<false>(r, ray, ring, smem + kRayRing, ws);
+    clk(SP_RAY);
     __syncthreads();
+    clk(SP_HANDOFF);
     for (int p0 = first; p0 < first + S; p0 += PT) {
-      phase_trunk_bwd(t, p0, ws);
+      trunk_bwd_block<false, NT>(t, p0, ws);
+      clk(SP_TRUNK_BWD);
       __syncthreads();
+      clk(SP_HANDOFF);
     }
   }
 }
@@ -125,15 +137,14 @@ __global__ void __launch_bounds__(NT, 1)
 }  // namespace
 
 extern "C" int dyn_dynamic_agg_bwd_single(
-    const void* W, const void* WT, const void* WF, const void* B,
-    const void* Z,
+    const void* Wt, const void* WF, const void* WTF, const void* B,
     const void* meta, const void* pts, const void* dirfeat,
     const void* dirpe, const void* posenc, const void* rgbfeat,
     const void* mask, const void* cot, void* sx, void* sdx, void* svm,
     void* sgf, void* snv, void* sdmisc, void* sdrf, void* ray_scratch,
-    void* d_pts, void* d_dirpe, void* d_rgbfeat, void* d_dirfeat,
-    void* slabs, int slab_len, int w_total, int R, int S, int V, int C,
-    int nblocks, void* stream) {
+    void* stats, void* d_pts, void* d_dirpe, void* d_rgbfeat,
+    void* d_dirfeat, void* slabs, int slab_len, int w_total, int R, int S,
+    int V, int C, int nblocks, void* stream) {
   if (V > VMAX || S > SMAX || C > CMAX || C > CRMAX || V < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
   SingleBwdArgs a{};
@@ -141,6 +152,7 @@ extern "C" int dyn_dynamic_agg_bwd_single(
   a.S = S;
   a.V = V;
   a.C = C;
+  a.ring_off = (int)single_ring_off(V);
   const Net net = load_net((const int*)meta);
   TrunkArgs& f = a.f;
   f.W = (const bf16*)WF;          // the forward trunk's fragment-major pack
@@ -153,11 +165,9 @@ extern "C" int dyn_dynamic_agg_bwd_single(
   f.V = V;
   f.C = C;
   f.dirfeat = (const float*)dirfeat;
-  RayBwdArgs& r = a.r;
-  r.W = (const bf16*)W;
-  r.WT = (const bf16*)WT;
+  RayBwd90Args& r = a.r;
+  r.Wt = (const bf16*)Wt;
   r.B = f.B;
-  r.Z = (const float*)Z;
   r.net = net;
   r.cot = (const float*)cot;
   r.P = f.P;
@@ -171,14 +181,14 @@ extern "C" int dyn_dynamic_agg_bwd_single(
   r.d_pts = (float*)d_pts;
   r.d_dirpe = (float*)d_dirpe;
   r.scratch = (float*)ray_scratch;
+  r.stats = (float*)stats;
   r.slabs = (float*)slabs;
   r.slab_len = slab_len;
   r.w_total = w_total;
   TrunkBwdArgs& t = a.t;
-  t.W = r.W;
-  t.WT = r.WT;
+  t.WF = f.W;
+  t.WTF = (const bf16*)WTF;
   t.B = f.B;
-  t.Z = r.Z;
   t.net = net;
   t.rgbfeat = f.rgbfeat;
   t.mask = f.mask;

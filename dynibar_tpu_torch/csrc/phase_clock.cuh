@@ -47,6 +47,10 @@ enum FwdTrunkPhase { FT_IN = 16, FT_IN_PROD, FT_POOL1, FT_PROD, FT_ELEM,
                      FT_POOL2 };
 enum FwdRayPhase { FR_QKV, FR_ATTN, FR_FC_LN, FR_SIGMA, FR_HEAD_IN,
                    FR_HEAD_PROD, FR_HEAD_OUT };
+// K4s (dynamic_agg_bwd1): its three phases per ray and thread 0's waits at
+// the barriers between them (counters the ray phase's RayPhase leaves
+// free; the phases' own marks also count, into the ranges above).
+enum SinglePhase { SP_TRUNK = 9, SP_RAY, SP_TRUNK_BWD, SP_HANDOFF };
 
 #ifdef AGG_PHASE_CLOCKS
 __device__ unsigned long long g_phase_cycles[kPhases];

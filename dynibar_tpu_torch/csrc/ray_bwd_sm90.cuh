@@ -7,8 +7,8 @@
 // sigmoid rgb head.
 //
 // Math of dynibar_tpu/ops/pallas_agg_bwd.py:879 static_bwd_ray_kernel and
-// :514 dynamic_bwd_ray_kernel, in the phases of the ray-side body K4s
-// keeps (ray_bwd.cuh):
+// :514 dynamic_bwd_ray_kernel (and K4s's ray phase, dynamic_agg_bwd1.cu),
+// in phases:
 //   A. geometry feature from the forward's workspace (dynamic: plus the
 //      positional encoding), q/k/v, attention, fc and layer norm (y_hat
 //      kept in a per-block f32 scratch);
@@ -134,10 +134,13 @@ constexpr size_t kDynHeadWeights =
 static_assert(kDynHeadWeights > 232448 - (kDynRayBwdSmem - kRayRing),
               "the dynamic heads' weights stream");
 
+// The backward of one ray; `smem` is the block's buffer past the ring,
+// workspace rows by `ws` (K4s keeps one ray's in a per-block scratch).
 template <bool STATIC>
 __device__ __forceinline__ void ray_bwd90_ray(const RayBwd90Args& a, int ray,
                                               WRing<kRayStages>& ring,
-                                              unsigned char* smem) {
+                                              unsigned char* smem,
+                                              const WsMap ws) {
   constexpr int GLD = STATIC ? LDG : kRayLd1;  // gf_attn's row stride
   unsigned char* reg2 = smem + (STATIC ? kSR1 : kDR1);
   bf16* GA = (bf16*)smem;                      // [SMAX][GLD] gf_attn (| PE)
@@ -158,7 +161,7 @@ __device__ __forceinline__ void ray_bwd90_ray(const RayBwd90Args& a, int ray,
 
   const Net& net = a.net;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int S = a.S, V = a.V, P = a.P, Sp = (S + 15) & ~15;
+  const int S = a.S, V = a.V, Sp = (S + 15) & ~15;
   float* slab = a.slabs + (size_t)(blockIdx.x % kSlabs) * a.slab_len;
   const int wt = a.w_total;
   float* SY = a.scratch + (size_t)blockIdx.x * SMAX * kRayScratchLd;
@@ -172,10 +175,10 @@ __device__ __forceinline__ void ray_bwd90_ray(const RayBwd90Args& a, int ray,
   PhaseClock clk;
 
   const size_t p0 = (size_t)ray * S;
-  auto vp = [&](int v, size_t p) -> size_t { return (size_t)v * P + p; };
+  auto vp = [&](int v, size_t p) -> size_t { return ws.vp(v, p); };
   auto gf_in = [&](int i, int c) -> float {
     if (i >= S) return 0.f;
-    const float g = a.gf[(p0 + i) * 128 + c];
+    const float g = a.gf[ws.pt(p0 + i) * 128 + c];
     return STATIC ? g : g + a.posenc[i * 128 + c];
   };
   auto load_gf = [&]() {
@@ -647,7 +650,7 @@ __device__ __forceinline__ void ray_bwd90_ray(const RayBwd90Args& a, int ray,
   for (int e = tid; e < Sp * 128; e += NT) {
     const int i = e >> 7, c = e & 127;
     DG[i * LDG + c] =
-        f2b(i < S ? SD[e] * elu_d(a.gf[(p0 + i) * 128 + c]) : 0.f);
+        f2b(i < S ? SD[e] * elu_d(a.gf[ws.pt(p0 + i) * 128 + c]) : 0.f);
   }
   // pooling-2 of x over views with the visibility weights (as forward)
   for (int e = tid; e < Sp * 16; e += NT) {
@@ -789,7 +792,7 @@ __device__ __forceinline__ void ray_bwd90_rays(const RayBwd90Args& a) {
             RP_RING_WAIT);
   __syncthreads();
   for (int ray = blockIdx.x; ray < a.R; ray += gridDim.x)
-    ray_bwd90_ray<STATIC>(a, ray, ring, smem + kRayRing);
+    ray_bwd90_ray<STATIC>(a, ray, ring, smem + kRayRing, WsMap{a.P, 0});
 }
 
 }  // namespace agg

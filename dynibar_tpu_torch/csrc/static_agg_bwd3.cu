@@ -23,9 +23,9 @@
 // Design: the split moves the input MLP out of the trunk kernel, whose
 // shared memory sets the trunk's tile (one view's activations and
 // cotangents in place over 64 points).  K5c needs base_fc's 224 input
-// columns instead of the 280 of the input MLP's pooled + per-view input, so
-// its footprint is 6,144 bytes under K5b's (226,304 against 232,448 at V =
-// 14): still one block of 64 points per SM.  K5d's own footprint (91,904
+// columns instead of the 280 of the input MLP's pooled + per-view input
+// (223,264 bytes at V = 14 against 232,448): still one block of 64 points
+// per SM, at 512 threads (trunk_bwd.cuh).  K5d's own footprint (91,904
 // bytes) fits two blocks per SM.  Both are persistent grids over 64-point
 // blocks with the views in a loop, weight gradients into the shared slabs
 // (agg_bwd_common.cuh) that K5a started; the reduce runs after K5d.
@@ -186,8 +186,8 @@ __global__ void __launch_bounds__(NT, 2) inmlp_bwd_kernel(InmlpBwdArgs a) {
 }  // namespace
 
 extern "C" int dyn_static_agg_bwd_trunk3(
-    const void* W, const void* WT, const void* B, const void* Z,
-    const void* meta, const void* rgbfeat, const void* mask,
+    const void* WF, const void* WTF, const void* B, const void* meta,
+    const void* rgbfeat, const void* mask,
     const void* raydiff, const void* ws_rf, int anti_alias, int mask_rgb,
     const void* dx, const void* dmisc, void* drf, void* d_dot, void* d_s,
     void* slabs, int slab_len, int w_total, int R, int S, int V, int C,
@@ -195,10 +195,9 @@ extern "C" int dyn_static_agg_bwd_trunk3(
   if (V > VMAX || S > SMAX || 2 * C > CRMAX || V < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
   TrunkBwdArgs a{};
-  a.W = (const bf16*)W;
-  a.WT = (const bf16*)WT;
+  a.WF = (const bf16*)WF;
+  a.WTF = (const bf16*)WTF;
   a.B = (const float*)B;
-  a.Z = (const float*)Z;
   a.net = load_net((const int*)meta);
   a.rgbfeat = (const bf16*)rgbfeat;
   a.mask = (const float*)mask;
@@ -218,10 +217,9 @@ extern "C" int dyn_static_agg_bwd_trunk3(
   a.slabs = (float*)slabs;
   a.slab_len = slab_len;
   a.w_total = w_total;
-  return launch_persistent(trunk_bwd_kernel<true>,
-                           trunk_bwd_smem(V), a,
+  return launch_persistent(trunk_bwd_kernel<true>, trunk_bwd_smem(V), a,
                            (a.P + PT - 1) / PT, nblocks,
-                           (cudaStream_t)stream);
+                           (cudaStream_t)stream, kTrunkBwdThreads);
 }
 
 extern "C" int dyn_static_agg_bwd_inmlp(
@@ -267,8 +265,8 @@ extern "C" int dyn_static_agg_bwd_inmlp(
 // out = {K5c bytes, K5c blocks, K5d bytes, K5d blocks}.
 extern "C" int dyn_occupancy(int V, int* out) {
   out[0] = (int)trunk_bwd_smem(V);
-  out[1] = blocks_per_sm(trunk_bwd_kernel<true>,
-                         trunk_bwd_smem(V));
+  out[1] = blocks_per_sm(trunk_bwd_kernel<true>, trunk_bwd_smem(V),
+                         kTrunkBwdThreads);
   out[2] = (int)kInmlpSmem;
   out[3] = blocks_per_sm(inmlp_bwd_kernel, kInmlpSmem);
   return (int)cudaGetLastError();

@@ -16,10 +16,10 @@ csrc/dynamic_agg_bwd.cu), a ray-side and a trunk-side launch as in
 ``pallas_agg_bwd.py``: K4a/K4b (dynamic, :514/:733) and K5a/K5b (static,
 :879/:1109).  K4a and K5a/K5b are written for Hopper (wgmma on weight
 slabs staged in shared memory by bulk copies) and read the weights in the
-tiled layout of ``tile_weights``; the forwards K2/K3 (and K4s's
-recomputed trunk) read them fragment-major (``pack_frag``); the other
-kernels read the row-major pack and (the backwards K4b, K4s, K5c, K5d)
-its transposes.  The dynamic
+tiled layout of ``tile_weights``; the forwards K2/K3 and the trunk
+backwards K4b/K5c (and K4s's trunk phases) read them fragment-major
+(``pack_frag``, the transposes ``pack_frag_t``); K5d reads the row-major
+pack and its transposes (``pack_transposed``).  The dynamic
 backward's route "pallas" is one launch instead
 (csrc/dynamic_agg_bwd1.cu): K4s replaces ``pallas_agg_bwd.py:163
 dynamic_bwd_kernel``; its forward K3p (``_dynamic_kernel`` under
@@ -75,10 +75,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STATIC_ARGS = [_P] * 9 + [_I] * 2 + [_P] * 7 + [_I] * 4 + [_P]
 _DYNAMIC_ARGS = [_P] * 9 + [_F] + [_P] * 6 + [_I] * 4 + [_P]
 _DYN_RAY_ARGS = [_P] * 18 + [_I] * 7 + [_P]
-_DYN_TRUNK_ARGS = [_P] * 14 + [_I] * 7 + [_P]
+_DYN_TRUNK_ARGS = [_P] * 13 + [_I] * 7 + [_P]
 _ST_RAY_ARGS = [_P] * 15 + [_I] * 7 + [_P]
 _ST_TRUNK_ARGS = [_P] * 10 + [_I] * 2 + [_P] * 11 + [_I] * 7 + [_P]
-_ST_TRUNK3_ARGS = [_P] * 9 + [_I] * 2 + [_P] * 6 + [_I] * 7 + [_P]
+_ST_TRUNK3_ARGS = [_P] * 8 + [_I] * 2 + [_P] * 6 + [_I] * 7 + [_P]
 _ST_INMLP_ARGS = [_P] * 18 + [_I] * 7 + [_P]
 _DYN_SINGLE_ARGS = [_P] * 26 + [_I] * 7 + [_P]
 _REDUCE_ARGS = [_P, _I, _I, _P, _P]
@@ -134,8 +134,9 @@ def pack_weights(net: nn.Module, static: bool):
   16×16×16 tensor-core tiles need no edge cases; offsets stay multiples of
   256 elements, which keeps every tile 32-byte aligned.  Cached on the
   module until a parameter changes (an optimizer step bumps every
-  ``_version``); ``pack_transposed`` and ``pack_tiled`` are the same
-  weights in the other kernels' layouts."""
+  ``_version``); ``pack_tiled``, ``pack_frag``, ``pack_frag_t`` and
+  ``pack_transposed`` are the same weights in the other kernels'
+  layouts."""
   params = list(net.parameters())
   key = (params[0].device, tuple(p._version for p in params),
          tuple(p.data_ptr() for p in params))
@@ -189,7 +190,8 @@ def _order(meta_bytes: bytes, total: int, layout: str,
            device: torch.device) -> torch.Tensor:
   """Source index of every element of a relaid pack (``layout``: "tiled",
   see ``tile_weights``; "transposed", ``pack_transposed``; "frag",
-  ``pack_frag``), built once per slot table and device."""
+  ``pack_frag``; "frag_t", ``pack_frag_t``), built once per slot table and
+  device."""
   meta = np.frombuffer(meta_bytes, np.int32).reshape(-1, 4)
   idx = np.arange(total)
   for w_off, _, kp, np_ in (tuple(int(x) for x in row) for row in meta):
@@ -201,6 +203,9 @@ def _order(meta_bytes: bytes, total: int, layout: str,
       continue
     if layout == "frag":
       idx[w_off:w_off + np_ * kp] = layer.reshape(-1)[_frag_order(np_, kp)]
+      continue
+    if layout == "frag_t":
+      idx[w_off:w_off + np_ * kp] = layer.T.reshape(-1)[_frag_order(kp, np_)]
       continue
     parts = []
     for n0 in range(0, np_, 64):
@@ -240,9 +245,9 @@ def pack_tiled(net: nn.Module, static: bool) -> torch.Tensor:
 
 def pack_transposed(net: nn.Module, static: bool) -> torch.Tensor:
   """The bf16 transposes of ``pack_weights``: each padded W^T at W's offset,
-  so the backward's dX = W^T dY runs on the forward's layer routine (all
-  backward kernels but K4a and K5a/K5b).  Built only when such a kernel
-  runs, cached with the pack."""
+  so the backward's dX = W^T dY runs on the row-major layer routine
+  (csrc/agg_common.cuh dense: K5d).  Built only when K5d runs, cached with
+  the pack."""
   return _relaid(net, static, "transposed")
 
 
@@ -254,6 +259,14 @@ def pack_frag(net: nn.Module, static: bool) -> torch.Tensor:
   g + 8, columns 2t and 8 + 2t, with g = lane / 4, t = lane % 4), so one
   16-byte load per lane and k-step fetches them.  Cached with the pack."""
   return _relaid(net, static, "frag")
+
+
+def pack_frag_t(net: nn.Module, static: bool) -> torch.Tensor:
+  """``pack_frag`` of each layer's transpose: the padded W^T [K, N] at W's
+  offset as [K/16][N/16][32 lanes][8], the layout of the trunk backwards'
+  transposed products dX = dY W (K4b, K5c, K4s's trunk phase).  Built only
+  when one of them runs, cached with the pack."""
+  return _relaid(net, static, "frag_t")
 
 
 def unpack_grads(net: nn.Module, static: bool, meta: np.ndarray,
@@ -590,15 +603,15 @@ def static_backward_trunk3(net, ws, dx, dmisc, slabs, nblk, w_total):
   if c > _MAX_CH_STATIC_BWD:
     raise ValueError(f"static backward kernel limit 3+C<={_MAX_CH_STATIC_BWD}"
                      f"; got {c}")
-  w, b, meta = pack_weights(net, True)
-  wt = pack_transposed(net, True)
+  _, b, meta = pack_weights(net, True)
   f32 = dict(dtype=torch.float32, device=dev)
   drf = torch.empty((v, p, 2 * c), **f32)
   d_dot = torch.empty((v, p), **f32)
   d_s = torch.empty((p,), **f32)
   fn = _fn("static_agg_bwd3", "dyn_static_agg_bwd_trunk3", _ST_TRUNK3_ARGS)
-  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
-                 _zeros(dev).data_ptr(), _meta_ptr(meta),
+  build.check(fn(pack_frag(net, True).data_ptr(),
+                 pack_frag_t(net, True).data_ptr(), b.data_ptr(),
+                 _meta_ptr(meta),
                  ws["rgb_feat"].data_ptr(), ws["mask"].data_ptr(),
                  ws["ray_diff"].data_ptr(), ws["rf"].data_ptr(),
                  int(net.anti_alias_pooling), int(net.mask_rgb),
@@ -695,19 +708,21 @@ def dynamic_backward_ray(net, ws, cot, slabs, nblk, w_total):
 
 def dynamic_backward_trunk(net, ws, dx, dmisc, slabs, nblk, w_total):
   """K4b: trunk-side dynamic backward, then the slab reduction.  Returns
-  the packed f32 gradients, d_rgb_feat [P,V,C] and d_dirfeat [P,C]."""
+  the packed f32 gradients, d_rgb_feat [P,V,C] and d_dirfeat [P,C].  Reads
+  the fragment-major weights and transposes (``pack_frag``,
+  ``pack_frag_t``)."""
   dev = dx.device
   r, s, v, c = ws["rgb_feat"].shape
   p = r * s
-  w, b, meta = pack_weights(net, False)
-  wt = pack_transposed(net, False)
+  _, b, meta = pack_weights(net, False)
   f32 = dict(dtype=torch.float32, device=dev)
   drf = torch.empty((v, p, c), **f32)
   d_rgbfeat = torch.empty((p, v, c), **f32)
   d_dirfeat = torch.empty((p, c), **f32)
   fn = _fn("dynamic_agg_bwd", "dyn_dynamic_agg_bwd_trunk", _DYN_TRUNK_ARGS)
-  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
-                 _zeros(dev).data_ptr(), _meta_ptr(meta),
+  build.check(fn(pack_frag(net, False).data_ptr(),
+                 pack_frag_t(net, False).data_ptr(), b.data_ptr(),
+                 _meta_ptr(meta),
                  ws["rgb_feat"].data_ptr(), ws["mask"].data_ptr(),
                  ws["dirfeat"].data_ptr(), dx.data_ptr(), dmisc.data_ptr(),
                  drf.data_ptr(), d_rgbfeat.data_ptr(), d_dirfeat.data_ptr(),
@@ -722,14 +737,14 @@ def dynamic_backward_single(net, ins, cot):
   """K4s: the whole dynamic backward in one launch from K3p's inputs, then
   the slab reduction.  Returns the packed f32 gradients, d_pts [P,3],
   d_dirpe [R,27], d_rgb_feat [P,V,C] and d_dirfeat [P,C].  One ray per
-  persistent block at a time, its workspaces in a per-block scratch."""
+  persistent block at a time, its workspaces in a per-block scratch.
+  Reads the tiled weights (the ray phase, ``pack_tiled``) and the
+  fragment-major ones (the trunk phases, ``pack_frag``, ``pack_frag_t``)."""
   dev = cot.device
   r, s, v, c = ins["rgb_feat"].shape
   p = r * s
   packed = pack_weights(net, False)
-  w, b, meta = packed
-  wt = pack_transposed(net, False)
-  wf = pack_frag(net, False)              # the recomputed trunk's layout
+  _, b, meta = packed
   slabs, nblk, w_total = _slabs(dev, packed)
   f32 = dict(dtype=torch.float32, device=dev)
   bf = dict(dtype=torch.bfloat16, device=dev)
@@ -740,19 +755,23 @@ def dynamic_backward_single(net, ins, cot):
                  nv=torch.empty((nblk, s), **f32),
                  dmisc=torch.empty((nblk, v, s, 8), **f32),
                  drf=torch.empty((nblk, v, s, c), **f32),
-                 ray=torch.empty((nblk, _MAX_SAMPLES, _SCRATCH_LD), **f32))
+                 ray=torch.empty((nblk, _MAX_SAMPLES, _SCRATCH_LD), **f32),
+                 stats=torch.empty((nblk, 12, _MAX_SAMPLES), **f32))
   d_pts = torch.empty((p, 3), **f32)
   d_dirpe = torch.empty((r, 27), **f32)
   d_rgbfeat = torch.empty((p, v, c), **f32)
   d_dirfeat = torch.empty((p, c), **f32)
   fn = _fn("dynamic_agg_bwd1", "dyn_dynamic_agg_bwd_single", _DYN_SINGLE_ARGS)
-  build.check(fn(w.data_ptr(), wt.data_ptr(), wf.data_ptr(), b.data_ptr(),
-                 _zeros(dev).data_ptr(), _meta_ptr(meta),
+  build.check(fn(pack_tiled(net, False).data_ptr(),
+                 pack_frag(net, False).data_ptr(),
+                 pack_frag_t(net, False).data_ptr(), b.data_ptr(),
+                 _meta_ptr(meta),
                  *(ins[k].data_ptr() for k in ("pts", "dirfeat", "dirpe",
                                                "posenc", "rgb_feat", "mask")),
                  cot.data_ptr(),
                  *(scratch[k].data_ptr() for k in ("x", "dx", "vm", "gf", "nv",
-                                                   "dmisc", "drf", "ray")),
+                                                   "dmisc", "drf", "ray",
+                                                   "stats")),
                  d_pts.data_ptr(), d_dirpe.data_ptr(), d_rgbfeat.data_ptr(),
                  d_dirfeat.data_ptr(), slabs.data_ptr(), slabs.shape[1],
                  w_total, r, s, v, c, nblk, _stream(dev)),

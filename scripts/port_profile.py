@@ -5,6 +5,7 @@
     python3 scripts/port_profile.py --mono [--route pallas_split3|pallas]
         [--chunk 3072] [--iters 2]
     python3 scripts/port_profile.py --forward [--iters 3]
+    python3 scripts/port_profile.py --backward [--iters 3]
     python3 scripts/port_profile.py --frame [--iters 3]
     python3 scripts/port_profile.py --phases [fwd|bwd] [--train | --mono |
         --forward] [...]
@@ -20,17 +21,23 @@ K5a + K5c + K5d) or "pallas" (dynamic K3p forward, K4s backward); with
 --forward launches the forward aggregators K2 and K3 alone (no grad,
 random inputs and weights from a seed) at the shapes of FORWARD_SHAPES:
 the FF eval fine stage, the FF step's fine stage and the mono step; with
---frame renders 288x512 FF frames (render_image_ff at chunk 4096, the
+--backward runs one fwd+bwd of an aggregator alone (random inputs, weights
+and cotangent from a seed) at each of BACKWARD_SHAPES, the training
+kernels' shapes: the dynamic one on routes "pallas_split" (K3r, K4a, K4b)
+and "pallas" (K3p, K4s), the static one on "pallas_split3" (K2r, K5a,
+K5c, K5d); with --frame renders 288x512 FF frames (render_image_ff at chunk 4096, the
 featmap encode included) and prints their host-clock seconds (one
 warm-up, then --iters frames; no profiler).
 Prints the device time per kernel name (summed over the profiled
 iterations, divided by them), the wall time per iteration and the
 device's busy share of it, and the peak device memory of the profiled
-iterations (--forward: per shape, each kernel's device ms per launch).
-With --phases the aggregator libraries load from their phase-clock builds
-(ops/build.py use_phase_clocks, csrc/phase_clock.cuh): "bwd" the split
-backwards (static_agg_bwd: K5a, K5b; dynamic_agg_bwd: K4a, K4b), "fwd"
-the forwards (static_agg: K2/K2r, dynamic_agg: K3/K3r/K3p, trunk and ray
+iterations (--forward, --backward: per shape, each kernel's device ms per
+launch).  With --phases the aggregator libraries load from their
+phase-clock builds (ops/build.py use_phase_clocks, csrc/phase_clock.cuh):
+"bwd" the backwards (static_agg_bwd: K5a, K5b; static_agg_bwd3: K5c;
+dynamic_agg_bwd: K4a, K4b; dynamic_agg_bwd1: K4s as its trunk recompute,
+ray phase, trunk-bwd phase and the barriers between them), "fwd" the
+forwards (static_agg: K2/K2r, dynamic_agg: K3/K3r/K3p, trunk and ray
 launch each), no value both.  After the profile, one more --iters
 iterations run with the clocks zeroed before them, and each kernel's
 phases are printed as shares of its clock cycles and as ms of its
@@ -86,6 +93,8 @@ FWD_RAY_PHASES = ("q/k/v", "attention", "fc + layer norm", "sigma head",
 FWD_TRUNK_PHASES = ("input features", "input MLP products", "pooling-1",
                     "view products", "view elementwise",
                     "re-pooling + geometry_fc")
+SINGLE_PHASES = ("trunk recompute", "ray phase", "trunk-bwd phase",
+                 "hand-off (barriers between phases)")
 PHASES = {
     "K5a": (RAY_PHASES, "static_agg_bwd", r"agg::static_ray_bwd_kernel", 0,
             15),
@@ -95,6 +104,10 @@ PHASES = {
             r"agg::dynamic_ray_bwd_kernel", 0, 15),
     "K4b": (TRUNK_PHASES, "dynamic_agg_bwd", r"agg::trunk_bwd_kernel<false>",
             16, 31),
+    "K5c": (TRUNK_PHASES, "static_agg_bwd3", r"agg::trunk_bwd_kernel<true>",
+            16, None),
+    "K4s": (SINGLE_PHASES, "dynamic_agg_bwd1", r"dynamic_bwd_single_kernel",
+            9, 15),
     "K2 trunk": (FWD_TRUNK_PHASES, "static_agg", r"agg::trunk_kernel<true>",
                  16, None),
     "K2 ray": (FWD_RAY_PHASES, "static_agg", r"agg::ray_kernel<true>", 0,
@@ -103,7 +116,8 @@ PHASES = {
                  r"agg::trunk_kernel<false>", 16, None),
     "K3 ray": (FWD_RAY_PHASES, "dynamic_agg", r"agg::ray_kernel<false>", 0,
                None)}
-PHASE_LIBS = {"bwd": ("static_agg_bwd", "dynamic_agg_bwd"),
+PHASE_LIBS = {"bwd": ("static_agg_bwd", "static_agg_bwd3", "dynamic_agg_bwd",
+                      "dynamic_agg_bwd1"),
               "fwd": ("static_agg", "dynamic_agg")}
 PHASE_LIBS["all"] = PHASE_LIBS["bwd"] + PHASE_LIBS["fwd"]
 
@@ -115,6 +129,14 @@ FORWARD_SHAPES = (
                  (False, 3072, 128, 6))),
     ("mono step", ((True, 3072, 64, 14), (False, 3072, 64, 9),
                    (False, 3072, 64, 10))))
+
+# --backward: (label, [(static, rays, samples, views), ...]), each shape on
+# BACKWARD_ROUTES
+BACKWARD_SHAPES = (
+    ("FF step", ((False, 3072, 128, 7), (False, 3072, 128, 6))),
+    ("mono step", ((False, 3072, 64, 9), (False, 3072, 64, 10),
+                   (True, 3072, 64, 14))))
+BACKWARD_ROUTES = {True: ("pallas_split3",), False: ("pallas_split", "pallas")}
 
 # --route -> (fused_st_bwd_impl, fused_bwd_impl)
 ROUTES = {"pallas_split": ("pallas_split", "pallas_split"),
@@ -132,12 +154,15 @@ def main() -> int:
                   help="the mono step's backward route")
   ap.add_argument("--forward", action="store_true",
                   help="the forward aggregators alone at FORWARD_SHAPES")
+  ap.add_argument("--backward", action="store_true",
+                  help="an aggregator's fwd+bwd alone at BACKWARD_SHAPES")
   ap.add_argument("--frame", action="store_true",
                   help="host-clock seconds per 288x512 FF frame")
   ap.add_argument("--phases", nargs="?", const="all", default=None,
                   choices=sorted(PHASE_LIBS),
-                  help="per-phase clocks of the backwards K5a/K5b, K4a/K4b "
-                  "(bwd), the forwards K2, K3 (fwd) or both (no value)")
+                  help="per-phase clocks of the backwards K5a/K5b, K5c, "
+                  "K4a/K4b, K4s (bwd), the forwards K2, K3 (fwd) or both (no "
+                  "value)")
   args = ap.parse_args()
   args.phase_libs = PHASE_LIBS[args.phases] if args.phases else ()
   build.use_phase_clocks(args.phase_libs)
@@ -147,11 +172,14 @@ def main() -> int:
                         text=True, check=True).stdout.strip()
   libs = (("static_agg", "dynamic_agg") if args.forward
           else build.KERNEL_SOURCES if args.train or args.mono
+          or args.backward
           else ("sample", "static_agg", "dynamic_agg"))
   build.build_jobs([(n, False) for n in libs]
                    + [(n, True) for n in args.phase_libs])
   if args.forward:
     return _forward(args, card, dev)
+  if args.backward:
+    return _backward(args, card, dev)
   if args.frame:
     return _frame(args, card, dev)
   if args.mono:
@@ -253,6 +281,32 @@ def _forward(args, card: str, dev) -> int:
           fused(net, *ins)
       _profile(one, args, card, f"{label}: {'K2' if static else 'K3'} "
                f"R {r} S {s} V {v}")
+  return 0
+
+
+def _backward(args, card: str, dev) -> int:
+  """One aggregator's fwd+bwd (kernel_check.aggregator_grads, the kernels
+  through the autograd Functions) at each of BACKWARD_SHAPES on each of
+  its BACKWARD_ROUTES, one profile each."""
+  for label, shapes in BACKWARD_SHAPES:
+    for static, r, s, v in shapes:
+      for route in BACKWARD_ROUTES[static]:
+        torch.manual_seed(0)
+        net = (StaticAggregator(32, s) if static
+               else DynamicAggregator(32, s, shift=0.0)).to(dev)
+        d = kernel_check.random_inputs(dev, r, s, v, seed=r + s + v, c=35)
+        names = (kernel_check.STATIC_INPUTS if static
+                 else kernel_check.DYNAMIC_INPUTS)
+        ins = [d[k] for k in names]
+        cot = torch.randn(r, s, 4, generator=torch.Generator().manual_seed(
+            r + s)).to(dev)
+
+        def one(net=net, ins=ins, cot=cot, static=static, route=route):
+          kernel_check.aggregator_grads(net, static, ins, cot, "kernel",
+                                        bwd=route)
+        kind = "static" if static else "dynamic"
+        _profile(one, args, card,
+                 f"{label}: {kind} R {r} S {s} V {v} route {route}")
   return 0
 
 

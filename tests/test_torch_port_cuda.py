@@ -212,8 +212,10 @@ def test_views_past_the_limit_raise(dev, static):
     # K4a/K4b's edges: P not a multiple of 64 (144, 336 and 336 points),
     # 48 samples (a row tile under 64), 128 samples with 10 views (both
     # warpgroups on every weight slab); rays 0 and 1 have no and one
-    # valid view (one view: test_dynamic_backward_one_view)
-    (3, 48, 9), (7, 48, 10), (3, 128, 10), (21, 16, 7)])
+    # valid view (one view: test_dynamic_backward_one_view); 14 views, the
+    # largest shared-memory footprint (VMAX)
+    (3, 48, 9), (7, 48, 10), (3, 128, 10), (21, 16, 7), (6, 64, 14),
+    (5, 48, 14)])
 def test_dynamic_backward_kernels(dev, r, s, v, seed):
   d = _inputs(dev, s, v, seed=7 * s + v, R=r)
   torch.manual_seed(seed)
@@ -256,12 +258,14 @@ def test_dynamic_backward_one_view(dev, seed):
 
 @pytest.mark.parametrize("seed", WEIGHT_SEEDS)
 @pytest.mark.parametrize("r,s,v", [(6, 64, 9), (6, 64, 10), (6, 128, 7),
-                                   (6, 128, 6), (300, 64, 10)])
+                                   (6, 128, 6), (300, 64, 10), (6, 64, 14),
+                                   (6, 128, 14)])
 def test_dynamic_single_backward_kernel(dev, r, s, v, seed):
   """K3p + K4s (route "pallas") vs the twins, and against K3r + K4a + K4b
   on the same inputs: the same bf16 products, the weight gradients summed
   in another order, so every gradient within 1e-3 of its f32 scale.  300
-  rays put more than one ray on a block."""
+  rays put more than one ray on a block; 14 views are the largest
+  shared-memory footprint."""
   d = _inputs(dev, s, v, seed=7 * s + v, R=r)
   torch.manual_seed(seed)
   net = DynamicAggregator(F, s, shift=5.0).to(dev)

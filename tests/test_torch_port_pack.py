@@ -3,8 +3,9 @@ they write, on the CPU (ops/agg.py).
 
 ``tile_weights`` (the layout of the Hopper kernels K5a/K5b,
 csrc/sm90_common.cuh) holds every parameter of every slot exactly, at the
-index the CUDA header documents, and so does ``pack_frag`` (the forwards'
-B fragments, csrc/agg_common.cuh); ``unpack_grads`` maps a slab laid out as
+index the CUDA header documents, and so do ``pack_frag`` (the forwards'
+and the trunk backwards' B fragments, csrc/agg_common.cuh) and
+``pack_frag_t`` (the same of the transposes); ``unpack_grads`` maps a slab laid out as
 the kernels write it (padded row-major weights, then the biases) back onto
 each parameter's gradient: the slab is filled from the f32 twin's autograd
 gradients and compared exactly.
@@ -116,6 +117,52 @@ def test_fragment_weights_hold_each_lanes_b_fragments(static, anti_alias,
   with torch.no_grad():
     next(net.parameters()).add_(1.0)
   assert agg.pack_frag(net, static) is not first
+
+
+@pytest.mark.parametrize("static,anti_alias",
+                         [(True, True), (True, False), (False, False)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_transposed_fragment_weights_hold_each_lanes_b_fragments(
+    static, anti_alias, seed):
+  """``pack_frag_t``, the layout of the trunk backwards' transposed products
+  (csrc/trunk_bwd.cuh, dense_deep on W^T): lane l's 16 bytes for 16x16
+  tile (nt, kk) of a layer's padded transpose W^T [K, N] are the bf16
+  pairs its mma.sync B fragments take from W^T, rows nt*16 + g (+ 8),
+  columns kk*16 + 2t (+ 8) and the next, g = l / 4 and t = l % 4, in that
+  order: W[kk*16 + 2t, nt*16 + g] and W[kk*16 + 2t + 1, nt*16 + g] first."""
+  net = _net(static, anti_alias, seed)
+  w, _, meta = agg.pack_weights(net, static)
+  frag_t = agg.pack_frag_t(net, static)
+  assert frag_t.dtype == torch.bfloat16 and frag_t.shape == w.shape
+  seen = 0
+  for i, slot in enumerate(agg._layer_list(net, static)):
+    if slot is None or isinstance(slot[0], str):
+      continue
+    w_off, _, kp, np_ = (int(x) for x in meta[i])
+    wt = w[w_off:w_off + np_ * kp].view(np_, kp).t()     # [K, N]
+    got = frag_t[w_off:w_off + np_ * kp].view(kp // 16, np_ // 16, 32, 8)
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    for nt in range(kp // 16):
+      for kk in range(np_ // 16):
+        rows = nt * 16 + g
+        cols = kk * 16 + 2 * t
+        want = torch.stack([wt[rows, cols], wt[rows, cols + 1],
+                            wt[rows, cols + 8], wt[rows, cols + 9],
+                            wt[rows + 8, cols], wt[rows + 8, cols + 1],
+                            wt[rows + 8, cols + 8],
+                            wt[rows + 8, cols + 9]], 1)
+        assert torch.equal(got[nt, kk], want), (i, nt, kk)
+    # the layer's values once each, only moved
+    assert torch.equal(frag_t[w_off:w_off + np_ * kp].sort().values,
+                       w[w_off:w_off + np_ * kp].sort().values)
+    seen += 1
+  assert seen >= 15
+  assert agg.pack_frag_t(net, static) is agg.pack_frag_t(net, static)
+  first = agg.pack_frag_t(net, static)
+  with torch.no_grad():
+    next(net.parameters()).add_(1.0)
+  assert agg.pack_frag_t(net, static) is not first
 
 
 @pytest.mark.parametrize("static,anti_alias",
