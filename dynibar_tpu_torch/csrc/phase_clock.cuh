@@ -47,6 +47,12 @@ enum FwdTrunkPhase { FT_IN = 16, FT_IN_PROD, FT_POOL1, FT_PROD, FT_ELEM,
                      FT_POOL2 };
 enum FwdRayPhase { FR_QKV, FR_ATTN, FR_FC_LN, FR_SIGMA, FR_HEAD_IN,
                    FR_HEAD_PROD, FR_HEAD_OUT };
+// K5d (static_agg_bwd3), the static input-MLP backward: the input
+// staging and encodings; the forward recompute (two products); the
+// transposed products; the weight gradients (products and flush); the bias
+// gradients; the output assembly (d_srcpl, d_raydiff, d_rgbfeat, d_pts,
+// d_reffeat).  Counters that K5c's TrunkPhase leaves free.
+enum InmlpPhase { IP_STAGE, IP_FWD, IP_TRANS, IP_DW, IP_DB, IP_OUT };
 // K4s (dynamic_agg_bwd1): its three phases per ray and thread 0's waits at
 // the barriers between them (counters the ray phase's RayPhase leaves
 // free; the phases' own marks also count, into the ranges above).

@@ -82,6 +82,7 @@ __global__ void __launch_bounds__(NT, 2) inmlp_bwd_kernel(InmlpBwdArgs a) {
   float* slab = a.slabs + (size_t)(blockIdx.x % kSlabs) * a.slab_len;
   const int wt = a.w_total, kin = net.l[RAYDIR0].k;
   const int nblk = (P + PT - 1) / PT;
+  PhaseClock clk;
 
   for (int blk = blockIdx.x; blk < nblk; blk += gridDim.x) {
     const int p0 = blk * PT;
@@ -105,6 +106,7 @@ __global__ void __launch_bounds__(NT, 2) inmlp_bwd_kernel(InmlpBwdArgs a) {
             j < 4 && p < P ? a.raydiff[((size_t)p * V + v) * 4 + j] : 0.f);
       }
       __syncthreads();
+      clk(IP_STAGE);
       dense(xin, LDI, PT, a.W, a.B, net.l[RAYDIR0],
             [&](int r, int c, float x) { ah[r * LDH + c] = f2b(elu(x)); });
       __syncthreads();
@@ -121,15 +123,23 @@ __global__ void __launch_bounds__(NT, 2) inmlp_bwd_kernel(InmlpBwdArgs a) {
               dsf[r * LDC + c] = f2b(d);
             });
       __syncthreads();
-      grad_layer(dsf, LDC, ah, LDH, PT, slab, wt, net.l[RAYDIR1]);
+      clk(IP_FWD);
+      dw_accum(dsf, LDC, ah, LDH, PT, slab, net.l[RAYDIR1]);
+      clk.sync(IP_DW);
+      db_accum(dsf, LDC, PT, slab + wt, net.l[RAYDIR1].b, net.l[RAYDIR1].n);
       __syncthreads();
+      clk(IP_DB);
       dense(dsf, LDC, PT, a.WT, a.Z, tr(net.l[RAYDIR1]),
             [&](int r, int c, float x) {
               ah[r * LDH + c] = f2b(x * elu_d(b2f(ah[r * LDH + c])));
             });
       __syncthreads();
-      grad_layer(ah, LDH, xin, LDI, PT, slab, wt, net.l[RAYDIR0]);
+      clk(IP_TRANS);
+      dw_accum(ah, LDH, xin, LDI, PT, slab, net.l[RAYDIR0]);
+      clk.sync(IP_DW);
+      db_accum(ah, LDH, PT, slab + wt, net.l[RAYDIR0].b, net.l[RAYDIR0].n);
       __syncthreads();
+      clk(IP_DB);
       dense(ah, LDH, PT, a.WT, a.Z, tr(net.l[RAYDIR0]),
             [&](int r, int c, float x) {
               if (c < 33) {
@@ -141,6 +151,7 @@ __global__ void __launch_bounds__(NT, 2) inmlp_bwd_kernel(InmlpBwdArgs a) {
               }
             });
       __syncthreads();
+      clk(IP_TRANS);
       for (int e = tid; e < PT * 10; e += NT) {
         const int r = e / 10, j = e % 10, p = p0 + r;
         if (p >= P) continue;
@@ -170,6 +181,7 @@ __global__ void __launch_bounds__(NT, 2) inmlp_bwd_kernel(InmlpBwdArgs a) {
             a.drf[vp * CR + c] + (c < 3 ? a.dmisc[vp * 8 + 1 + c] : 0.f);
       }
       __syncthreads();
+      clk(IP_OUT);
     }
     for (int e = tid; e < PT * C; e += NT) {
       const int r = e / C, c = e % C, p = p0 + r;
@@ -180,6 +192,7 @@ __global__ void __launch_bounds__(NT, 2) inmlp_bwd_kernel(InmlpBwdArgs a) {
       if (p < P) a.d_pts[3 * (size_t)p + e % 3] = acc[r * LDR + 48 + e % 3];
     }
     __syncthreads();
+    clk(IP_OUT);
   }
 }
 

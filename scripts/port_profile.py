@@ -34,8 +34,8 @@ device's busy share of it, and the peak device memory of the profiled
 iterations (--forward, --backward: per shape, each kernel's device ms per
 launch).  With --phases the aggregator libraries load from their
 phase-clock builds (ops/build.py use_phase_clocks, csrc/phase_clock.cuh):
-"bwd" the backwards (static_agg_bwd: K5a, K5b; static_agg_bwd3: K5c;
-dynamic_agg_bwd: K4a, K4b; dynamic_agg_bwd1: K4s as its trunk recompute,
+"bwd" the backwards (static_agg_bwd: K5a, K5b; static_agg_bwd3: K5c,
+K5d; dynamic_agg_bwd: K4a, K4b; dynamic_agg_bwd1: K4s as its trunk recompute,
 ray phase, trunk-bwd phase and the barriers between them), "fwd" the
 forwards (static_agg: K2/K2r, dynamic_agg: K3/K3r/K3p, trunk and ray
 launch each), no value both.  After the profile, one more --iters
@@ -93,6 +93,9 @@ FWD_RAY_PHASES = ("q/k/v", "attention", "fc + layer norm", "sigma head",
 FWD_TRUNK_PHASES = ("input features", "input MLP products", "pooling-1",
                     "view products", "view elementwise",
                     "re-pooling + geometry_fc")
+INMLP_PHASES = ("input staging + encodings", "forward recompute",
+                "transposed products", "dW (products + flush)", "bias gradients",
+                "output assembly")
 SINGLE_PHASES = ("trunk recompute", "ray phase", "trunk-bwd phase",
                  "hand-off (barriers between phases)")
 PHASES = {
@@ -106,6 +109,7 @@ PHASES = {
             16, 31),
     "K5c": (TRUNK_PHASES, "static_agg_bwd3", r"agg::trunk_bwd_kernel<true>",
             16, None),
+    "K5d": (INMLP_PHASES, "static_agg_bwd3", r"inmlp_bwd_kernel", 0, None),
     "K4s": (SINGLE_PHASES, "dynamic_agg_bwd1", r"dynamic_bwd_single_kernel",
             9, 15),
     "K2 trunk": (FWD_TRUNK_PHASES, "static_agg", r"agg::trunk_kernel<true>",
@@ -160,7 +164,7 @@ def main() -> int:
                   help="host-clock seconds per 288x512 FF frame")
   ap.add_argument("--phases", nargs="?", const="all", default=None,
                   choices=sorted(PHASE_LIBS),
-                  help="per-phase clocks of the backwards K5a/K5b, K5c, "
+                  help="per-phase clocks of the backwards K5a/K5b, K5c/K5d, "
                   "K4a/K4b, K4s (bwd), the forwards K2, K3 (fwd) or both (no "
                   "value)")
   args = ap.parse_args()
