@@ -12,7 +12,10 @@ is non-zero and the last line below is never printed):
      parallel); print each kernel's footprint and blocks per SM;
   2. hold each eval kernel against its plain PyTorch twin at the main
      path's shapes (K2/K3 at both the coarse and the fine stage) and time
-     kernel, twin and (K1) the library call; K2/K3 at the fine stage also
+     kernel, twin and the bound; K1 as the main path launches it (both
+     maps of the fine stage's 11 static views into rgb_feat in one
+     launch) and on each map alone (features, full-resolution RGB), there
+     also against F.grid_sample; K2/K3 at the fine stage also
      with their two launches' device ms (trunk_kernel, ray_kernel, from
      torch.profiler), the previous design's recorded ms and the bound;
   2b. K2/K3 (no grad) at the train step's fine-stage shapes as in 2 (V =
@@ -23,7 +26,8 @@ is non-zero and the last line below is never printed):
      512-ray slices), per tensor within twice the bf16 twin's error plus
      0.02, the anti-alias scalar per point and as a sum scaled by its
      terms; time fwd+bwd and each launch (K4b, and K4s below, also with
-     its bound and the previous design's ms as recorded, not measured).
+     its bound and the previous design's ms as recorded, not measured;
+     K5d too, in phase 6a).
      The dynamic shapes also on the
      route "pallas": K3p (the K3 forward, no residuals) and the one-launch
      backward K4s at the same bars, K4s's gradients within a tenth of
@@ -49,7 +53,8 @@ is non-zero and the last line below is never printed):
      a. K2 at V = 14 and K3 at V = 9 and 10 against their twins, and
         reported as in 2 at those shapes; the training kernels at the mono
         step's 3072 rays as in 2b: static V = 14 on both backward routes
-        (K2r/K5a/K5b and K2r/K5a/K5c/K5d), dynamic V = 9 and V = 10 on
+        (K2r/K5a/K5b and K2r/K5a/K5c/K5d, K5d with its bound and the
+        previous design's ms as recorded), dynamic V = 9 and V = 10 on
         both dynamic routes (K3r/K4a/K4b; a': K3p/K4s as in 2b, with four
         weight seeds);
      b. one 1024-ray eval chunk (is_train=False, det=True): launch counts,
@@ -72,8 +77,9 @@ is non-zero and the last line below is never printed):
      with the last checkpoint's weights held against a plain-path render
      of the same view (rgb within 3e-2); then a second run that resumes
      at the saved step with the saved parameters and runs one more epoch;
-  7. print the kernels line (13 kernels; K2 and K3 with their forward
-     reports of 2, 2b and 6a), the card line, then the result line.
+  7. print the kernels line (13 kernels; K1 with its single-map times, K2
+     and K3 with their forward reports of 2, 2b and 6a), the card line,
+     then the result line.
 
 Weights are random, from a seed.  Needs one card and no network.
 """
@@ -126,7 +132,7 @@ WRAPPERS = {
     "K5d": "static_backward_inmlp", "K3r": "dynamic_forward_residuals",
     "K4a": "dynamic_backward_ray", "K4b": "dynamic_backward_trunk",
     "K3p": "dynamic_forward_primal", "K4s": "dynamic_backward_single"}
-TRAIN_LAUNCHES = {"K1": 4, "K2": 1, "K3": 1, "K2r": 1, "K5a": 1, "K5b": 1,
+TRAIN_LAUNCHES = {"K1": 2, "K2": 1, "K3": 1, "K2r": 1, "K5a": 1, "K5b": 1,
                   "K3r": 2, "K4a": 2, "K4b": 2, "K5c": 0, "K5d": 0, "K3p": 0,
                   "K4s": 0}
 # the mono step's routes: (static fused_st_bwd_impl, dynamic fused_bwd_impl)
@@ -214,10 +220,10 @@ FWD_PARENT_MS = {
     "K3 mono step R=3072 S=64 V=9": 7.528,
     "K3 mono step R=3072 S=64 V=10": 8.1015}
 FWD_SOURCE = "dynibar_tpu_torch/csrc/agg_fwd.cuh"
-# K4b and K4s before their Hopper redesign (K4b: the first trunk body,
-# row-major weights one k-step ahead; K4s: its ray phase on the pre-Hopper
-# ray body): ms per call at the training shapes, as recorded on an H100
-# 80GB HBM3 at 700 W, by label: (ms, the script that measured it)
+# K4b, K4s and K5d before their Hopper redesign (K4b, K5d: their first
+# bodies, row-major weights one k-step ahead; K4s: its ray phase on the
+# pre-Hopper ray body): ms per call at the training shapes, as recorded on
+# an H100 80GB HBM3 at 700 W, by label: (ms, the script that measured it)
 BWD_PARENT_MS = {
     ("K4b", "dynamic V=7"): (35.33, "chip_smoke.py, CUDA events"),
     ("K4b", "dynamic V=6"): (29.88, "scripts/port_profile.py --backward, "
@@ -227,7 +233,9 @@ BWD_PARENT_MS = {
                                    "--backward, device time, two runs"),
     ("K4s", "dynamic V=7"): (96.61, "chip_smoke.py, CUDA events"),
     ("K4s", "mono dynamic V=9"): (57.15, "chip_smoke.py, CUDA events"),
-    ("K4s", "mono dynamic V=10"): (61.83, "chip_smoke.py, CUDA events")}
+    ("K4s", "mono dynamic V=10"): (61.83, "chip_smoke.py, CUDA events"),
+    ("K5d", "mono static V=14 split3"): (15.39, "chip_smoke.py, CUDA "
+                                         "events")}
 
 
 def _redesign_report(card, key, label, ms, bound):
@@ -295,6 +303,68 @@ def _forward_report(card, label, static, net, args):
            "HBM3 at 700 W)"), flush=True)
   return dict(ms=ms, trunk_ms=split["trunk"], ray_ms=split["ray"],
               bound_ms=bound)
+
+
+def _k1_check(name, got, want):
+  """K1 vs its twin: at most one bf16 ulp apart (both interpolate in f32
+  and round once, in another order).  Returns the largest difference."""
+  got, want = got.float(), want.float()
+  err = (got - want).abs()
+  tol = 2.0 ** -7 * torch.maximum(got.abs(), want.abs()) + 1e-6
+  if (err > tol).any():
+    raise AssertionError(f"{name}: {int((err > tol).sum())} values beyond "
+                         f"one bf16 ulp; max {float(err.max())}")
+  return float(err.max())
+
+
+def _sampler_report(card, rgbs, feats, grid):
+  """K1 at one view set's call: the main path's fused launch (both maps
+  into rgb_feat [R,S,V,3+C]) and the single-map entry on each map, each
+  held to its twin and timed beside its twin, its bound and (one map)
+  F.grid_sample.  Returns K1's entry of the kernels line."""
+  from dynibar_tpu_torch.ops import sample
+  v, r, s = grid.shape[:3]
+  err = _k1_check("K1 fused", sample.sample_views_pair(rgbs, feats, grid),
+                  sample.sample_views_pair_plain(rgbs, feats, grid))
+  n_out = r * s * v * (rgbs.shape[-1] + feats.shape[-1])
+  bound, by = _bound_ms(_nbytes(rgbs, feats, grid) + n_out *
+                        rgbs.element_size(), 8.0 * n_out, PEAK_F32_FLOPS)
+  out = dict(
+      name="sample_views_pair", route="cuda",
+      source="dynibar_tpu_torch/csrc/sample.cu",
+      replaces="dynibar_tpu/ops/pallas_sample.py:60", max_abs_err=err,
+      ms=_time_ms(lambda: sample.sample_views_pair(rgbs, feats, grid)),
+      plain_ms=_time_ms(lambda: sample.sample_views_pair_plain(rgbs, feats,
+                                                               grid)),
+      bound_ms=bound, bound_by=by, library_ms=None, single_map={})
+  print(f"K1 fused ([{r},{s},{v},{rgbs.shape[-1] + feats.shape[-1]}] from "
+        f"{tuple(rgbs.shape)} and {tuple(feats.shape)} {rgbs.dtype}): "
+        f"{out['ms']:.4f} ms (plain {out['plain_ms']:.4f}, bound "
+        f"{bound:.4f} ms by {by}), max abs err {err:.3g} [{card}]",
+        flush=True)
+  for name, m in (("features", feats), ("rgb", rgbs)):
+    err = _k1_check(f"K1 {name}", sample.sample_views(m, grid),
+                    sample.sample_views_plain(m, grid))
+    # library yardstick: grid_sample wants NCHW and a grid of the maps'
+    # dtype, both prepared outside the timed call
+    nchw = m.permute(0, 3, 1, 2).contiguous()
+    g4 = grid.reshape(v, r * s, 1, 2).to(m.dtype)
+    n_m = v * r * s * m.shape[-1]
+    bound, by = _bound_ms(_nbytes(m, grid) + n_m * m.element_size(),
+                          8.0 * n_m, PEAK_F32_FLOPS)
+    d = dict(ms=_time_ms(lambda: sample.sample_views(m, grid)),
+             plain_ms=_time_ms(lambda: sample.sample_views_plain(m, grid)),
+             library_ms=_time_ms(lambda: F.grid_sample(
+                 nchw, g4, mode="bilinear", padding_mode="zeros",
+                 align_corners=True)),
+             bound_ms=bound, bound_by=by, max_abs_err=err)
+    out["single_map"][name] = d
+    out["max_abs_err"] = max(out["max_abs_err"], err)
+    print(f"K1 single map ({name}, [{v},{r},{s},{m.shape[-1]}]): "
+          f"{d['ms']:.4f} ms (plain {d['plain_ms']:.4f}, F.grid_sample "
+          f"{d['library_ms']:.4f}, bound {bound:.4f} ms by {by}) [{card}]",
+          flush=True)
+  return out
 
 
 def _counters():
@@ -422,6 +492,8 @@ def _check_training_kernels(card, label, static, net, args, cot,
         + f" [{card}]", flush=True)
   if not static:
     _redesign_report(card, "K4b", label, times["K4b"], bounds["K4b"])
+  elif "K5d" in keys:
+    _redesign_report(card, "K5d", label, times["K5d"], bounds["K5d"])
   worst = sorted(errs.items(), key=lambda kv: kv[1][0] - kv[1][2])[-3:]
   print(f"{label}: gradient ratios closest to their bars (kernel, bf16 "
         f"twin, bar): {[(n, [round(x, 4) for x in e]) for n, e in worst]}",
@@ -698,8 +770,8 @@ def _mono_phases(card, dev, h, w, n_rand, t_cfg):
   ret = rr.render_rays_mono(model, rb, fm, cfg)
   torch.cuda.synchronize()
   launches = _read_counts()
-  if launches != dict({k: 0 for k in launches}, K1=4, K2=1, K3=1):
-    raise AssertionError(f"mono chunk launches {launches}, want K1 4, K2 1, "
+  if launches != dict({k: 0 for k in launches}, K1=2, K2=1, K3=1):
+    raise AssertionError(f"mono chunk launches {launches}, want K1 2, K2 1, "
                          "K3 1")
   plain = rr.render_rays_mono(model, rb, fm, cfg, kernels=False)
   rgb = ret["outputs_coarse_ref"]["rgb"]
@@ -1048,44 +1120,17 @@ def main() -> int:
   ins_c, ins, pts_f = stage_ins(rb, coarse, fine)
   results = {}
 
-  # K1 at the fine stage's static feature gather: [11,72,128,32] bf16 maps
+  # K1 at the fine stage's static views (11 views, 1024 x 128 points,
+  # bf16): 288x512 RGB and 72x128 features
   with torch.no_grad():
-    maps = fine[2].to(torch.bfloat16).contiguous()
     pix, _ = rr.proj.project_points(
         pts_f[None].expand((11,) + pts_f.shape), rb["static_src_cameras"])
     grid = (2.0 * pix / torch.tensor([w - 1.0, h - 1.0], device=dev)
             - 1.0).contiguous()
-    rgbs = rb["static_src_rgbs"].to(torch.bfloat16).contiguous()
-    max_err = 0.0
-    for m in (maps, rgbs):                   # features and full-res RGB
-      got = sample.sample_views(m, grid).float()
-      want = sample.sample_views_plain(m, grid).float()
-      err = (got - want).abs()
-      # exact to bf16 rounding: at most one bf16 ulp (<= 2^-7 |x|) apart;
-      # both interpolate in f32 and round once, in another order
-      tol = 2.0 ** -7 * torch.maximum(got.abs(), want.abs()) + 1e-6
-      if (err > tol).any():
-        raise AssertionError(f"K1: {int((err > tol).sum())} values beyond "
-                             f"one bf16 ulp; max {float(err.max())}")
-      max_err = max(max_err, float(err.max()))
-    v, r, s, c = grid.shape[0], grid.shape[1], grid.shape[2], maps.shape[-1]
-    ms = _time_ms(lambda: sample.sample_views(maps, grid))
-    plain_ms = _time_ms(lambda: sample.sample_views_plain(maps, grid))
-    # library yardstick: grid_sample wants NCHW and a grid of the maps'
-    # dtype, both prepared outside the timed call
-    nchw = maps.permute(0, 3, 1, 2).contiguous()
-    g4 = grid.reshape(v, r * s, 1, 2).to(maps.dtype)
-    lib_ms = _time_ms(lambda: F.grid_sample(
-        nchw, g4, mode="bilinear", padding_mode="zeros", align_corners=True))
-    n_out = v * r * s * c
-    bound, by = _bound_ms(_nbytes(maps, grid) + n_out * 2, 8.0 * n_out,
-                          PEAK_F32_FLOPS)
-    results["K1"] = dict(
-        name="sample_views", route="cuda",
-        source="dynibar_tpu_torch/csrc/sample.cu",
-        replaces="dynibar_tpu/ops/pallas_sample.py:60",
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by=by, library_ms=lib_ms)
+    results["K1"] = _sampler_report(
+        card, rb["static_src_rgbs"].to(torch.bfloat16).contiguous(),
+        fine[2].to(torch.bfloat16).contiguous(), grid)
+  del pix, grid
 
   # K2 / K3 at both stages (coarse S=64, fine S=128): bf16 kernel vs the
   # f32 module, at the bars the JAX package holds its Pallas kernels to
@@ -1185,9 +1230,9 @@ def main() -> int:
   ret = rr.render_rays_mv(model, rb, coarse, fine, cfg)
   torch.cuda.synchronize()
   launches = _read_counts()
-  if launches != dict({k: 0 for k in launches}, K1=8, K2=2, K3=2):
+  if launches != dict({k: 0 for k in launches}, K1=4, K2=2, K3=2):
     raise AssertionError(f"main-path launches per chunk {launches}, "
-                         "want 8/2/2")
+                         "want 4/2/2")
   launches = {k: launches[k] for k in ("K1", "K2", "K3")}
   print(f"chunk launches: {launches}", flush=True)
   plain = rr.render_rays_mv(model, rb, coarse, fine, cfg, kernels=False)

@@ -3,6 +3,10 @@
 Port of ``dynibar_tpu.core.projection`` (reference ``Projector``,
 ibrnet/projection.py:7-176), exact path only: the CUDA sampler is exact
 for every sample, so there is no coverage mask and no channel-major twin.
+With the kernel sampler (``sample_views``) ``compute_with_motions`` gathers
+both maps of a view set in one K1 launch straight into the aggregators'
+layout (``sample_views_pair``); any other sampler (``sample_views_plain``
+under autograd) gathers each map and concatenates.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ from typing import Callable, Tuple
 import torch
 
 from dynibar_tpu_torch.core import cameras as cam
-from dynibar_tpu_torch.ops.sample import sample_views
+from dynibar_tpu_torch.ops.sample import sample_views, sample_views_pair
 
 SampleFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -67,20 +71,24 @@ def compute_with_motions(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
   """Project, gather RGB+features, angle features and masks.
 
-  Returns rgb_feat [R,S,V,3+C], ray_diff [R,S,V,4], mask [R,S,V,1]."""
+  Returns rgb_feat [R,S,V,3+C] (contiguous from K1), ray_diff [R,S,V,4], mask
+  [R,S,V,1]."""
   h, w = src_cameras[0, 0], src_cameras[0, 1]
   pixel_xy, in_front = project_points(xyz, src_cameras)
   # normalized coords (align_corners=True) serve the full-res images and
   # the lower-resolution feature maps alike
   resize = torch.stack([w - 1.0, h - 1.0])
   grid = 2.0 * pixel_xy / resize - 1.0                          # [V,R,S,2]
-  rgbs = sample_fn(src_rgbs, grid)                              # [V,R,S,3]
-  feats = sample_fn(featmaps, grid)                             # [V,R,S,C]
-  rgb_feat = torch.cat([rgbs, feats], dim=-1)
+  if sample_fn is sample_views:      # K1: both maps, one launch
+    rgb_feat = sample_views_pair(src_rgbs, featmaps, grid)      # [R,S,V,3+C]
+  else:
+    rgb_feat = torch.cat([sample_fn(src_rgbs, grid),
+                          sample_fn(featmaps, grid)],
+                         dim=-1).permute(1, 2, 0, 3)
   mask = inbound_mask(pixel_xy, h, w) & in_front
   mask = mask & (view_valid[:, None, None] > 0)
   ray_diff = ray_angle_features(xyz_st, xyz, query_camera, src_cameras)
-  return (rgb_feat.permute(1, 2, 0, 3), ray_diff.permute(1, 2, 0, 3),
+  return (rgb_feat, ray_diff.permute(1, 2, 0, 3),
           mask.permute(1, 2, 0).to(rgb_feat.dtype)[..., None])
 
 

@@ -5,11 +5,11 @@
 // Math from dynibar_tpu/ops/pallas_agg_bwd.py (module docstring :12-37):
 //   y = W x + b  =>  dX = W^T dY, dW += dY^T X, db += sum_rows dY;
 //   ELU'(pre) from the post-activation y: 1 if y > 0 else y + 1.
-// dX reuses a forward product routine on a transposed copy of the packed
-// weights (ops/agg.py pack_frag_t for dense_deep, pack_transposed for
-// dense: W^T at W's offset), so every product is bf16 mma.sync with f32
-// accumulation.  dW runs on the same tensor-core instruction with both
-// operands read transposed by ldmatrix.trans from shared memory.
+// dX reuses the forward product routine dense_deep on a fragment-major
+// copy of the transposes (ops/agg.py pack_frag_t: W^T at W's offset), or
+// (K5a, K5b, K4a) wgmma on the tiled slabs, so every product is bf16 with
+// f32 accumulation.  dW runs on mma.sync with both operands read
+// transposed by ldmatrix.trans from shared memory.
 //
 // Weight gradients: the persistent blocks add every tile they compute into
 // one of kSlabs f32 slabs of the whole packed layout ([weights | biases]),
@@ -107,13 +107,13 @@ __device__ __forceinline__ void grad_layer(const bf16* dY, int ldy,
 // multiple of 16) from (m0, n0): A = dY^T and B = X both from
 // ldmatrix.trans (PTX fragment layouts: A[m][k] = dY[k][m], B[k][n] =
 // X[k][n]), bases a_base / b_base the lane's ldmatrix rows.  Each tile goes
-// to gw with 16-byte reductions: lanes t and t ^ 1 trade a half row so that
-// each holds four consecutive columns of one row.
-template <int MT, int NT2>
+// out as st(row, col, the sums of columns col .. col + 3 of that row): lanes
+// t and t ^ 1 trade a half row so that each holds four consecutive columns
+// of one row.
+template <int MT, int NT2, typename ST>
 __device__ __forceinline__ void dw_unit(uint32_t a_base, int ldy,
                                         uint32_t b_base, int ldx, int rows,
-                                        float* gw, const Lin& L, int m0,
-                                        int n0) {
+                                        int m0, int n0, ST& st) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float acc[MT][2 * NT2][4];
 #pragma unroll
@@ -147,23 +147,20 @@ __device__ __forceinline__ void dw_unit(uint32_t a_base, int ldy,
       // even t keeps row g, odd t row g + 8, of columns 2 (t & ~1) .. + 3
       const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
       const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
-      const int row = m0 + 16 * i + g + (odd ? 8 : 0);
-      const int col = n0 + 8 * h + 2 * (t & ~1);
-      atomicAdd(reinterpret_cast<float4*>(gw + L.w + (size_t)row * L.k + col),
-                odd ? make_float4(r0, r1, c[2], c[3])
-                    : make_float4(c[0], c[1], r0, r1));
+      st(m0 + 16 * i + g + (odd ? 8 : 0), n0 + 8 * h + 2 * (t & ~1),
+         odd ? make_float4(r0, r1, c[2], c[3])
+             : make_float4(c[0], c[1], r0, r1));
     }
 }
 
-// dw_accum for the trunk backward's wide layers (every layer with at least
-// one 32 x 32 block per warp): a warp owns a 32 x 32 block of dW (16 wide
-// at a ragged edge), 8 MMAs for 4 ldmatrix per k-step, flushed with
-// 16-byte reductions; then the bias as db_accum (no layer is over NT
-// columns wide).  NTH: the block's threads.  Ends without a block barrier.
-template <int NTH>
-__device__ void grad_layer_wide(const bf16* dY, int ldy, const bf16* X,
-                                int ldx, int rows, float* slab, int w_total,
-                                const Lin L) {
+// dW = dY^T X of layer L over `rows` rows (a multiple of 16): a warp owns a
+// 32 x 32 block of dW (16 wide at a ragged edge), 8 MMAs for 4 ldmatrix per
+// k-step; st(row, col, float4) receives every four consecutive columns of
+// the padded [L.n, L.k] once.  NTH: the block's threads.  Ends without a
+// block barrier.
+template <int NTH, typename ST>
+__device__ void dw_blocks(const bf16* dY, int ldy, const bf16* X, int ldx,
+                          int rows, const Lin& L, ST st) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int j = lane >> 3, r8 = lane & 7;
   const uint32_t a_base =
@@ -175,14 +172,31 @@ __device__ void grad_layer_wide(const bf16* dY, int ldy, const bf16* X,
     const int m0 = (u % mu) * 32, n0 = (u / mu) * 32;
     const bool m2 = m0 + 32 <= L.n, n2 = n0 + 32 <= L.k;
     if (m2 && n2)
-      dw_unit<2, 2>(a_base, ldy, b_base, ldx, rows, slab, L, m0, n0);
+      dw_unit<2, 2>(a_base, ldy, b_base, ldx, rows, m0, n0, st);
     else if (m2)
-      dw_unit<2, 1>(a_base, ldy, b_base, ldx, rows, slab, L, m0, n0);
+      dw_unit<2, 1>(a_base, ldy, b_base, ldx, rows, m0, n0, st);
     else if (n2)
-      dw_unit<1, 2>(a_base, ldy, b_base, ldx, rows, slab, L, m0, n0);
+      dw_unit<1, 2>(a_base, ldy, b_base, ldx, rows, m0, n0, st);
     else
-      dw_unit<1, 1>(a_base, ldy, b_base, ldx, rows, slab, L, m0, n0);
+      dw_unit<1, 1>(a_base, ldy, b_base, ldx, rows, m0, n0, st);
   }
+}
+
+// dw_accum for the trunk backward's wide layers (every layer with at least
+// one 32 x 32 block per warp): dw_blocks flushed to the slab with 16-byte
+// reductions; then the bias as db_accum (no layer is over NT columns wide).
+// NTH: the block's threads.  Ends without a block barrier.
+template <int NTH>
+__device__ void grad_layer_wide(const bf16* dY, int ldy, const bf16* X,
+                                int ldx, int rows, float* slab, int w_total,
+                                const Lin L) {
+  float* gw = slab + L.w;
+  const int k = L.k;
+  dw_blocks<NTH>(dY, ldy, X, ldx, rows, L,
+                 [&](int row, int col, float4 g) {
+                   atomicAdd(reinterpret_cast<float4*>(gw + (size_t)row * k +
+                                                       col), g);
+                 });
   db_accum(dY, ldy, rows, slab + w_total, L.b, L.n);
 }
 

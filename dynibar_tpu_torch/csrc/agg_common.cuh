@@ -8,9 +8,9 @@
 // reductions, softmaxes and the layer norm run in f32, as
 // pallas_agg.py:27-30 states for the TPU kernels.  Weights come packed by
 // ops/agg.py: each layer zero-padded to [ceil16(out), ceil16(in)] bf16,
-// biases f32, one slot table (Net); the forwards and the trunk backwards
-// read them fragment-major (pack_frag; the trunk backwards' transposed
-// products pack_frag_t), K5d row-major through `dense`.
+// biases f32, one slot table (Net); the forwards, the trunk backwards and
+// K5d read them fragment-major (pack_frag; the backwards' transposed
+// products pack_frag_t) through `dense_deep`.
 //
 // Each aggregator is two launches on the caller's stream:
 //   1. trunk_kernel, 64 points per block, all views of those points:
@@ -104,106 +104,18 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One warp's unit of a dense layer: a 16-column tile times NRT 16-row
-// tiles.  A (ldmatrix from shared memory) and B (32-bit weight words from
-// global memory, L2-resident) for k-step kk+1 are loaded while the MMAs
-// of step kk run.
-template <int NRT, typename EP>
-__device__ __forceinline__ void dense_unit(const bf16* X, int ldx,
-                                           const bf16* W, const float* B,
-                                           const Lin& L, int nt, int rt0,
-                                           EP& ep) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int nk = L.k >> 4;
-  // this lane's weight words: rows nt*16+g and +8, k pair 2t (+8)
-  const uint32_t* w0 =
-      (const uint32_t*)(W + L.w + (size_t)(nt * 16 + g) * L.k) + t;
-  const uint32_t* w1 = w0 + 4 * L.k;
-  const uint32_t xs = (uint32_t)__cvta_generic_to_shared(
-      X + (size_t)(rt0 * 16 + (lane & 15)) * ldx + (lane >> 4) * 8);
-  const uint32_t tile = 16 * ldx * 2;       // bytes between row tiles
-  float acc[NRT][2][4];
-#pragma unroll
-  for (int i = 0; i < NRT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][h][j] = 0.f;
-  uint32_t a0[NRT][4], a1[NRT][4], b0[4], b1[4];
-  auto load = [&](uint32_t (&a)[NRT][4], uint32_t (&b)[4], int kk) {
-    b[0] = __ldg(w0 + 8 * kk);
-    b[1] = __ldg(w0 + 8 * kk + 4);
-    b[2] = __ldg(w1 + 8 * kk);
-    b[3] = __ldg(w1 + 8 * kk + 4);
-#pragma unroll
-    for (int i = 0; i < NRT; ++i) ldsm_x4(a[i], xs + i * tile + 32 * kk);
-  };
-  auto mma = [&](const uint32_t (&a)[NRT][4], const uint32_t (&b)[4]) {
-#pragma unroll
-    for (int i = 0; i < NRT; ++i) {
-      mma16816(acc[i][0], a[i], b[0], b[1]);
-      mma16816(acc[i][1], a[i], b[2], b[3]);
-    }
-  };
-  load(a0, b0, 0);
-  for (int kk = 0; kk < nk; kk += 2) {
-    if (kk + 1 < nk) load(a1, b1, kk + 1);
-    mma(a0, b0);
-    if (kk + 1 < nk) {
-      if (kk + 2 < nk) load(a0, b0, kk + 2);
-      mma(a1, b1);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NRT; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = nt * 16 + h * 8 + 2 * t, r = (rt0 + i) * 16 + g;
-      const float bias0 = B[L.b + c], bias1 = B[L.b + c + 1];
-      ep(r, c, acc[i][h][0] + bias0);
-      ep(r, c + 1, acc[i][h][1] + bias1);
-      ep(r + 8, c, acc[i][h][2] + bias0);
-      ep(r + 8, c + 1, acc[i][h][3] + bias1);
-    }
-  }
-}
-
-// Y = X @ W^T + b over `rows` rows (a multiple of 16) of X [rows, L.k]
-// (bf16 in shared memory, row stride ldx, 16-byte aligned rows), W
-// [L.n, L.k] bf16 in global memory, calling ep(row, col, value) for every
-// (padded) output column straight from the accumulator registers.  A warp
-// owns one 16-column tile and up to four 16-row tiles, so each B fragment
-// feeds up to eight MMAs; narrow layers drop to one row tile per warp so
-// that every warp has work.  Ends without a block barrier.
-template <typename EP>
-__device__ void dense(const bf16* X, int ldx, int rows, const bf16* W,
-                      const float* B, const Lin L, EP ep) {
-  const int warp = threadIdx.x >> 5;
-  const int ntile = L.n >> 4, rtiles = rows >> 4;
-  const int rpu = ntile * ((rtiles + 3) >> 2) >= NW ? 4 : 1;
-  const int units = ntile * ((rtiles + rpu - 1) / rpu);
-  for (int u = warp; u < units; u += NW) {
-    const int nt = u % ntile, rt0 = (u / ntile) * rpu;
-    switch (min(rpu, rtiles - rt0)) {
-      case 4: dense_unit<4>(X, ldx, W, B, L, nt, rt0, ep); break;
-      case 3: dense_unit<3>(X, ldx, W, B, L, nt, rt0, ep); break;
-      case 2: dense_unit<2>(X, ldx, W, B, L, nt, rt0, ep); break;
-      default: dense_unit<1>(X, ldx, W, B, L, nt, rt0, ep); break;
-    }
-  }
-}
-
-// The forwards' dense layer (trunk_block, which K4s's trunk phase runs
-// too, and the ray launch) and the trunk backwards' (trunk_bwd.cuh, the
-// transposes on pack_frag_t), on the fragment-major pack (ops/agg.py
-// pack_frag: a lane's B-fragment words of one 16x16 weight tile are one
-// 16-byte load, the warp's 512 bytes contiguous).  Two trunk blocks per
-// SM leave the L1 too little room to keep the weights, so every weight
-// fragment is an L2 round trip, and one step of prefetch (dense) left
-// each k-step waiting on it.  Here a ring of kBD fragments in registers
-// keeps the loads kBD k-steps ahead of their MMAs; A (ldmatrix from
-// shared memory) is read at its step.  The same products, added in the
-// same order as dense's.
+// The dense layer of the forwards (trunk_block, which K4s's trunk phase
+// runs too, and the ray launch), of the trunk backwards (trunk_bwd.cuh, the
+// transposes on pack_frag_t) and of K5d (static_agg_bwd3.cu), on the
+// fragment-major pack (ops/agg.py pack_frag: a lane's B-fragment words of
+// one 16x16 weight tile are one 16-byte load, the warp's 512 bytes
+// contiguous).  Two trunk blocks per SM leave the L1 too little room to
+// keep the weights, so every weight fragment is an L2 round trip, and one
+// step of prefetch left each k-step waiting on it.  Here a ring of kBD
+// fragments in registers keeps the loads kBD k-steps ahead of their MMAs;
+// A (ldmatrix from shared memory) is read at its step.  Fragment layouts
+// are the PTX ISA's (see mma16816); each output column's products are
+// added in k order.
 constexpr int kBD = 8;
 
 // Where the fragment-major pack keeps W[n][k] of layer L: tile (n/16,
@@ -271,15 +183,19 @@ __device__ __forceinline__ void dense_unit_deep(const bf16* X, int ldx,
   }
 }
 
-// Y = X @ W^T + b as dense computes it, in units of dense_unit_deep: as
-// many row tiles per unit (4, 2 or 1) as keeps the fewest rounds of units
+// Y = X @ W^T + b over `rows` rows (a multiple of 16) of X [rows, L.k]
+// (bf16 in shared memory, row stride ldx, 16-byte aligned rows), W
+// [L.n, L.k] bf16 fragment-major in global memory, calling ep(row, col,
+// value) for every (padded) output column straight from the accumulator
+// registers, in units of dense_unit_deep: a warp owns one 16-column tile
+// and as many row tiles (4, 2 or 1) as keeps the fewest rounds of units
 // over the warps, the most units among those (a unit's k-loop is a chain
 // of L2 waits, so a layer takes about rounds x k-steps of them:
 // ray_dir_fc's 48-column second layer runs six units of two row tiles in
 // one round, not twelve of one in two).  Optionally over the weight
 // columns [k0, k0 + kn) only (X's columns 0..kn) and without the bias.
-// NTH: the block's threads (the trunk backward runs 512).  Ends without a
-// block barrier.
+// NTH: the block's threads (the trunk backwards and K5d run 512).  Ends
+// without a block barrier.
 template <int NTH = NT, typename EP>
 __device__ void dense_deep(const bf16* X, int ldx, int rows, const bf16* W,
                            const float* B, const Lin L, EP ep, int k0 = 0,

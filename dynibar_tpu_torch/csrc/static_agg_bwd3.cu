@@ -18,17 +18,41 @@
 //
 // What bounds them on the H100: operations.  Per point and view the input
 // MLP is 2·(112·256 + 256·48) flops forward, three times that here; the
-// trunk's are about eight times more.
+// trunk's are about eight times more.  K5d also reads d_rf_tot (0.77 GB at
+// the mono step's V = 14, P = 196,608), about as long at the memory's rate
+// as its products at the tensor cores'.
 //
 // Design: the split moves the input MLP out of the trunk kernel, whose
 // shared memory sets the trunk's tile (one view's activations and
 // cotangents in place over 64 points).  K5c needs base_fc's 224 input
 // columns instead of the 280 of the input MLP's pooled + per-view input
 // (223,264 bytes at V = 14 against 232,448): still one block of 64 points
-// per SM, at 512 threads (trunk_bwd.cuh).  K5d's own footprint (91,904
-// bytes) fits two blocks per SM.  Both are persistent grids over 64-point
-// blocks with the views in a loop, weight gradients into the shared slabs
-// (agg_bwd_common.cuh) that K5a started; the reduce runs after K5d.
+// per SM, at 512 threads (trunk_bwd.cuh).  Both are persistent grids over
+// 64-point blocks with the views in a loop, weight gradients into the
+// shared slabs (agg_bwd_common.cuh) that K5a started; the reduce runs
+// after K5d.  K5d, two blocks of 256 threads per SM (phase clocks: PERF.md
+// section 5):
+//   * its four products run on dense_deep over the fragment-major pack
+//     (pack_frag) and its transposes (pack_frag_t), eight k-steps of
+//     weights in flight, as K2/K3, K4b and K5c;
+//   * a view's inputs (its d_rf_tot rows, d_misc rows, src_pl, ray_diff,
+//     d_dot) come into shared memory by cp.async, coalesced 16-byte copies
+//     where the rows allow; the epilogues and the output assembly read
+//     them there;
+//   * the transposed first layer's epilogue only stores: the point
+//     encoding's cotangents go through the encoding afterwards, one thread
+//     per point and channel (in the epilogue the warps owning those
+//     columns computed every sin and cos alone, while the others waited);
+//   * weight gradients flush per view with 16-byte reductions
+//     (dw_blocks); the first layer's bias comes out of its dW products as
+//     the column of a ones input column (its weight column is padding),
+//     the second layer's is a column sum over the threads.  The products
+//     are the parent's, bf16 operands and f32 sums: only the order of the
+//     f32 sums changes.
+// A second stage of inputs, one block of 512 threads and weight
+// gradients kept in shared memory over the views lost to this shape
+// (PERF.md section 6).  In the phase-clock build thread 0 adds each
+// phase's cycles up (InmlpPhase, phase_clock.cuh).
 
 #include "trunk_bwd.cuh"
 
@@ -37,10 +61,9 @@ using namespace agg;
 namespace {
 
 struct InmlpBwdArgs {
-  const bf16* W;
-  const bf16* WT;
+  const bf16* WF;        // fragment-major weights (ops/agg.py pack_frag)
+  const bf16* WTF;       // fragment-major transposes (pack_frag_t)
   const float* B;
-  const float* Z;
   Net net;
   const float* pts;      // [P, 3]
   const float* reffeat;  // [R, C]
@@ -59,15 +82,60 @@ struct InmlpBwdArgs {
   int slab_len, w_total;
 };
 
+constexpr int kInmlpThreads = 256;
 constexpr int LDI = 120;            // ray_dir_fc input, 103 -> 112 columns
 constexpr int LDC = 56;             // its output cotangent, 3 + C -> 48 cols
-constexpr int LDR = 64;             // f32 d_reffeat (C) | d_pts PE (48:51)
+constexpr int LDR = 64;             // f32 d_reffeat (C) | d_pts (48:51)
 constexpr int CIMAX = 36;           // 3 + C, as K5b's CRMAX / 2
-constexpr size_t kInmlpSmem = (size_t)PT * (LDI + LDH + LDC) * 2 +
-                              (size_t)PT * (72 + LDR + 3) * 4;
+constexpr int kHid = 256;           // ray_dir_fc's hidden width
+// one view's staged inputs, f32 offsets
+constexpr int kStDrf = 0;                   // [PT][2C] d_rf_tot, 2C <= 72
+constexpr int kStMisc = kStDrf + PT * 72;   // [PT][8] d_misc
+constexpr int kStSrc = kStMisc + PT * 8;    // [PT][6] src_pl
+constexpr int kStRay = kStSrc + PT * 6;     // [PT][4] ray_diff
+constexpr int kStDot = kStRay + PT * 4;     // [PT] d_dot
+constexpr int kStage = kStDot + PT;
+constexpr size_t kInmlpSmem =
+    (size_t)PT * (LDI + LDH + LDC) * 2 +
+    4 * ((size_t)PT * (72 + LDR + 3) + kStage);
 static_assert(2 * (kInmlpSmem + 1024) <= 233472, "two K5d blocks per SM");
+static_assert(68 + 33 * 4 <= LDI * 2, "dpe fits a row of xin");
 
-__global__ void __launch_bounds__(NT, 2) inmlp_bwd_kernel(InmlpBwdArgs a) {
+// cp.async of 4, 8 or 16 bytes (16: L2 only, not kept in the L1)
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  if (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(N));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// gb[c] += sum_r dY[r][c] for c < ncols (global reductions): NTH / ncols
+// threads per column, each over every (NTH / ncols)-th row.
+template <int NTH>
+__device__ __forceinline__ void db_sum(const bf16* dY, int ldy, int rows,
+                                       float* gb, int ncols) {
+  const int split = NTH / ncols, c = threadIdx.x % ncols,
+            part = threadIdx.x / ncols;
+  if (part >= split) return;
+  float s = 0.f;
+  for (int r = part; r < rows; r += split) s += b2f(dY[r * ldy + c]);
+  atomicAdd(gb + c, s);
+}
+
+__global__ void __launch_bounds__(kInmlpThreads, 2)
+    inmlp_bwd_kernel(InmlpBwdArgs a) {
+  constexpr int NTH = kInmlpThreads;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xin = (bf16*)smem;                 // [PT][LDI] MLP input
   bf16* ah = xin + PT * LDI;               // [PT][LDH] hidden, then d_hidden
@@ -75,90 +143,161 @@ __global__ void __launch_bounds__(NT, 2) inmlp_bwd_kernel(InmlpBwdArgs a) {
   float* dh = (float*)(dsf + PT * LDC);    // [PT][72] d of the PE columns
   float* acc = dh + PT * 72;               // [PT][LDR]
   float* r_pts = acc + PT * LDR;           // [PT][3]
+  float* st = r_pts + PT * 3;              // [kStage] one view's inputs
 
   const Net& net = a.net;
+  const Lin L0 = net.l[RAYDIR0], L1 = net.l[RAYDIR1];
   const int tid = threadIdx.x;
   const int P = a.P, V = a.V, C = a.C, CR = 2 * a.C;
   float* slab = a.slabs + (size_t)(blockIdx.x % kSlabs) * a.slab_len;
-  const int wt = a.w_total, kin = net.l[RAYDIR0].k;
+  const int kin = L0.k;
   const int nblk = (P + PT - 1) / PT;
+  // the point encoding's 33 f32 cotangents of row r, over xin's bf16
+  // columns 34..99 (the per-view input columns)
+  auto dpe = [&](int r) {
+    return reinterpret_cast<float*>(reinterpret_cast<char*>(xin) +
+                                    r * LDI * 2 + 68);
+  };
+  // every view's d_rf_tot rows start 16-byte aligned
+  const bool drf16 = ((size_t)P * CR) % 4 == 0;
   PhaseClock clk;
 
   for (int blk = blockIdx.x; blk < nblk; blk += gridDim.x) {
-    const int p0 = blk * PT;
-    for (int e = tid; e < PT * LDR; e += NT) acc[e] = 0.f;
+    const int p0 = blk * PT, np = min(PT, P - p0);
+    for (int e = tid; e < PT * LDR; e += NTH) acc[e] = 0.f;
     // the point encoding is the same for every view
-    for (int e = tid; e < PT * 3; e += NT) {
-      const int r = e / 3, c = e % 3, p = p0 + r;
+    for (int e = tid; e < PT * 3; e += NTH) {
+      const int r = e / 3, c = e - 3 * r, p = p0 + r;
       const float x = p < P ? a.pts[3 * (size_t)p + c] : 0.f;
       r_pts[e] = x;
       pe5(xin + r * LDI, 3, c, x);
     }
     for (int v = 0; v < V; ++v) {
-      for (int e = tid; e < PT * 6; e += NT) {
-        const int r = e / 6, c = e % 6, p = p0 + r;
-        pe5(xin + r * LDI + 33, 6, c,
-            p < P ? a.srcpl[((size_t)p * V + v) * 6 + c] : 0.f);
+      {  // this view's inputs, one commit group
+        const size_t vp0 = (size_t)v * P + p0;
+        const float* drf = a.drf + vp0 * CR;
+        const int n = np * CR, n4 = drf16 ? n >> 2 : 0;
+        for (int e = tid; e < n4; e += NTH)
+          cp_async<16>(st + kStDrf + 4 * e, drf + 4 * e);
+        for (int e = 4 * n4 + tid; e < n; e += NTH)
+          cp_async<4>(st + kStDrf + e, drf + e);
+        for (int e = tid; e < 2 * np; e += NTH)
+          cp_async<16>(st + kStMisc + 4 * e, a.dmisc + vp0 * 8 + 4 * e);
+        for (int e = tid; e < 3 * np; e += NTH) {
+          const int r = e / 3, q = e - 3 * r;
+          cp_async<8>(st + kStSrc + 6 * r + 2 * q,
+                      a.srcpl + ((size_t)(p0 + r) * V + v) * 6 + 2 * q);
+        }
+        for (int r = tid; r < np; r += NTH) {
+          cp_async<16>(st + kStRay + 4 * r,
+                       a.raydiff + ((size_t)(p0 + r) * V + v) * 4);
+          cp_async<4>(st + kStDot + r, a.d_dot + vp0 + r);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
       }
-      for (int e = tid; e < PT * (kin - 99); e += NT) {
-        const int r = e / (kin - 99), j = e % (kin - 99), p = p0 + r;
-        xin[r * LDI + 99 + j] = f2b(
-            j < 4 && p < P ? a.raydiff[((size_t)p * V + v) * 4 + j] : 0.f);
+      __syncthreads();
+      for (int e = tid; e < PT * 6; e += NTH) {
+        const int r = e / 6, c = e - 6 * r;
+        pe5(xin + r * LDI + 33, 6, c, p0 + r < P ? st[kStSrc + e] : 0.f);
+      }
+      // ray_diff, then zeros, then (last padding column, whose weights are
+      // zero) ones: the first layer's bias gradient as a dW column
+      for (int e = tid; e < PT * (kin - 99); e += NTH) {
+        const int r = e / (kin - 99), j = e - (kin - 99) * r;
+        const bool in = p0 + r < P;
+        xin[r * LDI + 99 + j] =
+            f2b(j < 4 && in ? st[kStRay + 4 * r + j]
+                            : (j == kin - 100 && in ? 1.f : 0.f));
       }
       __syncthreads();
       clk(IP_STAGE);
-      dense(xin, LDI, PT, a.W, a.B, net.l[RAYDIR0],
-            [&](int r, int c, float x) { ah[r * LDH + c] = f2b(elu(x)); });
+      dense_deep<NTH>(xin, LDI, PT, a.WF, a.B, L0,
+                      [&](int r, int c, float x) {
+                        ah[r * LDH + c] = f2b(elu(x));
+                      });
       __syncthreads();
       // sf = ray_dir_fc(.); rf[C:] = sf * reffeat
-      dense(ah, LDH, PT, a.W, a.B, net.l[RAYDIR1],
-            [&](int r, int c, float x) {
-              const int p = p0 + r;
-              float d = 0.f;
-              if (c < C && p < P) {
-                const float dc = a.drf[((size_t)v * P + p) * CR + C + c];
-                d = dc * a.reffeat[(size_t)(p / a.S) * C + c];
-                acc[r * LDR + c] += dc * x;
-              }
-              dsf[r * LDC + c] = f2b(d);
-            });
+      dense_deep<NTH>(ah, LDH, PT, a.WF, a.B, L1,
+                      [&](int r, int c, float x) {
+                        const int p = p0 + r;
+                        float d = 0.f;
+                        if (c < C && p < P) {
+                          const float dc = st[kStDrf + r * CR + C + c];
+                          d = dc * __ldg(a.reffeat + (size_t)(p / a.S) * C +
+                                         c);
+                          acc[r * LDR + c] += dc * x;
+                        }
+                        dsf[r * LDC + c] = f2b(d);
+                      });
       __syncthreads();
       clk(IP_FWD);
-      dw_accum(dsf, LDC, ah, LDH, PT, slab, net.l[RAYDIR1]);
+      dw_blocks<NTH>(dsf, LDC, ah, LDH, PT, L1,
+                     [&](int row, int col, float4 g) {
+                       atomicAdd(reinterpret_cast<float4*>(
+                                     slab + L1.w + (size_t)row * L1.k + col),
+                                 g);
+                     });
       clk.sync(IP_DW);
-      db_accum(dsf, LDC, PT, slab + wt, net.l[RAYDIR1].b, net.l[RAYDIR1].n);
+      db_sum<NTH>(dsf, LDC, PT, slab + a.w_total + L1.b, L1.n);
       __syncthreads();
       clk(IP_DB);
-      dense(dsf, LDC, PT, a.WT, a.Z, tr(net.l[RAYDIR1]),
-            [&](int r, int c, float x) {
-              ah[r * LDH + c] = f2b(x * elu_d(b2f(ah[r * LDH + c])));
-            });
+      dense_deep<NTH>(dsf, LDC, PT, a.WTF, a.B, tr(L1),
+                      [&](int r, int c, float x) {
+                        ah[r * LDH + c] =
+                            f2b(x * elu_d(b2f(ah[r * LDH + c])));
+                      },
+                      0, -1, false);
       __syncthreads();
       clk(IP_TRANS);
-      dw_accum(ah, LDH, xin, LDI, PT, slab, net.l[RAYDIR0]);
-      clk.sync(IP_DW);
-      db_accum(ah, LDH, PT, slab + wt, net.l[RAYDIR0].b, net.l[RAYDIR0].n);
+      // the first layer's dW; its last column (the ones) is the bias's
+      {
+        float* gw = slab + L0.w;
+        float* gb = slab + a.w_total + L0.b;
+        dw_blocks<NTH>(ah, LDH, xin, LDI, PT, L0,
+                       [&](int row, int col, float4 g) {
+                         atomicAdd(reinterpret_cast<float4*>(
+                                       gw + (size_t)row * kin + col),
+                                   g);
+                         if (col + 4 == kin) atomicAdd(gb + row, g.w);
+                       });
+      }
       __syncthreads();
-      clk(IP_DB);
-      dense(ah, LDH, PT, a.WT, a.Z, tr(net.l[RAYDIR0]),
-            [&](int r, int c, float x) {
-              if (c < 33) {
-                int chn;
-                const float d = pe_geo_bwd(r_pts + 3 * r, 3, 5, c, x, &chn);
-                atomicAdd(&acc[r * LDR + 48 + chn], d);
-              } else if (c < 103) {
-                dh[r * 72 + c - 33] = x;
-              }
-            });
+      clk(IP_DW);
+      // its transpose: the point encoding's cotangents go to dpe (in xin's
+      // per-view columns, free once dW is done) and through the encoding
+      // below, spread over the threads
+      dense_deep<NTH>(ah, LDH, PT, a.WTF, a.B, tr(L0),
+                      [&](int r, int c, float x) {
+                        if (c < 33)
+                          dpe(r)[c] = x;
+                        else if (c < 103)
+                          dh[r * 72 + c - 33] = x;
+                      },
+                      0, -1, false);
       __syncthreads();
       clk(IP_TRANS);
-      for (int e = tid; e < PT * 10; e += NT) {
-        const int r = e / 10, j = e % 10, p = p0 + r;
-        if (p >= P) continue;
-        const size_t pv = (size_t)p * V + v, vp = (size_t)v * P + p;
+      // d_pts through its encoding
+      for (int e = tid; e < PT * 3; e += NTH) {
+        const int r = e / 3, ch = e - 3 * r;
+        const float* d = dpe(r);
+        float g = d[ch];
+        for (int f = 0; f < 5; ++f) {
+          const float fr = (float)(1 << f);
+          float sn, cs;
+          sincosf(fr * r_pts[e], &sn, &cs);
+          g += fr * (d[18 + 3 * f + ch] * cs - d[3 + 3 * f + ch] * sn);
+        }
+        acc[r * LDR + 48 + ch] += g;
+      }
+      // d_src_pl through its encoding, d_ray_diff as one 16-byte row
+      for (int e = tid; e < PT * 8; e += NTH) {
+        const int r = e >> 3, j = e & 7, p = p0 + r;
+        if (p >= P || j == 7) continue;
+        const size_t pv = (size_t)p * V + v;
         const float* d = dh + r * 72;
-        if (j < 6) {           // source Plücker coordinate j, through its PE
-          const float x = a.srcpl[pv * 6 + j];
+        if (j < 6) {
+          const float x = st[kStSrc + 6 * r + j];
           float g = d[j];
           for (int f = 0; f < 5; ++f) {
             const float fr = (float)(1 << f);
@@ -168,28 +307,28 @@ __global__ void __launch_bounds__(NT, 2) inmlp_bwd_kernel(InmlpBwdArgs a) {
           }
           a.d_srcpl[pv * 6 + j] = g;
         } else {
-          const int k = j - 6;
-          a.d_raydiff[pv * 4 + k] = d[66 + k] + a.dmisc[vp * 8 + 4 + k] +
-                                    (k == 3 ? a.d_dot[vp] : 0.f);
+          const float* m = st + kStMisc + 8 * r;
+          *reinterpret_cast<float4*>(a.d_raydiff + pv * 4) =
+              make_float4(d[66] + m[4], d[67] + m[5], d[68] + m[6],
+                          d[69] + m[7] + st[kStDot + r]);
         }
       }
-      for (int e = tid; e < PT * C; e += NT) {
-        const int r = e / C, c = e % C, p = p0 + r;
-        if (p >= P) continue;
-        const size_t vp = (size_t)v * P + p;
+      for (int e = tid; e < PT * 64; e += NTH) {
+        const int r = e >> 6, c = e & 63, p = p0 + r;
+        if (c >= C || p >= P) continue;
         a.d_rgbfeat[((size_t)p * V + v) * C + c] =
-            a.drf[vp * CR + c] + (c < 3 ? a.dmisc[vp * 8 + 1 + c] : 0.f);
+            st[kStDrf + r * CR + c] +
+            (c < 3 ? st[kStMisc + 8 * r + 1 + c] : 0.f);
       }
       __syncthreads();
       clk(IP_OUT);
     }
-    for (int e = tid; e < PT * C; e += NT) {
-      const int r = e / C, c = e % C, p = p0 + r;
-      if (p < P) a.d_reffeat[(size_t)p * C + c] = acc[r * LDR + c];
-    }
-    for (int e = tid; e < PT * 3; e += NT) {
-      const int r = e / 3, p = p0 + r;
-      if (p < P) a.d_pts[3 * (size_t)p + e % 3] = acc[r * LDR + 48 + e % 3];
+    for (int e = tid; e < PT * 64; e += NTH) {
+      const int r = e >> 6, c = e & 63, p = p0 + r;
+      if (p >= P) continue;
+      if (c < C) a.d_reffeat[(size_t)p * C + c] = acc[r * LDR + c];
+      else if (c >= 48 && c < 51)
+        a.d_pts[3 * (size_t)p + c - 48] = acc[r * LDR + c];
     }
     __syncthreads();
     clk(IP_OUT);
@@ -236,20 +375,23 @@ extern "C" int dyn_static_agg_bwd_trunk3(
 }
 
 extern "C" int dyn_static_agg_bwd_inmlp(
-    const void* W, const void* WT, const void* B, const void* Z,
-    const void* meta, const void* pts, const void* reffeat,
-    const void* raydiff, const void* srcpl, const void* drf,
-    const void* dmisc, const void* d_dot, void* d_rgbfeat, void* d_raydiff,
-    void* d_srcpl, void* d_pts, void* d_reffeat, void* slabs, int slab_len,
-    int w_total, int R, int S, int V, int C, int nblocks, void* stream) {
-  if (V > VMAX || S > SMAX || C > CIMAX || V < 1 || S < 1)
-    return (int)cudaErrorInvalidValue;
+    const void* WF, const void* WTF, const void* B, const void* meta,
+    const void* pts, const void* reffeat, const void* raydiff,
+    const void* srcpl, const void* drf, const void* dmisc, const void* d_dot,
+    void* d_rgbfeat, void* d_raydiff, void* d_srcpl, void* d_pts,
+    void* d_reffeat, void* slabs, int slab_len, int w_total, int R, int S,
+    int V, int C, int nblocks, void* stream) {
   InmlpBwdArgs a{};
-  a.W = (const bf16*)W;
-  a.WT = (const bf16*)WT;
-  a.B = (const float*)B;
-  a.Z = (const float*)Z;
   a.net = load_net((const int*)meta);
+  const Lin& L0 = a.net.l[RAYDIR0];
+  const Lin& L1 = a.net.l[RAYDIR1];
+  // the input's 103 columns padded to 112: the last is the bias's ones
+  if (V > VMAX || S > SMAX || C > CIMAX || V < 1 || S < 1 || L0.n != kHid ||
+      L0.k != 112 || L1.k != kHid || L1.n > 48)
+    return (int)cudaErrorInvalidValue;
+  a.WF = (const bf16*)WF;
+  a.WTF = (const bf16*)WTF;
+  a.B = (const float*)B;
   a.pts = (const float*)pts;
   a.reffeat = (const float*)reffeat;
   a.raydiff = (const float*)raydiff;
@@ -271,7 +413,7 @@ extern "C" int dyn_static_agg_bwd_inmlp(
   a.w_total = w_total;
   return launch_persistent(inmlp_bwd_kernel, kInmlpSmem, a,
                            (a.P + PT - 1) / PT, nblocks,
-                           (cudaStream_t)stream);
+                           (cudaStream_t)stream, kInmlpThreads);
 }
 
 // The two kernels' footprints at V views and the blocks an SM holds:
@@ -281,7 +423,7 @@ extern "C" int dyn_occupancy(int V, int* out) {
   out[1] = blocks_per_sm(trunk_bwd_kernel<true>, trunk_bwd_smem(V),
                          kTrunkBwdThreads);
   out[2] = (int)kInmlpSmem;
-  out[3] = blocks_per_sm(inmlp_bwd_kernel, kInmlpSmem);
+  out[3] = blocks_per_sm(inmlp_bwd_kernel, kInmlpSmem, kInmlpThreads);
   return (int)cudaGetLastError();
 }
 

@@ -17,9 +17,8 @@ csrc/dynamic_agg_bwd.cu), a ray-side and a trunk-side launch as in
 :879/:1109).  K4a and K5a/K5b are written for Hopper (wgmma on weight
 slabs staged in shared memory by bulk copies) and read the weights in the
 tiled layout of ``tile_weights``; the forwards K2/K3 and the trunk
-backwards K4b/K5c (and K4s's trunk phases) read them fragment-major
-(``pack_frag``, the transposes ``pack_frag_t``); K5d reads the row-major
-pack and its transposes (``pack_transposed``).  The dynamic
+backwards K4b/K5c/K5d (and K4s's trunk phases) read them fragment-major
+(``pack_frag``, the transposes ``pack_frag_t``).  The dynamic
 backward's route "pallas" is one launch instead
 (csrc/dynamic_agg_bwd1.cu): K4s replaces ``pallas_agg_bwd.py:163
 dynamic_bwd_kernel``; its forward K3p (``_dynamic_kernel`` under
@@ -79,7 +78,7 @@ _DYN_TRUNK_ARGS = [_P] * 13 + [_I] * 7 + [_P]
 _ST_RAY_ARGS = [_P] * 15 + [_I] * 7 + [_P]
 _ST_TRUNK_ARGS = [_P] * 10 + [_I] * 2 + [_P] * 11 + [_I] * 7 + [_P]
 _ST_TRUNK3_ARGS = [_P] * 8 + [_I] * 2 + [_P] * 6 + [_I] * 7 + [_P]
-_ST_INMLP_ARGS = [_P] * 18 + [_I] * 7 + [_P]
+_ST_INMLP_ARGS = [_P] * 17 + [_I] * 7 + [_P]
 _DYN_SINGLE_ARGS = [_P] * 26 + [_I] * 7 + [_P]
 _REDUCE_ARGS = [_P, _I, _I, _P, _P]
 
@@ -134,9 +133,8 @@ def pack_weights(net: nn.Module, static: bool):
   16×16×16 tensor-core tiles need no edge cases; offsets stay multiples of
   256 elements, which keeps every tile 32-byte aligned.  Cached on the
   module until a parameter changes (an optimizer step bumps every
-  ``_version``); ``pack_tiled``, ``pack_frag``, ``pack_frag_t`` and
-  ``pack_transposed`` are the same weights in the other kernels'
-  layouts."""
+  ``_version``); ``pack_tiled``, ``pack_frag`` and ``pack_frag_t`` are
+  the same weights in the other kernels' layouts."""
   params = list(net.parameters())
   key = (params[0].device, tuple(p._version for p in params),
          tuple(p.data_ptr() for p in params))
@@ -189,18 +187,14 @@ def _frag_order(np_: int, kp: int) -> np.ndarray:
 def _order(meta_bytes: bytes, total: int, layout: str,
            device: torch.device) -> torch.Tensor:
   """Source index of every element of a relaid pack (``layout``: "tiled",
-  see ``tile_weights``; "transposed", ``pack_transposed``; "frag",
-  ``pack_frag``; "frag_t", ``pack_frag_t``), built once per slot table and
-  device."""
+  see ``tile_weights``; "frag", ``pack_frag``; "frag_t", ``pack_frag_t``),
+  built once per slot table and device."""
   meta = np.frombuffer(meta_bytes, np.int32).reshape(-1, 4)
   idx = np.arange(total)
   for w_off, _, kp, np_ in (tuple(int(x) for x in row) for row in meta):
     if w_off < 0 or np_ == 0:       # LayerNorm / scalar / empty slots
       continue
     layer = idx[w_off:w_off + np_ * kp].reshape(np_, kp)
-    if layout == "transposed":
-      idx[w_off:w_off + np_ * kp] = layer.T.reshape(-1)
-      continue
     if layout == "frag":
       idx[w_off:w_off + np_ * kp] = layer.reshape(-1)[_frag_order(np_, kp)]
       continue
@@ -243,14 +237,6 @@ def pack_tiled(net: nn.Module, static: bool) -> torch.Tensor:
   return _relaid(net, static, "tiled")
 
 
-def pack_transposed(net: nn.Module, static: bool) -> torch.Tensor:
-  """The bf16 transposes of ``pack_weights``: each padded W^T at W's offset,
-  so the backward's dX = W^T dY runs on the row-major layer routine
-  (csrc/agg_common.cuh dense: K5d).  Built only when K5d runs, cached with
-  the pack."""
-  return _relaid(net, static, "transposed")
-
-
 def pack_frag(net: nn.Module, static: bool) -> torch.Tensor:
   """``pack_weights`` laid out as the forwards' products read it
   (csrc/agg_common.cuh dense_deep): each padded layer [N, K] at its
@@ -264,8 +250,8 @@ def pack_frag(net: nn.Module, static: bool) -> torch.Tensor:
 def pack_frag_t(net: nn.Module, static: bool) -> torch.Tensor:
   """``pack_frag`` of each layer's transpose: the padded W^T [K, N] at W's
   offset as [K/16][N/16][32 lanes][8], the layout of the trunk backwards'
-  transposed products dX = dY W (K4b, K5c, K4s's trunk phase).  Built only
-  when one of them runs, cached with the pack."""
+  transposed products dX = dY W (K4b, K5c, K5d, K4s's trunk phase).  Built
+  only when one of them runs, cached with the pack."""
   return _relaid(net, static, "frag_t")
 
 
@@ -342,16 +328,6 @@ def occupancy(v: int) -> Dict[str, Tuple[int, int]]:
 
 def _stream(dev) -> int:
   return torch.cuda.current_stream(dev).cuda_stream
-
-
-_ZEROS: Dict[torch.device, torch.Tensor] = {}
-
-
-def _zeros(dev) -> torch.Tensor:
-  """The zero bias of every transposed layer (>= the widest padded in)."""
-  if dev not in _ZEROS:
-    _ZEROS[dev] = torch.zeros(512, dtype=torch.float32, device=dev)
-  return _ZEROS[dev]
 
 
 def _slabs(dev, packed) -> Tuple[torch.Tensor, int, int]:
@@ -626,13 +602,13 @@ def static_backward_trunk3(net, ws, dx, dmisc, slabs, nblk, w_total):
 def static_backward_inmlp(net, ws, drf, dmisc, d_dot, slabs, nblk, w_total):
   """K5d: the per-view input MLP's backward, then the slab reduction.
   Returns the packed f32 gradients and the input cotangents (as
-  static_backward_trunk's, without ``s``).  Two 64-point blocks fit an SM:
-  the grid is 2 · nblk persistent blocks."""
+  static_backward_trunk's, without ``s``).  Two blocks of 256 threads fit
+  an SM: the grid is 2 · nblk persistent blocks.  Reads the fragment-major
+  weights and transposes (``pack_frag``, ``pack_frag_t``)."""
   dev = drf.device
   r, s, v, c = ws["rgb_feat"].shape
   p = r * s
-  w, b, meta = pack_weights(net, True)
-  wt = pack_transposed(net, True)
+  _, b, meta = pack_weights(net, True)
   f32 = dict(dtype=torch.float32, device=dev)
   out = dict(rgb_feat=torch.empty((p, v, c), **f32),
              ray_diff=torch.empty((p, v, 4), **f32),
@@ -640,10 +616,11 @@ def static_backward_inmlp(net, ws, drf, dmisc, d_dot, slabs, nblk, w_total):
              pts=torch.empty((p, 3), **f32),
              reffeat=torch.empty((p, c), **f32))
   fn = _fn("static_agg_bwd3", "dyn_static_agg_bwd_inmlp", _ST_INMLP_ARGS)
-  build.check(fn(w.data_ptr(), wt.data_ptr(), b.data_ptr(),
-                 _zeros(dev).data_ptr(), _meta_ptr(meta),
-                 ws["pts"].data_ptr(), ws["reffeat"].data_ptr(),
-                 ws["ray_diff"].data_ptr(), ws["src_pl"].data_ptr(),
+  build.check(fn(pack_frag(net, True).data_ptr(),
+                 pack_frag_t(net, True).data_ptr(), b.data_ptr(),
+                 _meta_ptr(meta), ws["pts"].data_ptr(),
+                 ws["reffeat"].data_ptr(), ws["ray_diff"].data_ptr(),
+                 ws["src_pl"].data_ptr(),
                  drf.data_ptr(), dmisc.data_ptr(), d_dot.data_ptr(),
                  out["rgb_feat"].data_ptr(), out["ray_diff"].data_ptr(),
                  out["src_pl"].data_ptr(), out["pts"].data_ptr(),

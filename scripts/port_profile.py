@@ -7,6 +7,7 @@
     python3 scripts/port_profile.py --forward [--iters 3]
     python3 scripts/port_profile.py --backward [--iters 3]
     python3 scripts/port_profile.py --frame [--iters 3]
+    python3 scripts/port_profile.py --sample [--iters 3]
     python3 scripts/port_profile.py --phases [fwd|bwd] [--train | --mono |
         --forward] [...]
 
@@ -27,7 +28,12 @@ kernels' shapes: the dynamic one on routes "pallas_split" (K3r, K4a, K4b)
 and "pallas" (K3p, K4s), the static one on "pallas_split3" (K2r, K5a,
 K5c, K5d); with --frame renders 288x512 FF frames (render_image_ff at chunk 4096, the
 featmap encode included) and prints their host-clock seconds (one
-warm-up, then --iters frames; no profiler).
+warm-up, then --iters frames; no profiler); with --sample runs the
+sampler K1 alone at the FF eval chunk's four calls (1024 rays, S 64 and
+128, 7 and 11 views, 288x512 RGB and 72x128x32 feature maps, bf16, grids
+along epipolar segments from a seed): the fused launch into rgb_feat
+(where the tree has it) and the gather it replaced (K1 on each map, the
+concatenation and the aggregators' contiguous copy), one profile each.
 Prints the device time per kernel name (summed over the profiled
 iterations, divided by them), the wall time per iteration and the
 device's busy share of it, and the peak device memory of the profiled
@@ -94,8 +100,8 @@ FWD_TRUNK_PHASES = ("input features", "input MLP products", "pooling-1",
                     "view products", "view elementwise",
                     "re-pooling + geometry_fc")
 INMLP_PHASES = ("input staging + encodings", "forward recompute",
-                "transposed products", "dW (products + flush)", "bias gradients",
-                "output assembly")
+                "transposed products", "dW (products + flush)",
+                "bias gradients", "output assembly")
 SINGLE_PHASES = ("trunk recompute", "ray phase", "trunk-bwd phase",
                  "hand-off (barriers between phases)")
 PHASES = {
@@ -162,6 +168,8 @@ def main() -> int:
                   help="an aggregator's fwd+bwd alone at BACKWARD_SHAPES")
   ap.add_argument("--frame", action="store_true",
                   help="host-clock seconds per 288x512 FF frame")
+  ap.add_argument("--sample", action="store_true",
+                  help="the sampler K1 alone at the FF eval chunk's calls")
   ap.add_argument("--phases", nargs="?", const="all", default=None,
                   choices=sorted(PHASE_LIBS),
                   help="per-phase clocks of the backwards K5a/K5b, K5c/K5d, "
@@ -175,6 +183,7 @@ def main() -> int:
                          "--format=csv,noheader"], capture_output=True,
                         text=True, check=True).stdout.strip()
   libs = (("static_agg", "dynamic_agg") if args.forward
+          else ("sample",) if args.sample
           else build.KERNEL_SOURCES if args.train or args.mono
           or args.backward
           else ("sample", "static_agg", "dynamic_agg"))
@@ -186,6 +195,8 @@ def main() -> int:
     return _backward(args, card, dev)
   if args.frame:
     return _frame(args, card, dev)
+  if args.sample:
+    return _sample(args, card, dev)
   if args.mono:
     cfg = mono_render_settings(num_source_views=7, num_vv=3, n_samples=64,
                                num_basis=6, compute_dtype="bfloat16",
@@ -263,6 +274,38 @@ def _frame(args, card: str, dev) -> int:
   print(f"frame {h}x{w}: {sum(secs) / len(secs):.4f} s/frame, mean of "
         f"{len(secs)} (min {min(secs):.4f}, max {max(secs):.4f})")
   print(json.dumps({"what": "frame", "s_per_frame": secs, "card": card}))
+  return 0
+
+
+def _sample(args, card: str, dev) -> int:
+  """K1 at each of the FF eval chunk's four calls: the fused launch (where
+  ops/sample.py has it) and the two single-map launches with the
+  concatenation and the contiguous copy in [R,S,V,3+C], one profile each.
+  Each ray's samples walk a segment of an epipolar line in every view, the
+  rays' segments start in a 64x64-pixel patch."""
+  from dynibar_tpu_torch.ops import sample
+  pair = getattr(sample, "sample_views_pair", None)
+  gen = torch.Generator(device=dev).manual_seed(0)
+  r = 1024
+  for s, v in ((64, 7), (64, 11), (128, 7), (128, 11)):
+    rgbs = torch.rand(v, 288, 512, 3, generator=gen, device=dev).to(
+        torch.bfloat16)
+    feats = torch.randn(v, 72, 128, 32, generator=gen, device=dev).to(
+        torch.bfloat16)
+    start = (torch.rand(v, r, 1, 2, generator=gen, device=dev) * 0.25 - 0.125)
+    step = torch.rand(v, 1, 1, 2, generator=gen, device=dev) * 1.6 - 0.8
+    t = torch.linspace(0.0, 1.0, s, device=dev).view(1, 1, s, 1)
+    grid = (start + t * step).contiguous()
+
+    def chain(rgbs=rgbs, feats=feats, grid=grid):
+      rgb_feat = torch.cat([sample.sample_views(rgbs, grid),
+                            sample.sample_views(feats, grid)], dim=-1)
+      return rgb_feat.permute(1, 2, 0, 3).contiguous()
+    _profile(chain, args, card, f"K1 gather, cat and copy R {r} S {s} V {v}")
+    if pair is not None:
+      _profile(lambda rgbs=rgbs, feats=feats, grid=grid: pair(rgbs, feats,
+                                                              grid),
+               args, card, f"K1 fused R {r} S {s} V {v}")
   return 0
 
 

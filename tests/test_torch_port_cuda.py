@@ -31,7 +31,9 @@ from dynibar_tpu_torch.models.aggregators import (DynamicAggregator,
 from dynibar_tpu_torch.ops import agg
 from dynibar_tpu_torch.ops.agg import (fused_dynamic_aggregator,
                                        fused_static_aggregator)
-from dynibar_tpu_torch.ops.sample import sample_views, sample_views_plain
+from dynibar_tpu_torch.ops.sample import (sample_views, sample_views_pair,
+                                          sample_views_pair_plain,
+                                          sample_views_plain)
 from dynibar_tpu_torch.utils.kernel_check import (ATTN_FIELDS,
                                                   aggregator_grads,
                                                   all_grads,
@@ -55,17 +57,33 @@ def dev():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [3, 32])
-def test_sampler_kernel(dev, dtype, c):
-  g = torch.Generator().manual_seed(c)
-  maps = torch.randn(3, 37, 53, c, generator=g).to(dev, dtype)
-  grid = (torch.rand(3, 17, 9, 2, generator=g) * 2.4 - 1.2).to(dev)
+@pytest.mark.parametrize("entry,v,c", [
+    ("one map", 3, 3), ("one map", 3, 32),
+    # the fused entry: RGB and features into [R,S,V,3+C]; 17 x 9 points,
+    # so the last tile of rows is ragged at every V
+    ("pair", 1, 32), ("pair", 7, 32), ("pair", 11, 32), ("pair", 14, 32),
+    ("pair", 7, 8), ("pair", 11, 5)])
+def test_sampler_kernel(dev, dtype, entry, v, c):
+  """K1 within one ulp of its twin (one bf16 ulp, 2^-20 in f32: the same
+  f32 interpolation, summed in another order), points outside the maps and
+  on their corners included."""
+  g = torch.Generator().manual_seed(10 * v + c)
+  maps = torch.randn(v, 37, 53, c, generator=g).to(dev, dtype)
+  rgbs = torch.rand(v, 111, 157, 3, generator=g).to(dev, dtype)
+  grid = (torch.rand(v, 17, 9, 2, generator=g) * 2.4 - 1.2).to(dev)
   grid[0, 0, :4] = torch.tensor([[-1.0, -1.0], [1.0, 1.0], [-1e6, 0.0],
                                  [1.0, -1.0]], device=dev)
   before = sample_views.launches
-  got = sample_views(maps, grid).float()
+  if entry == "pair":
+    got = sample_views_pair(rgbs, maps, grid)
+    assert got.shape == (17, 9, v, 3 + c) and got.is_contiguous()
+    want = sample_views_pair_plain(rgbs, maps, grid)
+  else:
+    got = sample_views(maps, grid)
+    want = sample_views_plain(maps, grid)
   assert sample_views.launches == before + 1
-  want = sample_views_plain(maps, grid).float()
+  assert got.dtype == dtype
+  got, want = got.float(), want.float()
   ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -20
   assert bool(((got - want).abs()
                <= ulp * torch.maximum(got.abs(), want.abs()) + 1e-6).all())
@@ -160,12 +178,12 @@ def test_static_backward_kernels(dev, r, s, v, anti_alias, mask_rgb, seed):
 
 @pytest.mark.parametrize("seed", WEIGHT_SEEDS)
 @pytest.mark.parametrize("r,s,v", [(64, 16, 14), (6, 64, 14), (64, 16, 11),
-                                   (6, 128, 11)])
+                                   (6, 128, 11), (5, 48, 14)])
 def test_static_split3_backward_kernels(dev, r, s, v, seed):
   """K5a + K5c + K5d vs the twins, and against K5a + K5b on the same
   inputs: the same bf16 products summed in another order, so every
   gradient within 1e-3 of its f32 scale (``s``: the sum of its per-point
-  terms' magnitudes)."""
+  terms' magnitudes).  5 x 48 points end in a ragged 64-point block."""
   d = _inputs(dev, s, v, seed=7 * s + v, R=r)
   torch.manual_seed(seed)
   net = StaticAggregator(F, s).to(dev)
@@ -177,6 +195,35 @@ def test_static_split3_backward_kernels(dev, r, s, v, seed):
     scale = (float(g_f["s.per_point"].abs().sum()) if name == "s"
              else float(g_f[name].abs().max()))
     err = float((g3[name] - want).abs().max())
+    assert err <= 1e-3 * scale + 1e-7, (name, err, scale)
+
+
+@pytest.mark.parametrize("seed", WEIGHT_SEEDS)
+def test_static_split3_inmlp_many_blocks(dev, seed):
+  """K5d with several 64-point blocks per persistent block: 150 rays at the
+  mono step's S = 64 and V = 14 are 150 blocks, more than the card's
+  persistent blocks, so K5d's gradients kept in shared memory add up over
+  blocks before their flush.  Every gradient vs the twins, as
+  test_static_split3_backward_kernels holds them; K5d's own (ray_dir_fc,
+  ref_feature_fc and the input cotangents) within 1e-3 of their f32
+  scale of K5a + K5b's.  K5c's one-column biases are left to the twins'
+  bars at this size: their f32 sums over 134,400 terms cancel to about
+  1e-4, where the two routes' summation orders alone differ by about
+  1e-3 of it (PERF.md section 7)."""
+  r, s, v = 150, 64, 14
+  d = _inputs(dev, s, v, seed=7 * s + v, R=r)
+  torch.manual_seed(seed)
+  net = StaticAggregator(F, s).to(dev)
+  args = [d[k] for k in ("pts", "ref_pl", "src_pl", "rgb_feat", "ray_diff",
+                         "mask")]
+  cot, g3, g_f = _check_backward(dev, net, True, args, r, s, "pallas_split3")
+  _, g2 = aggregator_grads(net, True, args, cot, "kernel")
+  mine = [n for n in g2
+          if n.startswith(("input.", "ray_dir_fc.", "ref_feature_fc."))]
+  assert len(mine) == 11
+  for name in mine:
+    err = float((g3[name] - g2[name]).abs().max())
+    scale = float(g_f[name].abs().max())
     assert err <= 1e-3 * scale + 1e-7, (name, err, scale)
 
 
