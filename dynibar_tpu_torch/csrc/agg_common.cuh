@@ -194,8 +194,8 @@ __device__ __forceinline__ void dense_unit_deep(const bf16* X, int ldx,
 // ray_dir_fc's 48-column second layer runs six units of two row tiles in
 // one round, not twelve of one in two).  Optionally over the weight
 // columns [k0, k0 + kn) only (X's columns 0..kn) and without the bias.
-// NTH: the block's threads (the trunk backwards and K5d run 512).  Ends
-// without a block barrier.
+// NTH: the block's threads (the trunk backwards run 512).  Ends without a
+// block barrier.
 template <int NTH = NT, typename EP>
 __device__ void dense_deep(const bf16* X, int ldx, int rows, const bf16* W,
                            const float* B, const Lin L, EP ep, int k0 = 0,

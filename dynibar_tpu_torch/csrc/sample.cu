@@ -143,8 +143,10 @@ __device__ __forceinline__ void gather_vec(const T* m, int H, int W, int C,
   for (int j = 0; j < VEC; ++j) dst[j] = from_f<T>(acc[j]);
 }
 
+// at most 512 threads a block and three blocks an SM: 40 registers, 48
+// warps in flight for the gathers' latency
 template <typename T>
-__global__ void __launch_bounds__(1024) sample_kernel(SampleArgs<T> a) {
+__global__ void __launch_bounds__(512, 3) sample_kernel(SampleArgs<T> a) {
   constexpr int VEC = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
   T* tile = reinterpret_cast<T*>(smem);
@@ -226,7 +228,7 @@ int launch(const void* map_a, int ha, int wa, int ca, const void* map_b,
   const int chunks = a.na + a.nb;
   a.rows = (512 / chunks) & ~7;
   if (a.rows < 8) a.rows = 8;
-  if (cb < 1 || a.rows * chunks > 1024) return (int)cudaErrorInvalidValue;
+  if (cb < 1 || a.rows * chunks > 512) return (int)cudaErrorInvalidValue;
   const long long nq = (long long)V * N;
   if (nq == 0) return 0;
   a.ntiles = (int)((nq + a.rows - 1) / a.rows);
