@@ -24,8 +24,8 @@
 // owns a tile of rows (a multiple of 8, so that every tile starts 16-byte
 // aligned) and a thread one chunk of a row: the RGB map's 3 channels, or 8
 // bf16 (4 f32) feature channels read as 16-byte loads (4 scalar channels
-// when C is not a multiple of that).  Threads of one chunk kind fill whole
-// warps.  Each thread finds its row's point and view with one division,
+// when C is not a multiple of that).  The RGB chunks' threads come first
+// (at the main path's shapes whole warps of them).  Each thread finds its row's point and view with one division,
 // computes the corners and weights, loads its four corners before the
 // multiply-adds (read-only loads; 32-bit offsets, checked by the wrapper)
 // and writes its values into the tile in shared memory; the block then
@@ -66,8 +66,7 @@ struct SampleArgs {
   int point_major;       // row q = n V + v (1) or v N + n (0)
   int na, nb, bvec;      // chunks per row of each map; B 16-byte chunks
   int direct;            // one map of 16-byte rows: chunks stored directly
-  int rows;              // rows per tile (a multiple of 8)
-  int ntiles;
+  int rows;              // rows per block's tile (a multiple of 8)
 };
 
 // The four corners of normalized point g in an H x W map: pixel offsets
@@ -156,50 +155,46 @@ __global__ void __launch_bounds__(512, 3) sample_kernel(SampleArgs<T> a) {
   const bool is_a = t < a.rows * a.na;
   const int u = is_a ? t : t - a.rows * a.na, per = is_a ? a.na : a.nb;
   const int row = u / per, j = u - row * per;
-  const int nq = a.V * a.N;
-  for (int ti = blockIdx.x; ti < a.ntiles; ti += gridDim.x) {
-    const int q0 = ti * a.rows, nrows = min(a.rows, nq - q0);
-    if (row < nrows) {
-      const int q = q0 + row;
-      int n, v;
-      if (a.point_major) {
-        n = q / a.V;
-        v = q - n * a.V;
-      } else {
-        v = q / a.N;
-        n = q - v * a.N;
-      }
-      const float2 g =
-          __ldg(reinterpret_cast<const float2*>(a.grid) + v * a.N + n);
-      T* dst = tile + row * rl;
-      if (a.direct) {        // straight to the row, no tile
-        int4 vals;
-        gather_vec(a.map_b + v * a.HB * a.WB * a.CB, a.HB, a.WB, a.CB,
-                   VEC * j, g, reinterpret_cast<T*>(&vals));
-        __stcs(reinterpret_cast<int4*>(a.out + q * rl + VEC * j), vals);
-      } else if (is_a) {
-        gather_scalar(a.map_a + v * a.HA * a.WA * a.CA, a.HA, a.WA, a.CA,
-                      4 * j, min(4, a.CA - 4 * j), g, dst + 4 * j);
-      } else {
-        const T* m = a.map_b + v * a.HB * a.WB * a.CB;
-        if (a.bvec)
-          gather_vec(m, a.HB, a.WB, a.CB, VEC * j, g, dst + a.CA + VEC * j);
-        else
-          gather_scalar(m, a.HB, a.WB, a.CB, 4 * j, min(4, a.CB - 4 * j), g,
-                        dst + a.CA + 4 * j);
-      }
+  const int q0 = blockIdx.x * a.rows, nrows = min(a.rows, a.V * a.N - q0);
+  if (row < nrows) {
+    const int q = q0 + row;
+    int n, v;
+    if (a.point_major) {
+      n = q / a.V;
+      v = q - n * a.V;
+    } else {
+      v = q / a.N;
+      n = q - v * a.N;
     }
-    if (a.direct) continue;
-    __syncthreads();
-    // the tile is one contiguous range of the output, 16-byte aligned
-    const int ne = nrows * rl, n16 = ne * (int)sizeof(T) / 16;
-    int4* o = reinterpret_cast<int4*>(a.out + q0 * rl);
-    for (int e = t; e < n16; e += blockDim.x)
-      __stcs(o + e, reinterpret_cast<const int4*>(tile)[e]);
-    for (int e = n16 * (16 / (int)sizeof(T)) + t; e < ne; e += blockDim.x)
-      a.out[q0 * rl + e] = tile[e];
-    __syncthreads();
+    const float2 g =
+        __ldg(reinterpret_cast<const float2*>(a.grid) + v * a.N + n);
+    T* dst = tile + row * rl;
+    if (a.direct) {        // straight to the row, no tile
+      int4 vals;
+      gather_vec(a.map_b + v * a.HB * a.WB * a.CB, a.HB, a.WB, a.CB,
+                 VEC * j, g, reinterpret_cast<T*>(&vals));
+      __stcs(reinterpret_cast<int4*>(a.out + q * rl + VEC * j), vals);
+    } else if (is_a) {
+      gather_scalar(a.map_a + v * a.HA * a.WA * a.CA, a.HA, a.WA, a.CA,
+                    4 * j, min(4, a.CA - 4 * j), g, dst + 4 * j);
+    } else {
+      const T* m = a.map_b + v * a.HB * a.WB * a.CB;
+      if (a.bvec)
+        gather_vec(m, a.HB, a.WB, a.CB, VEC * j, g, dst + a.CA + VEC * j);
+      else
+        gather_scalar(m, a.HB, a.WB, a.CB, 4 * j, min(4, a.CB - 4 * j), g,
+                      dst + a.CA + 4 * j);
+    }
   }
+  if (a.direct) return;
+  __syncthreads();
+  // the tile is one contiguous range of the output, 16-byte aligned
+  const int ne = nrows * rl, n16 = ne * (int)sizeof(T) / 16;
+  int4* o = reinterpret_cast<int4*>(a.out + q0 * rl);
+  for (int e = t; e < n16; e += blockDim.x)
+    __stcs(o + e, reinterpret_cast<const int4*>(tile)[e]);
+  for (int e = n16 * (16 / (int)sizeof(T)) + t; e < ne; e += blockDim.x)
+    a.out[q0 * rl + e] = tile[e];
 }
 
 template <typename T>
@@ -231,9 +226,9 @@ int launch(const void* map_a, int ha, int wa, int ca, const void* map_b,
   if (cb < 1 || a.rows * chunks > 512) return (int)cudaErrorInvalidValue;
   const long long nq = (long long)V * N;
   if (nq == 0) return 0;
-  a.ntiles = (int)((nq + a.rows - 1) / a.rows);
+  const int blocks = (int)((nq + a.rows - 1) / a.rows);
   const size_t smem = (size_t)a.rows * (ca + cb) * sizeof(T);
-  sample_kernel<T><<<a.ntiles, a.rows * chunks, smem, s>>>(a);
+  sample_kernel<T><<<blocks, a.rows * chunks, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 

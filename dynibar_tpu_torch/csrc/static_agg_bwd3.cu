@@ -19,8 +19,8 @@
 // What bounds them on the H100: operations.  Per point and view the input
 // MLP is 2·(112·256 + 256·48) flops forward, three times that here; the
 // trunk's are about eight times more.  K5d also reads d_rf_tot (0.77 GB at
-// the mono step's V = 14, P = 196,608), about as long at the memory's rate
-// as its products at the tensor cores'.
+// the mono step's V = 14, P = 196,608): at the memory's rate, a third of
+// its products' time at the tensor cores'.
 //
 // Design: the split moves the input MLP out of the trunk kernel, whose
 // shared memory sets the trunk's tile (one view's activations and

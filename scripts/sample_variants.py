@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -43,7 +42,7 @@ VARIANTS = {
                      "a.rows = (256 / chunks) & ~7;"),
                     ("a.rows * chunks > 512", "a.rows * chunks > 256")],
     "no tile": [("T* dst = tile + row * rl;", "T* dst = a.out + q * rl;"),
-                ("if (a.direct) continue;", "continue;")],
+                ("if (a.direct) return;", "return;")],
 }
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
