@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the FF eval render, the
-FF fine-stage train step, the mono model's eval chunk and train step, and
-the monocular training CLI from an on-disk scene to checkpoints.
+FF fine-stage train step, the mono model's eval chunk and train step, the
+monocular training CLI from an on-disk scene to checkpoints, and the
+Nvidia benchmark eval CLI on an on-disk scene.
 
     python3 chip_smoke.py
 
@@ -18,6 +19,9 @@ is non-zero and the last line below is never printed):
      also against F.grid_sample; K2/K3 at the fine stage also
      with their two launches' device ms (trunk_kernel, ray_kernel, from
      torch.profiler), the previous design's recorded ms and the bound;
+     K2 with the rgb mask off (the eval configs' mask_rgb = 0) at both
+     stages, on the stages' inputs and with a quarter of the source
+     pixels black, at the same bars;
   2b. K2/K3 (no grad) at the train step's fine-stage shapes as in 2 (V =
      11, 7 and 6); hold the training kernels against their twins at those
      shapes, N_rand = 3072 rays: K2r/K3r forwards and the
@@ -77,9 +81,21 @@ is non-zero and the last line below is never printed):
      with the last checkpoint's weights held against a plain-path render
      of the same view (rgb within 3e-2); then a second run that resumes
      at the saved step with the saved parameters and runs one more epoch;
+  9. the Nvidia eval CLI (cli/eval_nvidia.main) on
+     configs_nvidia/eval_balloon1_long.txt (64 + 64 samples, 7 + 11
+     views, bf16, mask_rgb = 0, mask_static, chunk 8192) over a 12-frame
+     288×512 scene the port writes to a temporary directory (the seconds
+     that took printed), one frame (--max_frames 1): 11 viewpoints, finite
+     PSNR / SSIM in the three regions, LPIPS NaN (no weights), K1 / K2 /
+     K3 launched 4 / 2 / 2 times per chunk, 18 chunks per viewpoint frame;
+     s per viewpoint frame (the CLI's log: data, render, metrics), s for
+     the frame of 11 viewpoints and peak memory; viewpoint 0 rendered
+     again through the plain twins from the CLI's own inputs, rgb within
+     3e-2, both PSNRs against the ground truth printed;
   7. print the kernels line (13 kernels; K1 with its single-map times, K2
-     and K3 with their forward reports of 2, 2b and 6a), the card line,
-     then the result line.
+     and K3 with their forward reports of 2, 2b and 6a; K1-K3 with their
+     launches per eval viewpoint frame, K2 with its mask_rgb = 0 error),
+     the card line, then the result line.
 
 Weights are random, from a seed.  Needs one card and no network.
 """
@@ -87,9 +103,12 @@ Weights are random, from a seed.  Needs one card and no network.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1046,6 +1065,165 @@ def _cli_phase(card, dev, h, w, frames=48, n_rand=3072, chunk=4096):
   return launches
 
 
+def _mask_rgb0_check(dev, nets, stage_args):
+  """K2 with the rgb mask off (the Nvidia eval configs' mask_rgb = 0) vs
+  its twin at the eval's coarse and fine shapes, on the stages' inputs as
+  they are and with a quarter of the source pixels black (which the mask
+  would drop, so the branch changes the output); the phase 2 bars."""
+  from dynibar_tpu_torch.ops import agg
+  errs = []
+  g = torch.Generator(device=dev).manual_seed(SEED + 2)
+  with torch.no_grad():
+    for stage, net, args in zip(("coarse", "fine"), nets, stage_args):
+      net0 = copy.deepcopy(net)
+      net0.mask_rgb = False
+      rgb_feat = args[3]
+      keep = (torch.rand(rgb_feat.shape[:3] + (1,), generator=g,
+                         device=dev) > 0.25).to(rgb_feat.dtype)
+      black = torch.cat([rgb_feat[..., :3] * keep, rgb_feat[..., 3:]], -1)
+      for label, feats in (("", rgb_feat), (", black pixels", black)):
+        a = list(args)
+        a[3] = feats.contiguous()
+        want = net0(*a)
+        errs.append(_compare_raw(f"K2 mask_rgb=0 {stage}{label}",
+                                 agg.fused_static_aggregator(net0, *a), want,
+                                 2e-2, 2e-2))
+      if torch.allclose(net(*a), want):
+        raise AssertionError(f"K2 mask_rgb=0 {stage}: the black pixels "
+                             "did not change the twin's output")
+      del net0, keep, black, a, want
+  torch.cuda.synchronize()
+  print(f"K2 at mask_rgb=0 (the eval configs) vs its twin: max abs err "
+        f"coarse {max(errs[:2]):.3g}, fine {max(errs[2:]):.3g} (inputs as "
+        f"they are / a quarter of the pixels black: "
+        f"{[round(e, 5) for e in errs]})", flush=True)
+  return max(errs)
+
+
+def _viewpoint_times(text, frame):
+  """The eval CLI's per-viewpoint seconds and its frame's seconds."""
+  views = [(int(c), float(t)) for c, t in re.findall(
+      rf"^frame {frame} cam (\d+): psnr=\S+ ssim=\S+ \(([\d.]+)s\)$",
+      text, re.M)]
+  whole = re.findall(rf"^frame {frame}: (\d+) viewpoints in ([\d.]+)s$",
+                     text, re.M)
+  return views, whole
+
+
+class _Tee(io.StringIO):
+  """Standard output kept as well as printed."""
+
+  def write(self, text):
+    sys.__stdout__.write(text)
+    return super().write(text)
+
+
+def _eval_phase(card, dev, h, w, frames=12, chunk=8192):
+  """Phase 9: the Nvidia eval CLI (cli/eval_nvidia.main) on a scene the
+  port writes, at the eval config's width; one viewpoint against the plain
+  path.  Returns the launches per viewpoint frame."""
+  import tempfile
+  from dynibar_tpu_torch.cli import eval_nvidia as cli_eval
+  from dynibar_tpu_torch.data.synthetic_scene import (
+      write_synthetic_nvidia_scene)
+  from dynibar_tpu_torch.eval import nvidia_eval
+  from dynibar_tpu_torch.eval.metrics import masked_psnr
+  config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs_nvidia", "eval_balloon1_long.txt")
+  scene, frame = "Balloon1", 3
+  with tempfile.TemporaryDirectory() as root:
+    t0 = time.perf_counter()
+    write_synthetic_nvidia_scene(root, scene, num_frames=frames, height=h,
+                                 width=w)
+    n_files = sum(len(f) for _, _, f in os.walk(root))
+    print(f"eval: wrote a {frames}-frame {h}x{w} Nvidia scene ({n_files} "
+          f"files, {frames * 12} of them JPEGs) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # the CLI's renders timed (host clock; the render ends in a readback),
+    # the first (viewpoint 0) kept to hold against the plain path below
+    first, render_s, inner = {}, [], nvidia_eval.render_image_ff
+
+    def recording(*a, **kw):
+      t = time.perf_counter()
+      out = inner(*a, **kw)
+      render_s.append(time.perf_counter() - t)
+      if not first:
+        first.update(args=a, kw=kw, rgb=out["outputs_fine_ref"]["rgb"])
+      return out
+
+    args = ["--config", config, "--folder_path", root, "--rootdir", root,
+            "--max_frames", "1"]
+    log = _Tee()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nvidia_eval.render_image_ff = recording
+    _zero_counts()
+    try:
+      t0 = time.perf_counter()
+      with contextlib.redirect_stdout(log):
+        results = cli_eval.main(args)
+      torch.cuda.synchronize()
+      cli_s = time.perf_counter() - t0
+    finally:
+      nvidia_eval.render_image_ff = inner
+    launches = _read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    views, whole = _viewpoint_times(log.getvalue(), frame)
+    n_chunks = -(-h * w // chunk)
+    want = dict({k: 0 for k in launches}, K1=4 * n_chunks * len(views),
+                K2=2 * n_chunks * len(views), K3=2 * n_chunks * len(views))
+    table = results[scene]
+    if not (len(views) == 11 and [c for c, _ in views] == [
+        c for c in range(12) if c != frame % 12] and len(whole) == 1
+            and int(whole[0][0]) == 11 and launches == want
+            and all(np.isfinite(table[r][m]) for r in table
+                    for m in ("psnr", "ssim"))
+            and all(np.isnan(table[r]["lpips"]) for r in table)):
+      raise AssertionError(f"eval: viewpoints {views}, frame {whole}, "
+                           f"launches {launches} (want {want}), {table}")
+    secs = [t for _, t in views]
+    per_view = {k: launches[k] // len(views) for k in ("K1", "K2", "K3")}
+    print(f"eval launches per viewpoint frame: {per_view} ({n_chunks} chunks "
+          f"of {chunk} over {h * w} rays), {len(views)} viewpoints",
+          flush=True)
+    print(f"eval: {np.mean(secs):.3f} s per viewpoint frame at {h}x{w}, "
+          f"chunk {chunk}, mean of {len(secs)} (min {min(secs):.3f}, max "
+          f"{max(secs):.3f}; data, render, metrics); the frame of 11 "
+          f"viewpoints {float(whole[0][1]):.3f} s (featmaps encoded once); "
+          f"the CLI {cli_s:.1f} s; render_image_ff {np.mean(render_s):.3f} s "
+          f"per viewpoint (min {min(render_s):.3f}, max {max(render_s):.3f}), "
+          f"the rest {np.mean(secs) - np.mean(render_s):.3f} s (the batch's "
+          f"18 source frames, ground truth, masks, metrics); peak memory "
+          f"{peak_gib:.2f} GiB; psnr "
+          f"full / dynamic / static {table['full']['psnr']:.3f} / "
+          f"{table['dynamic']['psnr']:.3f} / {table['static']['psnr']:.3f} "
+          f"[{card}]", flush=True)
+
+    # viewpoint 0 through the plain twins, from the same inputs
+    a, kw = first["args"], dict(first["kw"], kernels=False)
+    plain = inner(*a[:5], 2048, *a[6:], **kw)["outputs_fine_ref"]["rgb"]
+    kern = first["rgb"]
+    err = float(np.abs(kern - plain).max())
+    gt_path = os.path.join(root, scene, "dense", "mv_images",
+                           f"{frame:05d}", "cam01.jpg")
+
+    def psnr(pred):
+      valid = np.tile(np.float32(pred.sum(-1, keepdims=True) > 1e-3),
+                      (1, 1, 3))
+      gt = nvidia_eval.imread_resized(gt_path, h, w) * valid
+      return masked_psnr(gt, pred * valid, valid)
+
+    if not (np.isfinite(kern).all() and kern.shape == (h, w, 3)
+            and err <= 3e-2):
+      raise AssertionError(f"eval: viewpoint 0 kernel vs plain rgb {err}")
+    print(f"eval viewpoint 0 (frame {frame}) vs the plain path: rgb max abs "
+          f"{err:.3g}; psnr against the ground truth kernel "
+          f"{psnr(kern):.4f}, plain {psnr(plain):.4f}", flush=True)
+    del first, plain, kern
+  torch.cuda.empty_cache()
+  return per_view
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1174,6 +1352,8 @@ def main() -> int:
           f"(plain {res['plain_ms']:.3f} ms, library {res['library_ms']}, "
           f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}), "
           f"max abs err {res['max_abs_err']:.3g} [{card}]", flush=True)
+  results["K2"]["mask_rgb0_max_abs_err"] = _mask_rgb0_check(
+      dev, (model.net_coarse_st, model.net_fine_st), (ins_c["st"], ins["st"]))
 
   # ---- 2b: the training kernels vs their twins (fine stage, N_rand) ------
   # the train step's fine-stage shapes: N_rand rays at once through the
@@ -1385,6 +1565,9 @@ def main() -> int:
 
   # ---- 8: the training CLI from an on-disk scene --------------------------
   cli_launches = _cli_phase(card, dev, h, w)
+
+  # ---- 9: the Nvidia eval CLI from an on-disk scene -----------------------
+  eval_launches = _eval_phase(card, dev, h, w)
   print(f"phases done in {time.perf_counter() - t_start:.1f} s", flush=True)
 
   # ---- 7: result ----------------------------------------------------------
@@ -1397,6 +1580,7 @@ def main() -> int:
   for key in ("K1", "K2", "K3"):
     res = dict(results[key])
     res["launches"] = launches[key]
+    res["eval_launches"] = eval_launches[key]
     if key != "K1":
       res["forward_shapes"] = dict(fwd_shapes[key], **mono_fwd[key])
     kernels.append(res)

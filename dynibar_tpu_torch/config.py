@@ -7,10 +7,13 @@ FF fine-stage and the mono train steps), with the JAX names.  The TPU-only
 layout switches (strip sampling, the channel-major handoff, fused RGB
 sampling) have no counterpart: the CUDA sampler is exact for every sample.
 ``mono_render_settings`` is the mono branch of ``DynibarConfig
-.render_settings`` (dynibar_tpu/config.py:225-265).  ``TrainSettings``
+.render_settings`` (dynibar_tpu/config.py:225-265); its field
+``mono_time_diff`` is read by no JAX render and has no counterpart.
+``TrainSettings``
 copies the ``DynibarConfig`` fields that the trainers and the loss
 schedule read, with the same defaults.  ``DynibarConfig`` holds the
-training CLI's knobs and reads the reference-style ``configs/*.txt``.
+training and eval CLIs' knobs and reads the reference-style
+``configs/*.txt`` and ``configs_nvidia/*.txt``.
 """
 
 from __future__ import annotations
@@ -136,8 +139,9 @@ STEP_SEED = 1
 
 @dataclasses.dataclass
 class DynibarConfig:
-  """The knobs of the monocular training CLI (``cli/train``), copied
-  from ``dynibar_tpu.config.DynibarConfig`` with its names and defaults
+  """The knobs of the monocular training CLI (``cli/train``) and the
+  Nvidia eval CLI (``cli/eval_nvidia``), copied from
+  ``dynibar_tpu.config.DynibarConfig`` with its names and defaults
   (reference config.py:6-375).  The TPU-only switches (strip sampling,
   fused RGB sampling, the channel-major handoff, buffer donation, remat,
   the fused-aggregator toggles) have no counterpart."""
@@ -150,6 +154,7 @@ class DynibarConfig:
 
   # data / masking options
   mask_src_view: bool = False
+  mask_static: bool = False
   training_height: int = 288
   erosion_radius: int = 1
 
@@ -178,6 +183,8 @@ class DynibarConfig:
   # datasets
   train_dataset: str = "monocular"
   train_scenes: List[str] = dataclasses.field(default_factory=list)
+  eval_dataset: str = "llff_test"
+  eval_scenes: List[str] = dataclasses.field(default_factory=list)
   render_idx: int = -1
 
   # checkpoints
@@ -204,6 +211,7 @@ class DynibarConfig:
 
   # rendering options
   N_samples: int = 64
+  N_importance: int = 64
   inv_uniform: bool = False
 
   # logging
@@ -253,20 +261,28 @@ class DynibarConfig:
     return os.path.join(self.rootdir, "out", self.experiment_name())
 
   def render_settings(self, mode: str = "mono") -> RenderSettings:
-    """The mono model's render settings; the FF modes belong to the FF
-    training and eval CLIs, not ported yet (ROADMAP queue 1 items 6, 9)."""
-    if mode != "mono":
-      raise NotImplementedError(f"render_settings({mode!r}): the port's "
-                                "DynibarConfig serves cli/train (mono)")
-    return mono_render_settings(
-        num_source_views=self.num_source_views, num_vv=self.num_vv,
-        n_samples=self.N_samples, num_basis=self.num_basis,
-        inv_uniform=self.inv_uniform, occ_weights_mode=self.occ_weights_mode,
-        anti_alias_pooling=bool(self.anti_alias_pooling),
-        mask_rgb=bool(self.mask_rgb), coarse_feat_dim=self.coarse_feat_dim,
-        fine_feat_dim=self.fine_feat_dim, compute_dtype=self.compute_dtype,
-        fused_bwd_impl=self.fused_bwd_impl,
-        fused_st_bwd_impl=self.fused_st_bwd_impl)
+    """The render settings of the mono model ("mono"), the FF fine-stage
+    training ("ff_train": 7 dynamic, 6 anchor, 11 static views) or the
+    Nvidia benchmark eval ("ff": 7, 0, 11), as
+    dynibar_tpu/config.py:222-254 builds them."""
+    kw = dict(n_samples=self.N_samples, num_basis=self.num_basis,
+              inv_uniform=self.inv_uniform,
+              occ_weights_mode=self.occ_weights_mode,
+              anti_alias_pooling=bool(self.anti_alias_pooling),
+              mask_rgb=bool(self.mask_rgb),
+              coarse_feat_dim=self.coarse_feat_dim,
+              fine_feat_dim=self.fine_feat_dim,
+              compute_dtype=self.compute_dtype,
+              fused_bwd_impl=self.fused_bwd_impl,
+              fused_st_bwd_impl=self.fused_st_bwd_impl)
+    if mode == "mono":
+      return mono_render_settings(num_source_views=self.num_source_views,
+                                  num_vv=self.num_vv, **kw)
+    if mode not in ("ff", "ff_train"):
+      raise ValueError(f"render_settings({mode!r}): mono, ff or ff_train")
+    return RenderSettings(n_importance=self.N_importance, num_views_dy=7,
+                          num_views_anchor=6 if mode == "ff_train" else 0,
+                          num_views_static=11, num_vv=0, **kw)
 
   def train_settings(self) -> TrainSettings:
     """The fields the optimizer and the loss schedule read."""

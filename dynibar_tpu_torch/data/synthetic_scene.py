@@ -5,9 +5,11 @@ same arrays, with the PNGs written by ``data/png.py`` (8-bit, filter 0).
 It writes ``poses_bounds_cvd.npy``, ``images/``, ``images_WxH/``,
 ``disp/``, ``flow_i{1,2,3}/``, ``dynamic_masks/``, ``static_masks/``,
 ``source_virtual_views_WxH/`` and ``source_vv_poses.npy``, so the training
-training CLI runs from disk without downloaded data.  The scene paints the same
+CLI runs from disk without downloaded data.  The scene paints the same
 image for every camera pose: it drives the data path, not novel-view
-quality.
+quality.  ``write_synthetic_nvidia_scene`` adds the Nvidia benchmark's
+ground truth on top, its JPEGs written by ``data/jpeg.py`` (the bytes
+imageio writes).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import os
 
 import numpy as np
 
-from dynibar_tpu_torch.data import png
+from dynibar_tpu_torch.data import jpeg, png
 
 
 def write_synthetic_scene(root: str, scene: str = "synthetic",
@@ -80,4 +82,35 @@ def write_synthetic_scene(root: str, scene: str = "synthetic",
   np.save(os.path.join(dense, "poses_bounds_cvd.npy"), np.stack(rows))
   np.save(os.path.join(dense, "source_vv_poses.npy"),
           np.moveaxis(np.stack(vv_poses), 0, -1).astype(np.float32))
+  return scene
+
+
+def write_synthetic_nvidia_scene(root: str, scene: str = "Balloon1",
+                                 num_frames: int = 12, height: int = 32,
+                                 width: int = 48, seed: int = 0) -> str:
+  """The Nvidia Dynamic Scenes benchmark layout on top of the monocular
+  scene: ``mv_images/<idx>/camXX.jpg`` and ``mv_masks/<idx>/camXX.png``
+  ground truth for the 12 round-robin viewpoints and ``coarse_masks/``
+  (reference eval_nvidia.py:100-169 read paths), so the whole eval
+  protocol runs.  Port of the JAX writer of the same name."""
+  write_synthetic_scene(root, scene, num_frames=num_frames, height=height,
+                        width=width, seed=seed)
+  dense = os.path.join(root, scene, "dense")
+  os.makedirs(os.path.join(dense, "coarse_masks"), exist_ok=True)
+  yy, xx = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+  for idx in range(num_frames):
+    mv_img_dir = os.path.join(dense, "mv_images", f"{idx:05d}")
+    mv_mask_dir = os.path.join(dense, "mv_masks", f"{idx:05d}")
+    os.makedirs(mv_img_dir, exist_ok=True)
+    os.makedirs(mv_mask_dir, exist_ok=True)
+    cx = width * (0.3 + 0.4 * idx / num_frames)
+    blob = np.exp(-(((xx - cx) ** 2) + (yy - height * 0.5) ** 2) / 20.0)
+    dyn = (blob > 0.2).astype(np.uint8) * 255
+    png.write(os.path.join(dense, "coarse_masks", f"{idx:05d}.png"),
+              255 - dyn)  # 1 = static
+    for cam in range(12):
+      img = np.clip(0.5 + 0.3 * np.sin((xx + yy + cam + idx) / 9.0), 0, 1)
+      img8 = (np.stack([img] * 3, axis=-1) * 255).astype(np.uint8)
+      jpeg.write(os.path.join(mv_img_dir, f"cam{cam + 1:02d}.jpg"), img8)
+      png.write(os.path.join(mv_mask_dir, f"cam{cam + 1:02d}.png"), dyn)
   return scene

@@ -122,22 +122,28 @@ class FFModel(nn.Module):
 
   def encode_featmaps(self, src_rgbs: torch.Tensor,
                       static_src_rgbs: torch.Tensor,
-                      anchor_src_rgbs: Optional[torch.Tensor] = None
+                      anchor_src_rgbs: Optional[torch.Tensor] = None,
+                      fine_static_src_rgbs: Optional[torch.Tensor] = None
                       ) -> Tuple[tuple, tuple]:
     """(coarse, fine) featmap triples (dynamic, anchor, static) as the
     reference eval routes them (eval_nvidia.py:335-358): dynamic <- coarse
     channels, static <- fine channels of each stage's feature net; no
-    anchor maps.  With ``anchor_src_rgbs`` the training routing of
-    ``compute_ff_featmaps`` (trainer.py:291-310): the coarse maps without
-    autograd, and fine anchor maps from feature_net_fine's coarse
-    channels."""
+    anchor maps.  ``fine_static_src_rgbs`` gives the fine stage other
+    static sources than the coarse stage's: the eval's ``mask_static``
+    hides the moving regions from the fine stage alone
+    (dynibar_tpu/eval/nvidia_eval.py:81-93).  With ``anchor_src_rgbs``
+    the training routing of ``compute_ff_featmaps`` (trainer.py:291-310):
+    the coarse maps without autograd, and fine anchor maps from
+    feature_net_fine's coarse channels."""
     with torch.set_grad_enabled(anchor_src_rgbs is None
                                 and torch.is_grad_enabled()):
       net = self.feature_net
       coarse = (net(src_rgbs)[0], None, net(static_src_rgbs)[1])
     net = self.feature_net_fine
     anchor = None if anchor_src_rgbs is None else net(anchor_src_rgbs)[0]
-    return coarse, (net(src_rgbs)[0], anchor, net(static_src_rgbs)[1])
+    fine_static = (static_src_rgbs if fine_static_src_rgbs is None
+                   else fine_static_src_rgbs)
+    return coarse, (net(src_rgbs)[0], anchor, net(fine_static)[1])
 
 
 class MonoModel(nn.Module):

@@ -115,13 +115,15 @@ def render_image_mono(model, rb: Dict[str, Any], featmaps,
 def render_image_ff(model, rb: Dict[str, Any], coarse_featmaps,
                     fine_featmaps, cfg: RenderSettings, chunk_size: int,
                     height: int, width: int,
-                    device: DeviceLike = None
+                    device: DeviceLike = None, kernels: bool = True
                     ) -> Dict[str, Dict[str, np.ndarray]]:
   """Render a full target view with the forward-facing model.
 
   Returns {'outputs_coarse_ref': {...}, 'outputs_fine_ref': {...}} of
   [H, W, ·] numpy arrays (rgb, depth, mask); rgb is zeroed where the mask
-  says no source view saw the ray (reference render_image.py:384-411)."""
+  says no source view saw the ray (reference render_image.py:384-411).
+  ``kernels=False`` renders through the plain twins (a comparison on the
+  card)."""
   dev = resolve_device(device)
   rb = to_device(rb, dev)
   n_rays = rb["ray_o"].shape[0]
@@ -131,7 +133,7 @@ def render_image_ff(model, rb: Dict[str, Any], coarse_featmaps,
     chunk = {k: (v[start:start + chunk_size] if k in _PER_RAY_KEYS else v)
              for k, v in rb.items()}
     ret = render_rays_mv(model, chunk, coarse_featmaps, fine_featmaps, cfg,
-                         device=dev)
+                         device=dev, kernels=kernels)
     for name, fields in parts.items():
       for k in _KEEP:
         fields[k].append(ret[name][k].float())

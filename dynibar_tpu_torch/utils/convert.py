@@ -14,6 +14,11 @@ This is the port's own copy of the name mapping: MLP ``dense_i`` is the
 reference's Sequential index 2i (activations own no parameters), the
 trunk lives under ``vis_pooling`` in the pytree and at top level in the
 reference's names.
+
+``load_reference_ff_checkpoint`` reads a google/dynibar coarse + fine
+``.pth`` pair (the keys ``dynibar_tpu/utils/torch_convert.py:195-219``
+reads) straight into an ``FFModel``: the port's parameters carry the
+reference's names, so nothing is transposed.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import numpy as np
 import torch
 
 from dynibar_tpu_torch.config import RenderSettings
-from dynibar_tpu_torch.models.dynibar import FFModel, MonoModel
+from dynibar_tpu_torch.models.dynibar import (FF_COARSE_KEYS, FF_FINE_KEYS,
+                                              FFModel, MonoModel)
 
 Entry = Tuple[Tuple[str, ...], str, str]
 
@@ -198,3 +204,40 @@ def load_jax_params(model, params: Dict[str, Any]) -> None:
   of the same kind strictly (no missing or unexpected keys)."""
   model.load_state_dict(
       jax_params_to_state_dict(params, model_entries(model)), strict=True)
+
+
+def load_reference_ff_checkpoint(model: FFModel, coarse_pth: str,
+                                 fine_pth: str) -> None:
+  """Load a reference DynibarFF coarse + fine ``.pth`` pair into `model`:
+  the coarse file's ``net_coarse_st``, ``net_coarse_dy``, ``feature_net``,
+  ``motion_mlp`` and ``traj_basis``, the fine file's ``*_fine`` groups,
+  ``module.`` prefixes dropped.  Reference keys the port does not build
+  (the feature net's dead layer2/3 and decoder) are skipped; a missing or
+  mis-shaped key raises."""
+  sd: Dict[str, torch.Tensor] = {}
+  for path, groups in ((coarse_pth, FF_COARSE_KEYS),
+                       (fine_pth, FF_FINE_KEYS)):
+    # the reference's files are whole pickles, read as the JAX package
+    # reads them
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    for group in groups:
+      if group not in ckpt:
+        raise KeyError(f"{path}: no {group!r} in the checkpoint")
+      value = ckpt[group]
+      if isinstance(value, torch.Tensor):
+        sd[group] = value
+        continue
+      for k, v in value.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        sd[f"{group}.{k}"] = torch.as_tensor(v)
+  own = model.state_dict()
+  missing = sorted(k for k in own if k not in sd)
+  if missing:
+    raise KeyError(f"reference checkpoint lacks {missing[:5]}")
+  shapes = [(k, tuple(sd[k].shape), tuple(v.shape)) for k, v in own.items()
+            if sd[k].shape != v.shape]
+  if shapes:
+    raise ValueError(f"reference checkpoint shapes differ (key, file, "
+                     f"model): {shapes[:5]}")
+  model.load_state_dict({k: sd[k].detach().to(v.dtype)
+                         for k, v in own.items()}, strict=True)

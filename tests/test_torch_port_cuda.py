@@ -103,17 +103,36 @@ def _compare(got, want, atol):
 
 # the forward's edges: S = 40, 48, 64 and 128 (ragged 16-row attention
 # tiles and 64-row head chunks), V = 1 to 14; random_inputs gives ray 0 no
-# valid view and ray 1 exactly one
-@pytest.mark.parametrize("s,v", [(16, 4), (64, 11), (40, 11), (64, 14),
-                                 (16, 14), (48, 7), (128, 11), (128, 14),
-                                 (64, 1), (128, 1), (40, 14)])
-def test_static_kernel(dev, s, v):
+# valid view and ray 1 exactly one.  The Nvidia eval configs run K2 with
+# mask_rgb = 0 (configs_nvidia/eval_*_long.txt): at its coarse and fine
+# shapes (V = 11, S = 64 and 128) and a ragged S = 40, with the anti-alias
+# pooling on (as there) and off
+@pytest.mark.parametrize("s,v,anti_alias,mask_rgb", [
+    (16, 4, True, True), (64, 11, True, True), (40, 11, True, True),
+    (64, 14, True, True), (16, 14, True, True), (48, 7, True, True),
+    (128, 11, True, True), (128, 14, True, True), (64, 1, True, True),
+    (128, 1, True, True), (40, 14, True, True),
+    (64, 11, True, False), (128, 11, True, False), (40, 11, True, False),
+    (64, 11, False, False), (128, 11, False, False), (40, 11, False, False)])
+def test_static_kernel(dev, s, v, anti_alias, mask_rgb):
   d = _inputs(dev, s, v, seed=s + v)
-  net = StaticAggregator(F, s).to(dev).eval()
+  net = StaticAggregator(F, s, anti_alias_pooling=anti_alias,
+                         mask_rgb=mask_rgb).to(dev).eval()
+  if not mask_rgb:
+    # black source pixels, which the rgb mask would drop, so that the
+    # branch changes the output
+    g = torch.Generator().manual_seed(s * v)
+    keep = (torch.rand(R, s, v, 1, generator=g) > 0.25).float().to(dev)
+    d["rgb_feat"] = torch.cat([d["rgb_feat"][..., :3] * keep,
+                               d["rgb_feat"][..., 3:]], -1)
   args = [d[k] for k in ("pts", "ref_pl", "src_pl", "rgb_feat", "ray_diff",
                          "mask")]
   with torch.no_grad():
-    _compare(fused_static_aggregator(net, *args), net(*args), 2e-2)
+    want = net(*args)
+    _compare(fused_static_aggregator(net, *args), want, 2e-2)
+    if not mask_rgb:
+      net.mask_rgb = True
+      assert not torch.allclose(net(*args), want)
 
 
 @pytest.mark.parametrize("s,v", [(16, 3), (128, 7), (40, 7), (48, 11),

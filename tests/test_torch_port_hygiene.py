@@ -30,12 +30,15 @@ PKG = ROOT / "dynibar_tpu_torch"
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "dynibar_tpu")
 CFG = RenderSettings(n_samples=4, n_importance=4, num_views_dy=7,
                      num_views_static=3, inv_uniform=True)
-# the training CLI's modules: each must import with JAX blocked
+# the training and eval CLIs' modules: each must import with JAX blocked
 NEW_MODULES = ("cli/train.py", "data/png.py", "data/llff.py",
                "data/view_selection.py", "data/monocular.py",
                "data/factory.py", "data/pipeline.py",
                "data/synthetic_scene.py", "utils/checkpoints.py",
-               "utils/logging.py", "utils/viz.py", "train/view_logging.py")
+               "utils/logging.py", "utils/viz.py", "train/view_logging.py",
+               "cli/eval_nvidia.py", "data/jpeg.py", "data/resize.py",
+               "data/nvidia.py", "eval/metrics.py", "eval/lpips.py",
+               "eval/nvidia_eval.py")
 
 
 def _sources():
@@ -58,7 +61,7 @@ def test_scan_covers_every_subpackage():
   scanned = {p.parent for p in _sources()}
   packages = {p.parent for p in PKG.rglob("__init__.py")}
   assert packages <= scanned
-  assert {PKG / "train", PKG / "cli"} <= packages
+  assert {PKG / "train", PKG / "cli", PKG / "eval"} <= packages
   names = {p.relative_to(PKG).as_posix() for p in _sources() if PKG in
            p.parents}
   assert set(NEW_MODULES) <= names
