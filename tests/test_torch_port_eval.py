@@ -22,10 +22,9 @@ libraries, on the CPU (JAX in f32, which runs no Pallas kernel).
     ``alexnet.pth`` pair read by both ``load_torch_lpips``: within 1e-5
     relative, with and without a mask; without weights None and NaN;
   * ``evaluate_scene`` on a 16x24 scene with the JAX weights carried over
-    by ``load_jax_params``, ``mask_static`` off (on: the CLI test of
-    ``test_torch_port_eval_cli``, through ``evaluate_scene`` too): every
-    viewpoint's full, dynamic and static PSNR within 1e-3 dB, SSIM within
-    1e-5, and the same WARNING lines.
+    by ``load_jax_params``, ``mask_static`` on and off: every viewpoint's
+    full, dynamic and static PSNR within 1e-3 dB, SSIM within 1e-5, and
+    the same WARNING lines.
 
 Three choices make that comparison mean something, each against a
 tie that f32 rounding breaks either way in either package.  The fine
@@ -38,14 +37,14 @@ onto that column of every source, and at an early frame one source is
 the target camera itself, so every border pixel does; the in-bounds test
 there is a tie (``test_torch_port_render.test_frame_render`` leaves those
 pixels out for the same reason), and a border pixel that sees one view
-more or less differs by up to 0.8 in rgb.  At frame 18 every source is
-frame 12 or later, none is a target camera.  And the density heads'
-bias is lowered by 2: on a nearly opaque ray a zero-weight bin's pdf,
-1e-5 over the weights' sum, sits on the importance sampler's 1e-5 floor
-(``sample_pdf``'s ``denom < 1e-5``), and the last fine sample jumps a
-whole bin on a last-bit difference of the coarse weights (6 of 1536
-pixels per viewpoint, 0.004 dB, with the init's bias).  With all three
-the per-viewpoint PSNRs agree within 1e-6 dB and the SSIMs within 1e-7.
+more or less differs by a large part of its rgb.  At frame 18 every
+source is frame 12 or later, none is a target camera.  And the density
+heads' bias is lowered by 2: on a nearly opaque ray a zero-weight bin's
+pdf, 1e-5 over the weights' sum, sits on the importance sampler's 1e-5
+floor (``sample_pdf``'s ``denom < 1e-5``), and the last fine sample
+jumps a whole bin on a last-bit difference of the coarse weights.  Each
+of the three, left out, fails the PSNR bar; with all three the
+comparison holds it with room to spare.
 """
 
 import os
@@ -443,12 +442,11 @@ def check_metrics(got: Recorder, want: Recorder):
       l.split(":")[0] for l in want.warnings()]
 
 
-def test_evaluate_scene_matches_jax(eval_scenes, monkeypatch):
-  """mask_static off here; on (every eval config's value) in
-  test_torch_port_eval_cli, through both CLIs."""
+@pytest.mark.parametrize("mask_static", [True, False])
+def test_evaluate_scene_matches_jax(eval_scenes, monkeypatch, mask_static):
   jroot, proot = eval_scenes
-  cfg = _configs(proot, mask_static=False)[0]
-  jcfg = _configs(jroot, mask_static=False)[1]
+  cfg = _configs(proot, mask_static=mask_static)[0]
+  jcfg = _configs(jroot, mask_static=mask_static)[1]
   jmodel, params = jax_ff_params(jcfg.render_settings("ff"))
   model = FFModel(cfg.render_settings("ff"), EVAL_FRAMES, device="cpu")
   convert.load_jax_params(model, params)

@@ -7,10 +7,9 @@ on the CPU, mirroring ``tests/test_eval_cli_configs.py``:
   * a reference-layout coarse + fine ``.pth`` pair written here gives the
     port's CLI (``load_reference_ff_checkpoint``) the results the JAX CLI
     gives through ``convert_ff_checkpoint``, on the config as it is
-    (``mask_static`` on; ``test_torch_port_eval`` holds
-    ``evaluate_scene`` with it off): every viewpoint's full, dynamic and
-    static PSNR within 1e-3 dB and SSIM within 1e-5, the results JSON
-    within the same bars, LPIPS NaN in both;
+    (``mask_static`` on): every viewpoint's full, dynamic and static PSNR
+    within 1e-3 dB and SSIM within 1e-5, the results JSON within the same
+    bars, LPIPS NaN in both;
   * the loader skips the reference's dead layers and ``module.``
     prefixes and raises on a missing or mis-shaped key;
   * no ``eval_scenes`` raises SystemExit; without ``--device cpu`` the CLI
