@@ -42,9 +42,9 @@ source is frame 12 or later, none is a target camera.  And the density
 heads' bias is lowered by 2: on a nearly opaque ray a zero-weight bin's
 pdf, 1e-5 over the weights' sum, sits on the importance sampler's 1e-5
 floor (``sample_pdf``'s ``denom < 1e-5``), and the last fine sample
-jumps a whole bin on a last-bit difference of the coarse weights.  Each
-of the three, left out, fails the PSNR bar; with all three the
-comparison holds it with room to spare.
+jumps a whole bin on a last-bit difference of the coarse weights.
+Without the first there is nothing to compare; without either of the
+others the comparison failed its PSNR bar (on a 32x48 scene).
 """
 
 import os
