@@ -1,7 +1,9 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the FF eval render, the
 FF fine-stage train step, the mono model's eval chunk and train step, the
-monocular training CLI from an on-disk scene to checkpoints, and the
-Nvidia benchmark eval CLI on an on-disk scene.
+monocular training CLI from an on-disk scene to checkpoints, the Nvidia
+benchmark eval CLI on an on-disk scene, and the mono render and serving
+path (the HTTP server over the training CLI's checkpoint, the render
+CLI).
 
     python3 chip_smoke.py
 
@@ -92,9 +94,32 @@ is non-zero and the last line below is never printed):
      the frame of 11 viewpoints and peak memory; viewpoint 0 rendered
      again through the plain twins from the CLI's own inputs, rgb within
      3e-2, both PSNRs against the ground truth printed;
+  10. the served mono frame: a SessionRegistry over phase 8's scene and
+     last snapshot at configs/test_kid-running.txt's render settings (288×512,
+     64 samples, 14 static and 9 dynamic views, mask_rgb 1, bf16, chunk
+     8192; anti-alias pooling on, as phase 8 trained) behind make_server
+     on 127.0.0.1 in a thread: GET /healthz and /meta, POST /render at frame
+     24's own pose (npy) cold (feature maps encoded) then warm (a cache
+     hit), the same at stride 4 with layer rgb_dy, POST /stream of a
+     4-pose wander path (4 PNG parts, decoded by data/png.py); every
+     status 200, K1 / K2 / K3 launched 36 / 18 / 18 times per full-frame
+     request (18 chunks), cache hits 2 and misses 1 before the stream,
+     every output finite; the frame's middle 8192-ray chunk rendered
+     again from the session's template and feature maps through the
+     kernels (equal to the served rows within 1e-3) and through the plain
+     twins (rgb within 3e-2), and K2 alone on its static inputs (the
+     phase 2 bar); then the render CLI (cli/render_monocular.main, the
+     stabilization path, video_out "") on the kid-running config as it is
+     (anti-alias pooling off) over a 12-frame 288×512 scene with a seeded
+     MonoModel(num_frames=12) snapshot: 12 PNGs of 272×482 (the 3% crop),
+     the same launches per frame, its first frame's middle chunk against
+     the plain path and K2 (anti-alias off) against its twin; cold and
+     warm s per request, s per streamed frame, the CLI's s/frame, cache
+     hits and misses, peak memory and the phase's seconds;
   7. print the kernels line (13 kernels; K1 with its single-map times, K2
      and K3 with their forward reports of 2, 2b and 6a; K1-K3 with their
-     launches per eval viewpoint frame, K2 with its mask_rgb = 0 error),
+     launches per eval viewpoint frame and per served frame, K2 with its
+     mask_rgb = 0 and anti-alias-off errors),
      the card line, then the result line.
 
 Weights are random, from a seed.  Needs one card and no network.
@@ -932,12 +957,11 @@ def _cli_phases(logs):
   return out
 
 
-def _cli_phase(card, dev, h, w, frames=48, n_rand=3072, chunk=4096):
-  """Phase 8: the training CLI from an on-disk scene, twice (the second run
-  resumes), and the CLI's panel function on a batch of the scene against a
-  plain-path render of the same view.  Returns the launches of the first
-  run."""
-  import tempfile
+def _cli_phase(card, dev, h, w, root, frames=48, n_rand=3072, chunk=4096):
+  """Phase 8: the training CLI from an on-disk scene written under `root`,
+  twice (the second run resumes), and the CLI's panel function on a batch
+  of the scene against a plain-path render of the same view.  Returns the
+  launches of the first run and the last snapshot's path."""
   from dynibar_tpu_torch.cli import train as cli_train
   from dynibar_tpu_torch.data.factory import create_training_dataset
   from dynibar_tpu_torch.data.synthetic_scene import write_synthetic_scene
@@ -948,121 +972,120 @@ def _cli_phase(card, dev, h, w, frames=48, n_rand=3072, chunk=4096):
   from dynibar_tpu_torch.utils import checkpoints as ckpt
   from dynibar_tpu_torch.utils.device import to_device
   from dynibar_tpu_torch.utils.logging import MetricsLogger
-  with tempfile.TemporaryDirectory() as root:
-    t0 = time.perf_counter()
-    write_synthetic_scene(root, "scene", num_frames=frames, height=h, width=w)
-    print(f"cli: wrote a {frames}-frame {h}x{w} scene in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    # bench.py's mono shape on the "pallas" route; init_decay_epoch 2: one
-    # bootstrap epoch, then n_iters 48 (counted from the start step, as
-    # the JAX CLI counts it) runs one phase-2 epoch; the panel renders
-    # at the last step; a checkpoint also a third into phase 2
-    mid = frames + frames // 3
-    args = ["--folder_path", root, "--train_scenes", "scene", "--rootdir",
-            root, "--training_height", str(h), "--N_rand", str(n_rand),
-            "--N_samples", "64", "--num_source_views", "7", "--num_vv", "3",
-            "--num_basis", "6", "--fused_bwd_impl", "pallas",
-            "--init_decay_epoch", "2", "--compute_dtype", "bfloat16",
-            "--i_img", str(2 * frames), "--i_weights", str(mid),
-            "--i_print", "24", "--workers", "4", "--chunk_size", str(chunk)]
-    _zero_counts()
-    first = cli_train.main(args + ["--n_iters", str(frames)])
-    torch.cuda.synchronize()
-    launches = _read_counts()
-    out = first["out_folder"]
-    logs = os.path.join(root, "logs", os.path.basename(out))
-    snaps = sorted(p for p in os.listdir(out) if p.startswith("model_"))
-    phases = _cli_phases(logs)
-    panels = [p for p in os.listdir(os.path.join(logs, "images"))
-              if p.startswith(f"{2 * frames:08d}_train_")]
-    if not (first["start_step"] == 0
-            and [(n, r["steps"]) for n, r in phases] == [("bootstrap", frames),
-                                                         ("train", frames)]
-            and snaps == [f"model_{mid:08d}.pt",
-                          f"model_{2 * frames:08d}.pt"]
-            and phases[1][1]["panels"] == 1 and len(panels) == 22
-            and all(launches[k] > 0 for k in ("K1", "K2", "K3", "K2r", "K5a",
-                                              "K5b", "K3p", "K4s"))):
-      raise AssertionError(f"cli: phases {phases}, snapshots {snaps}, "
-                           f"{len(panels)} panels, launches {launches}")
-    for name, rec in phases:
-      print(f"cli {name}: {rec['seconds'] / rec['steps']:.4f} s/step over "
-            f"{rec['steps']:.0f} steps, {rec['wait_s']:.2f} s getting "
-            f"batches from the data pipeline [{card}]", flush=True)
-    print(f"cli panel: {phases[1][1]['panel_s']:.3f} s/frame at {h}x{w} "
-          f"(train view, anchor branch, 22 PNG panels); launches of the run "
-          f"{launches} [{card}]", flush=True)
+  t0 = time.perf_counter()
+  write_synthetic_scene(root, "scene", num_frames=frames, height=h, width=w)
+  print(f"cli: wrote a {frames}-frame {h}x{w} scene in "
+        f"{time.perf_counter() - t0:.1f} s", flush=True)
+  # bench.py's mono shape on the "pallas" route; init_decay_epoch 2: one
+  # bootstrap epoch, then n_iters 48 (counted from the start step, as
+  # the JAX CLI counts it) runs one phase-2 epoch; the panel renders
+  # at the last step; a checkpoint also a third into phase 2
+  mid = frames + frames // 3
+  args = ["--folder_path", root, "--train_scenes", "scene", "--rootdir",
+          root, "--training_height", str(h), "--N_rand", str(n_rand),
+          "--N_samples", "64", "--num_source_views", "7", "--num_vv", "3",
+          "--num_basis", "6", "--fused_bwd_impl", "pallas",
+          "--init_decay_epoch", "2", "--compute_dtype", "bfloat16",
+          "--i_img", str(2 * frames), "--i_weights", str(mid),
+          "--i_print", "24", "--workers", "4", "--chunk_size", str(chunk)]
+  _zero_counts()
+  first = cli_train.main(args + ["--n_iters", str(frames)])
+  torch.cuda.synchronize()
+  launches = _read_counts()
+  out = first["out_folder"]
+  logs = os.path.join(root, "logs", os.path.basename(out))
+  snaps = sorted(p for p in os.listdir(out) if p.startswith("model_"))
+  phases = _cli_phases(logs)
+  panels = [p for p in os.listdir(os.path.join(logs, "images"))
+            if p.startswith(f"{2 * frames:08d}_train_")]
+  if not (first["start_step"] == 0
+          and [(n, r["steps"]) for n, r in phases] == [("bootstrap", frames),
+                                                       ("train", frames)]
+          and snaps == [f"model_{mid:08d}.pt",
+                        f"model_{2 * frames:08d}.pt"]
+          and phases[1][1]["panels"] == 1 and len(panels) == 22
+          and all(launches[k] > 0 for k in ("K1", "K2", "K3", "K2r", "K5a",
+                                            "K5b", "K3p", "K4s"))):
+    raise AssertionError(f"cli: phases {phases}, snapshots {snaps}, "
+                         f"{len(panels)} panels, launches {launches}")
+  for name, rec in phases:
+    print(f"cli {name}: {rec['seconds'] / rec['steps']:.4f} s/step over "
+          f"{rec['steps']:.0f} steps, {rec['wait_s']:.2f} s getting "
+          f"batches from the data pipeline [{card}]", flush=True)
+  print(f"cli panel: {phases[1][1]['panel_s']:.3f} s/frame at {h}x{w} "
+        f"(train view, anchor branch, 22 PNG panels); launches of the run "
+        f"{launches} [{card}]", flush=True)
 
-    # the CLI's panel function vs the plain path: the last checkpoint's
-    # weights, a batch of the scene built here, kernels=False chunk by chunk
-    config = cli_train.parse_args(args)[0]
-    data = create_training_dataset(config)
-    cfg = config.render_settings("mono")
-    payload = ckpt.load_checkpoint(os.path.join(out, snaps[-1]),
-                                   map_location=dev)
-    model = MonoModel(cfg, num_frames=frames, device=dev)
-    model.load_state_dict(payload["model"])
-    rb = to_device(data.sample_batch(np.random.RandomState(SEED), n_rand,
-                                     config.sample_mode), dev)
-    frame_idx = int(rb["ref_frame_idx"])
-    provider = data.providers[0]
-    panel = log_train_view(MetricsLogger(logs, enabled=False), 2 * frames,
-                           model, rb, cfg, chunk,
-                           provider._load_rgb(frame_idx),
-                           provider._load_disp(frame_idx))["outputs_coarse_ref"]
-    full = full_image_ray_batch(rb, rb["camera"], device=dev)
-    with torch.no_grad():
-      fm = model.encode_featmaps(full["src_rgbs"], full["static_src_rgbs"],
-                                 full["anchor_src_rgbs"])
-      rgbs = []
-      for i in range(0, h * w, chunk // 2):
-        part = {k: (v[i:i + chunk // 2] if k in ("ray_o", "ray_d", "uv_grid")
-                    else v) for k, v in full.items()}
-        rgbs.append(rr.render_rays_mono(
-            model, part, fm, cfg, is_train=True, kernels=False,
-            device=dev)["outputs_coarse_ref"]["rgb"])
-    plain = torch.cat(rgbs).cpu().numpy().reshape(h, w, 3)
-    plain = plain * (panel["mask"][..., None] > 0)
-    err = float(np.abs(panel["rgb"] - plain).max())
-    if not (np.isfinite(panel["rgb"]).all() and err <= 3e-2):
-      raise AssertionError(f"cli panel: kernel vs plain rgb {err}")
-    print(f"cli panel rgb (frame {frame_idx}) vs the plain path: max abs "
-          f"{err:.3g}", flush=True)
-    del model, fm, rgbs, full, payload, panel, rb
-    torch.cuda.empty_cache()
-
-    # the second run: the parameters as the model loads them, recorded
-    saved = ckpt.load_checkpoint(os.path.join(out, snaps[-1]),
-                                 map_location="cpu")["model"]
-    loaded, load = {}, MonoModel.load_state_dict
-
-    def recording_load(self, state, *a, **kw):
-      res = load(self, state, *a, **kw)
-      loaded.update({k: v.detach().cpu().clone()
-                     for k, v in self.state_dict().items()})
-      return res
-
-    MonoModel.load_state_dict = recording_load
-    try:
-      second = cli_train.main(args + ["--n_iters", "1"])
-    finally:
-      MonoModel.load_state_dict = load
-    same = bool(loaded) and all(torch.equal(loaded[k], v)
-                                for k, v in saved.items())
-    latest = ckpt.latest_checkpoint(out)
-    (_, boot), (_, rec) = _cli_phases(logs)[2:]
-    if not (second["start_step"] == 2 * frames and same
-            and boot["steps"] == 0
-            and latest.endswith(f"model_{3 * frames:08d}.pt")):
-      raise AssertionError(f"cli resume: start {second['start_step']}, "
-                           f"parameters equal {same}, bootstrap steps "
-                           f"{boot['steps']}, latest {latest}")
-    print(f"cli resume: at step {second['start_step']} with the saved "
-          f"parameters, ran on to {3 * frames} "
-          f"({rec['seconds'] / rec['steps']:.4f} s/step) [{card}]",
-          flush=True)
+  # the CLI's panel function vs the plain path: the last checkpoint's
+  # weights, a batch of the scene built here, kernels=False chunk by chunk
+  config = cli_train.parse_args(args)[0]
+  data = create_training_dataset(config)
+  cfg = config.render_settings("mono")
+  payload = ckpt.load_checkpoint(os.path.join(out, snaps[-1]),
+                                 map_location=dev)
+  model = MonoModel(cfg, num_frames=frames, device=dev)
+  model.load_state_dict(payload["model"])
+  rb = to_device(data.sample_batch(np.random.RandomState(SEED), n_rand,
+                                   config.sample_mode), dev)
+  frame_idx = int(rb["ref_frame_idx"])
+  provider = data.providers[0]
+  panel = log_train_view(MetricsLogger(logs, enabled=False), 2 * frames,
+                         model, rb, cfg, chunk,
+                         provider._load_rgb(frame_idx),
+                         provider._load_disp(frame_idx))["outputs_coarse_ref"]
+  full = full_image_ray_batch(rb, rb["camera"], device=dev)
+  with torch.no_grad():
+    fm = model.encode_featmaps(full["src_rgbs"], full["static_src_rgbs"],
+                               full["anchor_src_rgbs"])
+    rgbs = []
+    for i in range(0, h * w, chunk // 2):
+      part = {k: (v[i:i + chunk // 2] if k in ("ray_o", "ray_d", "uv_grid")
+                  else v) for k, v in full.items()}
+      rgbs.append(rr.render_rays_mono(
+          model, part, fm, cfg, is_train=True, kernels=False,
+          device=dev)["outputs_coarse_ref"]["rgb"])
+  plain = torch.cat(rgbs).cpu().numpy().reshape(h, w, 3)
+  plain = plain * (panel["mask"][..., None] > 0)
+  err = float(np.abs(panel["rgb"] - plain).max())
+  if not (np.isfinite(panel["rgb"]).all() and err <= 3e-2):
+    raise AssertionError(f"cli panel: kernel vs plain rgb {err}")
+  print(f"cli panel rgb (frame {frame_idx}) vs the plain path: max abs "
+        f"{err:.3g}", flush=True)
+  del model, fm, rgbs, full, payload, panel, rb
   torch.cuda.empty_cache()
-  return launches
+
+  # the second run: the parameters as the model loads them, recorded
+  saved = ckpt.load_checkpoint(os.path.join(out, snaps[-1]),
+                               map_location="cpu")["model"]
+  loaded, load = {}, MonoModel.load_state_dict
+
+  def recording_load(self, state, *a, **kw):
+    res = load(self, state, *a, **kw)
+    loaded.update({k: v.detach().cpu().clone()
+                   for k, v in self.state_dict().items()})
+    return res
+
+  MonoModel.load_state_dict = recording_load
+  try:
+    second = cli_train.main(args + ["--n_iters", "1"])
+  finally:
+    MonoModel.load_state_dict = load
+  same = bool(loaded) and all(torch.equal(loaded[k], v)
+                              for k, v in saved.items())
+  latest = ckpt.latest_checkpoint(out)
+  (_, boot), (_, rec) = _cli_phases(logs)[2:]
+  if not (second["start_step"] == 2 * frames and same
+          and boot["steps"] == 0
+          and latest.endswith(f"model_{3 * frames:08d}.pt")):
+    raise AssertionError(f"cli resume: start {second['start_step']}, "
+                         f"parameters equal {same}, bootstrap steps "
+                         f"{boot['steps']}, latest {latest}")
+  print(f"cli resume: at step {second['start_step']} with the saved "
+        f"parameters, ran on to {3 * frames} "
+        f"({rec['seconds'] / rec['steps']:.4f} s/step) [{card}]",
+        flush=True)
+  torch.cuda.empty_cache()
+  return launches, latest
 
 
 def _mask_rgb0_check(dev, nets, stage_args):
@@ -1222,6 +1245,255 @@ def _eval_phase(card, dev, h, w, frames=12, chunk=8192):
     del first, plain, kern
   torch.cuda.empty_cache()
   return per_view
+
+
+def _http(url, body=None):
+  """(status, headers, bytes) of a GET, or of a POST of a JSON body."""
+  import urllib.error
+  import urllib.request
+  data = None if body is None else json.dumps(body).encode()
+  try:
+    with urllib.request.urlopen(urllib.request.Request(url, data=data),
+                                timeout=600) as resp:
+      return resp.status, resp.headers, resp.read()
+  except urllib.error.HTTPError as e:
+    return e.code, e.headers, e.read()
+
+
+def _parts(body, boundary=b"--dynibar-frame"):
+  """The payloads of a multipart/x-mixed-replace body."""
+  out = []
+  for chunk in body.split(boundary)[1:]:
+    if chunk.startswith(b"--"):
+      break
+    head, _, rest = chunk.partition(b"\r\n\r\n")
+    n = int([ln for ln in head.split(b"\r\n")
+             if ln.lower().startswith(b"content-length")][0].split(b":")[1])
+    out.append(rest[:n])
+  return out
+
+
+def _chunk_vs_plain(model, cfg, template, camera, dev, chunk, i, fm=None):
+  """Chunk `i` of a frame (`chunk` rays) rendered through the kernels and
+  through the plain twins from the same template and feature maps (`fm`,
+  else encoded here); also K2 alone on that chunk's static inputs against
+  its twin.  Returns (the kernel rgb * mask, the kernels' rgb error, K2's
+  error)."""
+  from dynibar_tpu_torch.ops import agg
+  from dynibar_tpu_torch.render import render_rays as rr
+  from dynibar_tpu_torch.render.render_image import full_image_ray_batch
+  full = full_image_ray_batch(template, camera, device=dev)
+  part = {k: (v[i * chunk:(i + 1) * chunk] if k in ("ray_o", "ray_d",
+                                                    "uv_grid") else v)
+          for k, v in full.items()}
+  with torch.no_grad():
+    if fm is None:
+      fm = model.encode_featmaps(part["src_rgbs"], part["static_src_rgbs"])
+    ker = rr.render_rays_mono(model, part, fm, cfg, device=dev)
+    plain = rr.render_rays_mono(model, part, fm, cfg, device=dev,
+                                kernels=False)
+    rgb = ker["outputs_coarse_ref"]["rgb"]
+    if not torch.isfinite(rgb).all() or rgb.shape != (chunk, 3):
+      raise AssertionError("chunk: rgb not finite or misshapen")
+    err = float((rgb - plain["outputs_coarse_ref"]["rgb"]).abs().max())
+    pts, _, _ = rr.sampling.sample_along_ray(
+        part["ray_o"], part["ray_d"], part["depth_range"], cfg.n_samples,
+        cfg.inv_uniform, det=True)
+    st = rr.stage_inputs(model, part, fm, cfg, None, pts,
+                         kernels=False)["st"]
+    k2 = _compare_raw("K2 (served chunk)",
+                      agg.fused_static_aggregator(model.net_coarse_st, *st),
+                      model.net_coarse_st(*st), 2e-2, 2e-2)
+  mask = ker["outputs_coarse_ref"]["mask"].float()[:, None]
+  return (rgb * mask).cpu().numpy(), err, k2
+
+
+def _serve_phase(card, dev, h, w, cli_root, snapshot, chunk=8192,
+                 cli_frames=12):
+  """Phase 10: the served mono frame.  A SessionRegistry over phase 8's
+  scene and checkpoint at configs/test_kid-running.txt's render settings
+  behind make_server in a thread: /healthz, /meta, /render cold and warm
+  at a frame's own pose (npy), at stride 4 with layers, /stream of a
+  4-pose wander path; then the render CLI on a 12-frame scene with a
+  seeded snapshot.  Returns the launches per full-frame request."""
+  import tempfile
+  import threading
+  from dynibar_tpu_torch.cli import render_monocular as cli_render
+  from dynibar_tpu_torch.cli.train import parse_args
+  from dynibar_tpu_torch.core.cameras import make_camera
+  from dynibar_tpu_torch.data import png
+  from dynibar_tpu_torch.data.llff import parse_llff_pose
+  from dynibar_tpu_torch.data.monocular import MonocularSceneData
+  from dynibar_tpu_torch.data.synthetic_scene import write_synthetic_scene
+  from dynibar_tpu_torch.models.dynibar import MonoModel
+  from dynibar_tpu_torch.serve.registry import SessionRegistry
+  from dynibar_tpu_torch.serve.server import make_server
+  from dynibar_tpu_torch.utils import checkpoints as ckpt
+  t_phase = time.perf_counter()
+  kid = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                     "test_kid-running.txt")
+  n_chunks = -(-h * w // chunk)
+  per_frame = dict({k: 0 for k in _counters()}, K1=2 * n_chunks,
+                   K2=n_chunks, K3=n_chunks)
+  # the kid-running render settings (288x512, 64 samples, 7 source views,
+  # 3 virtual views, mask_rgb 1, bf16, chunk 8192) over phase 8's scene
+  # and last snapshot; phase 8 trained with anti-alias pooling, which the
+  # snapshot's static model carries, so it serves with it
+  config = parse_args(["--config", kid, "--folder_path", cli_root,
+                       "--train_scenes", "scene", "--rootdir", cli_root,
+                       "--ckpt_path", snapshot, "--anti_alias_pooling",
+                       "1"])[0]
+  if config.chunk_size != chunk:
+    raise AssertionError(f"kid-running config: chunk {config.chunk_size}")
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  registry = SessionRegistry(config, device=dev)
+  httpd = make_server(registry, "127.0.0.1", 0)
+  server = threading.Thread(target=httpd.serve_forever, daemon=True)
+  server.start()
+  base = f"http://127.0.0.1:{httpd.server_port}"
+  try:
+    codes, answers = {}, {}
+    for path in ("/healthz", "/meta"):
+      codes[path], _, body = _http(base + path)
+      answers[path] = json.loads(body)
+    session = registry.get()
+    frame = 24
+    pose = np.asarray(session.data.c2w[frame], np.float32)
+    req = {"c2w": pose.tolist(), "frame_idx": frame, "format": "npy"}
+    secs, frames, launches = {}, {}, {}
+    for label, body in (("cold", req), ("warm", req),
+                        ("stride 4, rgb_dy", dict(req, stride=4,
+                                                  layer="rgb_dy"))):
+      _zero_counts()
+      t0 = time.perf_counter()
+      codes[label], _, blob = _http(base + "/render", body)
+      secs[label] = time.perf_counter() - t0
+      launches[label] = _read_counts()
+      frames[label] = np.load(io.BytesIO(blob)) if codes[label] == 200 else (
+          blob)
+    hits, misses = (session.stats["featmap_cache_hits"],
+                    session.stats["featmap_cache_misses"])
+    _zero_counts()
+    t0 = time.perf_counter()
+    codes["stream"], headers, blob = _http(base + "/stream", {
+        "path": "wander", "render_idx": frame, "num_frames": 4})
+    stream_s = (time.perf_counter() - t0) / 4
+    stream_launches = _read_counts()
+    pngs = [png.decode(p) for p in _parts(blob)]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step = session.step
+  finally:
+    httpd.shutdown()
+    httpd.server_close()
+    server.join()
+  n4 = -(-((h + 3) // 4) * ((w + 3) // 4) // chunk)
+  stride4 = dict({k: 0 for k in per_frame}, K1=2 * n4, K2=n4, K3=n4)
+  ok = (all(v == 200 for v in codes.values())
+        and answers["/healthz"] == {"status": "ok", "checkpoint_step": step}
+        and (answers["/meta"]["height"], answers["/meta"]["width"]) == (h, w)
+        and launches["cold"] == launches["warm"] == per_frame
+        and launches["stride 4, rgb_dy"] == stride4
+        and stream_launches == {k: 4 * v for k, v in per_frame.items()}
+        and (hits, misses) == (2, 1)
+        and headers["X-Frame-Count"] == "4" and len(pngs) == 4
+        and all(p.shape == (h, w, 3) for p in pngs)
+        and frames["cold"].shape == frames["warm"].shape == (h, w, 3)
+        and frames["stride 4, rgb_dy"].shape == ((h + 3) // 4,
+                                                 (w + 3) // 4, 3)
+        and all(np.isfinite(f).all() for f in frames.values()))
+  if not ok:
+    raise AssertionError(f"serve: statuses {codes}, launches {launches}, "
+                         f"stream launches {stream_launches}, cache hits "
+                         f"{hits} misses {misses}, {len(pngs)} parts")
+  # one served chunk against the plain path, from the session's own
+  # template and weights (the middle chunk of the frame)
+  state = session._frames[frame]
+  camera = make_camera(h, w, session.data.intrinsics[frame], pose)
+  i = n_chunks // 2
+  rgb, err, k2_err = _chunk_vs_plain(session.model, session.cfg,
+                                     state["template"], camera, dev, chunk, i,
+                                     fm=state["featmaps"])
+  served = frames["warm"].reshape(-1, 3)[i * chunk:(i + 1) * chunk]
+  same = float(np.abs(served - rgb).max())
+  if not (err <= 3e-2 and same <= 1e-3):
+    raise AssertionError(f"served chunk: kernel vs plain rgb {err}, served "
+                         f"vs the chunk rendered again {same}")
+  del registry, session, state
+  torch.cuda.empty_cache()
+  print(f"serve launches per full-frame request: "
+        f"{ {k: per_frame[k] for k in ('K1', 'K2', 'K3')} } ({n_chunks} "
+        f"chunks of {chunk}); statuses {codes}", flush=True)
+  print(f"serve: cold {secs['cold']:.3f} s per request (feature maps "
+        f"encoded), warm {secs['warm']:.3f} s (cache hit), stride 4 "
+        f"{secs['stride 4, rgb_dy']:.3f} s, {stream_s:.3f} s per streamed "
+        f"frame (4-pose wander path, PNG parts); cache hits {hits}, misses "
+        f"{misses}; peak memory {peak_gib:.2f} GiB; checkpoint step {step} "
+        f"at {h}x{w} [{card}]", flush=True)
+  print(f"serve chunk {i} ({chunk} rays) vs the plain path: rgb max abs "
+        f"{err:.3g}, K2 max abs {k2_err:.3g}; the served frame's chunk vs "
+        f"the chunk rendered again {same:.3g}", flush=True)
+
+  # the render CLI on a 12-frame scene with a seeded snapshot at the kid
+  # config as it is (anti-alias pooling off: K2's other branch)
+  with tempfile.TemporaryDirectory() as root:
+    t0 = time.perf_counter()
+    write_synthetic_scene(root, "scene", num_frames=cli_frames, height=h,
+                          width=w)
+    args = ["--config", kid, "--folder_path", root, "--train_scenes",
+            "scene", "--rootdir", root, "--render_idx", "-1",
+            "--video_out", ""]
+    config = parse_args(args)[0]
+    config.num_frames = cli_frames
+    cfg = config.render_settings("mono")
+    model = MonoModel(cfg, num_frames=cli_frames, seed=SEED)
+    ckpt.save_checkpoint(config.out_folder(), 0, model.state_dict())
+    write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = cli_render.main(args)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launches = _read_counts()
+    cli_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ch, cw = int(h * 0.03), int(w * 0.03)
+    imgs = [png.read(p) for p in res["frames"]]
+    if not (len(imgs) == cli_frames and not cfg.anti_alias_pooling
+            and all(m.shape == (h - 2 * ch, w - 2 * cw, 3) for m in imgs)
+            and res["video"] is None
+            and cli_launches == {k: cli_frames * v
+                                 for k, v in per_frame.items()}):
+      raise AssertionError(f"render cli: {len(imgs)} frames "
+                           f"{[m.shape for m in imgs][:2]}, launches "
+                           f"{cli_launches}")
+    # its first frame's middle chunk against the plain path: the same
+    # template (a fresh generator draws the first frame's virtual views)
+    data = MonocularSceneData(config, "scene")
+    template = cli_render.render_batch_template(
+        data, 3, config.num_source_views, config.num_vv,
+        np.random.RandomState(0))
+    intr, c2w = parse_llff_pose(data.render_poses[0])
+    _, cli_err, cli_k2 = _chunk_vs_plain(model, cfg, template,
+                                         make_camera(h, w, intr, c2w), dev,
+                                         chunk, n_chunks // 2)
+    if cli_err > 3e-2:
+      raise AssertionError(f"render cli chunk: kernel vs plain rgb {cli_err}")
+    del model, data, template
+  torch.cuda.empty_cache()
+  print(f"render cli: {cli_frames} PNGs of {h - 2 * ch}x{w - 2 * cw} (3% "
+        f"crop) on the stabilization path, {np.mean(res['seconds']):.3f} "
+        f"s/frame (min {min(res['seconds']):.3f}, max "
+        f"{max(res['seconds']):.3f}; template, feature maps, {n_chunks} "
+        f"chunks, PNG), the CLI {cli_s:.1f} s, peak memory {cli_peak:.2f} GiB; the "
+        f"scene and snapshot written in {write_s:.1f} s; launches "
+        f"{ {k: cli_launches[k] for k in ('K1', 'K2', 'K3')} } [{card}]",
+        flush=True)
+  print(f"render cli chunk (anti-alias pooling off) vs the plain path: rgb "
+        f"max abs {cli_err:.3g}, K2 max abs {cli_k2:.3g}", flush=True)
+  print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+  return {k: per_frame[k] for k in ("K1", "K2", "K3")}, cli_k2
 
 
 def main() -> int:
@@ -1563,11 +1835,17 @@ def main() -> int:
   mono_results, mono_launches, mono_stats, mono_fwd = _mono_phases(
       card, dev, h, w, n_rand, t_cfg)
 
-  # ---- 8: the training CLI from an on-disk scene --------------------------
-  cli_launches = _cli_phase(card, dev, h, w)
+  import tempfile
+  with tempfile.TemporaryDirectory() as cli_root:
+    # ---- 8: the training CLI from an on-disk scene ------------------------
+    cli_launches, snapshot = _cli_phase(card, dev, h, w, cli_root)
 
-  # ---- 9: the Nvidia eval CLI from an on-disk scene -----------------------
-  eval_launches = _eval_phase(card, dev, h, w)
+    # ---- 9: the Nvidia eval CLI from an on-disk scene ---------------------
+    eval_launches = _eval_phase(card, dev, h, w)
+
+    # ---- 10: the served mono frame over phase 8's scene and snapshot -----
+    serve_launches, aa0_err = _serve_phase(card, dev, h, w, cli_root,
+                                           snapshot)
   print(f"phases done in {time.perf_counter() - t_start:.1f} s", flush=True)
 
   # ---- 7: result ----------------------------------------------------------
@@ -1581,6 +1859,9 @@ def main() -> int:
     res = dict(results[key])
     res["launches"] = launches[key]
     res["eval_launches"] = eval_launches[key]
+    res["serve_launches"] = serve_launches[key]
+    if key == "K2":
+      res["anti_alias0_max_abs_err"] = aa0_err
     if key != "K1":
       res["forward_shapes"] = dict(fwd_shapes[key], **mono_fwd[key])
     kernels.append(res)

@@ -139,7 +139,8 @@ STEP_SEED = 1
 
 @dataclasses.dataclass
 class DynibarConfig:
-  """The knobs of the monocular training CLI (``cli/train``) and the
+  """The knobs of the monocular training and render CLIs (``cli/train``,
+  ``cli/render_monocular``), the server (``serve/server``) and the
   Nvidia eval CLI (``cli/eval_nvidia``), copied from
   ``dynibar_tpu.config.DynibarConfig`` with its names and defaults
   (reference config.py:6-375).  The TPU-only switches (strip sampling,
@@ -228,6 +229,10 @@ class DynibarConfig:
   compute_dtype: str = "float32"
   fused_bwd_impl: str = "pallas_split"
   fused_st_bwd_impl: str = "pallas_split"
+  # cli/render_monocular: also assemble the rendered frames into an mp4
+  # ("auto" = <out_dir>/video.mp4, "" = PNG frames only, like the reference)
+  video_out: str = "auto"
+  video_fps: float = 24.0
 
   @classmethod
   def from_file(cls, path: str, **overrides) -> "DynibarConfig":

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Set, Tuple
@@ -34,6 +35,8 @@ KERNEL_SOURCES = ("sample", "static_agg", "dynamic_agg", "static_agg_bwd",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _PHASES: Set[str] = set()
+# the server's handler threads may make a kernel's first launch at once
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -105,13 +108,17 @@ def build_jobs(jobs: Iterable[Tuple[str, bool]]
 
 def load(name: str) -> ctypes.CDLL:
   """The loaded library of csrc/<name>.cu, built on first use."""
-  if name not in _LIBS:
-    phases = name in _PHASES
-    path = library_path(name, phases)
-    if not path.exists():
-      build([name], phases)
-    _LIBS[name] = ctypes.CDLL(str(path))
-  return _LIBS[name]
+  lib = _LIBS.get(name)
+  if lib is not None:
+    return lib
+  with _LOAD_LOCK:
+    if name not in _LIBS:
+      phases = name in _PHASES
+      path = library_path(name, phases)
+      if not path.exists():
+        build([name], phases)
+      _LIBS[name] = ctypes.CDLL(str(path))
+    return _LIBS[name]
 
 
 def check(err: int, what: str) -> None:

@@ -7,6 +7,7 @@
     python3 scripts/port_profile.py --forward [--iters 3]
     python3 scripts/port_profile.py --backward [--iters 3]
     python3 scripts/port_profile.py --frame [--iters 3]
+    python3 scripts/port_profile.py --serve [--iters 3]
     python3 scripts/port_profile.py --sample [--iters 3]
     python3 scripts/port_profile.py --phases [fwd|bwd] [--train | --mono |
         --forward] [...]
@@ -28,7 +29,12 @@ kernels' shapes: the dynamic one on routes "pallas_split" (K3r, K4a, K4b)
 and "pallas" (K3p, K4s), the static one on "pallas_split3" (K2r, K5a,
 K5c, K5d); with --frame renders 288x512 FF frames (render_image_ff at chunk 4096, the
 featmap encode included) and prints their host-clock seconds (one
-warm-up, then --iters frames; no profiler); with --sample runs the
+warm-up, then --iters frames; no profiler); with --serve renders warm
+288x512 frames through serve/session.RenderSession (a 48-frame synthetic
+scene written to a temporary directory, configs/test_kid-running.txt's
+render settings, seeded weights, frame 24's own pose; the first, cold
+request timed on the host clock, then the warm ones under the profiler);
+with --sample runs the
 sampler K1 alone at the FF eval chunk's four calls (1024 rays, S 64 and
 128, 7 and 11 views, 288x512 RGB and 72x128x32 feature maps, bf16, grids
 along epipolar segments from a seed): the fused launch into rgb_feat
@@ -170,6 +176,8 @@ def main() -> int:
                   help="host-clock seconds per 288x512 FF frame")
   ap.add_argument("--sample", action="store_true",
                   help="the sampler K1 alone at the FF eval chunk's calls")
+  ap.add_argument("--serve", action="store_true",
+                  help="warm 288x512 frames served by RenderSession")
   ap.add_argument("--phases", nargs="?", const="all", default=None,
                   choices=sorted(PHASE_LIBS),
                   help="per-phase clocks of the backwards K5a/K5b, K5c/K5d, "
@@ -184,6 +192,7 @@ def main() -> int:
                         text=True, check=True).stdout.strip()
   libs = (("static_agg", "dynamic_agg") if args.forward
           else ("sample",) if args.sample
+          else ("sample", "static_agg", "dynamic_agg") if args.serve
           else build.KERNEL_SOURCES if args.train or args.mono
           or args.backward
           else ("sample", "static_agg", "dynamic_agg"))
@@ -197,6 +206,8 @@ def main() -> int:
     return _frame(args, card, dev)
   if args.sample:
     return _sample(args, card, dev)
+  if args.serve:
+    return _serve(args, card, dev)
   if args.mono:
     cfg = mono_render_settings(num_source_views=7, num_vv=3, n_samples=64,
                                num_basis=6, compute_dtype="bfloat16",
@@ -275,6 +286,36 @@ def _frame(args, card: str, dev) -> int:
         f"{len(secs)} (min {min(secs):.4f}, max {max(secs):.4f})")
   print(json.dumps({"what": "frame", "s_per_frame": secs, "card": card}))
   return 0
+
+
+def _serve(args, card: str, dev) -> int:
+  """--iters warm served frames under the profiler, after a cold one."""
+  import tempfile
+  from dynibar_tpu_torch.cli.train import parse_args
+  from dynibar_tpu_torch.data.synthetic_scene import write_synthetic_scene
+  from dynibar_tpu_torch.serve import RenderSession
+  kid = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+      __file__))), "configs", "test_kid-running.txt")
+  with tempfile.TemporaryDirectory() as root:
+    write_synthetic_scene(root, "scene", num_frames=48, height=288,
+                          width=512)
+    config = parse_args(["--config", kid, "--folder_path", root,
+                         "--train_scenes", "scene"])[0]
+    model = MonoModel(config.render_settings("mono"), num_frames=48, seed=0)
+    session = RenderSession(config, state_dict=model.state_dict(),
+                            device=dev)
+    del model
+    frame = 24
+    pose = session.data.c2w[frame]
+    t0 = time.perf_counter()
+    session.render(pose, frame)
+    print(f"cold request: {time.perf_counter() - t0:.4f} s (template, "
+          f"feature maps, kernel loads, the frame)")
+
+    def one():
+      session.render(pose, frame)
+    return _profile(one, args, card,
+                    f"served frame 288x512 chunk {config.chunk_size}")
 
 
 def _sample(args, card: str, dev) -> int:

@@ -106,14 +106,17 @@ def _compare(got, want, atol):
 # valid view and ray 1 exactly one.  The Nvidia eval configs run K2 with
 # mask_rgb = 0 (configs_nvidia/eval_*_long.txt): at its coarse and fine
 # shapes (V = 11, S = 64 and 128) and a ragged S = 40, with the anti-alias
-# pooling on (as there) and off
+# pooling on (as there) and off.  The kid-running render config
+# (configs/test_kid-running.txt) runs it with the anti-alias pooling off
+# and mask_rgb = 1 at V = 14, S = 64
 @pytest.mark.parametrize("s,v,anti_alias,mask_rgb", [
     (16, 4, True, True), (64, 11, True, True), (40, 11, True, True),
     (64, 14, True, True), (16, 14, True, True), (48, 7, True, True),
     (128, 11, True, True), (128, 14, True, True), (64, 1, True, True),
     (128, 1, True, True), (40, 14, True, True),
     (64, 11, True, False), (128, 11, True, False), (40, 11, True, False),
-    (64, 11, False, False), (128, 11, False, False), (40, 11, False, False)])
+    (64, 11, False, False), (128, 11, False, False), (40, 11, False, False),
+    (64, 14, False, True), (40, 14, False, True)])
 def test_static_kernel(dev, s, v, anti_alias, mask_rgb):
   d = _inputs(dev, s, v, seed=s + v)
   net = StaticAggregator(F, s, anti_alias_pooling=anti_alias,

@@ -3,7 +3,8 @@
   * no module of dynibar_tpu_torch (and not chip_smoke.py) imports jax,
     flax, optax, orbax or anything of dynibar_tpu, checked statically and
     by importing every module in a subprocess with those names blocked
-    (this pytest process has imported JAX already);
+    (this pytest process has imported JAX already), and with cv2, imageio
+    and PIL blocked too: the machine with the card has none of them;
   * kernel wrappers given CPU tensors take the plain twins;
   * entry points called without device="cpu" on a host without CUDA raise,
     and chip_smoke.py exits non-zero without printing a result.
@@ -38,7 +39,12 @@ NEW_MODULES = ("cli/train.py", "data/png.py", "data/llff.py",
                "utils/logging.py", "utils/viz.py", "train/view_logging.py",
                "cli/eval_nvidia.py", "data/jpeg.py", "data/resize.py",
                "data/nvidia.py", "eval/metrics.py", "eval/lpips.py",
-               "eval/nvidia_eval.py")
+               "eval/nvidia_eval.py", "cli/render_monocular.py",
+               "serve/video.py", "serve/session.py", "serve/registry.py",
+               "serve/server.py")
+# image and video libraries the card's machine lacks: no module may need
+# one to import (serve/video.py imports cv2 only to encode an mp4)
+ABSENT_ON_CARD = ("cv2", "imageio", "PIL")
 
 
 def _sources():
@@ -56,12 +62,12 @@ def _imported_roots(path):
 
 
 def test_scan_covers_every_subpackage():
-  """The static scan reaches every package directory, train/ and cli/
-  included, and the data path's modules."""
+  """The static scan reaches every package directory, train/, cli/,
+  eval/ and serve/ included, and the data path's modules."""
   scanned = {p.parent for p in _sources()}
   packages = {p.parent for p in PKG.rglob("__init__.py")}
   assert packages <= scanned
-  assert {PKG / "train", PKG / "cli", PKG / "eval"} <= packages
+  assert {PKG / "train", PKG / "cli", PKG / "eval", PKG / "serve"} <= packages
   names = {p.relative_to(PKG).as_posix() for p in _sources() if PKG in
            p.parents}
   assert set(NEW_MODULES) <= names
@@ -95,7 +101,8 @@ print(" ".join(names))
 
 def test_package_imports_with_jax_blocked():
   out = subprocess.run(
-      [sys.executable, "-c", _BLOCKED_IMPORT.format(banned=BANNED)],
+      [sys.executable, "-c",
+       _BLOCKED_IMPORT.format(banned=BANNED + ABSENT_ON_CARD)],
       cwd=ROOT, capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr[-2000:]
   names = set(out.stdout.split())
