@@ -1,9 +1,10 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the FF eval render, the
 FF fine-stage train step, the mono model's eval chunk and train step, the
 monocular training CLI from an on-disk scene to checkpoints, the Nvidia
-benchmark eval CLI on an on-disk scene, and the mono render and serving
+benchmark eval CLI on an on-disk scene, the mono render and serving
 path (the HTTP server over the training CLI's checkpoint, the render
-CLI).
+CLI), and the FF training chain: the coarse-stage train step, then the
+fine-stage training CLI on its snapshot, from an analytic scene on disk.
 
     python3 chip_smoke.py
 
@@ -116,10 +117,35 @@ is non-zero and the last line below is never printed):
      the plain path and K2 (anti-alias off) against its twin; cold and
      warm s per request, s per streamed frame, the CLI's s/frame, cache
      hits and misses, peak memory and the phase's seconds;
+  11. the FF coarse stage (64 samples, 7 dynamic, 6 anchor and 11 static
+     views, 288×512 sources, bf16, N_rand 3072):
+     a. the training kernels at the coarse step's shapes as in 2b (S =
+        64; static V = 11 on pallas_split and pallas_split3, and at
+        mask_rgb = 0 on pallas_split; dynamic V = 7 and 6 on pallas_split
+        and pallas), each with its ms and bound;
+     b. ff_coarse_train_step on each backward route: the launches of one
+        step (as the mono step's: K2r 1, K5a 1, K5b 1 or K5c 1 + K5d 1,
+        K3r 2, K4a 2, K4b 2 or K3p 2, K4s 2), kernel vs plain loss and
+        per-group gradients (plain coarse aggregators in checkpointed
+        512-ray slices), s/step over 5 steps after 2 warm-ups and peak
+        memory, 10 steps on one batch with a falling loss, the fine groups
+        bit-identical;
+     c. the chain from disk at configs_nvidia/eval_balloon1_long.txt
+        (mask_rgb = 0, mask_static): ConsistentScene(24 frames,
+        288×512).write_nvidia into a temporary directory, 48 coarse steps
+        from a PrefetchPipeline over NvidiaSceneData and a snapshot, then
+        cli/train_ff.main on that snapshot for one epoch (24 steps); the
+        CLI's coarse groups equal the coarse run's bit for bit, a falling
+        loss in each stage (the mean of the first steps against the last);
+        s/step and pipeline wait of each stage, the CLI's launches, and the
+        two held-out views' crop-3% PSNR before and after the fine stage
+        (printed, not gated);
   7. print the kernels line (13 kernels; K1 with its single-map times, K2
      and K3 with their forward reports of 2, 2b and 6a; K1-K3 with their
      launches per eval viewpoint frame and per served frame, K2 with its
-     mask_rgb = 0 and anti-alias-off errors),
+     mask_rgb = 0 and anti-alias-off errors; each training kernel with its
+     ms, bound and launches at the FF coarse step's shapes (phase 11) and
+     its launches in the chain's CLI run),
      the card line, then the result line.
 
 Weights are random, from a seed.  Needs one card and no network.
@@ -193,6 +219,9 @@ MONO_LAUNCHES = {
     "pallas": {"K1": 0, "K2": 0, "K3": 0, "K2r": 1, "K5a": 1, "K5b": 1,
                "K3r": 0, "K4a": 0, "K4b": 0, "K5c": 0, "K5d": 0, "K3p": 2,
                "K4s": 2}}
+# the FF coarse step's launches per route: one static and two dynamic
+# aggregators under autograd, as the mono step
+COARSE_LAUNCHES = MONO_LAUNCHES
 WEIGHT_SEEDS = range(4)
 TRUNK_LAYERS = ("base_fc", "vis_fc", "vis_fc2", "s")
 
@@ -941,6 +970,317 @@ def _mono_phases(card, dev, h, w, n_rand, t_cfg):
     del model, opt, step, loss_fn, loss, metrics
     torch.cuda.empty_cache()
   return results, step_launches, step_stats, fwd_shapes
+
+
+def _add_coarse(res, key, coarse_results, coarse_launches, chain):
+  """A training kernel's figures at the FF coarse step's shapes: ms and
+  bound (V = 7 for the dynamic ones), launches of one coarse step per
+  route and in the chain's fine-stage CLI run."""
+  mine = coarse_results[key]
+  res.update(coarse_ms=mine["ms"], coarse_bound_ms=mine["bound_ms"],
+             coarse_max_abs_err=mine["max_abs_err"],
+             coarse_launches={route: n[key]
+                              for route, n in coarse_launches.items()},
+             chain_cli_launches=chain["cli_launches"][key])
+  if key + " V=6" in coarse_results:
+    res["coarse_ms_v6"] = coarse_results[key + " V=6"]["ms"]
+  if key + " mask_rgb0" in coarse_results:
+    res["coarse_mask_rgb0_max_abs_err"] = (
+        coarse_results[key + " mask_rgb0"]["max_abs_err"])
+
+
+def _coarse_kernels(card, dev, h, w, n_rand, cfg, model):
+  """Phase 11a: the training kernels at the FF coarse step's shapes (S =
+  64; static V = 11, dynamic V = 7 and the anchor pass's 6) on every
+  backward route, as in 2b; the static ones also at mask_rgb = 0 (the
+  Nvidia configs' setting, which cli/train_ff trains at).  Returns
+  {kernel id (" V=6" appended for the anchor shape, " mask_rgb0" for
+  that case): result dict}."""
+  from dynibar_tpu_torch.data.ray_batch import synthetic_ff_batch
+  from dynibar_tpu_torch.render import render_rays as rr
+  from dynibar_tpu_torch.utils.device import to_device
+  rb = to_device(synthetic_ff_batch(cfg, n_rays=n_rand, h=h, w=w,
+                                    num_frames=48, seed=SEED + 1), dev)
+  with torch.no_grad():
+    fm = model.encode_coarse_featmaps(rb["src_rgbs"], rb["static_src_rgbs"],
+                                      rb["anchor_src_rgbs"])
+    pts, _, _ = rr.sampling.sample_along_ray(
+        rb["ray_o"], rb["ray_d"], rb["depth_range"], cfg.n_samples,
+        cfg.inv_uniform, det=True)
+    ins = rr.stage_inputs(model, rb, fm, cfg, "coarse", pts, kernels=False)
+    # the anchor pass's dynamic inputs: the anchor views at the anchor time
+    rb_a = dict(rb, src_rgbs=rb["anchor_src_rgbs"],
+                src_cameras=rb["anchor_src_cameras"],
+                src_offset_idx=rb["anchor_offset_idx"],
+                src_valid=rb["anchor_valid"], ref_time=rb["anchor_time"],
+                ref_frame_idx=rb["anchor_frame_idx"])
+    dy6 = rr.stage_inputs(model, rb_a, (fm[1], None, fm[2]), cfg, "coarse",
+                          pts, kernels=False)["dy"]
+  st, dy7 = ins["st"], ins["dy"]
+  del rb, rb_a, fm, ins
+  st_rgb0 = copy.deepcopy(model.net_coarse_st)
+  st_rgb0.mask_rgb = False
+  g_cot = torch.Generator(device=dev).manual_seed(SEED + 3)
+  results = {}
+  for label, suffix, static, net, args, bwd in (
+      ("FF coarse static V=11", "", True, model.net_coarse_st, st,
+       "pallas_split"),
+      ("FF coarse static V=11 split3", "", True, model.net_coarse_st, st,
+       "pallas_split3"),
+      ("FF coarse static V=11 mask_rgb=0", " mask_rgb0", True, st_rgb0, st,
+       "pallas_split"),
+      ("FF coarse dynamic V=7", "", False, model.net_coarse_dy, dy7,
+       "pallas_split"),
+      ("FF coarse dynamic V=6", " V=6", False, model.net_coarse_dy, dy6,
+       "pallas_split")):
+    cot = torch.randn(*args[0].shape[:2], 4, generator=g_cot, device=dev)
+    res = _check_training_kernels(card, label, static, net, args, cot, bwd)
+    if not static:                  # the same shape on the "pallas" route
+      res.update(_check_single_kernels(card, label, net, args, cot))
+    for key, r in res.items():
+      results.setdefault(key + suffix, r)
+  del st, dy7, dy6, args, res, st_rgb0
+  torch.cuda.empty_cache()
+  return results
+
+
+def _coarse_step(card, dev, h, w, n_rand, cfg, t_cfg):
+  """Phase 11b: ff_coarse_train_step at N_rand on each backward route:
+  the launches of one step, kernel vs plain loss and per-group gradients
+  (plain coarse aggregators in checkpointed 512-ray slices), s/step and
+  peak memory, 10 steps on one batch with a falling loss, and the fine
+  groups bit-identical throughout.  Returns (launches, stats) per
+  route."""
+  from dynibar_tpu_torch.data.ray_batch import synthetic_ff_batch
+  from dynibar_tpu_torch.models.dynibar import FF_FINE_KEYS, FFModel
+  from dynibar_tpu_torch.train import losses, trainer
+  from dynibar_tpu_torch.utils import kernel_check as kc
+  from dynibar_tpu_torch.utils.device import to_device
+  weights = losses.schedule_weights(t_cfg, 0)
+  batch = to_device(synthetic_ff_batch(cfg, n_rays=n_rand, h=h, w=w,
+                                       num_frames=48, seed=SEED), dev)
+  step_launches, step_stats = {}, {}
+  for route, (st_bwd, dy_bwd) in MONO_ROUTES.items():
+    rcfg = dataclasses.replace(cfg, fused_st_bwd_impl=st_bwd,
+                               fused_bwd_impl=dy_bwd)
+    model = FFModel(rcfg, num_frames=48, seed=SEED).train_coarse()
+    opt = trainer.make_ff_coarse_optimizer(model, t_cfg)
+    fine0 = {k: v.clone() for k, v in model.state_dict().items()
+             if k.split(".")[0] in FF_FINE_KEYS}
+
+    def step(seed):
+      gen = torch.Generator(dev).manual_seed(seed)
+      return trainer.ff_coarse_train_step(model, opt, batch, weights, rcfg,
+                                          t_cfg, generator=gen)
+
+    def loss_fn(kernels=True):
+      gen = torch.Generator(dev).manual_seed(SEED + 1)
+      with contextlib.ExitStack() as stack:
+        if not kernels:
+          stack.enter_context(kc.sliced_twin(model.net_coarse_st))
+          stack.enter_context(kc.sliced_twin(model.net_coarse_dy))
+        return trainer.ff_coarse_loss(model, batch, weights, rcfg,
+                                      kernels=kernels, generator=gen)[0]
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    loss, metrics, _ = step(SEED)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    step_launches[route] = _read_counts()
+    if step_launches[route] != COARSE_LAUNCHES[route]:
+      raise AssertionError(f"FF coarse step ({route}) launches "
+                           f"{step_launches[route]}, want "
+                           f"{COARSE_LAUNCHES[route]}")
+    if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+      raise AssertionError(f"FF coarse step ({route}): non-finite metrics")
+    print(f"FF coarse step ({route}) launches: {step_launches[route]}; "
+          f"first step {first_s:.2f} s, loss {float(loss):.5f}, psnr "
+          f"{float(metrics['psnr']):.3f}, grad_norm "
+          f"{float(metrics['grad_norm']):.4g}", flush=True)
+    # kernel vs plain gradients after one update (the motion coefficients,
+    # zero at init, then pass a gradient to the basis)
+    loss_rel, group, ok = _rel(_group_grads(model, loss_fn), _group_grads(
+        model, lambda: loss_fn(kernels=False)))
+    print(f"FF coarse step ({route}) kernel vs plain (N_rand {n_rand}): "
+          f"loss rel {loss_rel:.2e}; gradient rel-norm per group "
+          f"{({k: round(v, 5) for k, v in group.items()})}", flush=True)
+    if not ok:
+      raise AssertionError(f"FF coarse step ({route}): kernel and plain "
+                           "gradients disagree")
+    torch.cuda.empty_cache()
+    for i in range(2):                                    # warm-up
+      step(SEED + 10 + i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30
+    secs = []
+    for i in range(5):
+      t0 = time.perf_counter()
+      step(SEED + 20 + i)
+      torch.cuda.synchronize()
+      secs.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_stats[route] = dict(s_per_step=float(np.mean(secs)),
+                             min=min(secs), max=max(secs), peak_gib=peak_gib)
+    print(f"FF coarse train step ({route}): {np.mean(secs):.4f} s/step at "
+          f"N_rand {n_rand}, mean of {len(secs)} after 2 warm-ups (min "
+          f"{min(secs):.4f}, max {max(secs):.4f}), peak memory "
+          f"{peak_gib:.2f} GiB ({held_gib:.2f} GiB held before the steps) "
+          f"[{card}]", flush=True)
+    curve = [float(step(SEED + 30)[0]) for _ in range(10)]
+    print(f"FF coarse train loss over 10 steps on one batch ({route}): "
+          f"{[round(x, 5) for x in curve]}", flush=True)
+    if not (np.isfinite(curve).all() and curve[-1] < curve[0]):
+      raise AssertionError(f"FF coarse step ({route}): the loss did not "
+                           "fall")
+    moved = [k for k, v in model.state_dict().items() if k in fine0
+             and not torch.equal(v, fine0[k])]
+    if moved:
+      raise AssertionError(f"FF coarse step ({route}): fine groups moved: "
+                           f"{moved[:5]}")
+    del model, opt, step, loss_fn, loss, metrics
+    torch.cuda.empty_cache()
+  print("FF coarse step: the fine groups bit-identical over each route's "
+        "18 steps", flush=True)
+  return step_launches, step_stats
+
+
+def _coarse_chain(card, dev, h, w, n_rand, frames=24, coarse_steps=48):
+  """Phase 11c: the FF training chain from disk at the Nvidia config
+  (configs_nvidia/eval_balloon1_long.txt: 64 + 64 samples, bf16,
+  mask_rgb = 0, mask_static): ConsistentScene.write_nvidia, coarse_steps
+  ff_coarse_train_step steps from a PrefetchPipeline over NvidiaSceneData
+  and a port snapshot, then cli/train_ff.main on that folder for one epoch
+  (n_iters frames - 1); the CLI's coarse groups equal the coarse run's
+  bit for bit, the loss falls in each stage; the two held-out views'
+  crop-3% PSNR before and after the fine stage, printed.  Returns the
+  CLI's launches."""
+  import tempfile
+  from dynibar_tpu_torch.cli import train_ff
+  from dynibar_tpu_torch.config import INIT_SEED, STEP_SEED, DynibarConfig
+  from dynibar_tpu_torch.data.nvidia import NvidiaSceneData
+  from dynibar_tpu_torch.data.pipeline import PrefetchPipeline
+  from dynibar_tpu_torch.data.synthetic_scene import ConsistentScene
+  from dynibar_tpu_torch.eval.held_out import eval_ff, held_out_views
+  from dynibar_tpu_torch.models.dynibar import FF_COARSE_KEYS, FFModel
+  from dynibar_tpu_torch.train import losses, trainer
+  from dynibar_tpu_torch.utils import checkpoints as ckpt
+  config_file = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "configs_nvidia", "eval_balloon1_long.txt")
+  name = "consistent_nvidia"
+  with tempfile.TemporaryDirectory() as root:
+    t0 = time.perf_counter()
+    scene = ConsistentScene(num_frames=frames, height=h, width=w)
+    scene.write_nvidia(root, name)
+    print(f"chain: wrote a {frames}-frame {h}x{w} ConsistentScene in the "
+          f"Nvidia layout in {time.perf_counter() - t0:.1f} s", flush=True)
+    config = DynibarConfig.from_file(
+        config_file, folder_path=root, rootdir=root, eval_scenes=[name],
+        N_rand=n_rand, workers=4, chunk_size=4096, training_height=h)
+    cfg = config.render_settings("ff_train")
+    data = NvidiaSceneData(config, name, cfg=cfg, height=h)
+    config.num_frames = data.num_frames
+    t_cfg = config.train_settings()
+    views = held_out_views(scene, data)
+
+    # ---- the coarse stage ----
+    model = FFModel(cfg, frames, device=dev, seed=INIT_SEED).train_coarse()
+    opt = trainer.make_ff_coarse_optimizer(model, t_cfg)
+    gen = torch.Generator(dev).manual_seed(STEP_SEED)
+    curve = []
+    _zero_counts()
+    with PrefetchPipeline(lambda r: data.sample_batch(r, n_rand),
+                          num_workers=config.workers, seed=0,
+                          device=dev) as pipe:
+      t0 = time.perf_counter()
+      for i in range(coarse_steps):
+        epoch = i // frames
+        data.set_epoch(epoch)
+        loss, _, _ = trainer.ff_coarse_train_step(
+            model, opt, next(pipe), losses.schedule_weights(t_cfg, epoch),
+            cfg, t_cfg, generator=gen)
+        curve.append(loss)
+      curve = [float(x) for x in curve]          # one sync, at the end
+      coarse_s = (time.perf_counter() - t0) / coarse_steps
+      coarse_wait = pipe.wait_s
+    coarse_launches = {k: n for k, n in _read_counts().items() if n}
+    coarse_dir = os.path.join(root, "coarse_run")
+    ckpt.save_checkpoint(coarse_dir, coarse_steps, model.state_dict(),
+                         opt.state_dict())
+    coarse_sd = {k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()
+                 if k.split(".")[0] in FF_COARSE_KEYS}
+    first, last = np.mean(curve[:12]), np.mean(curve[-12:])
+    print(f"chain coarse: {coarse_steps} steps, {coarse_s:.4f} s/step, "
+          f"{coarse_wait:.2f} s getting batches from the pipeline; loss "
+          f"mean of the first 12 {first:.5f}, of the last 12 {last:.5f}; "
+          f"launches {coarse_launches} [{card}]", flush=True)
+    if not (np.isfinite(curve).all() and last < first):
+      raise AssertionError(f"chain coarse: the loss did not fall {curve}")
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # held-out views, fine render before the fine stage: the CLI's initial
+    # model (the same seed and graft)
+    model, _ = trainer.create_ff_train_state(cfg, t_cfg, frames, device=dev,
+                                             seed=INIT_SEED, coarse=coarse_sd)
+    t0 = time.perf_counter()
+    before = eval_ff(model, data, cfg, config.chunk_size, views)
+    eval_s = (time.perf_counter() - t0) / len(views)
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- the fine stage through the CLI ----
+    args = ["--config", config_file, "--folder_path", root, "--rootdir",
+            root, "--eval_scenes", name, "--coarse_dir", coarse_dir,
+            "--training_height", str(h), "--N_rand", str(n_rand), "--n_iters", str(frames - 1),
+            "--i_print", "1", "--i_weights", str(frames), "--workers", "4",
+            "--expname", "chain"]
+    _zero_counts()
+    log = io.StringIO()                 # the CLI's per-step lines
+    with contextlib.redirect_stdout(log):
+      out = train_ff.main(args)["out_folder"]
+    torch.cuda.synchronize()
+    cli_launches = _read_counts()
+    snap = ckpt.load_checkpoint(ckpt.latest_checkpoint(out),
+                                map_location="cpu")
+    same = all(torch.equal(snap["model"][k], v) for k, v in coarse_sd.items())
+    logs = os.path.join(root, "logs", "fine_chain")
+    with open(os.path.join(logs, "metrics.jsonl")) as fh:
+      recs = [json.loads(line) for line in fh]
+    fine_curve = [r["train_fine/loss"] for r in recs
+                  if "train_fine/loss" in r]
+    rec = _cli_phases(logs)[-1][1]
+    f_first, f_last = np.mean(fine_curve[:6]), np.mean(fine_curve[-6:])
+    print(f"chain cli: {rec['steps']:.0f} steps, "
+          f"{rec['seconds'] / rec['steps']:.4f} s/step, {rec['wait_s']:.2f} s "
+          f"getting batches from the pipeline; loss mean of the first 6 "
+          f"{f_first:.5f}, of the last 6 {f_last:.5f}; coarse groups equal "
+          f"to the coarse run's: {same}; launches "
+          f"{ {k: n for k, n in cli_launches.items() if n} } [{card}]",
+          flush=True)
+    if not (same and snap["step"] == frames and len(fine_curve) == frames
+            and np.isfinite(fine_curve).all() and f_last < f_first
+            and all(cli_launches[k] > 0 for k in ("K1", "K2", "K3", "K2r",
+                                                  "K5a", "K5b", "K3r",
+                                                  "K4a", "K4b"))):
+      raise AssertionError(f"chain cli: step {snap['step']}, coarse equal "
+                           f"{same}, losses {fine_curve}, launches "
+                           f"{cli_launches}")
+    model = FFModel(cfg, frames, device=dev)
+    model.load_state_dict(snap["model"])
+    after = eval_ff(model, data, cfg, config.chunk_size, views)
+    del model
+    torch.cuda.empty_cache()
+  for key in sorted(k for k in before if k.endswith("_crop3")):
+    print(f"chain held-out {key}: {before[key]:.3f} dB before the fine "
+          f"stage, {after[key]:.3f} after", flush=True)
+  print(f"chain: {eval_s:.2f} s per held-out {h}x{w} view (both stages, "
+        f"chunk {config.chunk_size}) [{card}]", flush=True)
+  return dict(cli_launches=cli_launches,
+              cli_s_per_step=rec["seconds"] / rec["steps"],
+              cli_wait_s=rec["wait_s"], coarse_s_per_step=coarse_s)
 
 
 def _cli_phases(logs):
@@ -1846,6 +2186,19 @@ def main() -> int:
     # ---- 10: the served mono frame over phase 8's scene and snapshot -----
     serve_launches, aa0_err = _serve_phase(card, dev, h, w, cli_root,
                                            snapshot)
+
+  # ---- 11: the FF coarse stage's training and the chain from disk -------
+  t_phase = time.perf_counter()
+  c_cfg = RenderSettings(n_samples=64, n_importance=64, num_views_dy=7,
+                         num_views_anchor=6, num_views_static=11,
+                         num_basis=6, inv_uniform=True,
+                         compute_dtype="bfloat16")
+  coarse_results = _coarse_kernels(card, dev, h, w, n_rand, c_cfg,
+                                   FFModel(c_cfg, num_frames=48, seed=SEED))
+  coarse_launches, coarse_stats = _coarse_step(card, dev, h, w, n_rand,
+                                               c_cfg, t_cfg)
+  chain = _coarse_chain(card, dev, h, w, n_rand)
+  print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
   print(f"phases done in {time.perf_counter() - t_start:.1f} s", flush=True)
 
   # ---- 7: result ----------------------------------------------------------
@@ -1874,6 +2227,7 @@ def main() -> int:
     res["mono_bound_ms"] = mono_results[key]["bound_ms"]
     res["mono_launches"] = {route: n[key]
                             for route, n in mono_launches.items()}
+    _add_coarse(res, key, coarse_results, coarse_launches, chain)
     kernels.append(res)
   # K3p/K4s at the mono step's shapes (V = 9), their launches on the mono
   # step's "pallas" route; also their times at the FF step's (V = 7, S =
@@ -1888,8 +2242,12 @@ def main() -> int:
     res["cli_launches"] = cli_launches[key]
     if key == "K4s":
       res["ms_v10"] = mono_results["K4s V=10"]["ms"]
+    _add_coarse(res, key, coarse_results, coarse_launches, chain)
     kernels.append(res)
   print(f"mono step per route: {mono_stats} [{card}]", flush=True)
+  print(f"FF coarse step per route: {coarse_stats}; chain: "
+        f"{ {k: v for k, v in chain.items() if k != 'cli_launches'} } "
+        f"[{card}]", flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)
   print(card, flush=True)
   print(json.dumps({"ok": True, "device": {

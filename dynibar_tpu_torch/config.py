@@ -140,8 +140,9 @@ STEP_SEED = 1
 @dataclasses.dataclass
 class DynibarConfig:
   """The knobs of the monocular training and render CLIs (``cli/train``,
-  ``cli/render_monocular``), the server (``serve/server``) and the
-  Nvidia eval CLI (``cli/eval_nvidia``), copied from
+  ``cli/render_monocular``), the server (``serve/server``), the FF
+  fine-stage training CLI (``cli/train_ff``) and the Nvidia eval CLI
+  (``cli/eval_nvidia``), copied from
   ``dynibar_tpu.config.DynibarConfig`` with its names and defaults
   (reference config.py:6-375).  The TPU-only switches (strip sampling,
   fused RGB sampling, the channel-major handoff, buffer donation, remat,
@@ -150,6 +151,9 @@ class DynibarConfig:
   # general / paths
   rootdir: str = "./"
   folder_path: str = ""
+  # the frozen coarse stage cli/train_ff grafts: a port run folder (its
+  # newest snapshot) or a reference coarse .pth (reference model.py:102)
+  coarse_dir: str = ""
   expname: str = "exp"
   workers: int = 4
 

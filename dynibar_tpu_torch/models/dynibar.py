@@ -9,7 +9,10 @@ through the kernel wrappers (CUDA kernels for CUDA tensors, plain twins on
 CPU; with grad enabled the kernels' autograd Functions) unless
 ``kernels=False`` asks for the plain modules.  ``train_fine()`` is the
 fine-stage training mode: only the fine groups require grad, the coarse
-stage stays frozen (reference model.py:106-118).
+stage stays frozen (reference model.py:106-118).  ``train_coarse()`` is
+the coarse-stage mode that produces that frozen stage
+(dynibar_tpu/train/trainer.py:193-254): only the coarse groups require
+grad.  ``param_groups()`` follows the mode.
 
 ``MonoModel`` holds one static and one dynamic aggregator (the dynamic one
 with ``shift = 5``), two feature nets, one motion MLP and one DCT basis
@@ -75,6 +78,7 @@ class FFModel(nn.Module):
     basis = torch.from_numpy(init_dct_basis(cfg.num_basis, num_frames))
     self.traj_basis = nn.Parameter(basis.clone())
     self.traj_basis_fine = nn.Parameter(basis.clone())
+    self.trained_keys = FF_FINE_KEYS
     self.requires_grad_(False)
     self.eval()
     self.to(dev)
@@ -106,19 +110,29 @@ class FFModel(nn.Module):
   def basis(self, stage: str) -> torch.Tensor:
     return self.traj_basis_fine if stage == "fine" else self.traj_basis
 
-  def train_fine(self) -> "FFModel":
-    """Fine-stage training mode: the fine groups require grad, the coarse
-    groups stay frozen."""
+  def _train(self, keys) -> "FFModel":
+    self.trained_keys = keys
     self.requires_grad_(False)
-    for key in FF_FINE_KEYS:
+    for key in keys:
       getattr(self, key).requires_grad_(True)
     return self
 
+  def train_fine(self) -> "FFModel":
+    """Fine-stage training mode: the fine groups require grad, the coarse
+    groups stay frozen."""
+    return self._train(FF_FINE_KEYS)
+
+  def train_coarse(self) -> "FFModel":
+    """Coarse-stage training mode: the coarse groups require grad, the
+    fine groups stay frozen."""
+    return self._train(FF_COARSE_KEYS)
+
   def param_groups(self) -> Dict[str, List[nn.Parameter]]:
-    """The fine groups' parameters, by group name."""
-    return {key: ([self.traj_basis_fine] if key == "traj_basis_fine"
+    """The trained groups' parameters, by group name: the fine groups
+    unless ``train_coarse()`` chose the coarse ones."""
+    return {key: ([getattr(self, key)] if key.startswith("traj_basis")
                   else list(getattr(self, key).parameters()))
-            for key in FF_FINE_KEYS}
+            for key in self.trained_keys}
 
   def encode_featmaps(self, src_rgbs: torch.Tensor,
                       static_src_rgbs: torch.Tensor,
@@ -144,6 +158,19 @@ class FFModel(nn.Module):
     fine_static = (static_src_rgbs if fine_static_src_rgbs is None
                    else fine_static_src_rgbs)
     return coarse, (net(src_rgbs)[0], anchor, net(fine_static)[1])
+
+  def encode_coarse_featmaps(self, src_rgbs: torch.Tensor,
+                             static_src_rgbs: torch.Tensor,
+                             anchor_src_rgbs: Optional[torch.Tensor] = None
+                             ) -> tuple:
+    """The coarse stage's (dynamic, anchor or None, static) featmaps for
+    its own training (``compute_ff_coarse_featmaps``, dynibar_tpu/train/
+    trainer.py:223-235), recorded when grad is enabled: dynamic and anchor
+    maps from feature_net's coarse channels, static maps from its fine
+    channels, as the eval routes the coarse stage."""
+    net = self.feature_net
+    anchor = None if anchor_src_rgbs is None else net(anchor_src_rgbs)[0]
+    return (net(src_rgbs)[0], anchor, net(static_src_rgbs)[1])
 
 
 class MonoModel(nn.Module):

@@ -1,9 +1,9 @@
-"""The render cores: FF (frozen coarse -> importance -> fine (-> anchor))
-and mono (one stage (-> anchor)).
+"""The render cores: FF (frozen coarse -> importance -> fine (-> anchor)),
+FF coarse (one stage (-> anchor)) and mono (one stage (-> anchor)).
 
 Port of ``dynibar_tpu.render.render_rays.render_rays_mv``,
-``render_rays_mono``, ``_render_stage_ff`` and ``_cross_time_branch``
-(reference render_ray.py:407-1270).  The eval call runs everything under
+``render_rays_mono``, ``render_rays_ff_coarse``, ``_render_stage_ff`` and
+``_cross_time_branch`` (reference render_ray.py:407-1270).  The eval call runs everything under
 ``torch.no_grad()``: each stage samples the source views through K1
 (ops/sample.py) and aggregates through K2/K3 (ops/agg.py).  The train call
 (``is_train=True``) keeps the frozen coarse stage there and runs the fine
@@ -16,6 +16,8 @@ instead, which is how the kernels are held against them on the card.
 ``needs_grad`` (by default ``is_train``) asks for it, so the bootstrap
 step renders with ``is_train=False`` and still differentiates.  The mono
 model passes ``None`` where the FF model names its stage.
+``render_rays_ff_coarse`` is the same single-stage render on the FF
+model's coarse nets: the program that trains its coarse stage.
 """
 
 from __future__ import annotations
@@ -243,6 +245,42 @@ def render_rays_mv(model, rb: Dict[str, Any], coarse_featmaps,
   return ret
 
 
+def _render_one_stage(model, rb, featmaps, cfg: RenderSettings,
+                      stage: Optional[str], *, kernels: bool, is_train: bool,
+                      det: bool, generator: Optional[torch.Generator],
+                      needs_grad: bool, flow_views: Optional[int],
+                      sf_step: int, static_composite: bool
+                      ) -> Dict[str, Any]:
+  """A single-stage render (uniform samples, dual composite, rendered
+  flows against the first ``flow_views`` sources (all with None), s_vals,
+  a detached expected scene flow over ``sf_step`` frames) and, with
+  is_train, the cross-time branch at the same nets; autograd on when
+  ``needs_grad``."""
+  with torch.set_grad_enabled(needs_grad and torch.is_grad_enabled()):
+    pts, z_vals, s_vals = sampling.sample_along_ray(
+        rb["ray_o"], rb["ray_d"], rb["depth_range"], cfg.n_samples,
+        inv_uniform=cfg.inv_uniform, det=det, generator=generator)
+    out_stage = _render_stage_ff(model, rb, featmaps, cfg, stage, pts,
+                                 z_vals, kernels)
+    out = out_stage["outputs"]
+    out["render_flows"] = comp.render_optical_flow(
+        out["weights"], out_stage["pts_seq"][:flow_views],
+        rb["src_cameras"][:flow_views], rb["uv_grid"])
+    out["s_vals"] = s_vals
+    out["exp_sf"] = motion.expected_scene_flow(
+        out["weights"], out_stage["traj"], sf_step, cfg.traj_window).detach()
+    ret = {"outputs_coarse_ref": out,
+           "outputs_coarse_ref_dy": out_stage["outputs_dy"]}
+    if static_composite:
+      ret["outputs_coarse_st"] = comp.composite_single(
+          out_stage["raw_st"], z_vals, out_stage["pixel_mask_st"])
+    if is_train:
+      ret["outputs_coarse_anchor"], ret["outputs_coarse_anchor_dy"] = (
+          _cross_time_branch(model, rb, cfg, stage, featmaps[1], out_stage,
+                             pts, z_vals, kernels))
+  return ret
+
+
 def render_rays_mono(model, rb: Dict[str, Any], featmaps,
                      cfg: RenderSettings, *, device: DeviceLike = None,
                      kernels: bool = True, is_train: bool = False,
@@ -263,31 +301,39 @@ def render_rays_mono(model, rb: Dict[str, Any], featmaps,
   dev = resolve_device(device)
   if model.device != dev:
     raise ValueError(f"model is on {model.device}, render asked for {dev}")
-  rb = to_device(rb, dev)
-  if needs_grad is None:
-    needs_grad = is_train
-  with torch.set_grad_enabled(needs_grad and torch.is_grad_enabled()):
-    pts, z_vals, s_vals = sampling.sample_along_ray(
-        rb["ray_o"], rb["ray_d"], rb["depth_range"], cfg.n_samples,
-        inv_uniform=cfg.inv_uniform, det=det, generator=generator)
-    stage = _render_stage_ff(model, rb, featmaps, cfg, None, pts, z_vals,
-                             kernels)
-    out = stage["outputs"]
-    # render-derived flow against the first 6 (temporal) source views
-    out["render_flows"] = comp.render_optical_flow(
-        out["weights"], stage["pts_seq"][:6], rb["src_cameras"][:6],
-        rb["uv_grid"])
-    out["s_vals"] = s_vals
-    out["exp_sf"] = motion.expected_scene_flow(
-        out["weights"], stage["traj"], 1, cfg.traj_window).detach()
-    ret = {
-        "outputs_coarse_ref": out,
-        "outputs_coarse_ref_dy": stage["outputs_dy"],
-        "outputs_coarse_st": comp.composite_single(
-            stage["raw_st"], z_vals, stage["pixel_mask_st"]),
-    }
-    if is_train:
-      ret["outputs_coarse_anchor"], ret["outputs_coarse_anchor_dy"] = (
-          _cross_time_branch(model, rb, cfg, None, featmaps[1], stage, pts,
-                             z_vals, kernels))
-  return ret
+  # render-derived flow against the first 6 (temporal) source views
+  return _render_one_stage(
+      model, to_device(rb, dev), featmaps, cfg, None, kernels=kernels,
+      is_train=is_train, det=det, generator=generator,
+      needs_grad=is_train if needs_grad is None else needs_grad,
+      flow_views=6, sf_step=1, static_composite=True)
+
+
+def render_rays_ff_coarse(model, rb: Dict[str, Any], coarse_featmaps,
+                          cfg: RenderSettings, *, device: DeviceLike = None,
+                          kernels: bool = True, is_train: bool = True,
+                          det: bool = False,
+                          generator: Optional[torch.Generator] = None,
+                          needs_grad: Optional[bool] = None
+                          ) -> Dict[str, Any]:
+  """The forward-facing model's coarse stage on its own, for training the
+  frozen coarse stage the fine stage loads (dynibar_tpu
+  render_rays.py:527-597; google/dynibar ships that stage only as data,
+  model.py:102).  A single-stage render on the coarse nets structured
+  like ``render_rays_mono``: uniform samples, the dual composite, flows
+  against all 7 sources, s_vals, a detached expected scene flow over 2
+  frames and, with is_train, the cross-time branch at the coarse nets.
+
+  coarse_featmaps: (dynamic, anchor or None, static) as
+  ``FFModel.encode_coarse_featmaps`` routes them.  Returns the key layout
+  ``compute_mono_losses`` reads (outputs_coarse_ref, _ref_dy, _anchor,
+  _anchor_dy).  needs_grad (default is_train) as in
+  ``render_rays_mono``."""
+  dev = resolve_device(device)
+  if model.device != dev:
+    raise ValueError(f"model is on {model.device}, render asked for {dev}")
+  return _render_one_stage(
+      model, to_device(rb, dev), coarse_featmaps, cfg, "coarse",
+      kernels=kernels, is_train=is_train, det=det, generator=generator,
+      needs_grad=is_train if needs_grad is None else needs_grad,
+      flow_views=None, sf_step=2, static_composite=False)

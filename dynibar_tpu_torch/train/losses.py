@@ -131,11 +131,14 @@ def _assemble_losses(out_ref, out_ref_dy, out_anchor, out_anchor_dy,
   rgb_loss = rgb_loss + w.dynamic_rgb_decay * temporal_rgb_loss(
       out_anchor_dy, gt_rgb, motion_mask)
 
-  # --- disparity ---
-  pred_disp = 1.0 / torch.clamp(out_ref["depth"], min=1e-2)
-  disp_loss = w.w_disp * (torch.sum(torch.abs(pred_disp - rb["disp"])
-                                    * pred_mask)
-                          / (torch.sum(pred_mask) + 1e-8))
+  # --- disparity (the Nvidia scenes' batches carry none) ---
+  if "disp" in rb:
+    pred_disp = 1.0 / torch.clamp(out_ref["depth"], min=1e-2)
+    disp_loss = w.w_disp * (torch.sum(torch.abs(pred_disp - rb["disp"])
+                                      * pred_mask)
+                            / (torch.sum(pred_mask) + 1e-8))
+  else:
+    disp_loss = torch.zeros((), device=gt_rgb.device)
 
   # --- flow (the supervision may cover fewer views than are rendered) ---
   n_flow = rb["flows"].shape[0]

@@ -11,6 +11,13 @@ with ``make_train_step`` as one eager step each:
     nets, render coarse (frozen) -> fine -> anchor with autograd on the
     fine stage, the 8-term loss, backward, clip, Adam.  The coarse groups
     never require grad, so they stay bit-identical across steps;
+    ``create_ff_train_state`` grafts a trained coarse stage in first;
+  * FF coarse (``ff_coarse_train_step``, dynibar_tpu/train/trainer.py:
+    193-273): the run that produces that frozen coarse stage.  Re-encode
+    through feature_net, render the coarse stage (-> anchor) with
+    autograd, the mono 8-term loss on it, backward, clip, Adam over the
+    coarse groups (``make_ff_coarse_optimizer``); the fine groups never
+    require grad;
   * mono (``mono_train_step``): re-encode through both feature nets,
     render the one stage (-> anchor) with autograd, the 8-term loss (or,
     with ``bootstrap=True``, the static-bootstrap loss of phase 1, rendered
@@ -25,14 +32,17 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from dynibar_tpu_torch.config import RenderSettings, TrainSettings
-from dynibar_tpu_torch.models.dynibar import FFModel, MonoModel
-from dynibar_tpu_torch.render.render_rays import (render_rays_mono,
+from dynibar_tpu_torch.models.dynibar import (FF_COARSE_KEYS, FFModel,
+                                              MonoModel)
+from dynibar_tpu_torch.render.render_rays import (render_rays_ff_coarse,
+                                                  render_rays_mono,
                                                   render_rays_mv)
 from dynibar_tpu_torch.train.losses import (LossWeights,
                                             compute_bootstrap_loss,
                                             compute_ff_losses,
                                             compute_mono_losses)
-from dynibar_tpu_torch.utils.device import to_device
+from dynibar_tpu_torch.utils import convert
+from dynibar_tpu_torch.utils.device import DeviceLike, to_device
 
 
 def lr_cap_exponent(first_group_lr: float, gamma: float,
@@ -59,6 +69,9 @@ def _adam(model, cfg: TrainSettings, base, cap_lr: float
   gamma = cfg.lrate_decay_factor
   steps = max(1, cfg.lrate_decay_steps)
   cap = lr_cap_exponent(cap_lr, gamma)
+  if set(model.param_groups()) != set(base):
+    raise ValueError(f"the model trains {sorted(model.param_groups())}, "
+                     f"this optimizer {sorted(base)}: set its mode first")
   groups = [dict(params=params, name=key, lr=base[key], base_lr=base[key],
                  gamma=gamma, decay_steps=steps, cap=cap, steps_done=0)
             for key, params in model.param_groups().items()]
@@ -75,6 +88,36 @@ def make_ff_optimizer(model: FFModel, cfg: TrainSettings
           "motion_mlp_fine": cfg.lrate_mlp,
           "traj_basis_fine": cfg.lrate_mlp * 0.25}
   return _adam(model, cfg, base, cfg.lrate_mlp * cfg.lr_multipler)
+
+
+def make_ff_coarse_optimizer(model: FFModel, cfg: TrainSettings
+                             ) -> torch.optim.Adam:
+  """Adam over the coarse groups of a ``train_coarse()`` model with the
+  mono layout's multipliers (dynibar_tpu/train/trainer.py:193-220:
+  0.5 / 1 / 1 / 1 / 0.25 of lrate_mlp, lrate_feature for feature_net);
+  the decay cap comes from lrate_mlp · 0.5.  The frozen fine groups are
+  not in it."""
+  base = {"net_coarse_st": cfg.lrate_mlp * 0.5,
+          "net_coarse_dy": cfg.lrate_mlp,
+          "feature_net": cfg.lrate_feature,
+          "motion_mlp": cfg.lrate_mlp,
+          "traj_basis": cfg.lrate_mlp * 0.25}
+  return _adam(model, cfg, base, cfg.lrate_mlp * 0.5)
+
+
+def create_ff_train_state(cfg: RenderSettings, train_cfg: TrainSettings,
+                          num_frames: int, *, device: DeviceLike = None,
+                          seed: int = 0,
+                          coarse: Optional[Dict[str, torch.Tensor]] = None
+                          ) -> Tuple[FFModel, torch.optim.Adam]:
+  """A fine-stage model from `seed` with the frozen coarse stage grafted
+  from the state_dict `coarse` (its FF_COARSE_KEYS entries, strictly;
+  dynibar_tpu/train/trainer.py:276-288, reference model.py:102
+  load_coarse_from_ckpt), and its optimizer."""
+  model = FFModel(cfg, num_frames, device=device, seed=seed).train_fine()
+  if coarse is not None:
+    convert.load_groups(model, coarse, FF_COARSE_KEYS, "coarse stage")
+  return model, make_ff_optimizer(model, train_cfg)
 
 
 def make_mono_optimizer(model: MonoModel, cfg: TrainSettings
@@ -111,6 +154,26 @@ def ff_loss(model: FFModel, rb: Dict[str, Any], weights: LossWeights,
                        det=det, generator=generator)
   metrics = compute_ff_losses(ret, rb, weights)
   mse = torch.mean((ret["outputs_fine_ref"]["rgb"] - rb["rgb"]) ** 2)
+  metrics["psnr"] = -10.0 * torch.log10(mse + 1e-8)
+  return metrics["loss"], metrics
+
+
+def ff_coarse_loss(model: FFModel, rb: Dict[str, Any], weights: LossWeights,
+                   cfg: RenderSettings, *, det: bool = False,
+                   generator: Optional[torch.Generator] = None,
+                   kernels: bool = True
+                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+  """The coarse step's loss closure (make_ff_coarse_loss_fn,
+  dynibar_tpu/train/trainer.py:238-254): coarse featmaps -> coarse render
+  with the anchor branch -> compute_mono_losses, and the psnr of
+  outputs_coarse_ref.  rb must already be on the model's device."""
+  featmaps = model.encode_coarse_featmaps(
+      rb["src_rgbs"], rb["static_src_rgbs"], rb["anchor_src_rgbs"])
+  ret = render_rays_ff_coarse(model, rb, featmaps, cfg, device=model.device,
+                              kernels=kernels, is_train=True, det=det,
+                              generator=generator)
+  metrics = compute_mono_losses(ret, rb, weights)
+  mse = torch.mean((ret["outputs_coarse_ref"]["rgb"] - rb["rgb"]) ** 2)
   metrics["psnr"] = -10.0 * torch.log10(mse + 1e-8)
   return metrics["loss"], metrics
 
@@ -172,6 +235,22 @@ def ff_train_step(model: FFModel, opt: torch.optim.Optimizer,
   rb = to_device(rb, model.device)
   opt.zero_grad(set_to_none=True)
   loss, metrics = ff_loss(model, rb, weights, cfg, generator=generator)
+  return _update(opt, loss, metrics, train_cfg)
+
+
+def ff_coarse_train_step(model: FFModel, opt: torch.optim.Optimizer,
+                         rb: Dict[str, Any], weights: LossWeights,
+                         cfg: RenderSettings, train_cfg: TrainSettings, *,
+                         generator: Optional[torch.Generator] = None
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                    int]:
+  """One coarse-stage step of a ``train_coarse()`` model
+  (make_ff_coarse_train_step, dynibar_tpu/train/trainer.py:257-273):
+  loss, backward, clip, the Adam update of the coarse groups.  Returns as
+  ``ff_train_step``; the fine groups stay bit-identical."""
+  rb = to_device(rb, model.device)
+  opt.zero_grad(set_to_none=True)
+  loss, metrics = ff_coarse_loss(model, rb, weights, cfg, generator=generator)
   return _update(opt, loss, metrics, train_cfg)
 
 

@@ -17,8 +17,11 @@ reference's names.
 
 ``load_reference_ff_checkpoint`` reads a google/dynibar coarse + fine
 ``.pth`` pair (the keys ``dynibar_tpu/utils/torch_convert.py:195-219``
-reads) straight into an ``FFModel``: the port's parameters carry the
-reference's names, so nothing is transposed.
+reads) straight into an ``FFModel``, ``load_reference_ff_coarse`` the
+coarse file alone (``convert_ff_coarse_checkpoint``, :178): the port's
+parameters carry the reference's names, so nothing is transposed.
+``load_groups`` copies chosen groups of any state_dict in, strictly over
+those groups: the coarse graft of the fine-stage trainer.
 """
 
 from __future__ import annotations
@@ -206,38 +209,68 @@ def load_jax_params(model, params: Dict[str, Any]) -> None:
       jax_params_to_state_dict(params, model_entries(model)), strict=True)
 
 
-def load_reference_ff_checkpoint(model: FFModel, coarse_pth: str,
-                                 fine_pth: str) -> None:
-  """Load a reference DynibarFF coarse + fine ``.pth`` pair into `model`:
-  the coarse file's ``net_coarse_st``, ``net_coarse_dy``, ``feature_net``,
-  ``motion_mlp`` and ``traj_basis``, the fine file's ``*_fine`` groups,
-  ``module.`` prefixes dropped.  Reference keys the port does not build
-  (the feature net's dead layer2/3 and decoder) are skipped; a missing or
-  mis-shaped key raises."""
-  sd: Dict[str, torch.Tensor] = {}
-  for path, groups in ((coarse_pth, FF_COARSE_KEYS),
-                       (fine_pth, FF_FINE_KEYS)):
-    # the reference's files are whole pickles, read as the JAX package
-    # reads them
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    for group in groups:
-      if group not in ckpt:
-        raise KeyError(f"{path}: no {group!r} in the checkpoint")
-      value = ckpt[group]
-      if isinstance(value, torch.Tensor):
-        sd[group] = value
-        continue
-      for k, v in value.items():
-        k = k[len("module."):] if k.startswith("module.") else k
-        sd[f"{group}.{k}"] = torch.as_tensor(v)
-  own = model.state_dict()
+def load_groups(model: FFModel, sd: Dict[str, torch.Tensor], groups,
+                source: str = "state_dict") -> None:
+  """Copy the parameters of `groups` (top-level names) from `sd` into
+  `model` in place, strictly over those groups: a missing key raises
+  KeyError, a shape that differs ValueError.  Keys of other groups in `sd`
+  are not read; the model's other groups keep their values, and its
+  parameters stay the same objects (an optimizer built on them still
+  holds them)."""
+  groups = tuple(groups)
+  own = {k: v for k, v in model.state_dict().items()
+         if k.split(".")[0] in groups}
   missing = sorted(k for k in own if k not in sd)
   if missing:
-    raise KeyError(f"reference checkpoint lacks {missing[:5]}")
+    raise KeyError(f"{source} lacks {missing[:5]}")
   shapes = [(k, tuple(sd[k].shape), tuple(v.shape)) for k, v in own.items()
             if sd[k].shape != v.shape]
   if shapes:
-    raise ValueError(f"reference checkpoint shapes differ (key, file, "
-                     f"model): {shapes[:5]}")
-  model.load_state_dict({k: sd[k].detach().to(v.dtype)
-                         for k, v in own.items()}, strict=True)
+    raise ValueError(f"{source}: shapes differ (key, file, model): "
+                     f"{shapes[:5]}")
+  with torch.no_grad():
+    for k, v in own.items():
+      v.copy_(sd[k].detach().to(v.dtype))
+
+
+def read_reference_groups(path: str, groups) -> Dict[str, torch.Tensor]:
+  """The state_dict entries of `groups` in a reference DynibarFF ``.pth``
+  (one state_dict per group, ``module.`` prefixes dropped; a basis is a
+  tensor).  Reference keys the port does not build (the feature net's
+  dead layer2/3 and decoder) come along and go unread."""
+  # the reference's files are whole pickles, read as the JAX package reads
+  # them
+  ckpt = torch.load(path, map_location="cpu", weights_only=False)
+  sd: Dict[str, torch.Tensor] = {}
+  for group in groups:
+    if group not in ckpt:
+      raise KeyError(f"{path}: no {group!r} in the checkpoint")
+    value = ckpt[group]
+    if isinstance(value, torch.Tensor):
+      sd[group] = value
+      continue
+    for k, v in value.items():
+      k = k[len("module."):] if k.startswith("module.") else k
+      sd[f"{group}.{k}"] = torch.as_tensor(v)
+  return sd
+
+
+def load_reference_ff_coarse(model: FFModel, coarse_pth: str) -> None:
+  """Load a reference DynibarFF coarse ``.pth`` (the ``coarse_dir``
+  checkpoint of reference model.py:102, what
+  dynibar_tpu/utils/torch_convert.py:178 converts) into `model`'s
+  ``net_coarse_st``, ``net_coarse_dy``, ``feature_net``, ``motion_mlp``
+  and ``traj_basis``; the fine groups are left as they are.  A missing or
+  mis-shaped key raises."""
+  load_groups(model, read_reference_groups(coarse_pth, FF_COARSE_KEYS),
+              FF_COARSE_KEYS, coarse_pth)
+
+
+def load_reference_ff_checkpoint(model: FFModel, coarse_pth: str,
+                                 fine_pth: str) -> None:
+  """Load a reference DynibarFF coarse + fine ``.pth`` pair into `model`:
+  the coarse file through ``load_reference_ff_coarse``, the fine file's
+  ``*_fine`` groups the same way."""
+  load_reference_ff_coarse(model, coarse_pth)
+  load_groups(model, read_reference_groups(fine_pth, FF_FINE_KEYS),
+              FF_FINE_KEYS, fine_pth)

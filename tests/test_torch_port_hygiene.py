@@ -41,7 +41,7 @@ NEW_MODULES = ("cli/train.py", "data/png.py", "data/llff.py",
                "data/nvidia.py", "eval/metrics.py", "eval/lpips.py",
                "eval/nvidia_eval.py", "cli/render_monocular.py",
                "serve/video.py", "serve/session.py", "serve/registry.py",
-               "serve/server.py")
+               "serve/server.py", "cli/train_ff.py", "eval/held_out.py")
 # image and video libraries the card's machine lacks: no module may need
 # one to import (serve/video.py imports cv2 only to encode an mp4)
 ABSENT_ON_CARD = ("cv2", "imageio", "PIL")
