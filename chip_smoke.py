@@ -3,8 +3,10 @@ FF fine-stage train step, the mono model's eval chunk and train step, the
 monocular training CLI from an on-disk scene to checkpoints, the Nvidia
 benchmark eval CLI on an on-disk scene, the mono render and serving
 path (the HTTP server over the training CLI's checkpoint, the render
-CLI), and the FF training chain: the coarse-stage train step, then the
-fine-stage training CLI on its snapshot, from an analytic scene on disk.
+CLI), the FF training chain: the coarse-stage train step, then the
+fine-stage training CLI on its snapshot, from an analytic scene on disk,
+and scene preprocessing: the camera and virtual-view CLIs from a
+dynamic-video-depth output, then the training CLI on what they wrote.
 
     python3 chip_smoke.py
 
@@ -140,12 +142,40 @@ is non-zero and the last line below is never printed):
         s/step and pipeline wait of each stage, the CLI's launches, and the
         two held-out views' crop-3% PSNR before and after the fine stage
         (printed, not gated);
+  12. preprocessing (no kernel of its own: the splat is plain PyTorch on
+     the card, as the JAX package's is an XLA scatter):
+     a. a 48-frame 288×512 ConsistentScene's masks and flows in the
+        monocular layout, its images/ replaced by 576×1024 renders (the
+        focal doubled), and a dynamic-video-depth output (one npz per
+        frame: depth [1,1,144,256] of the scene, K transposed, cam_c2w),
+        written by 8 worker processes;
+     b. cli/save_monocular_cameras.main (host) and
+        cli/render_source_vv.main on the card at --height 288, 8 virtual
+        views per frame: the poses against the scene's cameras (1e-9) and
+        the bounds against the depth percentiles (exact); s/frame of each
+        CLI, the virtual views' PhaseTimer split (read, filters, geometry,
+        splat, erode, write), peak memory; one frame's splats inside
+        utils/profiling.trace, whose Chrome trace must name the
+        softmax_splat region;
+     c. frames 0 and 47's splats again on the card and on the CPU (rgb
+        within 2e-3 on the 0-255 scale, alpha within 1e-5), the CLI's
+        PNGs equal to the CPU's but at ties (the CPU's alpha within 1e-5
+        of 0.5, spread by the erosion, or a value within 1e-3 of a
+        truncation step), the ties where the f64 splat is not on the step
+        under 0.1% of the pixels; each view's masked PSNR against the
+        scene's exact render at its pose (printed, not gated);
+     d. cli/train.main on the preprocessed folder on the default routes
+        at phase 8's settings, one bootstrap epoch of 48 steps: a finite
+        loss whose mean over the last 12 steps is below the first 12's,
+        launches K2r, K5a, K5b and K3r once per step and nothing else;
+        s/step and pipeline wait from metrics.jsonl;
   7. print the kernels line (13 kernels; K1 with its single-map times, K2
      and K3 with their forward reports of 2, 2b and 6a; K1-K3 with their
      launches per eval viewpoint frame and per served frame, K2 with its
      mask_rgb = 0 and anti-alias-off errors; each training kernel with its
      ms, bound and launches at the FF coarse step's shapes (phase 11) and
-     its launches in the chain's CLI run),
+     its launches in the chain's CLI run; every kernel with its launches
+     in phase 12's training run),
      the card line, then the result line.
 
 Weights are random, from a seed.  Needs one card and no network.
@@ -1836,6 +1866,277 @@ def _serve_phase(card, dev, h, w, cli_root, snapshot, chunk=8192,
   return {k: per_frame[k] for k in ("K1", "K2", "K3")}, cli_k2
 
 
+def _preprocess_frame(dense, cvd, i, frames, h, w):
+  """Phase 12a, frame i, in a worker process: the monocular layout's files
+  of ConsistentScene(frames, h, w) (images, disparity, masks, the +-1..3
+  flows), its images/ frame replaced by a 2h x 2w render of the same
+  camera (the focal doubled, so INTER_AREA shrinks at a whole ratio), and
+  a dynamic-video-depth npz in the optimizer's layout (depth [1,1,h/2,w/2]
+  from the scene, K transposed [1,1,1,3,3], cam_c2w [1,4,4] OpenCV).
+  Returns the scene's own poses_bounds row."""
+  from dynibar_tpu_torch.data import png
+  from dynibar_tpu_torch.data.synthetic_scene import ConsistentScene
+  scene = ConsistentScene(frames, h, w)
+  row, _ = scene._write_frame(dense, i, scene.c2w)
+  big = ConsistentScene(frames, 2 * h, 2 * w)
+  rgb, _, _ = big.render(big.c2w(i), float(i))
+  png.write(os.path.join(dense, "images", f"{i:05d}.png"),
+            (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
+  small = ConsistentScene(frames, h // 2, w // 2)
+  _, depth, _ = small.render(small.c2w(i), float(i))
+  k = np.array([[small.f, 0, small.w / 2.0], [0, small.f, small.h / 2.0],
+                [0, 0, 1.0]])
+  np.savez(os.path.join(cvd, f"frame{i:05d}.npz"), depth=depth[None, None],
+           K=k.T[None, None, None], cam_c2w=scene.c2w(i)[None])
+  return row
+
+
+def _vv_check(dev, dense, frame, h, w, num_vv, scene):
+  """Phase 12c, one frame: its virtual views' splats again on the card and
+  through the CPU (forward_warp_rgbd's inputs, splat_inputs), rgb within
+  2e-3 on the 0-255 scale and alpha within 1e-5; the CLI's PNGs equal to
+  the CPU's except at ties (the CPU's alpha within 1e-5 of 0.5, spread by
+  the erosion, or its value within 1e-3 of a truncation step), ties where
+  the f64 splat does not sit on the step under 0.1% of the pixels; each
+  view's masked PSNR against the scene's exact render at its pose.
+  Returns (rgb err, alpha err, ties, exact ties, pixels, PSNRs)."""
+  from dynibar_tpu_torch.cli import render_source_vv as rsv
+  from dynibar_tpu_torch.cli import save_monocular_cameras as smc
+  from dynibar_tpu_torch.data import llff, png
+  from dynibar_tpu_torch.ops.splat import softmax_splat
+  rows = np.load(os.path.join(dense, "poses_bounds_cvd.npy"))
+  poses = rows[:, :-2].reshape(-1, 3, 5)
+  bd_scale = float(rows[:, -2].min()) * 0.75
+  name = f"{frame:05d}"
+  rgb255 = png.read(os.path.join(dense, f"images_{w}x{h}", name + ".png")
+                    ).astype(np.float32)
+  disp = np.load(os.path.join(dense, "disp", name + ".npy"))
+  f = poses[frame, 2, 4]
+  k = np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1.0]])
+  alpha = rsv.sobel_alpha(((1.0 / np.maximum(disp, 1e-8)) / 10.0
+                           ).astype(np.float32))
+  vv = llff.render_vv_wander_paths(poses[frame], bd_scale, num_vv // 2)
+  saved = np.load(os.path.join(dense, "source_vv_poses.npy"))[..., frame]
+  if not np.array_equal(saved, vv.astype(np.float32)):
+    raise AssertionError(f"preprocess: frame {frame}'s saved poses differ")
+  rgb_err = a_err = 0.0
+  ties = exact_ties = pixels = 0
+  psnrs = []
+  for v in range(num_vv):
+    dst = smc.llff_from_opencv(vv[v])
+    ins = rsv.splat_inputs(rgb255, alpha, disp, k,
+                           smc.llff_from_opencv(poses[frame, :, :4]), dst)
+    outs = [softmax_splat(*[torch.from_numpy(x).to(device, dtype)
+                            for x in ins]).cpu().numpy()
+            for device, dtype in ((dev, torch.float32),
+                                  ("cpu", torch.float32),
+                                  (dev, torch.float64))]
+    card, cpu, f64 = outs
+    rgb_err = max(rgb_err, float(np.abs(card[..., :3] - cpu[..., :3]).max()))
+    a_err = max(a_err, float(np.abs(card[..., 3] - cpu[..., 3]).max()))
+    value = np.clip(cpu[..., :3] / 255.0, 0.0, 1.0) * 255
+    mask = rsv._disk1_erosion(cpu[..., 3] > 0.5)
+    want = (np.clip(value / 255 * mask[..., None], 0, 1) * 255
+            ).astype(np.uint8)
+    written = png.read(os.path.join(dense, f"source_virtual_views_{w}x{h}",
+                                    name, f"{v:02d}.png"))
+    near = np.pad(np.abs(cpu[..., 3] - 0.5) < 1e-5, 1)   # the erosion's
+    alpha_tie = (near[1:-1, 1:-1] | near[:-2, 1:-1] | near[2:, 1:-1]
+                 | near[1:-1, :-2] | near[1:-1, 2:])      # cross
+    step = np.abs(value - np.rint(value)) < 1e-3
+    v64 = np.clip(f64[..., :3] / 255.0, 0.0, 1.0) * 255
+    on_step = np.abs(v64 - np.rint(v64)) < 1e-6
+    diff = written != want
+    if (diff & ~(step | alpha_tie[..., None])).any():
+      raise AssertionError(f"preprocess: frame {frame} view {v}: "
+                           f"{int(diff.any(-1).sum())} pixels differ from "
+                           f"the CPU's outside ties")
+    ties += int((diff & ~on_step).any(-1).sum())
+    exact_ties += int((diff & on_step).any(-1).sum())
+    pixels += h * w
+    gt = scene.render(np.vstack([dst, [0, 0, 0, 1.0]]), float(frame))[0]
+    seen = rsv._disk1_erosion(card[..., 3] > 0.5)
+    mse = np.mean((written[seen] / 255.0 - gt[seen]) ** 2)
+    psnrs.append(float(-10 * np.log10(mse)))
+  if not (rgb_err <= 2e-3 and a_err <= 1e-5 and ties < 1e-3 * pixels):
+    raise AssertionError(f"preprocess: frame {frame} card vs CPU: rgb "
+                         f"{rgb_err}, alpha {a_err}, ties {ties} of "
+                         f"{pixels} pixels")
+  return rgb_err, a_err, ties, exact_ties, pixels, psnrs
+
+
+def _preprocess_phase(card, dev, h, w, frames=48, num_vv=8, n_rand=3072,
+                      workers=8):
+  """Phase 12: preprocess a scene on the card, then train on it.  (a) A
+  ConsistentScene's frames in the monocular layout, written by `workers`
+  processes (_preprocess_frame); (b) cli/save_monocular_cameras, then
+  cli/render_source_vv on the card, with their checks, s/frame, the
+  virtual views' PhaseTimer split, peak memory and one frame's splats
+  traced; (c) frames 0 and frames - 1 held against the CPU (_vv_check);
+  (d) cli/train on the preprocessed folder on the default routes, one
+  bootstrap epoch.  Returns the launches of the training run."""
+  import concurrent.futures
+  import glob
+  import multiprocessing
+  import tempfile
+  from dynibar_tpu_torch.cli import render_source_vv as rsv
+  from dynibar_tpu_torch.cli import save_monocular_cameras as smc
+  from dynibar_tpu_torch.cli import train as cli_train
+  from dynibar_tpu_torch.data import llff, png
+  from dynibar_tpu_torch.data.synthetic_scene import ConsistentScene
+  from dynibar_tpu_torch.utils.profiling import PhaseTimer, trace
+  t_phase = time.perf_counter()
+  name = "preprocessed"
+  scene = ConsistentScene(frames, h, w)
+  with tempfile.TemporaryDirectory() as root:
+    # ---- 12a: the inputs ----
+    dense = os.path.join(root, name, "dense")
+    cvd = os.path.join(root, "cvd")
+    for sub in ("images", f"images_{w}x{h}", "disp", "flow_i1", "flow_i2",
+                "flow_i3", "dynamic_masks", "static_masks"):
+      os.makedirs(os.path.join(dense, sub))
+    os.makedirs(cvd)
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(workers,
+                                                mp_context=ctx) as pool:
+      rows = np.stack(list(pool.map(
+          _preprocess_frame, [dense] * frames, [cvd] * frames,
+          range(frames), [frames] * frames, [h] * frames, [w] * frames)))
+    print(f"preprocess: wrote a {frames}-frame {h}x{w} ConsistentScene "
+          f"(masks, flows) with {2 * h}x{2 * w} frames and a "
+          f"dynamic-video-depth output at {h // 2}x{w // 2} in "
+          f"{time.perf_counter() - t0:.1f} s ({workers} processes)",
+          flush=True)
+
+    # ---- 12b: the two CLIs ----
+    log = io.StringIO()                 # the CLIs' per-frame lines
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+      smc.main(["--data_path", dense, "--cvd_path", cvd, "--height", str(h)])
+    save_s = (time.perf_counter() - t0) / frames
+    got = np.load(os.path.join(dense, "poses_bounds_cvd.npy"))
+    pose_err = float(np.abs(got[:, :15] - rows[:, :15]).max())
+    depths = [np.load(os.path.join(cvd, f"frame{i:05d}.npz"))["depth"]
+              for i in range(frames)]
+    bounds = np.array([[np.percentile(d, 5), np.percentile(d, 95)]
+                       for d in depths])
+    bound_err = float(np.abs(got[:, 15:] - bounds).max())
+    img = png.read(os.path.join(dense, f"images_{w}x{h}", "00000.png"))
+    disp = np.load(os.path.join(dense, "disp", "00000.npy"))
+    if not (got.shape == (frames, 17) and got.dtype == np.float64
+            and pose_err <= 1e-9 and bound_err == 0.0
+            and img.shape == (h, w, 3) and disp.shape == (h, w)):
+      raise AssertionError(f"save_monocular_cameras: poses {got.shape} "
+                           f"{got.dtype}, pose err {pose_err}, bound err "
+                           f"{bound_err}, image {img.shape}, disp "
+                           f"{disp.shape}")
+    print(f"save_monocular_cameras: {save_s:.4f} s/frame ({2 * h}x{2 * w} "
+          f"-> {h}x{w}, host); poses vs the scene's cameras max abs "
+          f"{pose_err:.3g}, bounds vs the depth percentiles {bound_err:.3g} "
+          f"[{card}]", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(log):
+      res = rsv.main(["--data_path", dense, "--height", str(h), "--num_vv",
+                      str(num_vv)])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    timer = res["timer"]
+    vv_poses = np.load(os.path.join(dense, "source_vv_poses.npy"))
+    n_png = len(glob.glob(os.path.join(res["out_dir"], "*", "*.png")))
+    if not (vv_poses.shape == (num_vv, 3, 4, frames)
+            and vv_poses.dtype == np.float32 and n_png == frames * num_vv
+            and timer.counts["splat"] == frames * num_vv):
+      raise AssertionError(f"render_source_vv: poses {vv_poses.shape} "
+                           f"{vv_poses.dtype}, {n_png} PNGs, "
+                           f"{dict(timer.counts)} phases")
+    split = ", ".join(f"{k} {timer.totals[k] / frames:.4f}"
+                      for k in timer.totals)
+    print(f"render_source_vv: {res['seconds'] / frames:.4f} s/frame "
+          f"({num_vv} views of {h}x{w}); per frame: {split} s (read, "
+          f"filters, geometry, erode and write on the host; splat: to the "
+          f"card, softmax_splat, back); splat "
+          f"{1e3 * timer.summary()['splat']:.3f} ms per view; peak "
+          f"{peak:.3f} GiB [{card}]", flush=True)
+
+    trace_dir = os.path.join(root, "trace")
+    frame_timer = PhaseTimer()
+    with trace(trace_dir):
+      rgb255 = img.astype(np.float32)
+      rows_p = got[:, :-2].reshape(-1, 3, 5)
+      k = np.array([[rows_p[0, 2, 4], 0, w / 2.0],
+                    [0, rows_p[0, 2, 4], h / 2.0], [0, 0, 1.0]])
+      alpha = rsv.sobel_alpha(((1.0 / np.maximum(disp, 1e-8)) / 10.0
+                               ).astype(np.float32))
+      vv = llff.render_vv_wander_paths(
+          rows_p[0], float(got[:, -2].min()) * 0.75, num_vv // 2)
+      for v in range(num_vv):
+        rsv.forward_warp_rgbd(rgb255, alpha, disp, k,
+                              smc.llff_from_opencv(rows_p[0, :, :4]),
+                              smc.llff_from_opencv(vv[v]), device=dev,
+                              timer=frame_timer)
+    files = glob.glob(os.path.join(trace_dir, "*.json"))
+    named = False
+    if len(files) == 1:
+      with open(files[0]) as fh:
+        named = '"softmax_splat"' in fh.read()
+    if not named:
+      raise AssertionError(f"trace: files {files}, region named {named}")
+    print(f"trace: {os.path.basename(files[0])} "
+          f"({os.path.getsize(files[0])} bytes) names softmax_splat; "
+          f"{num_vv} splats traced, {1e3 * frame_timer.summary()['splat']:.3f}"
+          f" ms per view under the profiler", flush=True)
+
+    # ---- 12c: the card against the CPU ----
+    for frame in (0, frames - 1):
+      rgb_err, a_err, ties, exact, pixels, psnrs = _vv_check(
+          dev, dense, frame, h, w, num_vv, scene)
+      print(f"preprocess frame {frame}: card vs CPU splat rgb max abs "
+            f"{rgb_err:.3g}, alpha {a_err:.3g}; PNGs equal but {ties} + "
+            f"{exact} tie pixels of {pixels} (the second on a truncation "
+            f"step in f64); masked PSNR vs the exact render per view "
+            f"{[round(p, 2) for p in psnrs]} dB", flush=True)
+
+    # ---- 12d: the training CLI on the preprocessed folder ----
+    args = ["--folder_path", root, "--train_scenes", name, "--rootdir",
+            root, "--expname", "preprocessed", "--training_height", str(h),
+            "--N_rand", str(n_rand), "--N_samples", "64",
+            "--num_source_views", "7", "--num_vv", "3", "--num_basis", "6",
+            "--init_decay_epoch", "2", "--n_iters", "0",
+            "--compute_dtype", "bfloat16", "--i_img", str(10 * frames),
+            "--i_weights", str(10 * frames), "--i_print", "1",
+            "--workers", "4", "--chunk_size", "4096"]
+    _zero_counts()
+    with contextlib.redirect_stdout(log):
+      out = cli_train.main(args)["out_folder"]
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    logs = os.path.join(root, "logs", os.path.basename(out))
+    with open(os.path.join(logs, "metrics.jsonl")) as fh:
+      curve = [r["bootstrap/loss"] for r in map(json.loads, fh)
+               if "bootstrap/loss" in r]
+    boot = dict(_cli_phases(logs))["bootstrap"]
+    first, last = np.mean(curve[:12]), np.mean(curve[-12:])
+    print(f"preprocess cli: {boot['steps']:.0f} bootstrap steps, "
+          f"{boot['seconds'] / boot['steps']:.4f} s/step, "
+          f"{boot['wait_s']:.2f} s getting batches from the pipeline; loss "
+          f"mean of the first 12 {first:.5f}, of the last 12 {last:.5f}; "
+          f"launches { {k: n for k, n in launches.items() if n} } [{card}]",
+          flush=True)
+    # a bootstrap step trains the static model: its static aggregator
+    # forward and backward, and the dynamic forward (with residuals) of the
+    # loss's render, which passes it no gradient
+    want = {k: frames if k in ("K2r", "K5a", "K5b", "K3r") else 0
+            for k in launches}
+    if not (boot["steps"] == frames and len(curve) == frames
+            and np.isfinite(curve).all() and last < first
+            and launches == want):
+      raise AssertionError(f"preprocess cli: {boot}, losses {curve}, "
+                           f"launches {launches}")
+  print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+  return launches
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2199,6 +2500,9 @@ def main() -> int:
                                                c_cfg, t_cfg)
   chain = _coarse_chain(card, dev, h, w, n_rand)
   print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+  # ---- 12: preprocess a scene on the card, then train on it -------------
+  pre_launches = _preprocess_phase(card, dev, h, w, n_rand=n_rand)
   print(f"phases done in {time.perf_counter() - t_start:.1f} s", flush=True)
 
   # ---- 7: result ----------------------------------------------------------
@@ -2217,6 +2521,7 @@ def main() -> int:
       res["anti_alias0_max_abs_err"] = aa0_err
     if key != "K1":
       res["forward_shapes"] = dict(fwd_shapes[key], **mono_fwd[key])
+    res["preprocess_cli_launches"] = pre_launches[key]
     kernels.append(res)
   for key in ("K2r", "K5a", "K5b", "K3r", "K4a", "K4b", "K5c", "K5d"):
     res = dict(train_results[key] if key in train_results
@@ -2228,6 +2533,7 @@ def main() -> int:
     res["mono_launches"] = {route: n[key]
                             for route, n in mono_launches.items()}
     _add_coarse(res, key, coarse_results, coarse_launches, chain)
+    res["preprocess_cli_launches"] = pre_launches[key]
     kernels.append(res)
   # K3p/K4s at the mono step's shapes (V = 9), their launches on the mono
   # step's "pallas" route; also their times at the FF step's (V = 7, S =
@@ -2243,6 +2549,7 @@ def main() -> int:
     if key == "K4s":
       res["ms_v10"] = mono_results["K4s V=10"]["ms"]
     _add_coarse(res, key, coarse_results, coarse_launches, chain)
+    res["preprocess_cli_launches"] = pre_launches[key]
     kernels.append(res)
   print(f"mono step per route: {mono_stats} [{card}]", flush=True)
   print(f"FF coarse step per route: {coarse_stats}; chain: "

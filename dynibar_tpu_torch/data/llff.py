@@ -8,7 +8,8 @@ through ``data/png.py`` or ``data/jpeg.py``).  Behavioral parity targets
   * ``_load_data`` poses_bounds_cvd.npy layout (:57-123)
   * ``recenter_poses`` / ``recenter_poses_mono`` (:173-213)
   * render paths: spiral (:155-170), wander (:413-450),
-    stabilization (:453-497)
+    stabilization (:453-497), and the virtual source views' two wander
+    cycles (render_source_vv.py:68-116)
   * ``load_llff_data`` (:216-318) / ``load_mono_data`` (:321-410)
 """
 
@@ -191,6 +192,44 @@ def render_wander_path(c2w: np.ndarray, num_frames: int = 50,
     render_pose = ref @ i_pose
     out.append(np.concatenate([render_pose[:3, :], hwf], 1))
   return out
+
+
+def render_vv_wander_paths(c2w: np.ndarray, bd_scale: float,
+                           num_samples: int = 4) -> np.ndarray:
+  """Virtual-source-view camera poses for one frame.
+
+  The reference's VV preprocessor (render_source_vv.py:68-116,213-236)
+  walks TWO in-place wander cycles around the frame's camera — one
+  translating in (y, z) with amplitude 56*1.5*bd_scale/f, one in
+  (0.5x, y) with 48*1.5*bd_scale/f — and keeps ``num_samples`` poses from
+  each at fixed strided phases (cycle indices [5::15] and [15::15] of a
+  60-step cycle, the second wrapping through index 60 == 0).
+
+  c2w: [3, 5] LLFF pose row (with hwf column).  Returns
+  [2*num_samples, 3, 4] LLFF poses.
+  """
+  hwf = c2w[:, 4:5]
+  f = hwf[2, 0]
+  r = c2w[:3, :3]
+  t = c2w[:3, 3]
+
+  def variant(amp: float, xyz, first: int) -> np.ndarray:
+    n = 60
+    idx = (first + (n // num_samples) * np.arange(num_samples)) % n
+    ang = 2.0 * np.pi * idx / n
+    max_trans = amp * bd_scale / f
+    trans = max_trans * np.stack(
+        [np.cos(ang) * xyz[0], np.sin(ang) * xyz[1], np.cos(ang) * xyz[2]],
+        axis=-1)                                             # [S, 3]
+    # render_pose = ref_pose @ inv([I | trans]) -> rotation unchanged,
+    # translation t - R @ trans
+    ts = t[None, :] - trans @ r.T                            # [S, 3]
+    return np.concatenate(
+        [np.broadcast_to(r, (num_samples, 3, 3)), ts[:, :, None]], axis=2)
+
+  v0 = variant(56 * 1.5, (0.0, 1.0, 1.0), first=5)
+  v1 = variant(48 * 1.5, (0.5, 1.0, 0.0), first=15)
+  return np.concatenate([v0, v1], axis=0)
 
 
 def render_stabilization_path(poses: np.ndarray, k_size: int

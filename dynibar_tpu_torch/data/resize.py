@@ -1,8 +1,10 @@
-"""OpenCV's image read and area resize, in numpy, for the eval path.
+"""OpenCV's image read, area and linear resize, in numpy.
 
 The Nvidia eval reads its ground truth as ``cv2.imread(path)[:, :, ::-1]``
 and shrinks it with ``cv2.resize(..., cv2.INTER_AREA)`` on uint8; the
-machine with the card has no OpenCV.  ``imread_color`` gives
+preprocessing CLI resizes video frames with ``INTER_AREA`` (either way)
+and disparity maps with ``INTER_LINEAR`` on f32; the machine with the
+card has no OpenCV.  ``imread_color`` gives
 ``IMREAD_COLOR``'s result in RGB order from ``llff.read_image``: a gray
 file becomes three equal channels and an alpha channel is dropped.
 ``resize_area`` follows OpenCV's two INTER_AREA paths (imgproc
@@ -10,7 +12,10 @@ resize.cpp): at whole-number ratios the box average, as
 ``(sum + 2) >> 2`` at 2x2 and ``sum * (1 / area)`` rounded half to even
 at the others; at any other ratio the per-axis area weights
 (``computeResizeAreaTab``) summed in f32 in OpenCV's order, rounded half
-to even.  The nearest-neighbour resize is ``monocular.resize_nearest``.
+to even.  Where either axis grows, INTER_AREA is OpenCV's linear resize
+with area coefficients, in fixed point on uint8 (``_linear_uint8``);
+``resize_linear`` is INTER_LINEAR on f32.  The nearest-neighbour resize
+is ``monocular.resize_nearest``.
 """
 
 from __future__ import annotations
@@ -69,15 +74,92 @@ def _weighted(x: np.ndarray, tab, axis: int) -> np.ndarray:
   return np.moveaxis(out, 0, axis)
 
 
+def _linear_tab(ssize: int, dsize: int, area: bool):
+  """The source index and f32 fraction of each output index (resize.cpp's
+  coefficient loop): half-pixel centres for INTER_LINEAR; for INTER_AREA
+  ``sx = floor(dx * scale)``, ``fx = (dx + 1) - (sx + 1) / scale`` and
+  ``fx <= 0 ? 0 : fx - floor(fx)``."""
+  inv = dsize / ssize
+  scale = 1.0 / inv
+  d = np.arange(dsize, dtype=np.float64)
+  if area:
+    src = np.floor(d * scale).astype(np.int64)
+    frac = ((d + 1) - (src + 1) * inv).astype(np.float32)
+    frac = np.where(frac <= 0, np.float32(0), frac - np.floor(frac))
+  else:
+    pos = ((d + 0.5) * scale - 0.5).astype(np.float32)
+    src = np.floor(pos).astype(np.int64)
+    frac = pos - src.astype(np.float32)
+  return src, frac.astype(np.float32)
+
+
+def _x_tab(ssize: int, dsize: int, area: bool):
+  """Horizontal taps: outside the image both taps fall on the edge pixel
+  with the whole weight on it."""
+  src, frac = _linear_tab(ssize, dsize, area)
+  low, high = src < 0, src >= ssize - 1
+  frac = np.where(low | high, np.float32(0), frac)
+  src = np.where(low, 0, np.where(high, ssize - 1, src))
+  return src, np.minimum(src + 1, ssize - 1), frac
+
+
+def _y_tab(ssize: int, dsize: int, area: bool):
+  """Vertical taps: the rows clamped, the fraction kept."""
+  src, frac = _linear_tab(ssize, dsize, area)
+  return (np.clip(src, 0, ssize - 1), np.clip(src + 1, 0, ssize - 1), frac)
+
+
+def _linear_uint8(img: np.ndarray, h: int, w: int) -> np.ndarray:
+  """INTER_AREA where an axis grows: the linear resize with area
+  coefficients on uint8, in OpenCV's fixed point (coefficients scaled by
+  2048; the vertical pass as ``VResizeLinear<uchar>`` computes it)."""
+  sh, sw = img.shape[:2]
+  x0, x1, fx = _x_tab(sw, w, area=True)
+  y0, y1, fy = _y_tab(sh, h, area=True)
+  ax1 = np.rint(fx * np.float32(2048)).astype(np.int64)
+  ax0 = np.rint((np.float32(1) - fx) * np.float32(2048)).astype(np.int64)
+  by1 = np.rint(fy * np.float32(2048)).astype(np.int64)
+  by0 = np.rint((np.float32(1) - fy) * np.float32(2048)).astype(np.int64)
+  across = (slice(None),) + (None,) * (img.ndim - 2)
+  down = across + (None,)
+  src = img.astype(np.int64)
+  rows = src[:, x0] * ax0[across] + src[:, x1] * ax1[across]   # [sh, w]
+  out = (((by0[down] * (rows[y0] >> 4)) >> 16)
+         + ((by1[down] * (rows[y1] >> 4)) >> 16) + 2) >> 2
+  return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def resize_linear(img: np.ndarray, h: int, w: int) -> np.ndarray:
+  """``cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)`` of an
+  f32 [H, W] or [H, W, C] map: half-pixel centres, clamped at the
+  borders, the horizontal pass before the vertical one, both in f32.
+  At an exact 2x shrink OpenCV takes the 2x2 box average instead."""
+  img = np.asarray(img, np.float32)
+  sh, sw = img.shape[:2]
+  if (sh, sw) == (h, w):
+    return img.copy()
+  if (sh, sw) == (2 * h, 2 * w):
+    cells = img.reshape((h, 2, w, 2) + img.shape[2:])
+    total = ((cells[:, 0, :, 0] + cells[:, 0, :, 1])
+             + (cells[:, 1, :, 0] + cells[:, 1, :, 1]))
+    return total * np.float32(0.25)
+  x0, x1, fx = _x_tab(sw, w, area=False)
+  y0, y1, fy = _y_tab(sh, h, area=False)
+  across = (slice(None),) + (None,) * (img.ndim - 2)
+  down = across + (None,)
+  rows = img[:, x0] * (np.float32(1) - fx)[across] + img[:, x1] * fx[across]
+  return rows[y0] * (np.float32(1) - fy)[down] + rows[y1] * fy[down]
+
+
 def resize_area(img: np.ndarray, h: int, w: int) -> np.ndarray:
   """``cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)`` of a uint8
-  [H, W] or [H, W, C] image, for a shrink (or the same size)."""
+  [H, W] or [H, W, C] image, a shrink or an enlargement."""
   sh, sw = img.shape[:2]
   if (sh, sw) == (h, w):
     return img.copy()
   scale_y, scale_x = 1.0 / (h / sh), 1.0 / (w / sw)
   if scale_x < 1 or scale_y < 1:
-    raise ValueError(f"resize_area shrinks: {sh}x{sw} -> {h}x{w}")
+    return _linear_uint8(img, h, w)
   iy, ix = int(round(scale_y)), int(round(scale_x))
   eps = np.finfo(np.float64).eps
   if abs(scale_y - iy) < eps and abs(scale_x - ix) < eps:

@@ -3,8 +3,9 @@
   * no module of dynibar_tpu_torch (and not chip_smoke.py) imports jax,
     flax, optax, orbax or anything of dynibar_tpu, checked statically and
     by importing every module in a subprocess with those names blocked
-    (this pytest process has imported JAX already), and with cv2, imageio
-    and PIL blocked too: the machine with the card has none of them;
+    (this pytest process has imported JAX already), and with cv2, imageio,
+    PIL and skimage blocked too: the machine with the card has none of
+    them;
   * kernel wrappers given CPU tensors take the plain twins;
   * entry points called without device="cpu" on a host without CUDA raise,
     and chip_smoke.py exits non-zero without printing a result.
@@ -31,7 +32,8 @@ PKG = ROOT / "dynibar_tpu_torch"
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "dynibar_tpu")
 CFG = RenderSettings(n_samples=4, n_importance=4, num_views_dy=7,
                      num_views_static=3, inv_uniform=True)
-# the training and eval CLIs' modules: each must import with JAX blocked
+# the training, eval and preprocessing CLIs' modules: each must import with
+# JAX blocked
 NEW_MODULES = ("cli/train.py", "data/png.py", "data/llff.py",
                "data/view_selection.py", "data/monocular.py",
                "data/factory.py", "data/pipeline.py",
@@ -41,10 +43,12 @@ NEW_MODULES = ("cli/train.py", "data/png.py", "data/llff.py",
                "data/nvidia.py", "eval/metrics.py", "eval/lpips.py",
                "eval/nvidia_eval.py", "cli/render_monocular.py",
                "serve/video.py", "serve/session.py", "serve/registry.py",
-               "serve/server.py", "cli/train_ff.py", "eval/held_out.py")
+               "serve/server.py", "cli/train_ff.py", "eval/held_out.py",
+               "ops/splat.py", "cli/save_monocular_cameras.py",
+               "cli/render_source_vv.py", "utils/profiling.py")
 # image and video libraries the card's machine lacks: no module may need
 # one to import (serve/video.py imports cv2 only to encode an mp4)
-ABSENT_ON_CARD = ("cv2", "imageio", "PIL")
+ABSENT_ON_CARD = ("cv2", "imageio", "PIL", "skimage")
 
 
 def _sources():
