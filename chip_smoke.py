@@ -6,7 +6,8 @@ path (the HTTP server over the training CLI's checkpoint, the render
 CLI), the FF training chain: the coarse-stage train step, then the
 fine-stage training CLI on its snapshot, from an analytic scene on disk,
 and scene preprocessing: the camera and virtual-view CLIs from a
-dynamic-video-depth output, then the training CLI on what they wrote.
+dynamic-video-depth output, then the training CLI on what they wrote,
+and the mesh (parallel/mesh.py) rehearsed on the one card.
 
     python3 chip_smoke.py
 
@@ -169,13 +170,42 @@ is non-zero and the last line below is never printed):
         loss whose mean over the last 12 steps is below the first 12's,
         launches K2r, K5a, K5b and K3r once per step and nothing else;
         s/step and pipeline wait from metrics.jsonl;
+  13. the mesh on the one card (run after phase 10, over phase 8's scene
+     and last snapshot; the kernels load from phase 1's build):
+     a. two spawned ranks share the card over gloo: the mono step at
+        phase 6's shapes (N_rand 3072 global, 1536 rays per rank, S = 64)
+        as phase 6 runs it (bf16 sampling, pallas_split) and with the
+        sampling in f32 on routes pallas_split and pallas, and the FF fine
+        step at phase 5's shapes (f32 sampling); three steps each, every
+        one against a one-card step from the same state on the same batch
+        and generator state (rank 0), which also runs twice to print what
+        one card differs from itself by: the loss within 1e-5 relative,
+        each group's gradient within 1e-4 relative norm (at bf16 sampling
+        the feature nets' within 2e-3: each rank rounds its part of the
+        feature maps' gradient to bf16, one card the whole), the ranks'
+        parameters bit-identical after the three steps; the launches per
+        rank and step, s/step per rank (printed, not a target: two ranks
+        time-slice one card);
+     b. one 288x512 FF eval frame at the eval config's settings (64 + 64,
+        bf16, mask_rgb = 0, chunk 8192) over the two ranks against the
+        one-card frame, and one served mono frame (phase 10's settings,
+        frame 24's pose, npy) through make_server on rank 0 with rank 1
+        following, then the same at stride 4 with rgb_dy: every status
+        200, the follower's two renders, the full frame against the
+        one-card render of the same camera; max abs differences printed
+        and held inside K2/K3's bar (2e-2); rank 0's launches;
+     c. cli/train under torchrun --standalone --nproc_per_node 1 with
+        mesh_shape auto: one bootstrap epoch (48 steps at N_rand 3072) on
+        phase 8's scene over NCCL (the mesh's init line), finite losses,
+        s/step from its log; the phase's seconds;
   7. print the kernels line (13 kernels; K1 with its single-map times, K2
      and K3 with their forward reports of 2, 2b and 6a; K1-K3 with their
      launches per eval viewpoint frame and per served frame, K2 with its
      mask_rgb = 0 and anti-alias-off errors; each training kernel with its
      ms, bound and launches at the FF coarse step's shapes (phase 11) and
      its launches in the chain's CLI run; every kernel with its launches
-     in phase 12's training run),
+     in phase 12's training run and, as mesh_launches, rank 0's per step
+     or frame in phase 13),
      the card line, then the result line.
 
 Weights are random, from a seed.  Needs one card and no network.
@@ -1220,7 +1250,7 @@ def _coarse_chain(card, dev, h, w, n_rand, frames=24, coarse_steps=48):
     gen = torch.Generator(dev).manual_seed(STEP_SEED)
     curve = []
     _zero_counts()
-    with PrefetchPipeline(lambda r: data.sample_batch(r, n_rand),
+    with PrefetchPipeline(lambda r, _: data.sample_batch(r, n_rand),
                           num_workers=config.workers, seed=0,
                           device=dev) as pipe:
       t0 = time.perf_counter()
@@ -2137,6 +2167,353 @@ def _preprocess_phase(card, dev, h, w, frames=48, num_vv=8, n_rand=3072,
   return launches
 
 
+def _mesh_steps(mesh, dev, make, step_fn, batches, weights, cfg, t_cfg):
+  """Three steps of one model on the mesh.  Rank 0 keeps each step's
+  starting state and runs a one-card twin from it twice, on the same
+  global batch from a generator in the same state: the sharded step's
+  loss and per-group gradients against the first, and the two one-card
+  steps against each other (the floor that atomics set on one card).
+  Returns the launches and seconds of each sharded step, the comparisons
+  and whether the ranks' parameters are identical after the steps."""
+  model, opt = make()
+  ref_model, ref_opt = make() if mesh.is_main else (None, None)
+  gen = torch.Generator(dev).manual_seed(SEED + 50)
+  ref_gen = torch.Generator(dev).manual_seed(SEED + 50)
+
+  def group_grads(m):
+    return {k: torch.cat([(p.grad if p.grad is not None
+                            else torch.zeros_like(p)).reshape(-1)
+                           for p in ps]).float()
+            for k, ps in m.param_groups().items()}
+
+  def rel(got, want):
+    return {k: (0.0 if float(want[k].norm()) == 0.0 == float(got[k].norm())
+                else float((got[k] - want[k]).norm() / want[k].norm()))
+            for k in want}
+
+  def one_card(start, batch, gen_state):
+    # a deep copy: the optimizer's load_state_dict keeps the tensors it
+    # is given, and the twin's step would update them in place
+    ref_model.load_state_dict(start[0])
+    ref_opt.load_state_dict(copy.deepcopy(start[1]))
+    ref_gen.set_state(gen_state)
+    loss, _, _ = step_fn(ref_model, ref_opt, batch, weights, cfg, t_cfg,
+                         generator=ref_gen)
+    return float(loss), group_grads(ref_model)
+
+  res = {"launches": [], "secs": [], "loss_rel": [], "group_rel": [],
+         "floor": []}
+  for batch in batches:
+    if ref_model is not None:
+      start = (copy.deepcopy(model.state_dict()),
+               copy.deepcopy(opt.state_dict()))
+      gen_state = ref_gen.get_state()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    loss, metrics, _ = step_fn(model, opt, batch, weights, cfg, t_cfg,
+                               generator=gen, mesh=mesh)
+    torch.cuda.synchronize()
+    res["secs"].append(time.perf_counter() - t0)
+    res["launches"].append(_read_counts())
+    if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+      raise AssertionError(f"mesh step: non-finite metrics {metrics}")
+    if ref_model is None:
+      continue
+    got = group_grads(model)
+    want_loss, want = one_card(start, batch, gen_state)
+    again_loss, again = one_card(start, batch, gen_state)
+    res["loss_rel"].append(abs(float(loss) - want_loss) / abs(want_loss))
+    res["group_rel"].append(rel(got, want))
+    res["floor"].append(rel(again, want))
+  flat = torch.cat([v.detach().reshape(-1).float()
+                    for v in model.state_dict().values()])
+  every = mesh.gather_rows(flat[None])
+  if mesh.is_main:
+    res["ranks_equal"] = bool(torch.equal(every[0], every[1]))
+  del model, opt, ref_model, ref_opt
+  torch.cuda.empty_cache()
+  return res
+
+
+def _mesh_rank(rank, workdir, cli_root, snapshot, h, w, n_rand):
+  """One rank of phase 13 (a spawned process; both share the one card
+  over gloo): the sharded train steps, eval frame and served frame, each
+  against one card's on rank 0; the results go to <workdir>/rank<r>.pt."""
+  import threading
+  from dynibar_tpu_torch.cli.train import parse_args
+  from dynibar_tpu_torch.config import (DynibarConfig, RenderSettings,
+                                        TrainSettings, mono_render_settings)
+  from dynibar_tpu_torch.core.cameras import make_camera
+  from dynibar_tpu_torch.data.ray_batch import (synthetic_ff_batch,
+                                                synthetic_mono_batch)
+  from dynibar_tpu_torch.models.dynibar import FFModel, MonoModel
+  from dynibar_tpu_torch.parallel.mesh import training_mesh
+  from dynibar_tpu_torch.render.render_image import (full_image_ray_batch,
+                                                     render_image_ff,
+                                                     render_image_mono)
+  from dynibar_tpu_torch.serve.registry import SessionRegistry
+  from dynibar_tpu_torch.serve.server import make_server
+  from dynibar_tpu_torch.serve.session import follow, stop_followers
+  from dynibar_tpu_torch.train import losses, trainer
+  from dynibar_tpu_torch.utils.device import to_device
+  mesh = training_mesh(DynibarConfig(mesh_shape="2"), None,
+                       init_method=f"file://{workdir}/store", rank=rank,
+                       world_size=2)
+  dev = mesh.device
+  out = {"backend": mesh.backend, "device": str(dev)}
+  t_cfg = TrainSettings()
+
+  # ---- 13a: the sharded train steps, three each ----
+  mcfg = mono_render_settings(num_source_views=7, num_vv=3, n_samples=64,
+                              num_basis=6, compute_dtype="bfloat16")
+  batches = [to_device(synthetic_mono_batch(mcfg, n_rays=n_rand, h=h, w=w,
+                                            num_frames=48, seed=SEED + k),
+                       dev) for k in range(3)]
+  # phase 6's step as it is (bf16 sampling), then each route with the
+  # sampling in f32 (the kernels take bf16 operands either way)
+  for label, route, dtype in (("mono pallas_split bf16", "pallas_split",
+                               "bfloat16"),
+                              ("mono pallas_split f32", "pallas_split",
+                               "float32"),
+                              ("mono pallas f32", "pallas", "float32")):
+    st_bwd, dy_bwd = MONO_ROUTES[route]
+    rcfg = dataclasses.replace(mcfg, fused_st_bwd_impl=st_bwd,
+                               fused_bwd_impl=dy_bwd, compute_dtype=dtype)
+
+    def make_mono():
+      m = MonoModel(rcfg, num_frames=48, seed=SEED).train_all()
+      return m, trainer.make_mono_optimizer(m, t_cfg)
+    out[label] = _mesh_steps(
+        mesh, dev, make_mono, trainer.mono_train_step, batches,
+        losses.schedule_weights(t_cfg, 2), rcfg, t_cfg)
+  del batches
+  fcfg = RenderSettings(n_samples=64, n_importance=64, num_views_dy=7,
+                        num_views_anchor=6, num_views_static=11, num_basis=6,
+                        inv_uniform=True, compute_dtype="float32")
+
+  def make_ff():
+    m = FFModel(fcfg, num_frames=48, seed=SEED).train_fine()
+    return m, trainer.make_ff_optimizer(m, t_cfg)
+  batches = [to_device(synthetic_ff_batch(fcfg, n_rays=n_rand, h=h, w=w,
+                                          num_frames=48, seed=SEED + k), dev)
+             for k in range(3)]
+  out["ff f32"] = _mesh_steps(mesh, dev, make_ff, trainer.ff_train_step,
+                              batches, losses.schedule_weights(t_cfg, 0),
+                              fcfg, t_cfg)
+  del batches
+  torch.cuda.empty_cache()
+
+  # ---- 13b: one FF eval frame at the eval config's settings ----
+  root = os.path.dirname(os.path.abspath(__file__))
+  ecfg = DynibarConfig.from_file(os.path.join(
+      root, "configs_nvidia", "eval_balloon1_long.txt")).render_settings("ff")
+  emodel = FFModel(ecfg, num_frames=48, seed=SEED)
+  rb = synthetic_ff_batch(ecfg, n_rays=4, h=h, w=w, num_frames=48, seed=SEED)
+  frame = full_image_ray_batch(rb, rb["camera"], device=dev)
+  with torch.no_grad():
+    c, f = emodel.encode_featmaps(frame["src_rgbs"], frame["static_src_rgbs"])
+  torch.cuda.synchronize()
+  _zero_counts()
+  t0 = time.perf_counter()
+  got = render_image_ff(emodel, frame, c, f, ecfg, 8192, h, w, device=dev,
+                        mesh=mesh)
+  torch.cuda.synchronize()
+  out["eval"] = {"secs": time.perf_counter() - t0,
+                 "launches": _read_counts()}
+  if mesh.is_main:
+    t0 = time.perf_counter()
+    want = render_image_ff(emodel, frame, c, f, ecfg, 8192, h, w, device=dev)
+    torch.cuda.synchronize()
+    out["eval"]["one_card_secs"] = time.perf_counter() - t0
+    out["eval"]["max_abs"] = max(
+        float(np.abs(got[n][k] - want[n][k]).max())
+        for n in want for k in ("rgb", "depth", "mask"))
+    out["eval"]["finite"] = all(np.isfinite(got[n][k]).all()
+                                for n in got for k in got[n])
+  del emodel, frame, c, f
+  torch.cuda.empty_cache()
+
+  # ---- 13b: the served mono frame through the server with a follower ----
+  kid = os.path.join(root, "configs", "test_kid-running.txt")
+  config = parse_args(["--config", kid, "--folder_path", cli_root,
+                       "--train_scenes", "scene", "--rootdir", cli_root,
+                       "--ckpt_path", snapshot, "--anti_alias_pooling",
+                       "1"])[0]
+  registry = SessionRegistry(config, device=dev)
+  if not mesh.is_main:
+    out["followed"] = follow(registry, mesh)
+  else:
+    httpd = make_server(registry, "127.0.0.1", 0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_port}"
+    try:
+      session = registry.get()
+      idx = 24
+      pose = np.asarray(session.data.c2w[idx], np.float32)
+      req = {"c2w": pose.tolist(), "frame_idx": idx, "format": "npy"}
+      codes, secs = [], []
+      _zero_counts()
+      for body in (req, dict(req, stride=4, layer="rgb_dy")):
+        t0 = time.perf_counter()
+        code, _, blob = _http(base + "/render", body)
+        secs.append(time.perf_counter() - t0)
+        codes.append(code)
+        if len(codes) == 1:
+          launches = _read_counts()
+          served = np.load(io.BytesIO(blob)) if code == 200 else None
+    finally:
+      httpd.shutdown()
+      httpd.server_close()
+      server.join()
+      stop_followers(mesh)
+    state = session._frame_state(idx)
+    pose4 = np.eye(4, dtype=np.float32)
+    pose4[:pose.shape[0]] = pose
+    camera = make_camera(session.height, session.width,
+                         session.data.intrinsics[idx], pose4)
+    one = render_image_mono(
+        session.model, full_image_ray_batch(state["template"], camera,
+                                            device=dev),
+        state["featmaps"], session.cfg, config.chunk_size, session.height,
+        session.width, device=dev)["outputs_coarse_ref"]["rgb"]
+    out["serve"] = {"codes": codes, "secs": secs, "launches": launches,
+                    "max_abs": (float(np.abs(served - one).max())
+                                if served is not None else float("nan")),
+                    "finite": served is not None
+                    and bool(np.isfinite(served).all())}
+  torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def _mesh_phase(card, h, w, cli_root, snapshot, n_rand):
+  """Phase 13: the mesh rehearsed on the one card.  Two spawned ranks over
+  gloo (13a: the mono step on pallas_split and pallas and the FF fine step,
+  three steps each against one card's; 13b: the FF eval frame and the
+  served mono frame), then (13c) the training CLI under torchrun on NCCL.
+  Returns rank 0's launches per step / frame, by kernel."""
+  import multiprocessing
+  import tempfile
+  t_phase = time.perf_counter()
+  torch.cuda.empty_cache()
+  with tempfile.TemporaryDirectory() as workdir:
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank, args=(r, workdir, cli_root,
+                                                  snapshot, h, w, n_rand))
+             for r in range(2)]
+    for p in procs:
+      p.start()
+    deadline = time.monotonic() + 600
+    while (any(p.is_alive() for p in procs) and time.monotonic() < deadline
+           and not any(p.exitcode not in (None, 0) for p in procs)):
+      time.sleep(0.5)
+    for p in procs:
+      if p.is_alive():
+        p.kill()
+      p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+      raise AssertionError(f"mesh ranks exited with {codes}")
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+  r0, r1 = ranks
+  print(f"mesh: 2 ranks on {r0['device']} / {r1['device']} over "
+        f"{r0['backend']} [{card}]", flush=True)
+  mesh_launches = {}
+  for label in ("mono pallas_split bf16", "mono pallas_split f32",
+                "mono pallas f32", "ff f32"):
+    res, other = r0[label], r1[label]
+    launches = res["launches"]
+    if (any(n != launches[0] for n in launches + other["launches"])
+        or launches[0]["K2r"] != 1):
+      raise AssertionError(f"mesh step ({label}): launches per rank and "
+                           f"step {launches} / {other['launches']}")
+    mesh_launches[label] = launches[0]
+    worst, floor = ({k: max(g[k] for g in res[key])
+                     for k in res[key][0]} for key in ("group_rel", "floor"))
+    # 1e-4 per group; at bf16 sampling each rank rounds its part of the
+    # feature maps' gradient to bf16 (a ulp is 2^-8 of a value), one card
+    # the whole, so the groups under the sampler get half a bf16 ulp
+    bars = {k: (2e-3 if "bf16" in label and k.startswith("feature_net")
+                else 1e-4) for k in worst}
+    print(f"mesh step ({label}, N_rand {n_rand}, {n_rand // 2} rays per "
+          f"rank): loss rel to one card per step "
+          f"{[f'{x:.2e}' for x in res['loss_rel']]}; worst gradient "
+          f"rel-norm per group {({k: f'{v:.2e}' for k, v in worst.items()})}"
+          f", one card against itself "
+          f"{({k: f'{v:.2e}' for k, v in floor.items()})}; ranks' "
+          f"parameters identical after 3 steps: {res['ranks_equal']}; "
+          f"launches per rank and step "
+          f"{ {k: n for k, n in launches[0].items() if n} }; s/step per "
+          f"rank (two ranks time-slice one card) "
+          f"{[round(s, 4) for s in res['secs']]} / "
+          f"{[round(s, 4) for s in other['secs']]} [{card}]", flush=True)
+    if not (res["ranks_equal"] and max(res["loss_rel"]) <= 1e-5
+            and all(worst[k] <= bars[k] for k in worst)):
+      raise AssertionError(f"mesh step ({label}) differs from one card's")
+  ev, sv = r0["eval"], r0["serve"]
+  for label, res in (("eval frame", ev), ("served frame", sv)):
+    mesh_launches[label] = res["launches"]
+  print(f"mesh eval frame ({h}x{w}, 64 + 64 samples, bf16, mask_rgb 0, "
+        f"chunk 8192): 2 ranks {ev['secs']:.3f} / {r1['eval']['secs']:.3f} "
+        f"s, one card {ev['one_card_secs']:.3f} s; max abs vs one card "
+        f"{ev['max_abs']:.3g}; rank 0 launches "
+        f"{ {k: n for k, n in ev['launches'].items() if n} } [{card}]",
+        flush=True)
+  print(f"mesh served frame (kid-running settings, frame 24's pose, npy): "
+        f"statuses {sv['codes']}, {sv['secs'][0]:.3f} s (stride 4 "
+        f"{sv['secs'][1]:.3f} s), the follower rendered "
+        f"{r1['followed']} requests; max abs vs one card {sv['max_abs']:.3g}"
+        f"; rank 0 launches "
+        f"{ {k: n for k, n in sv['launches'].items() if n} } [{card}]",
+        flush=True)
+  # K2/K3's bars (phase 2): the frames' chunks meet the kernels as they do
+  # on one card, so they are expected to agree exactly
+  if not (ev["finite"] and ev["max_abs"] <= 2e-2 and sv["finite"]
+          and sv["codes"] == [200, 200] and r1["followed"] == 2
+          and sv["max_abs"] <= 2e-2):
+    raise AssertionError(f"mesh frames: eval {ev}, serve {sv}")
+
+  # ---- 13c: the training CLI under torchrun, one rank on NCCL ----
+  root = os.path.dirname(os.path.abspath(__file__))
+  with tempfile.TemporaryDirectory() as run_root:
+    args = ["--folder_path", cli_root, "--train_scenes", "scene",
+            "--rootdir", run_root, "--training_height", str(h), "--N_rand",
+            str(n_rand), "--N_samples", "64", "--num_source_views", "7",
+            "--num_vv", "3", "--num_basis", "6", "--init_decay_epoch", "2",
+            "--compute_dtype", "bfloat16", "--n_iters", "0", "--i_img",
+            "100000", "--i_weights", "100000", "--i_print", "16",
+            "--workers", "4", "--mesh_shape", "auto"]
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "dynibar_tpu_torch.cli.train"]
+        + args, cwd=root, capture_output=True, text=True, timeout=400)
+    cli_s = time.perf_counter() - t0
+    if run.returncode != 0 or "mesh: 1 rank(s) over nccl" not in run.stdout:
+      raise AssertionError(f"torchrun cli: rc {run.returncode}\n"
+                           f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    logs = [os.path.join(run_root, "logs", d)
+            for d in os.listdir(os.path.join(run_root, "logs"))]
+    recs = []
+    with open(os.path.join(logs[0], "metrics.jsonl")) as fh:
+      recs = [json.loads(line) for line in fh]
+  boot = [r for r in recs if "bootstrap/loss" in r]
+  phase = [r for r in recs if "phase/bootstrap/steps" in r][0]
+  if not (phase["phase/bootstrap/steps"] == 48 and len(boot) == 3
+          and all(np.isfinite(r["bootstrap/loss"]) for r in boot)):
+    raise AssertionError(f"torchrun cli: records {recs}")
+  print(f"mesh cli: torchrun --standalone --nproc_per_node 1, mesh_shape "
+        f"auto: 'mesh: 1 rank(s) over nccl', 48 bootstrap steps, "
+        f"{phase['phase/bootstrap/seconds'] / 48:.4f} s/step, "
+        f"{phase['phase/bootstrap/wait_s']:.2f} s getting batches; loss "
+        f"at steps 16/32/48 {[round(r['bootstrap/loss'], 5) for r in boot]}"
+        f"; the command {cli_s:.1f} s [{card}]", flush=True)
+  print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+  return {k: {label: n[k] for label, n in mesh_launches.items()}
+          for k in _counters()}
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2488,6 +2865,9 @@ def main() -> int:
     serve_launches, aa0_err = _serve_phase(card, dev, h, w, cli_root,
                                            snapshot)
 
+    # ---- 13: the mesh on the one card, over phase 8's scene and snapshot --
+    mesh_launches = _mesh_phase(card, h, w, cli_root, snapshot, n_rand)
+
   # ---- 11: the FF coarse stage's training and the chain from disk -------
   t_phase = time.perf_counter()
   c_cfg = RenderSettings(n_samples=64, n_importance=64, num_views_dy=7,
@@ -2522,6 +2902,7 @@ def main() -> int:
     if key != "K1":
       res["forward_shapes"] = dict(fwd_shapes[key], **mono_fwd[key])
     res["preprocess_cli_launches"] = pre_launches[key]
+    res["mesh_launches"] = mesh_launches[key]
     kernels.append(res)
   for key in ("K2r", "K5a", "K5b", "K3r", "K4a", "K4b", "K5c", "K5d"):
     res = dict(train_results[key] if key in train_results
@@ -2534,6 +2915,7 @@ def main() -> int:
                             for route, n in mono_launches.items()}
     _add_coarse(res, key, coarse_results, coarse_launches, chain)
     res["preprocess_cli_launches"] = pre_launches[key]
+    res["mesh_launches"] = mesh_launches[key]
     kernels.append(res)
   # K3p/K4s at the mono step's shapes (V = 9), their launches on the mono
   # step's "pallas" route; also their times at the FF step's (V = 7, S =
@@ -2550,6 +2932,7 @@ def main() -> int:
       res["ms_v10"] = mono_results["K4s V=10"]["ms"]
     _add_coarse(res, key, coarse_results, coarse_launches, chain)
     res["preprocess_cli_launches"] = pre_launches[key]
+    res["mesh_launches"] = mesh_launches[key]
     kernels.append(res)
   print(f"mono step per route: {mono_stats} [{card}]", flush=True)
   print(f"FF coarse step per route: {coarse_stats}; chain: "

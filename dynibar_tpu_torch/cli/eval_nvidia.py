@@ -16,9 +16,10 @@ Weights come from a google/dynibar ``.pth`` pair (``--coarse_ckpt`` and
 them LPIPS is NaN.  ``--max_frames N`` evaluates the first N frames,
 ``--results_json`` writes the results, and every other ``--key value``
 sets that field of ``DynibarConfig``.  ``--device cpu`` runs the plain
-PyTorch twins on the CPU; without it the CLI needs the CUDA card.  One
-card evaluates: ``mesh_shape`` "auto" or "1" (a larger mesh is ROADMAP
-queue 1 item 11).
+PyTorch twins on the CPU; without it the CLI needs the CUDA card.  Under
+``torchrun`` (one process per card, ``parallel/mesh.py``) every rank
+renders its share of each viewpoint's rays; rank 0 scores the frames,
+prints the tables and writes the JSON, and the other ranks return {}.
 """
 
 from __future__ import annotations
@@ -27,11 +28,12 @@ import argparse
 import json
 from typing import Dict, List, Optional
 
-from dynibar_tpu_torch.cli.train import check_mesh, parse_args
+from dynibar_tpu_torch.cli.train import parse_args
 from dynibar_tpu_torch.config import INIT_SEED
 from dynibar_tpu_torch.data.nvidia import NvidiaSceneData
 from dynibar_tpu_torch.eval.nvidia_eval import evaluate_scene
 from dynibar_tpu_torch.models.dynibar import FFModel
+from dynibar_tpu_torch.parallel.mesh import replicate, training_mesh
 from dynibar_tpu_torch.utils import checkpoints as ckpt_lib
 from dynibar_tpu_torch.utils.convert import load_reference_ff_checkpoint
 from dynibar_tpu_torch.utils.device import resolve_device
@@ -39,7 +41,7 @@ from dynibar_tpu_torch.utils.device import resolve_device
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Dict]:
   """Run the CLI; returns {scene: {region: {metric: value}}} (and "mean"
-  for more than one scene)."""
+  for more than one scene); {} on mesh ranks other than 0."""
   ap = argparse.ArgumentParser(add_help=False)
   ap.add_argument("--coarse_ckpt", type=str, default="")
   ap.add_argument("--fine_ckpt", type=str, default="")
@@ -53,8 +55,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Dict]:
   if not config.eval_scenes:
     raise SystemExit("error: no eval scene: pass --eval_scenes <scene...> "
                      "or a --config with `eval_scenes = ...`")
-  check_mesh(config.mesh_shape)
-  dev = resolve_device(device)
+  mesh = training_mesh(config, device)
+  dev = mesh.device if mesh is not None else resolve_device(device)
+  is_main = mesh is None or mesh.is_main
+  say = print if is_main else (lambda *a, **kw: None)
 
   all_results = {}
   for scene in config.eval_scenes:
@@ -66,25 +70,31 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Dict]:
 
     if known.coarse_ckpt and known.fine_ckpt:
       load_reference_ff_checkpoint(model, known.coarse_ckpt, known.fine_ckpt)
-      print("loaded the reference torch checkpoints")
+      say("loaded the reference torch checkpoints")
     else:
       payload, step = ckpt_lib.resume_from(config.out_folder(),
                                            config.ckpt_path,
                                            map_location=dev)
       if payload is not None:
         model.load_state_dict(payload["model"])
-        print(f"resumed the checkpoint at step {step}")
+        say(f"resumed the checkpoint at step {step}")
       else:
-        print("WARNING: no checkpoint found — evaluating random init")
+        say("WARNING: no checkpoint found — evaluating random init")
+    if mesh is not None:
+      replicate(mesh, model)
 
     frame_range = (range(3, min(3 + known.max_frames, data.num_frames - 3))
                    if known.max_frames else None)
     result = evaluate_scene(
         config, model, scene,
         lpips_weights_dir=known.lpips_weights_dir or None,
-        frame_range=frame_range, device=dev)
+        frame_range=frame_range, device=dev, mesh=mesh)
+    if not is_main:
+      continue
     all_results[scene] = result
     print(f"[{scene}] {json.dumps(result)}")
+  if not is_main:
+    return {}
 
   # cross-scene means (the paper-table aggregation)
   if len(all_results) > 1:

@@ -16,9 +16,10 @@ folder, or ``--ckpt_path``.  ``video_out`` "auto" also writes
 ``video.mp4`` beside the frames (cv2; without it the CLI stops before it
 renders), "" writes PNG frames only.  Every other ``--key value`` sets
 that field of ``DynibarConfig``; ``--device cpu`` runs the plain PyTorch
-twins on the CPU, and without it the CLI needs the CUDA card.  One card
-renders: ``mesh_shape`` "auto" or "1" (a larger mesh is ROADMAP queue 1
-item 11).
+twins on the CPU, and without it the CLI needs the CUDA card.  Under
+``torchrun`` (one process per card, ``parallel/mesh.py``) every rank
+renders its share of each frame's rays; rank 0 writes the PNGs and the
+mp4, and the other ranks return no frames.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from dynibar_tpu_torch.cli.train import check_mesh, parse_args
+from dynibar_tpu_torch.cli.train import parse_args
 from dynibar_tpu_torch.core.cameras import make_camera
 from dynibar_tpu_torch.data import png
 from dynibar_tpu_torch.data.llff import parse_llff_pose
@@ -39,6 +40,7 @@ from dynibar_tpu_torch.data.monocular import MonocularSceneData
 from dynibar_tpu_torch.data.ray_batch import MONO_SRC_OFFSETS
 from dynibar_tpu_torch.data.view_selection import get_interval_pose_ids
 from dynibar_tpu_torch.models.dynibar import MonoModel
+from dynibar_tpu_torch.parallel.mesh import replicate, training_mesh
 from dynibar_tpu_torch.render.render_image import (full_image_ray_batch,
                                                    render_image_mono)
 from dynibar_tpu_torch.utils import checkpoints as ckpt_lib
@@ -50,8 +52,10 @@ NO_SCENE = ("error: no scene: pass --config <file> with "
 
 def render_batch_template(data: MonocularSceneData, idx: int,
                           num_source_views: int, num_vv: int,
-                          rng: np.random.RandomState) -> Dict[str, Any]:
-  """Source stacks for rendering frame `idx` (no supervision fields)."""
+                          rng: np.random.RandomState,
+                          vv_ids=None) -> Dict[str, Any]:
+  """Source stacks for rendering frame `idx` (no supervision fields); the
+  virtual views are ``vv_ids`` when given, else drawn from ``rng``."""
   cfg = data.cfg
   src_rgbs, src_cams, src_off, src_valid = [], [], [], []
   for o in MONO_SRC_OFFSETS:
@@ -60,7 +64,9 @@ def render_batch_template(data: MonocularSceneData, idx: int,
     src_cams.append(data._camera(i))
     src_off.append(o + 3)
     src_valid.append(1.0)
-  for vv_i in rng.choice(8, size=num_vv, replace=False):
+  if vv_ids is None:
+    vv_ids = rng.choice(8, size=num_vv, replace=False)
+  for vv_i in vv_ids:
     r, c = data._load_vv(idx, int(vv_i))
     src_rgbs.append(r)
     src_cams.append(c)
@@ -99,16 +105,18 @@ def render_batch_template(data: MonocularSceneData, idx: int,
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
   """Run the CLI; returns the output folder, the frames' paths and
-  seconds, the video's path (or None) and the checkpoint's step."""
+  seconds, the video's path (or None) and the checkpoint's step (under a
+  mesh, no frames and no video on ranks other than 0)."""
   # serve/ imports this module (its session builds templates here)
   from dynibar_tpu_torch.serve import video as video_lib
   config, device = parse_args(argv)
   if not config.train_scenes:
     raise SystemExit(NO_SCENE)
-  check_mesh(config.mesh_shape)
+  mesh = training_mesh(config, device)
+  is_main = mesh is None or mesh.is_main
   if config.video_out:
     video_lib.require_cv2()      # fail before rendering, not after the path
-  dev = resolve_device(device)
+  dev = mesh.device if mesh is not None else resolve_device(device)
   data = MonocularSceneData(config, config.train_scenes[0])
   config.num_frames = data.num_frames
   cfg = config.render_settings("mono")
@@ -119,12 +127,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     raise SystemExit(f"no checkpoint in {config.out_folder()}")
   model = MonoModel(cfg, num_frames=data.num_frames, device=dev)
   model.load_state_dict(payload["model"])
-  print(f"rendering with checkpoint step {step}", flush=True)
+  if mesh is not None:
+    replicate(mesh, model)
+  if is_main:
+    print(f"rendering with checkpoint step {step}", flush=True)
 
   out_dir = os.path.join(
       config.out_folder(),
       f"render_{'wander' if config.render_idx >= 0 else 'stab'}")
-  os.makedirs(out_dir, exist_ok=True)
+  if is_main:
+    os.makedirs(out_dir, exist_ok=True)
   rng = np.random.RandomState(0)
 
   render_poses = data.render_poses
@@ -144,7 +156,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     with torch.no_grad():
       featmaps = model.encode_featmaps(rb["src_rgbs"], rb["static_src_rgbs"])
     ret = render_image_mono(model, rb, featmaps, cfg, config.chunk_size, h,
-                            w, device=dev)
+                            w, device=dev, mesh=mesh)
+    if ret is None:               # rank 0 writes the frame
+      continue
     rgb = ret["outputs_coarse_ref"]["rgb"]
     # 3% border crop (render_monocular_bt.py:349-356)
     ch, cw = int(h * 0.03), int(w * 0.03)

@@ -12,12 +12,18 @@ its batches from the data pipeline, and the panels' count and seconds.
 
     python -m dynibar_tpu_torch.cli.train --config configs/train_example.txt
     python -m dynibar_tpu_torch.cli.train --config <file> --device cpu
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m dynibar_tpu_torch.cli.train --config <file>
 
 Every ``--key value`` after the config sets that field of
 ``DynibarConfig``; ``--device cpu`` runs on the CPU (the plain PyTorch
-twins of the kernels), and without it the CLI needs the CUDA card.  One
-card trains: ``mesh_shape`` "auto" or "1"; a larger mesh raises (ROADMAP
-queue 1 item 11).  The one-shot ``model_no-vv`` snapshot is written once
+twins of the kernels), and without it the CLI needs the CUDA card.  Under
+``torchrun`` one process per card trains one model (``parallel/mesh.py``):
+``N_rand`` is the global batch, which every rank draws alike and of which
+it renders its rows, and the step equals one card's.  Only rank 0 writes
+(``args.json``, the logs, the snapshots, the panels, which it renders
+alone); every rank resumes from the same snapshot, broadcast from rank 0.
+The one-shot ``model_no-vv`` snapshot is written once
 per experiment folder, as google/dynibar's train.py:503-506 guards it
 (the JAX CLI writes it again on every resume that reaches its epoch).
 """
@@ -38,6 +44,8 @@ from dynibar_tpu_torch.config import INIT_SEED, STEP_SEED, DynibarConfig
 from dynibar_tpu_torch.data.factory import create_training_dataset
 from dynibar_tpu_torch.data.pipeline import PrefetchPipeline
 from dynibar_tpu_torch.models.dynibar import MonoModel
+from dynibar_tpu_torch.parallel.mesh import (agree, replicate,
+                                             training_mesh)
 from dynibar_tpu_torch.train.losses import schedule_weights
 from dynibar_tpu_torch.train.trainer import (make_mono_optimizer,
                                              mono_train_step)
@@ -79,13 +87,6 @@ def parse_args(argv: Optional[List[str]] = None):
   return cfg, known.device
 
 
-def check_mesh(mesh_shape: str) -> None:
-  if str(mesh_shape).strip() not in ("auto", "", "1"):
-    raise NotImplementedError(
-        f"mesh_shape={mesh_shape!r}: the port trains on one card; "
-        "multi-GPU training is ROADMAP.md queue 1 item 11")
-
-
 def _sync(dev: torch.device) -> None:
   if dev.type == "cuda":
     torch.cuda.synchronize(dev)
@@ -96,14 +97,28 @@ def _save(out_folder, step, model, opt, name="model"):
                                   opt.state_dict(), name=name)
 
 
+def curriculum_sampler(data, config, start_epoch: int):
+  """A phase's pipeline function: each phase runs whole epochs from
+  ``start_epoch``, so batch ``k`` falls in epoch ``start_epoch + k //
+  num_frames`` and draws under that epoch's anchor curriculum, however
+  far its loader thread runs ahead of the step loop."""
+  def sample(np_rng, k):
+    return data.sample_batch(np_rng, config.N_rand, config.sample_mode,
+                             epoch=start_epoch + k // data.num_frames)
+  return sample
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
   """Run the CLI; returns the out folder and the step it started from."""
   config, device = parse_args(argv)
   if not config.train_scenes:
     raise SystemExit("error: no training scene: pass --config <file> with "
                      "`train_scenes = <scene>` or --train_scenes <scene>")
-  check_mesh(config.mesh_shape)
-  dev = resolve_device(device)
+  mesh = training_mesh(config, device)
+  dev = mesh.device if mesh is not None else resolve_device(device)
+  is_main = mesh is None or mesh.is_main
+  if mesh is not None:
+    mesh.rows(config.N_rand)          # N_rand must split over the ranks
 
   data = create_training_dataset(config)
   config.num_frames = data.num_frames
@@ -112,9 +127,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
   t_cfg = config.train_settings()
 
   out_folder = config.out_folder()
-  os.makedirs(out_folder, exist_ok=True)
-  with open(os.path.join(out_folder, "args.json"), "w") as fh:
-    json.dump(vars(config), fh, indent=2, default=str)
+  if is_main:
+    os.makedirs(out_folder, exist_ok=True)
+    with open(os.path.join(out_folder, "args.json"), "w") as fh:
+      json.dump(vars(config), fh, indent=2, default=str)
 
   model = MonoModel(cfg, num_frames=data.num_frames, device=dev,
                     seed=INIT_SEED).train_all()
@@ -125,18 +141,22 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     model.load_state_dict(payload["model"])
     if not config.no_load_opt and "optimizer" in payload:
       opt.load_state_dict(payload["optimizer"])
-    print(f"resumed at step {start_step}", flush=True)
+    if is_main:
+      print(f"resumed at step {start_step}", flush=True)
+  if mesh is not None:
+    agree(mesh, start_step, "the resumed step")
+    replicate(mesh, model, opt)
 
   logger = MetricsLogger(os.path.join(config.rootdir, "logs",
-                                      config.experiment_name()))
+                                      config.experiment_name()),
+                         enabled=is_main)
   gen = torch.Generator(device=dev).manual_seed(STEP_SEED)
   global_step = start_step
   start_epoch = global_step // data.num_frames
 
   def batches(seed):
-    def sample(np_rng):
-      return data.sample_batch(np_rng, config.N_rand, config.sample_mode)
-    return PrefetchPipeline(sample, num_workers=config.workers, seed=seed,
+    return PrefetchPipeline(curriculum_sampler(data, config, start_epoch),
+                            num_workers=config.workers, seed=seed,
                             device=dev)
 
   def phase_record(name, steps, t0, pipe, panel_s=()):
@@ -146,20 +166,21 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
            "wait_s": pipe.wait_s, "panels": len(panel_s),
            "panel_s": float(sum(panel_s))}
     logger.scalars(global_step, rec, prefix=f"phase/{name}/")
-    print(f"[{config.expname}] {name}: " + " ".join(
-        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-        for k, v in rec.items()), flush=True)
+    if is_main:
+      print(f"[{config.expname}] {name}: " + " ".join(
+          f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+          for k, v in rec.items()), flush=True)
 
   try:
     # ---- phase 1: static bootstrap (reference train.py:116-225) ----
     with batches(0) as pipe:
       t0, steps = time.perf_counter(), 0
       for epoch in range(start_epoch, config.init_decay_epoch // 2):
-        data.set_epoch(epoch)
         for _ in range(data.num_frames):
           rb = next(pipe)
           _, metrics, _ = mono_train_step(model, opt, rb, None, cfg, t_cfg,
-                                          bootstrap=True, generator=gen)
+                                          bootstrap=True, generator=gen,
+                                          mesh=mesh)
           global_step += 1
           steps += 1
           if global_step % config.i_print == 0:
@@ -175,12 +196,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
       t0 = t_print = time.perf_counter()
       steps, panel_s = 0, []
       while global_step < start_step + config.n_iters + 1:
-        data.set_epoch(epoch)
         weights = schedule_weights(t_cfg, epoch)
         for _ in range(data.num_frames):
           rb = next(pipe)
           _, metrics, _ = mono_train_step(model, opt, rb, weights, cfg, t_cfg,
-                                          generator=gen)
+                                          generator=gen, mesh=mesh)
           global_step += 1
           steps += 1
 
@@ -190,15 +210,18 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                                                       - t_print)
             t_print = time.perf_counter()
             logger.scalars(global_step, vals, prefix="train/")
-            print(f"[{config.expname}] epoch {epoch} step {global_step} "
-                  + " ".join(f"{k}={v:.5f}" for k, v in vals.items()),
-                  flush=True)
+            if is_main:
+              print(f"[{config.expname}] epoch {epoch} step {global_step} "
+                    + " ".join(f"{k}={v:.5f}" for k, v in vals.items()),
+                    flush=True)
 
-          if global_step % config.i_weights == 0:
+          if global_step % config.i_weights == 0 and is_main:
             _save(out_folder, global_step, model, opt)
             print(f"saved checkpoint at {global_step}", flush=True)
 
-          if global_step % config.i_img == 0:
+          # rank 0 renders the panels alone, with no mesh: no rank waits
+          # in a collective the others never join
+          if global_step % config.i_img == 0 and is_main:
             _sync(dev)
             tp = time.perf_counter()
             frame_idx = int(rb["ref_frame_idx"])
@@ -215,13 +238,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
         # one-shot pre-virtual-view snapshot (reference train.py:503-506),
         # once per experiment folder
-        if (epoch + 1 == config.init_decay_epoch * 5
+        if (is_main and epoch + 1 == config.init_decay_epoch * 5
             and ckpt_lib.latest_checkpoint(out_folder, NO_VV) is None):
           _save(out_folder, global_step, model, opt, name=NO_VV)
         epoch += 1
       phase_record("train", steps, t0, pipe, panel_s)
 
-    _save(out_folder, global_step, model, opt)
+    if is_main:
+      _save(out_folder, global_step, model, opt)
   finally:
     logger.close()
   return {"out_folder": out_folder, "start_step": start_step}

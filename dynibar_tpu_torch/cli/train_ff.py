@@ -21,8 +21,10 @@ newest snapshot in the out folder (or ``ckpt_path``).
 
 Every ``--key value`` after the config sets that field of
 ``DynibarConfig``; ``--device cpu`` runs the plain PyTorch twins of the
-kernels on the CPU, and without it the CLI needs the CUDA card.  One card
-trains (``check_mesh``).  The coarse stage itself trains through
+kernels on the CPU, and without it the CLI needs the CUDA card.  Under
+``torchrun`` one process per card trains one model, as ``cli/train`` does
+(``N_rand`` global, rank 0 writes, every rank resumes from rank 0's
+snapshot).  The coarse stage itself trains through
 ``train/trainer.ff_coarse_train_step`` (``scripts/port_ff_convergence.py``
 phase A).
 """
@@ -37,11 +39,13 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from dynibar_tpu_torch.cli.train import _save, _sync, check_mesh, parse_args
+from dynibar_tpu_torch.cli.train import _save, _sync, parse_args
 from dynibar_tpu_torch.config import INIT_SEED, STEP_SEED
 from dynibar_tpu_torch.data.nvidia import NvidiaSceneData
 from dynibar_tpu_torch.data.pipeline import PrefetchPipeline
 from dynibar_tpu_torch.models.dynibar import FF_COARSE_KEYS
+from dynibar_tpu_torch.parallel.mesh import (agree, replicate,
+                                             training_mesh)
 from dynibar_tpu_torch.train.losses import schedule_weights
 from dynibar_tpu_torch.train.trainer import (create_ff_train_state,
                                              ff_train_step)
@@ -75,8 +79,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
   if not scenes:
     raise SystemExit("error: no scene: pass --config <file> with "
                      "`train_scenes = <scene>` or --train_scenes <scene>")
-  check_mesh(config.mesh_shape)
-  dev = resolve_device(device)
+  mesh = training_mesh(config, device)
+  dev = mesh.device if mesh is not None else resolve_device(device)
+  is_main = mesh is None or mesh.is_main
+  if mesh is not None:
+    mesh.rows(config.N_rand)          # N_rand must split over the ranks
 
   cfg = config.render_settings("ff_train")
   data = NvidiaSceneData(config, scenes[0], cfg=cfg,
@@ -88,29 +95,36 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
   out_folder = os.path.join(config.rootdir, "checkpoints", "fine",
                             config.expname)
-  os.makedirs(out_folder, exist_ok=True)
-  with open(os.path.join(out_folder, "args.json"), "w") as fh:
-    json.dump(vars(config), fh, indent=2, default=str)
+  if is_main:
+    os.makedirs(out_folder, exist_ok=True)
+    with open(os.path.join(out_folder, "args.json"), "w") as fh:
+      json.dump(vars(config), fh, indent=2, default=str)
 
   model, opt = create_ff_train_state(
       cfg, t_cfg, data.num_frames, device=dev, seed=INIT_SEED,
       coarse=load_coarse_params(config.coarse_dir))
-  print(f"[{config.expname}] coarse stage: "
-        f"{config.coarse_dir or 'seeded (no coarse_dir)'}", flush=True)
+  if is_main:
+    print(f"[{config.expname}] coarse stage: "
+          f"{config.coarse_dir or 'seeded (no coarse_dir)'}", flush=True)
   payload, start_step = ckpt_lib.resume_from(
       out_folder, config.ckpt_path, config.no_reload, map_location=dev)
   if payload is not None:
     model.load_state_dict(payload["model"])
     if not config.no_load_opt and "optimizer" in payload:
       opt.load_state_dict(payload["optimizer"])
-    print(f"resumed at step {start_step}", flush=True)
+    if is_main:
+      print(f"resumed at step {start_step}", flush=True)
+  if mesh is not None:
+    agree(mesh, start_step, "the resumed step")
+    replicate(mesh, model, opt)
 
   logger = MetricsLogger(os.path.join(config.rootdir, "logs",
-                                      "fine_" + config.expname))
+                                      "fine_" + config.expname),
+                         enabled=is_main)
   gen = torch.Generator(device=dev).manual_seed(STEP_SEED)
   global_step = start_step
 
-  def sample(np_rng):
+  def sample(np_rng, _):
     return data.sample_batch(np_rng, config.N_rand)
 
   try:
@@ -124,7 +138,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         weights = schedule_weights(t_cfg, epoch)
         rb = next(pipe)
         _, metrics, _ = ff_train_step(model, opt, rb, weights, cfg, t_cfg,
-                                      generator=gen)
+                                      generator=gen, mesh=mesh)
         global_step += 1
         steps += 1
 
@@ -134,21 +148,23 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                                                     - t_print)
           t_print = time.perf_counter()
           logger.scalars(global_step, vals, prefix="train_fine/")
-          print(f"[{config.expname}] step {global_step} "
-                + " ".join(f"{k}={v:.5f}" for k, v in vals.items()),
-                flush=True)
+          if is_main:
+            print(f"[{config.expname}] step {global_step} "
+                  + " ".join(f"{k}={v:.5f}" for k, v in vals.items()),
+                  flush=True)
 
-        if global_step % config.i_weights == 0:
+        if global_step % config.i_weights == 0 and is_main:
           _save(out_folder, global_step, model, opt)
           print(f"saved checkpoint at {global_step}", flush=True)
       _sync(dev)
       rec = {"steps": steps, "seconds": time.perf_counter() - t0,
              "wait_s": pipe.wait_s}
     logger.scalars(global_step, rec, prefix="phase/fine/")
-    print(f"[{config.expname}] fine: " + " ".join(
-        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-        for k, v in rec.items()), flush=True)
-    _save(out_folder, global_step, model, opt)
+    if is_main:
+      print(f"[{config.expname}] fine: " + " ".join(
+          f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+          for k, v in rec.items()), flush=True)
+      _save(out_folder, global_step, model, opt)
   finally:
     logger.close()
   return {"out_folder": out_folder, "start_step": start_step}

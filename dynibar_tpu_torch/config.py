@@ -227,8 +227,11 @@ class DynibarConfig:
   # derived at run time (reference train.py:91-92)
   num_frames: int = 0
 
-  # devices: "auto" or "1" train on one card; a larger mesh is ROADMAP
-  # queue 1 item 11
+  # devices (parallel/mesh.py): under torchrun, one process per card;
+  # "auto" is the launcher's world size and "N" must equal it.  Without a
+  # launcher "auto" and "1" run on one card and a larger mesh raises.
+  # The launcher's environment alone decides, so the JAX configs'
+  # `distributed` (multi-host) key has no field: from_file skips it
   mesh_shape: str = "auto"
   compute_dtype: str = "float32"
   fused_bwd_impl: str = "pallas_split"

@@ -4,14 +4,35 @@ Parity targets in the reference: ``sample_along_camera_ray``
 (ibrnet/render_ray.py:67-131), ``sample_pdf`` (:19-64) and ``z_to_s``
 (:399-404).  Stochastic draws come from an explicit ``torch.Generator`` or
 are handed in (``t_rand`` / ``u``), so tests can feed both frameworks the
-same uniforms.
+same uniforms.  Under a mesh the steps pass a :class:`RowShard`: each
+rank draws the global ``[N_rand, ...]`` uniforms from the generator that
+every rank seeds alike and keeps its rows, so the sharded step places
+every sample where one card does.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Optional, Tuple, Union
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+  """A generator shared by the ranks of a mesh: rank ``rank`` of
+  ``world`` keeps rows ``[rank·n, (rank+1)·n)`` of each global draw."""
+
+  generator: torch.Generator
+  rank: int
+  world: int
+
+  @property
+  def device(self) -> torch.device:
+    return self.generator.device
+
+
+Generator = Union[torch.Generator, RowShard]
 
 
 def z_to_s(z_vals: torch.Tensor, near, far) -> torch.Tensor:
@@ -20,9 +41,15 @@ def z_to_s(z_vals: torch.Tensor, near, far) -> torch.Tensor:
 
 
 def _uniform(shape, like: torch.Tensor,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
+             generator: Optional[Generator]) -> torch.Tensor:
   if generator is None:
     raise ValueError("stochastic sampling needs a generator or the uniforms")
+  if isinstance(generator, RowShard):
+    n = shape[0]
+    full = torch.rand((n * generator.world,) + tuple(shape[1:]),
+                      generator=generator.generator, dtype=like.dtype,
+                      device=generator.device)
+    return full[generator.rank * n:(generator.rank + 1) * n].to(like.device)
   return torch.rand(shape, generator=generator, dtype=like.dtype,
                     device=generator.device).to(like.device)
 
@@ -34,7 +61,7 @@ def sample_along_ray(
     n_samples: int,
     inv_uniform: bool,
     det: bool,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[Generator] = None,
     t_rand: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
   """Stratified samples.  Returns (pts [R,S,3], z_vals [R,S], s_vals [R,S])."""
@@ -64,7 +91,7 @@ def sample_pdf(
     weights: torch.Tensor,    # [R, M]
     n_samples: int,
     det: bool,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[Generator] = None,
     u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
   """Inverse-CDF importance sampling (NeRF's sample_pdf)."""
@@ -100,7 +127,7 @@ def importance_resample_z(
     n_importance: int,
     inv_uniform: bool,
     det: bool,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[Generator] = None,
     u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
   """Coarse-to-fine resampling (reference render_ray.py:789-825).

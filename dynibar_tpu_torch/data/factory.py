@@ -1,8 +1,10 @@
 """Training-dataset factory: weighted mixtures of scenes/datasets.
 
-Port of ``dynibar_tpu.data.factory``.  The port trains on one card (a
-larger mesh is ROADMAP queue 1 item 11), so the process index and count
-are the caller's (default 0 of 1) instead of JAX's.
+Port of ``dynibar_tpu.data.factory``.  The process index and count are
+the caller's (default 0 of 1) instead of JAX's.  The port's mesh
+(``parallel/mesh.py``) has every rank draw the same global batch and keep
+its rows, so its CLIs take the default; ``fold_pixel_rng`` serves callers
+that want the JAX multi-host scheme below.
 
 Rebuild of reference ibrnet/data_loaders/create_training_dataset.py:41-127:
 ``train_dataset`` may be a single dataset or a '+'-concatenated list with
@@ -75,14 +77,14 @@ class MixtureDataset:
       p.set_epoch(epoch)
 
   def sample_batch(self, rng: np.random.RandomState, n_rays: int,
-                   sample_mode: str = "uniform"):
+                   sample_mode: str = "uniform", epoch=None):
     # multi-host: rng stays the process-shared view stream; only the ray
     # positions come from a per-process stream (see module docstring)
     pixel_rng = (fold_pixel_rng(rng, self.process_index)
                  if self.process_count > 1 else None)
     idx = rng.choice(len(self.providers), p=self.weights)
     return self.providers[idx].sample_batch(rng, n_rays, sample_mode,
-                                            pixel_rng=pixel_rng)
+                                            pixel_rng=pixel_rng, epoch=epoch)
 
 
 def create_training_dataset(config: DynibarConfig, process_index: int = 0,

@@ -184,9 +184,13 @@ class MonocularSceneData:
   # -------------------------------------------------------------- batch --
   def sample_batch(self, rng: np.random.RandomState, n_rays: int,
                    sample_mode: str = "uniform", center_ratio: float = 0.8,
-                   pixel_rng: np.random.RandomState | None = None
-                   ) -> Dict[str, np.ndarray]:
+                   pixel_rng: np.random.RandomState | None = None,
+                   epoch: int | None = None) -> Dict[str, np.ndarray]:
     """One fixed-shape training ray batch.
+
+    `epoch` sets the anchor curriculum's epoch (default: set_epoch's).  A
+    prefetching caller passes the epoch its batch index falls in, so a
+    batch does not depend on when its loader thread drew it.
 
     `pixel_rng`, when given, drives ONLY the pixel (ray-position) draws;
     every view-level draw (target frame, anchors, vv picks, static ids)
@@ -228,7 +232,8 @@ class MonocularSceneData:
                             ray_d.shape).astype(np.float32).copy()
 
     # --- curriculum anchor selection ---
-    max_step = min(3, self.current_epoch // self.config.init_decay_epoch + 1)
+    epoch = self.current_epoch if epoch is None else epoch
+    max_step = min(3, epoch // self.config.init_decay_epoch + 1)
     pool = list(range(1, max_step + 1)) + [-i for i in range(1, max_step + 1)]
     anchor_idx = idx + pool[rng.choice(len(pool))]
 

@@ -1,9 +1,16 @@
 """Host-side input pipeline: threaded prefetch of ray batches.
 
 Port of ``dynibar_tpu.data.pipeline.PrefetchPipeline``.  Worker threads
-call ``sample_fn(rng)`` with the same per-worker ``RandomState`` streams
+call ``sample_fn(rng, k)`` with the same per-worker ``RandomState`` streams
 as the JAX pipeline, (seed, worker id, step) -> one seed, so both yield the
-same batches (in the same order with one worker).  Threads suffice: the
+same batches (in the same order with one worker).  Batch ``k`` comes from
+worker ``k mod W`` through that worker's own queue, so the sequence is
+the same in every run and on every rank of a mesh, whichever thread
+finishes first (the JAX pipeline's one shared queue takes them in the
+order the threads finish).  ``k`` is the batch's index in that sequence:
+what a batch may depend on besides its ``rng`` (the training CLI's
+curriculum epoch) is a function of ``k``, never of state the consumer
+changes while the workers run ahead.  Threads suffice: the
 decode path (zlib, numpy) releases the interpreter lock.  Given a
 device, the workers also turn each numpy batch into tensors as
 ``utils/device.to_device`` does (floating -> f32, integer -> int64) and,
@@ -32,40 +39,45 @@ def _to_host_tensor(v, pin: bool) -> torch.Tensor:
 
 
 class PrefetchPipeline:
-  """Prefetches ``sample_fn(rng)`` results with N worker threads."""
+  """Prefetches ``sample_fn(rng, k)`` results with N worker threads."""
 
-  def __init__(self, sample_fn: Callable[[np.random.RandomState],
+  def __init__(self, sample_fn: Callable[[np.random.RandomState, int],
                                          Dict[str, np.ndarray]],
                num_workers: int = 2, prefetch_depth: int = 4,
                seed: int = 0, device: torch.device = None):
     self._sample_fn = sample_fn
-    self._queue: "queue.Queue" = queue.Queue(maxsize=prefetch_depth)
+    n = max(1, num_workers)
+    self._queues = [queue.Queue(maxsize=max(1, -(-prefetch_depth // n)))
+                    for _ in range(n)]
+    self._next = 0
     self._stop = threading.Event()
     self._seed = seed
     self._device = device
     self.wait_s = 0.0
     self._threads = [
         threading.Thread(target=self._worker, args=(wid,), daemon=True)
-        for wid in range(max(1, num_workers))]
+        for wid in range(n)]
     for t in self._threads:
       t.start()
 
   def _worker(self, wid: int):
+    out = self._queues[wid]
+    n = len(self._queues)
     step = 0
     while not self._stop.is_set():
       rng = np.random.RandomState(
           (self._seed * 1_000_003 + wid * 7919 + step) % (2 ** 31 - 1))
       try:
-        batch = self._sample_fn(rng)
+        batch = self._sample_fn(rng, step * n + wid)
         if self._device is not None:
           pin = self._device.type == "cuda"
           batch = {k: _to_host_tensor(v, pin) for k, v in batch.items()}
       except Exception as exc:  # surfaced to the consumer by __next__
-        self._queue.put(exc)
+        out.put(exc)
         return
       while not self._stop.is_set():
         try:
-          self._queue.put(batch, timeout=0.5)
+          out.put(batch, timeout=0.5)
           break
         except queue.Full:
           continue
@@ -76,7 +88,8 @@ class PrefetchPipeline:
 
   def __next__(self) -> Dict:
     t0 = time.perf_counter()
-    item = self._queue.get()
+    item = self._queues[self._next].get()
+    self._next = (self._next + 1) % len(self._queues)
     if isinstance(item, Exception):
       raise item
     if self._device is not None:

@@ -5,7 +5,9 @@ frames 3..N-3 × the 11 of 12 round-robin viewpoints that are not the
 frame's own, masked PSNR/SSIM/LPIPS over the full image, the dynamic
 region (mv_masks) and its static complement, with running and final
 averages.  The ground truth and masks are read with OpenCV's semantics
-(``data/resize.py``), without OpenCV.
+(``data/resize.py``), without OpenCV.  Under a mesh every rank renders its
+share of each viewpoint's rays (``render_image_ff(mesh=...)``); rank 0
+gathers the frame, computes the metrics, LPIPS and the tables, and logs.
 """
 
 from __future__ import annotations
@@ -69,14 +71,19 @@ def evaluate_scene(
     frame_range: Optional[range] = None,
     log_fn: Callable[[str], None] = print,
     device: DeviceLike = None,
-) -> Dict[str, Dict[str, float]]:
+    mesh=None,
+) -> Optional[Dict[str, Dict[str, float]]]:
   """Run the whole benchmark protocol on one scene with `model`'s
-  weights; returns the full / dynamic / static metric tables.  `device`
-  None means the CUDA card."""
+  weights; returns the full / dynamic / static metric tables (under
+  ``mesh``, None on ranks other than 0).  `device` None means the CUDA
+  card."""
   dev = resolve_device(device)
+  is_main = mesh is None or mesh.is_main
+  if not is_main:
+    log_fn = _quiet
   data = NvidiaSceneData(config, scene, height=config.training_height)
   cfg = model.cfg
-  lpips = LPIPSMetric(lpips_weights_dir, device=dev)
+  lpips = LPIPSMetric(lpips_weights_dir if is_main else None, device=dev)
   full = MetricAccumulator()
   dyn = MetricAccumulator()
   stat = MetricAccumulator()
@@ -108,7 +115,9 @@ def evaluate_scene(
       h = int(batch["camera"][0])
       w = int(batch["camera"][1])
       ret = render_image_ff(model, rb, coarse, fine, cfg, config.chunk_size,
-                            h, w, device=dev)
+                            h, w, device=dev, mesh=mesh)
+      if ret is None:             # rank 0 scores the frame
+        continue
       pred = ret["outputs_fine_ref"]["rgb"]
 
       valid = np.float32(pred.sum(-1, keepdims=True) > 1e-3)
@@ -144,7 +153,13 @@ def evaluate_scene(
     log_fn(f"MOVING full={full.means()} dynamic={dyn.means()} "
            f"static={stat.means()}")
 
+  if not is_main:
+    return None
   result = {"full": full.means(), "dynamic": dyn.means(),
             "static": stat.means()}
   log_fn(f"FINAL {result}")
   return result
+
+
+def _quiet(_: str) -> None:
+  """The log of ranks other than 0."""

@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from dynibar_tpu_torch.config import DynibarConfig
+from dynibar_tpu_torch.parallel.mesh import training_mesh
 from dynibar_tpu_torch.serve.session import RenderSession
 from dynibar_tpu_torch.utils.device import DeviceLike
 
@@ -38,6 +39,9 @@ class SessionRegistry:
     if not config.train_scenes:
       raise ValueError("config.train_scenes is empty")
     self.config = config
+    # the sessions' mesh (None on one card): serve/server.py runs the
+    # followers on it and stops them
+    self.mesh = training_mesh(config, device)
     self.available: List[str] = list(config.train_scenes)
     self._state_dict = state_dict
     self._featmap_cache = featmap_cache

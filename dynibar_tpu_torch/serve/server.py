@@ -34,6 +34,14 @@ the config file's dtype.  On the card the kernels run without a flag.
 the port opens; ``--max_sessions`` bounds the resident scenes.  One render
 runs at a time per scene; HTTP threads queue on the session lock.  PNGs
 are encoded by ``data/png.py``.
+
+Under ``torchrun`` (one process per card, ``parallel/mesh.py``) rank 0
+runs the HTTP server and the other ranks follow (``serve.session
+.follow``): every render is sharded over the ranks, and when the server
+stops rank 0 ends the followers.
+
+    python -m torch.distributed.run --nproc_per_node 2 \\
+        -m dynibar_tpu_torch.serve.server --config <cfg> --train_scenes <s>
 """
 
 from __future__ import annotations
@@ -54,7 +62,8 @@ from dynibar_tpu_torch.cli.train import parse_args
 from dynibar_tpu_torch.data import png
 from dynibar_tpu_torch.serve import video as video_lib
 from dynibar_tpu_torch.serve.registry import SessionRegistry
-from dynibar_tpu_torch.serve.session import RenderSession
+from dynibar_tpu_torch.serve.session import (RenderSession, follow,
+                                             stop_followers)
 
 
 def _encode_png(img: np.ndarray) -> bytes:
@@ -263,12 +272,17 @@ def make_server(target: Union[RenderSession, SessionRegistry],
 def serve_forever(target: Union[RenderSession, SessionRegistry],
                   host: str, port: int,
                   ready: Optional[threading.Event] = None) -> None:
+  """Serve until interrupted; under a mesh then end the followers."""
   httpd = make_server(target, host, port)
   if ready is not None:
     ready.set()
   print(f"dynibar_tpu_torch renderer serving on "
         f"http://{host}:{httpd.server_port}", flush=True)
-  httpd.serve_forever()
+  try:
+    httpd.serve_forever()
+  finally:
+    httpd.server_close()
+    stop_followers(httpd.RequestHandlerClass.registry.mesh)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -291,6 +305,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     config.compute_dtype = "bfloat16"
   registry = SessionRegistry(config, max_sessions=args.max_sessions,
                              device=device)
+  mesh = registry.mesh
+  if mesh is not None and not mesh.is_main:
+    follow(registry, mesh)
+    return
   if not args.no_warmup:
     dt = registry.get().warmup()
     print(f"warmup render (kernel build) took {dt:.1f}s", flush=True)

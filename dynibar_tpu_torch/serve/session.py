@@ -13,10 +13,21 @@ frame.  A serving process amortizes that:
     camera);
   * every render runs under the session's lock, with the session's device
     current, on the calling thread's current stream: HTTP handler threads
-    queue on the lock.
+    queue on the lock (under a mesh, on the mesh's lock first).
 
 The template's random generator is shared across frames, as in the JAX
 session: an evicted frame's re-encode draws new virtual views.
+
+Under a mesh (``parallel/mesh.py``; the session builds it from the
+config, as the JAX session does) rank 0 serves.  Each of its renders
+first broadcasts a header (the scene, the frame index, the camera, the
+stride and the frame's virtual views) on the mesh's gloo header group;
+every rank then renders its share of the rays and rank 0 assembles the
+frame.  The header and the render's collectives run under the mesh's
+lock, so two requests, to one scene or two, never interleave theirs.
+Ranks above 0 run :func:`follow` until rank 0 sends
+:func:`stop_followers`.  A follower whose cached frame has other virtual
+views than rank 0's re-encodes it with rank 0's.
 """
 
 from __future__ import annotations
@@ -32,11 +43,11 @@ import torch
 
 from dynibar_tpu_torch.cli.render_monocular import (NO_SCENE,
                                                     render_batch_template)
-from dynibar_tpu_torch.cli.train import check_mesh
 from dynibar_tpu_torch.config import DynibarConfig
 from dynibar_tpu_torch.core.cameras import make_camera
 from dynibar_tpu_torch.data.monocular import MonocularSceneData
 from dynibar_tpu_torch.models.dynibar import MonoModel
+from dynibar_tpu_torch.parallel.mesh import Mesh, training_mesh
 from dynibar_tpu_torch.render.render_image import (full_image_ray_batch,
                                                    render_image_mono)
 from dynibar_tpu_torch.utils import checkpoints as ckpt_lib
@@ -61,9 +72,10 @@ class RenderSession:
                featmap_cache: int = 8, device: DeviceLike = None):
     if not config.train_scenes:
       raise ValueError(NO_SCENE)
-    check_mesh(config.mesh_shape)
+    self.mesh = training_mesh(config, device)
     self.config = config
-    self.device = resolve_device(device)
+    self.device = (self.mesh.device if self.mesh is not None
+                   else resolve_device(device))
     self.data = MonocularSceneData(config, config.train_scenes[0])
     config.num_frames = self.data.num_frames
     self.cfg = config.render_settings("mono")
@@ -90,6 +102,11 @@ class RenderSession:
     self.stats = collections.Counter()
     self.timings: Dict[str, float] = collections.defaultdict(float)
 
+  def _mesh_lock(self):
+    """The mesh's lock (one for all the process's sessions), or none."""
+    return (self.mesh.lock if self.mesh is not None
+            else contextlib.nullcontext())
+
   def _on_device(self):
     """The session's card as the thread's current device (a handler
     thread starts on card 0)."""
@@ -98,22 +115,30 @@ class RenderSession:
     return contextlib.nullcontext()
 
   # ----------------------------------------------------------------- frames
-  def _frame_state(self, idx: int) -> Dict[str, Any]:
-    """Source stacks + device feature maps for frame `idx` (LRU-cached)."""
-    if idx in self._frames:
+  def _frame_state(self, idx: int, vv_ids=None) -> Dict[str, Any]:
+    """Source stacks + device feature maps for frame `idx` (LRU-cached);
+    ``vv_ids`` (a follower's, from rank 0) re-encodes a cached frame whose
+    virtual views differ."""
+    state = self._frames.get(idx)
+    if state is not None and (vv_ids is None
+                              or np.array_equal(state["vv_ids"], vv_ids)):
       self._frames.move_to_end(idx)
       self.stats["featmap_cache_hits"] += 1
-      return self._frames[idx]
+      return state
     self.stats["featmap_cache_misses"] += 1
     t0 = time.perf_counter()
+    if vv_ids is None:
+      vv_ids = self._rng.choice(8, size=self.config.num_vv, replace=False)
     template = render_batch_template(self.data, idx,
                                      self.config.num_source_views,
-                                     self.config.num_vv, self._rng)
+                                     self.config.num_vv, self._rng,
+                                     vv_ids=vv_ids)
     rb = to_device(template, self.device)
     with torch.no_grad():
       featmaps = self.model.encode_featmaps(rb["src_rgbs"],
                                             rb["static_src_rgbs"])
-    state = {"template": rb, "featmaps": featmaps}
+    state = {"template": rb, "featmaps": featmaps,
+             "vv_ids": np.asarray(vv_ids, np.int64)}
     self._frames[idx] = state
     while len(self._frames) > self._cache_size:
       self._frames.popitem(last=False)
@@ -147,28 +172,51 @@ class RenderSession:
     pose = np.eye(4, dtype=np.float32)
     pose[:np.asarray(c2w).shape[0]] = np.asarray(c2w, np.float32)
     camera = make_camera(h, w, intr, pose)
+    if self.mesh is not None and not self.mesh.is_main:
+      raise RuntimeError("mesh ranks above 0 render through follow()")
 
-    with self._lock, self._on_device():
+    with self._mesh_lock(), self._lock, self._on_device():
       t0 = time.perf_counter()
       state = self._frame_state(idx)
-      rb = full_image_ray_batch(state["template"], camera,
-                                render_stride=stride, device=self.device)
-      ret = render_image_mono(self.model, rb, state["featmaps"], self.cfg,
-                              self.config.chunk_size,
-                              (h + stride - 1) // stride,
-                              (w + stride - 1) // stride,
-                              device=self.device)
-      ref = ret["outputs_coarse_ref"]
-      out = {"rgb": ref["rgb"], "depth": ref["depth"]}
-      if layers:
-        # the dynamic/static decompositions come out of the dual composite
-        # (core/composite.py), the static-only render beside it
-        out["rgb_dy"] = ref["rgb_dy"]
-        out["rgb_st"] = ret["outputs_coarse_st"]["rgb"]
-      out = {k: np.asarray(v, np.float32) for k, v in out.items()}
+      if self.mesh is not None:
+        self.mesh.broadcast_header(_header(
+            self.config.train_scenes[0], idx, stride, state["vv_ids"],
+            camera))
+      out = self._render(state, camera, stride, layers)
       self.stats["renders"] += 1
       self.timings["render_s"] += time.perf_counter() - t0
     return out
+
+  def _render(self, state, camera: np.ndarray, stride: int, layers: bool
+              ) -> Optional[Dict[str, np.ndarray]]:
+    """One frame from its state (None on mesh ranks other than 0)."""
+    h, w = int(camera[0]), int(camera[1])
+    rb = full_image_ray_batch(state["template"], camera,
+                              render_stride=stride, device=self.device)
+    ret = render_image_mono(self.model, rb, state["featmaps"], self.cfg,
+                            self.config.chunk_size,
+                            (h + stride - 1) // stride,
+                            (w + stride - 1) // stride,
+                            device=self.device, mesh=self.mesh)
+    if ret is None:
+      return None
+    ref = ret["outputs_coarse_ref"]
+    out = {"rgb": ref["rgb"], "depth": ref["depth"]}
+    if layers:
+      # the dynamic/static decompositions come out of the dual composite
+      # (core/composite.py), the static-only render beside it
+      out["rgb_dy"] = ref["rgb_dy"]
+      out["rgb_st"] = ret["outputs_coarse_st"]["rgb"]
+    return {k: np.asarray(v, np.float32) for k, v in out.items()}
+
+  def follow_render(self, req: Dict[str, Any]) -> None:
+    """A follower's share of the render rank 0 announced in ``req``."""
+    with self._lock, self._on_device():
+      t0 = time.perf_counter()
+      state = self._frame_state(req["frame_idx"], req["vv_ids"])
+      self._render(state, req["camera"], req["stride"], layers=False)
+      self.stats["renders"] += 1
+      self.timings["render_s"] += time.perf_counter() - t0
 
   def render_path(self, c2ws, frame_idxs, stride: int = 1,
                   layer: str = "rgb") -> "list[np.ndarray]":
@@ -213,3 +261,58 @@ class RenderSession:
     self.render(np.asarray(self.data.c2w[frame_idx]), frame_idx,
                 stride=stride)
     return time.perf_counter() - t0
+
+
+# the render header: op, frame index, stride, the count of virtual views,
+# up to 8 of their ids, the 34-float camera, then the scene's name (UTF-8,
+# one byte per entry)
+_CAMERA_AT, _NAME_AT, HEADER_LEN = 12, 64, 64 + 256
+
+
+def _header(scene: str, idx: int, stride: int, vv_ids,
+            camera: np.ndarray) -> torch.Tensor:
+  name = scene.encode()
+  vv = np.asarray(vv_ids, np.int64).reshape(-1)
+  if len(name) > HEADER_LEN - _NAME_AT or len(vv) > 8:
+    raise ValueError(f"scene name {scene!r} or {len(vv)} virtual views do "
+                     "not fit the render header")
+  h = torch.zeros(HEADER_LEN, dtype=torch.float64)
+  h[:4] = torch.tensor([1, idx, stride, len(vv)], dtype=torch.float64)
+  h[4:4 + len(vv)] = torch.from_numpy(vv.astype(np.float64))
+  h[_CAMERA_AT:_CAMERA_AT + 34] = torch.from_numpy(
+      np.asarray(camera, np.float64))
+  h[_NAME_AT:_NAME_AT + len(name)] = torch.tensor(list(name),
+                                                  dtype=torch.float64)
+  return h
+
+
+def _request(h: torch.Tensor) -> Optional[Dict[str, Any]]:
+  """A header's request; None for the stop message."""
+  v = h.numpy()
+  if v[0] == 0:
+    return None
+  name = bytes(int(b) for b in v[_NAME_AT:] if b > 0).decode()
+  return {"scene": name, "frame_idx": int(v[1]), "stride": int(v[2]),
+          "vv_ids": v[4:4 + int(v[3])].astype(np.int64),
+          "camera": v[_CAMERA_AT:_CAMERA_AT + 34].astype(np.float32)}
+
+
+def follow(registry, mesh: Mesh) -> int:
+  """The loop of mesh ranks above 0: render the share of every request
+  rank 0 broadcasts, in the session of its scene, until the stop message;
+  returns the count of renders."""
+  n = 0
+  while True:
+    req = _request(mesh.broadcast_header(
+        torch.zeros(HEADER_LEN, dtype=torch.float64)))
+    if req is None:
+      return n
+    registry.get(req["scene"]).follow_render(req)
+    n += 1
+
+
+def stop_followers(mesh: Optional[Mesh]) -> None:
+  """Rank 0: end the followers' loops."""
+  if mesh is not None and mesh.is_main and mesh.world > 1:
+    with mesh.lock:                 # after any render in flight
+      mesh.broadcast_header(torch.zeros(HEADER_LEN, dtype=torch.float64))

@@ -22,6 +22,14 @@ with ``make_train_step`` as one eager step each:
     render the one stage (-> anchor) with autograd, the 8-term loss (or,
     with ``bootstrap=True``, the static-bootstrap loss of phase 1, rendered
     without the anchor branch), backward, clip, Adam over all six groups.
+
+Each step takes ``mesh=`` (``parallel/mesh.py``): every rank passes the
+same global batch and generator, renders its rows of the rays (its rows
+of the global sample placement, ``core/sampling.RowShard``), and its loss
+terms are its shares of the global ones (``train/losses.py``); after the
+backward one all-reduce sums the gradients and the metrics, so the norm,
+the clip and Adam see the one-card values on every rank.  No DDP: the
+bootstrap and coarse steps leave whole groups without gradients.
 """
 
 from __future__ import annotations
@@ -32,8 +40,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from dynibar_tpu_torch.config import RenderSettings, TrainSettings
+from dynibar_tpu_torch.core.sampling import RowShard
 from dynibar_tpu_torch.models.dynibar import (FF_COARSE_KEYS, FFModel,
                                               MonoModel)
+from dynibar_tpu_torch.parallel.mesh import shard_ray_batch, sum_gradients
 from dynibar_tpu_torch.render.render_rays import (render_rays_ff_coarse,
                                                   render_rays_mono,
                                                   render_rays_mv)
@@ -141,27 +151,37 @@ def set_lr(opt: torch.optim.Optimizer) -> None:
                      g["steps_done"])
 
 
+def _psnr(metrics: Dict[str, Any], rgb: torch.Tensor, gt: torch.Tensor,
+          mesh) -> None:
+  """The psnr of ``rgb``; under a mesh this rank's share of the mse
+  (``_update`` turns the ranks' sum into the psnr)."""
+  mse = torch.mean((rgb - gt) ** 2)
+  if mesh is None:
+    metrics["psnr"] = -10.0 * torch.log10(mse + 1e-8)
+  else:
+    metrics["mse"] = mse / mesh.world
+
+
 def ff_loss(model: FFModel, rb: Dict[str, Any], weights: LossWeights,
             cfg: RenderSettings, *, det: bool = False,
-            generator: Optional[torch.Generator] = None,
-            kernels: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
+            generator=None, kernels: bool = True, mesh=None
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
   """The step's loss closure (make_ff_loss_fn): featmaps -> render ->
-  compute_ff_losses.  rb must already be on the model's device."""
+  compute_ff_losses.  rb must already be on the model's device (this
+  rank's rows under a mesh)."""
   coarse_fm, fine_fm = model.encode_featmaps(
       rb["src_rgbs"], rb["static_src_rgbs"], rb["anchor_src_rgbs"])
   ret = render_rays_mv(model, rb, coarse_fm, fine_fm, cfg,
                        device=model.device, kernels=kernels, is_train=True,
                        det=det, generator=generator)
-  metrics = compute_ff_losses(ret, rb, weights)
-  mse = torch.mean((ret["outputs_fine_ref"]["rgb"] - rb["rgb"]) ** 2)
-  metrics["psnr"] = -10.0 * torch.log10(mse + 1e-8)
+  metrics = compute_ff_losses(ret, rb, weights, mesh)
+  _psnr(metrics, ret["outputs_fine_ref"]["rgb"], rb["rgb"], mesh)
   return metrics["loss"], metrics
 
 
 def ff_coarse_loss(model: FFModel, rb: Dict[str, Any], weights: LossWeights,
                    cfg: RenderSettings, *, det: bool = False,
-                   generator: Optional[torch.Generator] = None,
-                   kernels: bool = True
+                   generator=None, kernels: bool = True, mesh=None
                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
   """The coarse step's loss closure (make_ff_coarse_loss_fn,
   dynibar_tpu/train/trainer.py:238-254): coarse featmaps -> coarse render
@@ -172,17 +192,15 @@ def ff_coarse_loss(model: FFModel, rb: Dict[str, Any], weights: LossWeights,
   ret = render_rays_ff_coarse(model, rb, featmaps, cfg, device=model.device,
                               kernels=kernels, is_train=True, det=det,
                               generator=generator)
-  metrics = compute_mono_losses(ret, rb, weights)
-  mse = torch.mean((ret["outputs_coarse_ref"]["rgb"] - rb["rgb"]) ** 2)
-  metrics["psnr"] = -10.0 * torch.log10(mse + 1e-8)
+  metrics = compute_mono_losses(ret, rb, weights, mesh)
+  _psnr(metrics, ret["outputs_coarse_ref"]["rgb"], rb["rgb"], mesh)
   return metrics["loss"], metrics
 
 
 def mono_loss(model: MonoModel, rb: Dict[str, Any], weights: LossWeights,
               cfg: RenderSettings, *, bootstrap: bool = False,
-              det: bool = False,
-              generator: Optional[torch.Generator] = None,
-              kernels: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
+              det: bool = False, generator=None, kernels: bool = True,
+              mesh=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
   """The mono step's loss closure (make_mono_loss_fn, dynibar_tpu/train/
   trainer.py:144-165): featmaps -> render -> compute_mono_losses, or with
   ``bootstrap`` the static-bootstrap loss of a render without the anchor
@@ -194,21 +212,26 @@ def mono_loss(model: MonoModel, rb: Dict[str, Any], weights: LossWeights,
                          kernels=kernels, is_train=not bootstrap, det=det,
                          generator=generator, needs_grad=True)
   if bootstrap:
-    loss = compute_bootstrap_loss(ret, rb)
+    loss = compute_bootstrap_loss(ret, rb, mesh)
     metrics = {"loss": loss, "static_loss": loss}
   else:
-    metrics = compute_mono_losses(ret, rb, weights)
-  mse = torch.mean((ret["outputs_coarse_ref"]["rgb"] - rb["rgb"]) ** 2)
-  metrics["psnr"] = -10.0 * torch.log10(mse + 1e-8)
+    metrics = compute_mono_losses(ret, rb, weights, mesh)
+  _psnr(metrics, ret["outputs_coarse_ref"]["rgb"], rb["rgb"], mesh)
   return metrics["loss"], metrics
 
 
 def _update(opt: torch.optim.Optimizer, loss: torch.Tensor,
-            metrics: Dict[str, torch.Tensor], train_cfg: TrainSettings
+            metrics: Dict[str, torch.Tensor], train_cfg: TrainSettings,
+            mesh=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], int]:
-  """Backward, the global gradient norm, clip, Adam at the scheduled lr."""
+  """Backward, (under a mesh) the sum of the ranks' gradients and
+  metrics, the global gradient norm, clip, Adam at the scheduled lr."""
   loss.backward()
   params = [p for g in opt.param_groups for p in g["params"]]
+  if mesh is not None:
+    metrics = sum_gradients(mesh, params, metrics)
+    metrics["psnr"] = -10.0 * torch.log10(metrics.pop("mse") + 1e-8)
+    loss = metrics["loss"]
   grads = [p.grad for p in params if p.grad is not None]
   metrics["grad_norm"] = torch.sqrt(sum(torch.sum(g * g) for g in grads))
   if train_cfg.clip_grad_norm > 0:
@@ -221,52 +244,65 @@ def _update(opt: torch.optim.Optimizer, loss: torch.Tensor,
   return loss.detach(), metrics, opt.param_groups[0]["steps_done"]
 
 
+def _prepare(model, opt, rb, generator, mesh):
+  """The step's batch on the model's device (this rank's rows under a
+  mesh) and its generator; gradients cleared."""
+  rb = to_device(rb, model.device)
+  if mesh is not None:
+    rb = shard_ray_batch(mesh, rb)
+    if generator is not None:
+      generator = RowShard(generator, mesh.rank, mesh.world)
+  opt.zero_grad(set_to_none=True)
+  return rb, generator
+
+
 def ff_train_step(model: FFModel, opt: torch.optim.Optimizer,
                   rb: Dict[str, Any], weights: LossWeights,
                   cfg: RenderSettings, train_cfg: TrainSettings, *,
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None, mesh=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], int]:
   """One fine-stage step: loss, backward, clip, Adam update, with
-  stochastic sample placement from ``generator`` and the kernels.
+  stochastic sample placement from ``generator`` and the kernels.  Under
+  ``mesh`` every rank passes the same global batch and generator.
 
   Returns the loss, the metrics (every loss term, psnr, grad_norm: the
   global norm before clipping) and the number of updates done so far; the
   model and the optimizer are stepped in place."""
-  rb = to_device(rb, model.device)
-  opt.zero_grad(set_to_none=True)
-  loss, metrics = ff_loss(model, rb, weights, cfg, generator=generator)
-  return _update(opt, loss, metrics, train_cfg)
+  rb, generator = _prepare(model, opt, rb, generator, mesh)
+  loss, metrics = ff_loss(model, rb, weights, cfg, generator=generator,
+                          mesh=mesh)
+  return _update(opt, loss, metrics, train_cfg, mesh)
 
 
 def ff_coarse_train_step(model: FFModel, opt: torch.optim.Optimizer,
                          rb: Dict[str, Any], weights: LossWeights,
                          cfg: RenderSettings, train_cfg: TrainSettings, *,
-                         generator: Optional[torch.Generator] = None
+                         generator: Optional[torch.Generator] = None,
+                         mesh=None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                                     int]:
   """One coarse-stage step of a ``train_coarse()`` model
   (make_ff_coarse_train_step, dynibar_tpu/train/trainer.py:257-273):
   loss, backward, clip, the Adam update of the coarse groups.  Returns as
   ``ff_train_step``; the fine groups stay bit-identical."""
-  rb = to_device(rb, model.device)
-  opt.zero_grad(set_to_none=True)
-  loss, metrics = ff_coarse_loss(model, rb, weights, cfg, generator=generator)
-  return _update(opt, loss, metrics, train_cfg)
+  rb, generator = _prepare(model, opt, rb, generator, mesh)
+  loss, metrics = ff_coarse_loss(model, rb, weights, cfg, generator=generator,
+                                 mesh=mesh)
+  return _update(opt, loss, metrics, train_cfg, mesh)
 
 
 def mono_train_step(model: MonoModel, opt: torch.optim.Optimizer,
                     rb: Dict[str, Any], weights: LossWeights,
                     cfg: RenderSettings, train_cfg: TrainSettings, *,
                     bootstrap: bool = False,
-                    generator: Optional[torch.Generator] = None
+                    generator: Optional[torch.Generator] = None, mesh=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], int]:
   """One mono step (make_train_step, dynibar_tpu/train/trainer.py:168-186):
   the full loss, or the static-bootstrap loss with ``bootstrap``, then
   backward, clip and the Adam update of all six groups, with stochastic
   sample placement from ``generator`` and the kernels.  Returns as
   ``ff_train_step``."""
-  rb = to_device(rb, model.device)
-  opt.zero_grad(set_to_none=True)
+  rb, generator = _prepare(model, opt, rb, generator, mesh)
   loss, metrics = mono_loss(model, rb, weights, cfg, bootstrap=bootstrap,
-                            generator=generator)
-  return _update(opt, loss, metrics, train_cfg)
+                            generator=generator, mesh=mesh)
+  return _update(opt, loss, metrics, train_cfg, mesh)

@@ -96,7 +96,8 @@ def _pipeline_wait(scene_root: str, steps: int, step_s: float,
       provider._load_rgb = load_fresh
   waits = []
   pipe = PrefetchPipeline(
-      lambda rng: data.sample_batch(rng, config.N_rand, config.sample_mode),
+      lambda rng, _: data.sample_batch(rng, config.N_rand,
+                                       config.sample_mode),
       num_workers=config.workers, seed=0)
   try:
     for _ in range(steps):

@@ -180,7 +180,7 @@ def main(argv=None) -> dict:
     gen = torch.Generator(dev).manual_seed((11 if phase == "A" else 23)
                                            + start)
     losses = []
-    with PrefetchPipeline(lambda r: data.sample_batch(r, n_rand),
+    with PrefetchPipeline(lambda r, _: data.sample_batch(r, n_rand),
                           num_workers=config.workers,
                           seed=(0 if phase == "A" else 1) + start,
                           device=dev) as pipe:

@@ -10,8 +10,8 @@
     (dynibar_tpu/cli/train.py:210), google/dynibar guards it
     (train.py:503-506).  Both CLIs run the same schedule with their
     train steps replaced by a no-op, so the test is about the loops;
-  * a mesh larger than one card raises; without ``--device cpu`` a host
-    with no CUDA raises.
+  * a mesh larger than one card raises outside a launcher (torchrun);
+    without ``--device cpu`` a host with no CUDA raises.
 Scenes: 7 frames of 16×24, the size where every step count is small.
 """
 
@@ -182,7 +182,7 @@ def test_no_vv_snapshot_written_once_unlike_the_jax_cli(
 
 @pytest.mark.parametrize("mesh", ["2", "8"])
 def test_larger_mesh_raises(scene_root, mesh):
-  with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+  with pytest.raises(RuntimeError, match="torchrun"):
     train.main(["--device", "cpu"] + _args(scene_root, mesh_shape=mesh))
 
 

@@ -292,12 +292,12 @@ def test_pipelines_yield_the_same_first_batches(scenes):
 
   want = first(JPipeline(lambda r: jd.sample_batch(r, 16), num_workers=1,
                          seed=3, device_put=False))
-  got = first(PrefetchPipeline(lambda r: pd.sample_batch(r, 16),
+  got = first(PrefetchPipeline(lambda r, _: pd.sample_batch(r, 16),
                                num_workers=1, seed=3))
   for a, b in zip(got, want):
     _equal_batches(a, b)
   # on a device the consumer hands out tensors: floats f32, integers int64
-  t = first(PrefetchPipeline(lambda r: pd.sample_batch(r, 16),
+  t = first(PrefetchPipeline(lambda r, _: pd.sample_batch(r, 16),
                              num_workers=1, seed=3,
                              device=torch.device("cpu")), 1)[0]
   assert t["ray_o"].dtype == torch.float32
@@ -306,7 +306,7 @@ def test_pipelines_yield_the_same_first_batches(scenes):
 
 
 def test_pipeline_surfaces_loader_errors():
-  def bad(_):
+  def bad(*_):
     raise FileNotFoundError("no frame")
   with PrefetchPipeline(bad, num_workers=1) as pipe:
     with pytest.raises(FileNotFoundError):

@@ -199,6 +199,6 @@ def test_default_device_needs_cuda():
 
 @pytest.mark.parametrize("mesh", ["2", "8"])
 def test_larger_mesh_raises(mesh):
-  with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+  with pytest.raises(RuntimeError, match="torchrun"):
     cli.main(["--config", EVAL_CONFIG, "--mesh_shape", mesh, "--device",
               "cpu"])

@@ -45,7 +45,8 @@ NEW_MODULES = ("cli/train.py", "data/png.py", "data/llff.py",
                "serve/video.py", "serve/session.py", "serve/registry.py",
                "serve/server.py", "cli/train_ff.py", "eval/held_out.py",
                "ops/splat.py", "cli/save_monocular_cameras.py",
-               "cli/render_source_vv.py", "utils/profiling.py")
+               "cli/render_source_vv.py", "utils/profiling.py",
+               "parallel/mesh.py")
 # image and video libraries the card's machine lacks: no module may need
 # one to import (serve/video.py imports cv2 only to encode an mp4)
 ABSENT_ON_CARD = ("cv2", "imageio", "PIL", "skimage")
@@ -67,11 +68,12 @@ def _imported_roots(path):
 
 def test_scan_covers_every_subpackage():
   """The static scan reaches every package directory, train/, cli/,
-  eval/ and serve/ included, and the data path's modules."""
+  eval/, serve/ and parallel/ included, and the data path's modules."""
   scanned = {p.parent for p in _sources()}
   packages = {p.parent for p in PKG.rglob("__init__.py")}
   assert packages <= scanned
-  assert {PKG / "train", PKG / "cli", PKG / "eval", PKG / "serve"} <= packages
+  assert {PKG / "train", PKG / "cli", PKG / "eval", PKG / "serve",
+          PKG / "parallel"} <= packages
   names = {p.relative_to(PKG).as_posix() for p in _sources() if PKG in
            p.parents}
   assert set(NEW_MODULES) <= names

@@ -15,8 +15,9 @@ from PRNGKey(0), saved as each package's snapshot (the port's through
     installed here);
   * with ``video_out`` set and cv2 blocked it raises, naming cv2, before
     it renders a frame; without a scene it stops naming
-    ``--train_scenes``; a mesh larger than one card raises; without
-    ``--device cpu`` a host with no CUDA raises.
+    ``--train_scenes``; a mesh larger than one card raises outside a
+    launcher (torchrun); without ``--device cpu`` a host with no CUDA
+    raises.
 """
 
 import os
@@ -151,7 +152,7 @@ def test_cli_errors(scene):
   root, _, troot = scene
   with pytest.raises(SystemExit, match="--train_scenes"):
     cli.main(["--device", "cpu", "--folder_path", root])
-  with pytest.raises(NotImplementedError, match="item 11"):
+  with pytest.raises(RuntimeError, match="torchrun"):
     cli.main(["--device", "cpu"] + _argv(root, troot, mesh_shape="8"))
   with pytest.raises(SystemExit, match="no checkpoint"):
     cli.main(["--device", "cpu"] + _argv(root, os.path.join(root, "none"),

@@ -451,7 +451,7 @@ def test_server_main(scene, monkeypatch):
 def test_entry_points_need_cuda_or_cpu(scene):
   root, _, sd = scene
   config = DynibarConfig(folder_path=root, **KW)
-  with pytest.raises(NotImplementedError, match="item 11"):
+  with pytest.raises(RuntimeError, match="torchrun"):
     RenderSession(DynibarConfig(folder_path=root, **dict(
         KW, mesh_shape="8")), state_dict=sd, device="cpu")
   with pytest.raises(ValueError, match="--train_scenes"):

@@ -11,8 +11,9 @@ mirroring ``tests/test_train_cli_driver.py:103`` and
     (recorded as the model loads them) and keeps the coarse stage;
   * the coarse stage loads from a reference-format coarse ``.pth`` and
     from a mono run's snapshot; a mis-shaped coarse snapshot raises;
-  * no scene raises SystemExit, a mesh larger than one card raises, and
-    without ``--device cpu`` a host with no CUDA raises.
+  * no scene raises SystemExit, a mesh larger than one card raises outside
+    a launcher (torchrun), and without ``--device cpu`` a host with no
+    CUDA raises.
 4 + 4 samples (every ray's mask is off: the loop, not the render, is
 under test; the losses stay finite).
 """
@@ -178,7 +179,7 @@ def test_mis_shaped_coarse_snapshot_raises(scene, tmp_path):
 def test_no_scene_and_mesh_and_device():
   with pytest.raises(SystemExit, match="no scene"):
     train_ff.main(["--device", "cpu"])
-  with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+  with pytest.raises(RuntimeError, match="torchrun"):
     train_ff.main(["--device", "cpu", "--train_scenes", "s", "--mesh_shape",
                    "8"])
   if not torch.cuda.is_available():
