@@ -5,9 +5,10 @@ benchmark eval CLI on an on-disk scene, the mono render and serving
 path (the HTTP server over the training CLI's checkpoint, the render
 CLI), the FF training chain: the coarse-stage train step, then the
 fine-stage training CLI on its snapshot, from an analytic scene on disk,
-and scene preprocessing: the camera and virtual-view CLIs from a
+scene preprocessing: the camera and virtual-view CLIs from a
 dynamic-video-depth output, then the training CLI on what they wrote,
-and the mesh (parallel/mesh.py) rehearsed on the one card.
+the mesh (parallel/mesh.py) rehearsed on the one card, and the mono
+model's convergence run on the analytic scene.
 
     python3 chip_smoke.py
 
@@ -15,8 +16,10 @@ Phases (each prints its own lines; any failure raises, so the exit code
 is non-zero and the last line below is never printed):
 
   0. the card's name and power limit (nvidia-smi); TF32 off;
-  1. build the seven CUDA libraries from csrc/ (one nvcc each, in
-     parallel); print each kernel's footprint and blocks per SM;
+  1. build the seven CUDA libraries from csrc/ (one nvcc each, all at
+     once); K4s's, the longest, goes on building through phase 14 (run
+     here, below) and phases 2 and 2b until K4s's first launch in 2b,
+     where each kernel's footprint and blocks per SM are printed;
   2. hold each eval kernel against its plain PyTorch twin at the main
      path's shapes (K2/K3 at both the coarse and the fine stage) and time
      kernel, twin and the bound; K1 as the main path launches it (both
@@ -198,14 +201,34 @@ is non-zero and the last line below is never printed):
         mesh_shape auto: one bootstrap epoch (48 steps at N_rand 3072) on
         phase 8's scene over NCCL (the mesh's init line), finite losses,
         s/step from its log; the phase's seconds;
+  14. the mono convergence run (scripts/port_mono_convergence.run, run
+     right after the build, while K4s's library builds: its path launches
+     no K4s) at its production configuration (N_rand 3072, 64
+     samples, 7 source and 3 virtual views, bf16, the default routes) on
+     a 24-frame 96×144 ConsistentScene with the compressed schedule
+     (--clip 1 --init_decay_epoch 10): 300 steps, 120 of them the
+     bootstrap, an eval of the train view and the two held-out views
+     every 150 steps; (a) finite losses, the mean of the full phase's last
+     25 below its first 25's; (b) the train view's crop-3% PSNR above its
+     init; (c) every full-phase step launches the default routes' mono
+     step (K2r 1, K5a 1, K5b 1, K3r 2, K4a 2, K4b 2), every bootstrap step
+     K2r, K5a, K5b and K3r once, the evals K1 / K2 / K3 2 / 1 / 1 per
+     4608-ray chunk; (d) the first, middle and last 1024-ray chunks of
+     both held-out views at the trained weights through the kernels
+     against the plain path (rgb within 3e-2); K2 and K3 alone on each
+     chunk's inputs: finite, their -1e9 fills exact, their colours' and
+     densities' largest errors and counts outside their phase 2 bars
+     printed (those bars hold at random weights);
+     the schedule's transitions, the curve, the held-out rise (printed,
+     not gated), s/step, peak memory and the phase's seconds;
   7. print the kernels line (13 kernels; K1 with its single-map times, K2
      and K3 with their forward reports of 2, 2b and 6a; K1-K3 with their
      launches per eval viewpoint frame and per served frame, K2 with its
      mask_rgb = 0 and anti-alias-off errors; each training kernel with its
      ms, bound and launches at the FF coarse step's shapes (phase 11) and
      its launches in the chain's CLI run; every kernel with its launches
-     in phase 12's training run and, as mesh_launches, rank 0's per step
-     or frame in phase 13),
+     in phase 12's training run, as mesh_launches rank 0's per step or
+     frame in phase 13, and its launches in phase 14's run),
      the card line, then the result line.
 
 Weights are random, from a seed.  Needs one card and no network.
@@ -213,6 +236,7 @@ Weights are random, from a seed.  Needs one card and no network.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -283,6 +307,7 @@ MONO_LAUNCHES = {
 # aggregators under autograd, as the mono step
 COARSE_LAUNCHES = MONO_LAUNCHES
 WEIGHT_SEEDS = range(4)
+K4S_LIB = "dynamic_agg_bwd1"
 TRUNK_LAYERS = ("base_fc", "vis_fc", "vis_fc2", "s")
 
 
@@ -2514,6 +2539,205 @@ def _mesh_phase(card, h, w, cli_root, snapshot, n_rand):
           for k in _counters()}
 
 
+def _mono_convergence_phase(card, dev, steps=300, eval_every=150, frames=24):
+  """Phase 14: scripts/port_mono_convergence.py's run on the card at its
+  production configuration, compressed schedule (its gate reported, not
+  enforced).  Returns the launches of the run (steps and evals)."""
+  import importlib.util
+  import tempfile
+  from dynibar_tpu_torch.cli.render_monocular import render_batch_template
+  from dynibar_tpu_torch.core.cameras import make_camera
+  from dynibar_tpu_torch.eval.held_out import final_camera
+  from dynibar_tpu_torch.models.dynibar import MonoModel
+  from dynibar_tpu_torch.ops import agg
+  from dynibar_tpu_torch.render import render_rays as rr
+  from dynibar_tpu_torch.render.render_image import full_image_ray_batch
+  from dynibar_tpu_torch.train import trainer
+  from dynibar_tpu_torch.utils import checkpoints as ckpt
+  t_phase = time.perf_counter()
+  path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                      "port_mono_convergence.py")
+  spec = importlib.util.spec_from_file_location("port_mono_convergence",
+                                                path)
+  script = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(script)
+
+  # each step's launches, read around the trainer's step (the script
+  # calls it through the module, so the counts it keeps are the run's)
+  per_step = []
+  step_fn = trainer.mono_train_step
+
+  def counted(*args, **kw):
+    before = _read_counts()
+    out = step_fn(*args, **kw)
+    after = _read_counts()
+    per_step.append((kw.get("bootstrap", False),
+                     {k: after[k] - before[k] for k in after}))
+    return out
+
+  with tempfile.TemporaryDirectory() as outdir:
+    argv = ["--clip", "1", "--init_decay_epoch", "10", "--frames",
+            str(frames), "--steps", str(steps), "--eval_every",
+            str(eval_every), "--tag", "smoke", "--outdir", outdir]
+    log = io.StringIO()
+    trainer.mono_train_step = counted
+    try:
+      _zero_counts()
+      with contextlib.redirect_stdout(log):   # 300 steps: not gated
+        res = script.run(script.parse_args(argv))
+      torch.cuda.synchronize()
+      launches = _read_counts()
+    finally:
+      trainer.mono_train_step = step_fn
+    for line in log.getvalue().splitlines():
+      if line.startswith(("schedule:", "wrote scene")):
+        print(f"mono convergence {line}", flush=True)
+
+    # (a) a finite, falling loss within the full phase
+    full = res["full_losses"]
+    first, last = np.mean(full[:25]), np.mean(full[-25:])
+    n_boot = len(per_step) - len(full)
+    print(f"mono convergence: {n_boot} bootstrap + {len(full)} full steps "
+          f"at N_rand {res['config']['N_rand']}, {res['config']['hw']}, "
+          f"{frames} frames; "
+          f"{res['sec_per_step_mean']:.4f} s/step (a host sync per step), "
+          f"peak memory {res['peak_gib']:.2f} GiB; full-phase loss mean of "
+          f"the first 25 {first:.5f}, of the last 25 {last:.5f} [{card}]",
+          flush=True)
+    for rec in res["curve"]:
+      print(f"mono convergence eval step {int(rec['step'])}: " + ", ".join(
+          f"{k[5:]} {rec[k]:.3f}" for k in sorted(rec)
+          if k.startswith("psnr_") and k.endswith("_crop3"))
+            + (f", loss {rec['loss']:.5f}" if "loss" in rec else ""),
+            flush=True)
+    print(f"mono convergence held-out rise (crop 3%, min of the novel "
+          f"views; printed, not gated): {res['novel_psnr_rise_db']:+.3f} "
+          f"dB; train view {res['train_view_rise_db']:+.3f} dB", flush=True)
+    if not (np.isfinite(full).all() and last < first):
+      raise AssertionError(f"mono convergence: the full-phase loss did not "
+                           f"fall ({first} -> {last})")
+    # (b) the train view rose
+    if not res["train_view_rise_db"] > 0:
+      raise AssertionError(f"mono convergence: train view "
+                           f"{res['train_view_rise_db']} dB")
+    # (c) every full-phase step launched the default routes' mono step
+    # (every bootstrap step: the static pair and the dynamic forward)
+    want_full = MONO_LAUNCHES["pallas_split"]
+    want_boot = {k: int(k in ("K2r", "K5a", "K5b", "K3r")) for k in want_full}
+    for boot, got in per_step:
+      if got != (want_boot if boot else want_full):
+        kind = "bootstrap" if boot else "full"
+        raise AssertionError(f"mono convergence: a {kind} step launched "
+                             f"{got}")
+    # the evals: 3 views of 3 chunks each (4608 rays), K1 2, K2 1, K3 1
+    evals = len(res["curve"]) * 3 * 3
+    want = {k: n_boot * want_boot[k] + len(full) * want_full[k]
+            for k in want_full}
+    want.update(K1=2 * evals, K2=evals, K3=evals)
+    if launches != want:
+      raise AssertionError(f"mono convergence launches {launches}, want "
+                           f"{want}")
+    print(f"mono convergence launches per full-phase step "
+          f"{ {k: n for k, n in want_full.items() if n} }, per bootstrap "
+          f"step { {k: n for k, n in want_boot.items() if n} }; the run "
+          f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+
+    # (d) 1024-ray chunks of the held-out views at the trained weights
+    # (each view's first, middle and last), through the kernels against
+    # the plain path; K2 and K3 alone on each chunk's inputs
+    args = script.parse_args(argv)
+    scene, config, data = script.build(args)
+    cfg = config.render_settings("mono")
+    model = MonoModel(cfg, num_frames=data.num_frames, device=dev)
+    model.load_state_dict(ckpt.load_checkpoint(
+        ckpt.latest_checkpoint(os.path.join(outdir, "ckpt_smoke")),
+        map_location=dev)["model"])
+    frames_rb = []
+    for pose, tau in scene.held_out_cameras():
+      idx = int(round(tau))
+      template = render_batch_template(data, idx, config.num_source_views,
+                                       config.num_vv,
+                                       np.random.RandomState(0))
+      cam = make_camera(scene.h, scene.w, data.intrinsics[idx],
+                        final_camera(scene, data, pose))
+      frames_rb.append(full_image_ray_batch(template, cam, device=dev))
+  worst, stats = 0.0, {}
+  for view, full_rb in enumerate(frames_rb):
+    n = full_rb["ray_o"].shape[0]
+    for start in (0, n // 2 - 512, n - 1024):
+      part = {k: (v[start:start + 1024] if k in ("ray_o", "ray_d", "uv_grid")
+                  else v) for k, v in full_rb.items()}
+      name = f"novel_{view} rays {start}"
+      with torch.no_grad():
+        fm = model.encode_featmaps(part["src_rgbs"], part["static_src_rgbs"])
+        ker = rr.render_rays_mono(model, part, fm, cfg, device=dev)
+        plain = rr.render_rays_mono(model, part, fm, cfg, device=dev,
+                                    kernels=False)
+        rgb = ker["outputs_coarse_ref"]["rgb"]
+        if not torch.isfinite(rgb).all() or rgb.shape != (1024, 3):
+          raise AssertionError(f"{name}: rgb not finite or misshapen")
+        chunk_err = float((rgb - plain["outputs_coarse_ref"]["rgb"])
+                          .abs().max())
+        if chunk_err > 3e-2:
+          raise AssertionError(f"{name}: kernels vs plain rgb {chunk_err}")
+        pts, _, _ = rr.sampling.sample_along_ray(
+            part["ray_o"], part["ray_d"], part["depth_range"],
+            cfg.n_samples, cfg.inv_uniform, det=True)
+        ins = rr.stage_inputs(model, part, fm, cfg, None, pts,
+                              kernels=False)
+        raws = {"K2": (agg.fused_static_aggregator(model.net_coarse_st,
+                                                   *ins["st"]),
+                       model.net_coarse_st(*ins["st"]), 2e-2),
+                "K3": (agg.fused_dynamic_aggregator(model.net_coarse_dy,
+                                                    *ins["dy"]),
+                       model.net_coarse_dy(*ins["dy"]), 1e-2)}
+      # K2 and K3 alone: finite, their -1e9 fills exact; their colours'
+      # and densities' errors counted against phase 2's bars, which hold
+      # at random weights (at trained weights, a sharper trunk in bf16, a
+      # few values leave them while the chunks' rgb stays inside 3e-2)
+      for key, (got, want, atol) in raws.items():
+        fill = want[..., 3] <= -1e8
+        if not (torch.isfinite(got).all()
+                and torch.equal(got[..., 3] <= -1e8, fill)):
+          raise AssertionError(f"{key} ({name}): non-finite output, or "
+                               "the -1e9 sigma entries differ")
+        err = (got - want).abs()
+        out = err > atol + 2e-2 * want.abs()
+        for part_name, e, o in (("colours", err[..., :3], out[..., :3]),
+                                ("densities", err[..., 3][~fill],
+                                 out[..., 3][~fill])):
+          rec = stats.setdefault(f"{key} {part_name}", [0.0, 0, 0])
+          rec[0] = max(rec[0], float(e.max()))
+          rec[1] += int(o.sum())
+          rec[2] += o.numel()
+      worst = max(worst, chunk_err)
+  print(f"mono convergence at the trained weights, 6 chunks of 1024 rays of "
+        f"the held-out views: largest kernels vs plain rgb {worst:.3g}; "
+        f"alone, largest error and values outside phase 2's bar (reported) "
+        + "; ".join(f"{k} {e:.3g}, {o} of {n}"
+                    for k, (e, o, n) in stats.items()) + f" [{card}]",
+        flush=True)
+  print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+  return launches
+
+
+def _footprints(card):
+  """Each aggregator kernel's footprint; the forward trunk keeps two
+  blocks per SM at every view count of the main paths (FF 7 and 11, mono
+  9, 10 and 14)."""
+  from dynibar_tpu_torch.ops import agg
+  occ = {v: agg.occupancy(v) for v in (7, 9, 10, 11, 14)}
+  for v, o in occ.items():
+    print(f"footprint at V={v} (bytes, blocks/SM): {o} [{card}]",
+          flush=True)
+  for v in (11, 14):
+    if occ[v]["K2 trunk"][1] != 2:
+      raise AssertionError(f"K2 trunk: {occ[v]['K2 trunk']} at V={v}")
+  for v in (7, 9, 10):
+    if occ[v]["K3 trunk"][1] != 2:
+      raise AssertionError(f"K3 trunk: {occ[v]['K3 trunk']} at V={v}")
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2534,23 +2758,20 @@ def main() -> int:
   print(f"card: {card}", flush=True)
 
   # ---- 1: build -----------------------------------------------------------
-  t0 = time.perf_counter()
-  secs = build.build()
-  print(f"build: {time.perf_counter() - t0:.1f} s "
-        f"({ {k: round(v, 1) for k, v in secs.items()} })", flush=True)
+  # K4s's library (dynamic_agg_bwd1) takes twice as long as any other: it
+  # builds beside the others and on through phase 14 and phases 2 and 2b,
+  # which launch no K4s, until its first launch in 2b
+  t_build = time.perf_counter()
+  pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+  k4s_build = pool.submit(build.build, [K4S_LIB])
+  secs = build.build([n for n in build.KERNEL_SOURCES if n != K4S_LIB])
+  print(f"build: {time.perf_counter() - t_build:.1f} s "
+        f"({ {k: round(v, 1) for k, v in secs.items()} }; {K4S_LIB} goes "
+        f"on)", flush=True)
 
-  # footprints: the forward trunk keeps two blocks per SM at every view
-  # count of the main paths (FF 7 and 11, mono 9, 10 and 14)
-  occ = {v: agg.occupancy(v) for v in (7, 9, 10, 11, 14)}
-  for v, o in occ.items():
-    print(f"footprint at V={v} (bytes, blocks/SM): {o} [{card}]",
-          flush=True)
-  for v in (11, 14):
-    if occ[v]["K2 trunk"][1] != 2:
-      raise AssertionError(f"K2 trunk: {occ[v]['K2 trunk']} at V={v}")
-  for v in (7, 9, 10):
-    if occ[v]["K3 trunk"][1] != 2:
-      raise AssertionError(f"K3 trunk: {occ[v]['K3 trunk']} at V={v}")
+  # ---- 14: the mono convergence run, compressed schedule ----------------
+  conv_launches = _mono_convergence_phase(card, dev)
+  torch.cuda.empty_cache()
 
   h, w, chunk = 288, 512, 1024
   cfg = RenderSettings(n_samples=64, n_importance=64, num_views_dy=7,
@@ -2681,6 +2902,14 @@ def main() -> int:
     if label != "dynamic V=6":
       train_results.update(res)
     if not static:                  # the same shape on the "pallas" route
+      if k4s_build is not None:
+        secs.update(k4s_build.result())
+        pool.shutdown()
+        k4s_build = None
+        print(f"build: {K4S_LIB} done "
+              f"{time.perf_counter() - t_build:.1f} s after the build began "
+              f"({secs[K4S_LIB]:.1f} s of nvcc)", flush=True)
+        _footprints(card)
       res = _check_single_kernels(card, label, net, args, cot)
       if label == "dynamic V=7":
         single_ff = res
@@ -2903,6 +3132,7 @@ def main() -> int:
       res["forward_shapes"] = dict(fwd_shapes[key], **mono_fwd[key])
     res["preprocess_cli_launches"] = pre_launches[key]
     res["mesh_launches"] = mesh_launches[key]
+    res["mono_convergence_launches"] = conv_launches[key]
     kernels.append(res)
   for key in ("K2r", "K5a", "K5b", "K3r", "K4a", "K4b", "K5c", "K5d"):
     res = dict(train_results[key] if key in train_results
@@ -2916,6 +3146,7 @@ def main() -> int:
     _add_coarse(res, key, coarse_results, coarse_launches, chain)
     res["preprocess_cli_launches"] = pre_launches[key]
     res["mesh_launches"] = mesh_launches[key]
+    res["mono_convergence_launches"] = conv_launches[key]
     kernels.append(res)
   # K3p/K4s at the mono step's shapes (V = 9), their launches on the mono
   # step's "pallas" route; also their times at the FF step's (V = 7, S =
@@ -2933,6 +3164,7 @@ def main() -> int:
     _add_coarse(res, key, coarse_results, coarse_launches, chain)
     res["preprocess_cli_launches"] = pre_launches[key]
     res["mesh_launches"] = mesh_launches[key]
+    res["mono_convergence_launches"] = conv_launches[key]
     kernels.append(res)
   print(f"mono step per route: {mono_stats} [{card}]", flush=True)
   print(f"FF coarse step per route: {coarse_stats}; chain: "

@@ -97,14 +97,16 @@ def _save(out_folder, step, model, opt, name="model"):
                                   opt.state_dict(), name=name)
 
 
-def curriculum_sampler(data, config, start_epoch: int):
-  """A phase's pipeline function: each phase runs whole epochs from
-  ``start_epoch``, so batch ``k`` falls in epoch ``start_epoch + k //
-  num_frames`` and draws under that epoch's anchor curriculum, however
-  far its loader thread runs ahead of the step loop."""
+def curriculum_sampler(data, config, start_epoch: int, skip: int = 0):
+  """A phase's pipeline function: the phase starts ``skip`` batches into
+  epoch ``start_epoch`` (the CLI's phases run whole epochs: 0), so batch
+  ``k`` falls in epoch ``start_epoch + (skip + k) // num_frames`` and
+  draws under that epoch's anchor curriculum, however far its loader
+  thread runs ahead of the step loop."""
   def sample(np_rng, k):
-    return data.sample_batch(np_rng, config.N_rand, config.sample_mode,
-                             epoch=start_epoch + k // data.num_frames)
+    return data.sample_batch(
+        np_rng, config.N_rand, config.sample_mode,
+        epoch=start_epoch + (skip + k) // data.num_frames)
   return sample
 
 

@@ -22,6 +22,7 @@ from dynibar_tpu_torch.ops.agg import (fused_dynamic_aggregator,
                                        fused_static_aggregator)
 from dynibar_tpu_torch.utils import convert
 from dynibar_tpu_torch.utils import kernel_check as kc
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 R, S, F = 8, 16, 32
 

@@ -20,6 +20,7 @@ import torch
 from dynibar_tpu_torch.utils.kernel_check import (ATTN_FIELDS,
                                                   attention_inputs,
                                                   ray_attention_plain)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def _float64(q, k, v, d_o, nvalid):

@@ -29,6 +29,7 @@ from dynibar_tpu_torch.cli import train
 from dynibar_tpu_torch.data import png, synthetic_scene
 from dynibar_tpu_torch.models.dynibar import MonoModel
 from dynibar_tpu_torch.utils import checkpoints as ckpt
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 FRAMES = 7
 

@@ -23,6 +23,7 @@ import pytest
 
 from dynibar_tpu.data import synthetic_scene as jscene
 from dynibar_tpu_torch.data import png, synthetic_scene
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FRAMES, H, W = 12, 32, 48

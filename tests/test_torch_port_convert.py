@@ -14,6 +14,7 @@ from dynibar_tpu.utils import torch_convert
 from dynibar_tpu_torch.config import RenderSettings
 from dynibar_tpu_torch.models.dynibar import FFModel
 from dynibar_tpu_torch.utils import convert
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 KW = dict(n_samples=8, n_importance=8, num_views_dy=7, num_views_static=4,
           num_basis=6, inv_uniform=True)

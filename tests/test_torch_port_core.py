@@ -26,6 +26,7 @@ from dynibar_tpu_torch.core import projection as proj
 from dynibar_tpu_torch.core import sampling
 from dynibar_tpu_torch.data.ray_batch import synthetic_poses
 from dynibar_tpu_torch.ops.sample import sample_views
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 R, S, V = 32, 8, 4
 H, W = 32, 48

@@ -42,6 +42,7 @@ from dynibar_tpu_torch.utils.kernel_check import (ATTN_FIELDS,
                                                   grad_errors, random_inputs,
                                                   ray_attention,
                                                   ray_attention_plain)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 R, F = 6, 32

@@ -45,6 +45,7 @@ from dynibar_tpu_torch.data.monocular import (MonocularSceneData, _disk_kernel,
 from dynibar_tpu_torch.data.pipeline import PrefetchPipeline
 from dynibar_tpu_torch.utils import checkpoints as ckpt
 from dynibar_tpu_torch.utils import viz
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # 37 x 52 frames: 288 / 37 is not an integer, so the dynamic mask's

@@ -72,6 +72,7 @@ from dynibar_tpu_torch.eval import lpips, metrics
 from dynibar_tpu_torch.eval import nvidia_eval
 from dynibar_tpu_torch.models.dynibar import FFModel
 from dynibar_tpu_torch.utils import convert
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 EVAL_CONFIG = str(ROOT / "configs_nvidia" / "eval_balloon1_long.txt")

@@ -43,6 +43,7 @@ from tests.test_torch_port_eval import (EVAL_CONFIG, EVAL_FRAME, EVAL_FRAMES,
                                         SCENE, SMALL, Recorder,
                                         check_metrics, eval_scenes,
                                         jax_ff_params)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CONFIGS = sorted((ROOT / "configs_nvidia").glob("*.txt"))

@@ -33,6 +33,7 @@ from dynibar_tpu_torch.utils.device import to_device
 
 from tests.test_torch_port_train import (CFG, JCFG, JCONFIG, NUM_FRAMES, TCFG,
                                          _torch_tree, setup)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 _ = setup                                    # the module-scoped fixture
 

@@ -1,7 +1,8 @@
 """Package rules of the PyTorch/CUDA port:
 
-  * no module of dynibar_tpu_torch (and not chip_smoke.py) imports jax,
-    flax, optax, orbax or anything of dynibar_tpu, checked statically and
+  * no module of dynibar_tpu_torch (and not chip_smoke.py, nor the port's
+    scripts, scripts/port_*.py) imports jax, flax, optax, orbax or
+    anything of dynibar_tpu, checked statically and
     by importing every module in a subprocess with those names blocked
     (this pytest process has imported JAX already), and with cv2, imageio,
     PIL and skimage blocked too: the machine with the card has none of
@@ -26,6 +27,7 @@ from dynibar_tpu_torch.ops import agg, sample
 from dynibar_tpu_torch.render.render_image import (full_image_ray_batch,
                                                    render_image_ff)
 from dynibar_tpu_torch.render.render_rays import render_rays_mv
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "dynibar_tpu_torch"
@@ -52,8 +54,15 @@ NEW_MODULES = ("cli/train.py", "data/png.py", "data/llff.py",
 ABSENT_ON_CARD = ("cv2", "imageio", "PIL", "skimage")
 
 
+# the port's scripts: each imports only dynibar_tpu_torch, numpy, torch
+# and the standard library
+PORT_SCRIPTS = ("port_ff_convergence.py", "port_mono_convergence.py",
+                "port_pipeline_ab.py", "port_profile.py")
+
+
 def _sources():
-  return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+  return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+          + sorted((ROOT / "scripts").glob("port_*.py")))
 
 
 def _imported_roots(path):
@@ -68,7 +77,8 @@ def _imported_roots(path):
 
 def test_scan_covers_every_subpackage():
   """The static scan reaches every package directory, train/, cli/,
-  eval/, serve/ and parallel/ included, and the data path's modules."""
+  eval/, serve/ and parallel/ included, the data path's modules and the
+  port's scripts."""
   scanned = {p.parent for p in _sources()}
   packages = {p.parent for p in PKG.rglob("__init__.py")}
   assert packages <= scanned
@@ -77,6 +87,8 @@ def test_scan_covers_every_subpackage():
   names = {p.relative_to(PKG).as_posix() for p in _sources() if PKG in
            p.parents}
   assert set(NEW_MODULES) <= names
+  scripts = {p.name for p in _sources() if p.parent == ROOT / "scripts"}
+  assert set(PORT_SCRIPTS) <= scripts
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)

@@ -27,6 +27,7 @@ from dynibar_tpu.data.monocular import MonocularSceneData as JMono
 from dynibar_tpu_torch.config import DynibarConfig
 from dynibar_tpu_torch.data import jpeg, llff, synthetic_scene
 from dynibar_tpu_torch.data.monocular import MonocularSceneData
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 MAX_DIFF, MEAN_DIFF = 2, 0.5          # of 255
 H, W, FRAMES = 37, 52, 9

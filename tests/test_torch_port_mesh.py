@@ -71,6 +71,7 @@ from dynibar_tpu_torch.utils import convert
 from dynibar_tpu_torch.utils.device import to_device
 
 from tests import torch_mesh_worker as worker
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 RANK_TIMEOUT_S = 300
 CPU = torch.device("cpu")

@@ -48,6 +48,7 @@ from dynibar_tpu_torch.render.render_rays import render_rays_mono
 from dynibar_tpu_torch.train import losses, trainer
 from dynibar_tpu_torch.utils import convert
 from dynibar_tpu_torch.utils.device import to_device
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 NUM_FRAMES, N_RAYS = 32, 8
 KW = dict(n_samples=16, num_basis=4, anti_alias_pooling=True, mask_rgb=True)

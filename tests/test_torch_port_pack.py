@@ -21,6 +21,7 @@ from dynibar_tpu_torch.models.aggregators import (DynamicAggregator,
                                                   StaticAggregator)
 from dynibar_tpu_torch.ops import agg
 from dynibar_tpu_torch.utils.kernel_check import random_inputs
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def _net(static: bool, anti_alias: bool, seed: int):

@@ -39,6 +39,7 @@ from dynibar_tpu_torch.data import llff, png
 from dynibar_tpu_torch.data.resize import resize_area, resize_linear
 from dynibar_tpu_torch.data.synthetic_scene import ConsistentScene
 from dynibar_tpu_torch.ops.splat import softmax_splat
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 FRAMES, H0, W0, HEIGHT, WIDTH, NUM_VV = 4, 36, 48, 72, 96, 4
 

@@ -18,6 +18,7 @@ import torch
 
 from dynibar_tpu.utils import profiling as jprof
 from dynibar_tpu_torch.utils import profiling as pprof
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 PHASES = ("load", "splat", "load", "write", "splat", "splat")
 

@@ -27,6 +27,7 @@ from dynibar_tpu_torch.render.render_image import (full_image_ray_batch,
                                                    render_image_ff)
 from dynibar_tpu_torch.render.render_rays import render_rays_mv
 from dynibar_tpu_torch.utils import convert
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 N_RAYS, H, W = 32, 32, 48
 KW = dict(n_samples=8, n_importance=8, num_views_dy=7, num_views_static=4,

@@ -41,6 +41,7 @@ from dynibar_tpu_torch.data.synthetic_scene import write_synthetic_scene
 from dynibar_tpu_torch.models.dynibar import MonoModel
 from dynibar_tpu_torch.utils import checkpoints as ckpt
 from dynibar_tpu_torch.utils import convert
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 FRAMES = 12
 KW = dict(train_scenes=["tiny"], training_height=32, num_source_views=2,

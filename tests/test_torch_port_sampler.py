@@ -16,6 +16,7 @@ import torch
 from dynibar_tpu.ops.grid_sample import bilinear_sample_views
 from dynibar_tpu.ops.pallas_sample import pallas_bilinear_sample_views
 from dynibar_tpu_torch.ops.sample import sample_views, sample_views_plain
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def _jax_exact(maps, grid):

@@ -27,6 +27,7 @@ from dynibar_tpu_torch.data.ray_batch import synthetic_poses
 from dynibar_tpu_torch.ops.sample import (sample_views, sample_views_pair,
                                           sample_views_pair_plain,
                                           sample_views_plain)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 H, W = 24, 40

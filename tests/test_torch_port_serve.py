@@ -45,6 +45,7 @@ from dynibar_tpu_torch.serve import RenderSession, video
 from dynibar_tpu_torch.serve.registry import SessionRegistry
 from dynibar_tpu_torch.serve.server import make_server
 from dynibar_tpu_torch.utils import convert
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 FRAMES = 12
 KW = dict(train_scenes=["tiny"], training_height=32, num_source_views=2,

@@ -33,6 +33,7 @@ from dynibar_tpu_torch.render.render_rays import render_rays_mv
 from dynibar_tpu_torch.train import losses, trainer
 from dynibar_tpu_torch.utils import convert
 from dynibar_tpu_torch.utils.device import to_device
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 NUM_FRAMES = 32
 KW = dict(n_samples=6, n_importance=6, num_views_dy=7, num_views_anchor=6,

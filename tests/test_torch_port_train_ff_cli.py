@@ -32,6 +32,7 @@ from dynibar_tpu_torch.models.dynibar import (FF_COARSE_KEYS, FFModel,
                                               MonoModel)
 from dynibar_tpu_torch.train import trainer
 from dynibar_tpu_torch.utils import checkpoints as ckpt
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 FRAMES = 12
 SMALL = dict(training_height=16, N_rand=16, N_samples=4, N_importance=4,
