@@ -7,8 +7,9 @@ CLI), the FF training chain: the coarse-stage train step, then the
 fine-stage training CLI on its snapshot, from an analytic scene on disk,
 scene preprocessing: the camera and virtual-view CLIs from a
 dynamic-video-depth output, then the training CLI on what they wrote,
-the mesh (parallel/mesh.py) rehearsed on the one card, and the mono
-model's convergence run on the analytic scene.
+the mesh (parallel/mesh.py) rehearsed on the one card, the mono
+model's convergence run on the analytic scene, and the FF eval ladder at
+trained weights.
 
     python3 chip_smoke.py
 
@@ -17,8 +18,9 @@ is non-zero and the last line below is never printed):
 
   0. the card's name and power limit (nvidia-smi); TF32 off;
   1. build the seven CUDA libraries from csrc/ (one nvcc each, all at
-     once); K4s's, the longest, goes on building through phase 14 (run
-     here, below) and phases 2 and 2b until K4s's first launch in 2b,
+     once); K4s's, the longest, goes on building through phases 14 and
+     15 (run here, below) and phases 2 and 2b until K4s's first launch in
+     2b,
      where each kernel's footprint and blocks per SM are printed;
   2. hold each eval kernel against its plain PyTorch twin at the main
      path's shapes (K2/K3 at both the coarse and the fine stage) and time
@@ -216,11 +218,35 @@ is non-zero and the last line below is never printed):
      4608-ray chunk; (d) the first, middle and last 1024-ray chunks of
      both held-out views at the trained weights through the kernels
      against the plain path (rgb within 3e-2); K2 and K3 alone on each
-     chunk's inputs: finite, their -1e9 fills exact, their colours' and
-     densities' largest errors and counts outside their phase 2 bars
-     printed (those bars hold at random weights);
+     chunk's inputs: finite, their -1e9 fills exact, and within the
+     bf16-twin bar of the JAX package (tests/test_pallas_agg.py:93-104):
+     max|kernel - f32 module| <= 2 max|bf16 twin - f32 module| + 1e-3,
+     apart for the colours and for the densities that are not fills (the
+     twin: utils/kernel_check.bf16_twin); both errors, the worst kernel /
+     bar ratio and the counts outside their phase 2 bars printed (those
+     bars hold at random weights);
      the schedule's transitions, the curve, the held-out rise (printed,
      not gated), s/step, peak memory and the phase's seconds;
+  15. the FF eval ladder at trained weights (run right after phase 14,
+     while K4s's library builds: the FF default routes launch no K4s):
+     scripts/port_ff_convergence.run on a 24-frame 96×144 ConsistentScene
+     in the 12-camera layout, 100 coarse + 100 fine steps on the default
+     routes (its +5 dB gate, set for 1500 + 2500 steps, printed, not
+     gated: s/step per stage, the rises and the run's launches), then the
+     three rungs of scripts/port_eval_ff_synthetic.run on its phase-B
+     snapshot over frame 3's 11 viewpoints (64 + 64 samples, 7 + 11 views,
+     chunk 4608): exact_f32 (the f32 modules), exact_bf16 (bf16 sampling,
+     the aggregators' bf16 twin) and fused_bf16 (K1-K3, the eval CLI's
+     path); every rung's tables finite and 11 viewpoints rendered; the
+     fused rung launches K1 / K2 / K3 4 / 2 / 2 per chunk (3 chunks a
+     viewpoint), the others none; the rungs' tables, the deltas between
+     rungs in dB and SSIM, s per viewpoint frame and peak memory; the
+     first, middle and last 1024-ray chunks of frame 3's viewpoints 0 and
+     6 through the kernels against the plain path (both stages' rgb
+     within 3e-2; their distances to the bf16 twins' chunk, and the
+     twins' to the plain path's, printed), and K2 and K3 alone at both
+     stages on each chunk's inputs as in 14 (finite, fills exact, the
+     bf16-twin bar gated, the phase 2 bars counted); the phase's seconds;
   7. print the kernels line (13 kernels; K1 with its single-map times, K2
      and K3 with their forward reports of 2, 2b and 6a; K1-K3 with their
      launches per eval viewpoint frame and per served frame, K2 with its
@@ -228,7 +254,9 @@ is non-zero and the last line below is never printed):
      ms, bound and launches at the FF coarse step's shapes (phase 11) and
      its launches in the chain's CLI run; every kernel with its launches
      in phase 12's training run, as mesh_launches rank 0's per step or
-     frame in phase 13, and its launches in phase 14's run),
+     frame in phase 13, its launches in phase 14's run and phase 15's
+     convergence run, and K1-K3 with the fused rung's per viewpoint
+     frame),
      the card line, then the result line.
 
 Weights are random, from a seed.  Needs one card and no network.
@@ -2543,24 +2571,17 @@ def _mono_convergence_phase(card, dev, steps=300, eval_every=150, frames=24):
   """Phase 14: scripts/port_mono_convergence.py's run on the card at its
   production configuration, compressed schedule (its gate reported, not
   enforced).  Returns the launches of the run (steps and evals)."""
-  import importlib.util
   import tempfile
   from dynibar_tpu_torch.cli.render_monocular import render_batch_template
   from dynibar_tpu_torch.core.cameras import make_camera
   from dynibar_tpu_torch.eval.held_out import final_camera
   from dynibar_tpu_torch.models.dynibar import MonoModel
-  from dynibar_tpu_torch.ops import agg
   from dynibar_tpu_torch.render import render_rays as rr
   from dynibar_tpu_torch.render.render_image import full_image_ray_batch
   from dynibar_tpu_torch.train import trainer
   from dynibar_tpu_torch.utils import checkpoints as ckpt
   t_phase = time.perf_counter()
-  path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                      "port_mono_convergence.py")
-  spec = importlib.util.spec_from_file_location("port_mono_convergence",
-                                                path)
-  script = importlib.util.module_from_spec(spec)
-  spec.loader.exec_module(script)
+  script = _load_script("port_mono_convergence")
 
   # each step's launches, read around the trainer's step (the script
   # calls it through the module, so the counts it keeps are the run's)
@@ -2661,7 +2682,7 @@ def _mono_convergence_phase(card, dev, steps=300, eval_every=150, frames=24):
       cam = make_camera(scene.h, scene.w, data.intrinsics[idx],
                         final_camera(scene, data, pose))
       frames_rb.append(full_image_ray_batch(template, cam, device=dev))
-  worst, stats = 0.0, {}
+  worst, stats, beyond = 0.0, {}, []
   for view, full_rb in enumerate(frames_rb):
     n = full_rb["ray_o"].shape[0]
     for start in (0, n // 2 - 512, n - 1024):
@@ -2685,40 +2706,266 @@ def _mono_convergence_phase(card, dev, steps=300, eval_every=150, frames=24):
             cfg.n_samples, cfg.inv_uniform, det=True)
         ins = rr.stage_inputs(model, part, fm, cfg, None, pts,
                               kernels=False)
-        raws = {"K2": (agg.fused_static_aggregator(model.net_coarse_st,
-                                                   *ins["st"]),
-                       model.net_coarse_st(*ins["st"]), 2e-2),
-                "K3": (agg.fused_dynamic_aggregator(model.net_coarse_dy,
-                                                    *ins["dy"]),
-                       model.net_coarse_dy(*ins["dy"]), 1e-2)}
-      # K2 and K3 alone: finite, their -1e9 fills exact; their colours'
-      # and densities' errors counted against phase 2's bars, which hold
-      # at random weights (at trained weights, a sharper trunk in bf16, a
-      # few values leave them while the chunks' rgb stays inside 3e-2)
-      for key, (got, want, atol) in raws.items():
-        fill = want[..., 3] <= -1e8
-        if not (torch.isfinite(got).all()
-                and torch.equal(got[..., 3] <= -1e8, fill)):
-          raise AssertionError(f"{key} ({name}): non-finite output, or "
-                               "the -1e9 sigma entries differ")
-        err = (got - want).abs()
-        out = err > atol + 2e-2 * want.abs()
-        for part_name, e, o in (("colours", err[..., :3], out[..., :3]),
-                                ("densities", err[..., 3][~fill],
-                                 out[..., 3][~fill])):
-          rec = stats.setdefault(f"{key} {part_name}", [0.0, 0, 0])
-          rec[0] = max(rec[0], float(e.max()))
-          rec[1] += int(o.sum())
-          rec[2] += o.numel()
+      # K2 and K3 alone: finite, their -1e9 fills exact, within the
+      # bf16-twin bar; their values outside phase 2's bars counted (those
+      # bars hold at random weights: at trained weights, a sharper trunk
+      # in bf16, a few values leave them while the chunks' rgb stays
+      # inside 3e-2)
+      beyond += _trained_alone(stats, name, model.net_coarse_st,
+                               model.net_coarse_dy, ins)
       worst = max(worst, chunk_err)
   print(f"mono convergence at the trained weights, 6 chunks of 1024 rays of "
-        f"the held-out views: largest kernels vs plain rgb {worst:.3g}; "
-        f"alone, largest error and values outside phase 2's bar (reported) "
-        + "; ".join(f"{k} {e:.3g}, {o} of {n}"
-                    for k, (e, o, n) in stats.items()) + f" [{card}]",
-        flush=True)
+        f"the held-out views: largest kernels vs plain rgb {worst:.3g} "
+        f"[{card}]", flush=True)
+  _trained_report(card, "mono convergence at the trained weights", stats,
+                  beyond)
   print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
   return launches
+
+
+def _ff_stage_inputs(model, cfg, rb, coarse, fine):
+  """Both FF stages' aggregator inputs, from the plain path: the coarse
+  stage's projections and gathers, then importance-resampled depths from
+  the plain coarse pass and the fine stage's own projections and gathers;
+  (coarse inputs, fine inputs, fine points)."""
+  from dynibar_tpu_torch.render import render_rays as rr
+  with torch.no_grad():
+    pts, z_vals, _ = rr.sampling.sample_along_ray(
+        rb["ray_o"], rb["ray_d"], rb["depth_range"], cfg.n_samples,
+        cfg.inv_uniform, det=True)
+    ins_c = rr.stage_inputs(model, rb, coarse, cfg, "coarse", pts,
+                            kernels=False)
+    out_c = rr._render_stage_ff(model, rb, coarse, cfg, "coarse", pts,
+                                z_vals, kernels=False)["outputs"]
+    z_all = rr.sampling.importance_resample_z(
+        z_vals, out_c["weights"], cfg.n_importance, cfg.inv_uniform,
+        det=True)
+    pts_f = z_all[..., None] * rb["ray_d"][:, None] + rb["ray_o"][:, None]
+    ins = rr.stage_inputs(model, rb, fine, cfg, "fine", pts_f,
+                          kernels=False)
+  return ins_c, ins, pts_f
+
+
+def _trained_alone(stats, name, st_net, dy_net, ins):
+  """K2 and K3 alone on one chunk's stage inputs at trained weights,
+  against the f32 module and its bf16 twin (utils/kernel_check.bf16_twin).
+  Finite and their -1e9 fills exact, or this raises.  Into ``stats`` per
+  kernel and part (colours, the densities that are not fills): the largest
+  error of the kernel and of the twin against the f32 module, the largest
+  kernel / bar ratio of the bf16-twin bar (kernel_check.forward_errors),
+  and the values outside phase 2's bars (which hold at random weights:
+  counted, not gated).  For K2 also the error of the twin with ray_diff
+  kept in f32, as K2 reads it (the twin rounds it to bf16 before the
+  anti-alias pooling weights, which subtract cosines near 1).  Returns
+  the parts beyond the bf16-twin bar."""
+  from dynibar_tpu_torch.ops import agg
+  from dynibar_tpu_torch.utils import kernel_check as kc
+  beyond = []
+  with torch.no_grad():
+    raws = {"K2": (agg.fused_static_aggregator(st_net, *ins["st"]),
+                   st_net(*ins["st"]), kc.bf16_twin(st_net, True, ins["st"]),
+                   2e-2),
+            "K3": (agg.fused_dynamic_aggregator(dy_net, *ins["dy"]),
+                   dy_net(*ins["dy"]), kc.bf16_twin(dy_net, False, ins["dy"]),
+                   1e-2)}
+    st_f32_diff = [a.to(torch.bfloat16) if i == 3 else a     # rgb_feat only
+                   for i, a in enumerate(ins["st"])]
+    with torch.autocast(st_f32_diff[0].device.type, dtype=torch.bfloat16):
+      twin_rd = st_net(*st_f32_diff).float()
+  for key, (got, want, twin, atol) in raws.items():
+    fill = want[..., 3] <= -1e8
+    if not (torch.isfinite(got).all()
+            and torch.equal(got[..., 3] <= -1e8, fill)):
+      raise AssertionError(f"{key} ({name}): non-finite output, or the -1e9 "
+                           "sigma entries differ")
+    err = (got - want).abs()
+    out = err > atol + 2e-2 * want.abs()
+    errors = kc.forward_errors(got, want, twin)
+    for part, o in (("colours", out[..., :3]),
+                    ("densities", out[..., 3][~fill])):
+      ek, eb, bar = errors[part]
+      rec = stats.setdefault(f"{key} {part}", [0.0, 0.0, 0.0, 0, 0, 0.0])
+      rec[0], rec[1] = max(rec[0], ek), max(rec[1], eb)
+      rec[2] = max(rec[2], ek / bar)
+      rec[3] += int(o.sum())
+      rec[4] += o.numel()
+      if key == "K2":
+        rec[5] = max(rec[5], kc.forward_errors(twin_rd, want, twin)[part][0])
+      if ek > bar:
+        beyond.append(f"{key} {part} ({name}): kernel {ek:.4g}, bf16 twin "
+                      f"{eb:.4g}, bar {bar:.4g}")
+  return beyond
+
+
+def _trained_report(card, what, stats, beyond):
+  """Print ``_trained_alone``'s records; raise on any part beyond the
+  bf16-twin bar."""
+  print(f"{what}: K2 and K3 alone, largest error against the f32 module "
+        f"of the kernel / of its bf16 twin (K2: / of the twin with ray_diff "
+        f"in f32), the largest kernel / bar ratio (bar 2 twin + 1e-3), "
+        f"values outside phase 2's bar (reported): "
+        + "; ".join(f"{k} {ek:.4g} / {eb:.4g}"
+                    + (f" / {erd:.4g}" if k.startswith("K2") else "")
+                    + f", {r:.3f}, {o} of {n}"
+                    for k, (ek, eb, r, o, n, erd) in stats.items())
+        + f" [{card}]", flush=True)
+  if beyond:
+    raise AssertionError(f"{what}: beyond the bf16-twin bar: {beyond}")
+
+
+def _load_script(name):
+  import importlib.util
+  path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                      f"{name}.py")
+  spec = importlib.util.spec_from_file_location(name, path)
+  module = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(module)
+  return module
+
+
+def _ff_ladder_phase(card, dev, frames=24, steps=100, chunk=1024):
+  """Phase 15: scripts/port_ff_convergence.run at 100 + 100 steps (its
+  gate reported, not enforced), then the three rungs of
+  scripts/port_eval_ff_synthetic on its phase-B snapshot over frame 3's 11
+  viewpoints, and K2 / K3 at the trained weights against both twins.
+  Returns (the convergence run's launches, the fused rung's per viewpoint
+  frame)."""
+  import tempfile
+  from dynibar_tpu_torch.models.dynibar import BF16_TWIN
+  from dynibar_tpu_torch.render import render_rays as rr
+  from dynibar_tpu_torch.render.render_image import full_image_ray_batch
+  from dynibar_tpu_torch.data.nvidia import NvidiaSceneData
+  t_phase = time.perf_counter()
+  conv = _load_script("port_ff_convergence")
+  ladder = _load_script("port_eval_ff_synthetic")
+  with tempfile.TemporaryDirectory() as outdir:
+    argv = ["--outdir", outdir, "--frames", str(frames), "--coarse_steps",
+            str(steps), "--fine_steps", str(steps), "--eval_every",
+            str(steps)]
+    log = io.StringIO()
+    _zero_counts()
+    with contextlib.redirect_stdout(log):    # 100 + 100 steps: not gated
+      res = conv.run(conv.parse_args(argv))
+    torch.cuda.synchronize()
+    conv_launches = _read_counts()
+    print(f"FF convergence: {steps} coarse + {steps} fine steps at N_rand "
+          f"{res['config']['N_rand']} / {res['config']['N_rand_fine']}, "
+          f"{res['config']['hw']}, {frames} frames; s/step "
+          f"{ {p: round(v, 4) for p, v in res['s_per_step'].items()} }; "
+          f"the fine rise over its phase-B init {res['fine_rise_db']:+.3f} "
+          f"dB, over the frozen coarse render "
+          f"{res['fine_minus_frozen_coarse_db']:+.3f} dB (printed, not "
+          f"gated; the gate run's bar is +5 dB at 1500 + 2500 steps); "
+          f"launches { {k: n for k, n in conv_launches.items() if n} } "
+          f"[{card}]", flush=True)
+
+    # the three rungs over frame 3's 11 viewpoints
+    h, w = res["config"]["hw"]
+    root = os.path.join(outdir, f"scene_{frames}x{h}x{w}")
+    base = ["--ckpt", os.path.join(outdir, "ckpt_ff_B"), "--root", root,
+            "--height", str(h), "--frames", "1"]
+    rungs = {}
+    for mode in ladder.RUNGS:
+      torch.cuda.reset_peak_memory_stats()
+      log = io.StringIO()
+      _zero_counts()
+      with contextlib.redirect_stdout(log):
+        rung = ladder.run(ladder.parse_args(base + ["--mode", mode]))
+      torch.cuda.synchronize()
+      rung["launches"] = _read_counts()
+      rung["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+      rungs[mode] = rung
+      tables = [rung[r][m] for r in ("full", "dynamic", "static")
+                for m in ("psnr", "ssim")]
+      if not (np.isfinite(tables).all() and rung["viewpoints"] == 11):
+        raise AssertionError(f"ladder {mode}: {rung['viewpoints']} "
+                             f"viewpoints, tables {tables}")
+      print(f"ladder {mode}: " + ", ".join(
+          f"{r} psnr {rung[r]['psnr']:.4f} ssim {rung[r]['ssim']:.4f}"
+          for r in ("full", "dynamic", "static"))
+            + f"; {rung['s_per_viewpoint']:.4f} s per viewpoint frame, "
+            f"{rung['eval_seconds']:.2f} s for 11, peak memory "
+            f"{rung['peak_gib']:.2f} GiB [{card}]", flush=True)
+    for a, b in (("exact_bf16", "exact_f32"), ("fused_bf16", "exact_f32"),
+                 ("fused_bf16", "exact_bf16")):
+      print(f"ladder {a} - {b}: " + ", ".join(
+          f"{r} {rungs[a][r]['psnr'] - rungs[b][r]['psnr']:+.4f} dB / ssim "
+          f"{rungs[a][r]['ssim'] - rungs[b][r]['ssim']:+.5f}"
+          for r in ("full", "dynamic", "static")) + f" [{card}]",
+            flush=True)
+
+    # 1024-ray chunks of two viewpoints at the trained weights (each
+    # view's first, middle and last): the kernels' chunk against the
+    # plain path's (rgb within 3e-2, as phases 9 and 14 hold it) and, as
+    # recorded, against the bf16 twins' and the twins' against the plain
+    # path's; K2 and K3 alone at both stages
+    args = ladder.parse_args(base)
+    config, model, _ = ladder.load(args)
+    cfg = model.cfg
+    data = NvidiaSceneData(config, args.scene, height=args.height)
+    stats, beyond = {}, []
+    worst = {"kernels - plain": 0.0, "kernels - bf16 twins": 0.0,
+             "bf16 twins - plain": 0.0}
+    for cam_i in (0, 6):
+      batch = data.eval_batch(3, cam_i)
+      rb = {k: v for k, v in batch.items() if k != "static_src_masks"}
+      rb = full_image_ray_batch(rb, rb["camera"], device=dev)
+      with torch.no_grad():
+        coarse, fine = model.encode_featmaps(rb["src_rgbs"],
+                                             rb["static_src_rgbs"])
+      for start in (0, h * w // 2 - chunk // 2, h * w - chunk):
+        part = {k: (v[start:start + chunk] if k in ("ray_o", "ray_d",
+                                                    "uv_grid") else v)
+                for k, v in rb.items()}
+        name = f"frame 3 cam {cam_i} rays {start}"
+        with torch.no_grad():
+          ker, twin, plain = (
+              rr.render_rays_mv(model, part, coarse, fine, cfg, device=dev,
+                                kernels=k) for k in (True, BF16_TWIN, False))
+        for stage in ("outputs_coarse_ref", "outputs_fine_ref"):
+          rgb = ker[stage]["rgb"]
+          if not torch.isfinite(rgb).all() or rgb.shape != (chunk, 3):
+            raise AssertionError(f"{name}: {stage} rgb not finite or "
+                                 "misshapen")
+          errs = dict(zip(worst, (
+              float((a[stage]["rgb"] - b[stage]["rgb"]).abs().max())
+              for a, b in ((ker, plain), (ker, twin), (twin, plain)))))
+          if errs["kernels - plain"] > 3e-2:
+            raise AssertionError(f"{name}: {stage} kernels vs plain rgb "
+                                 f"{errs}")
+          worst = {k: max(v, errs[k]) for k, v in worst.items()}
+        ins_c, ins, _ = _ff_stage_inputs(model, cfg, part, coarse, fine)
+        for stage, stage_ins in (("coarse", ins_c), ("fine", ins)):
+          beyond += _trained_alone(
+              stats, f"{name}, {stage}",
+              getattr(model, f"net_{stage}_st"),
+              getattr(model, f"net_{stage}_dy"), stage_ins)
+  # the fused rung launches K1 / K2 / K3 4 / 2 / 2 per chunk (two
+  # stages, each a dynamic and a static view set), the others none
+  chunks = -(-h * w // ladder.CHUNK)
+  per_view = {k: n // 11 for k, n in rungs["fused_bf16"]["launches"].items()}
+  want = {k: (4 * chunks if k == "K1" else 2 * chunks
+              if k in ("K2", "K3") else 0) for k in per_view}
+  if rungs["fused_bf16"]["launches"] != {k: 11 * n
+                                         for k, n in want.items()}:
+    raise AssertionError(f"ladder fused_bf16 launches "
+                         f"{rungs['fused_bf16']['launches']}, want 11 x "
+                         f"{want}")
+  for mode in ("exact_f32", "exact_bf16"):
+    if any(rungs[mode]["launches"].values()):
+      raise AssertionError(f"ladder {mode} launched "
+                           f"{rungs[mode]['launches']}")
+  print(f"ladder fused_bf16 launches per viewpoint frame "
+        f"{ {k: n for k, n in per_view.items() if n} } ({chunks} chunks "
+        f"of {ladder.CHUNK} rays)", flush=True)
+  print(f"ladder at the trained weights, 6 chunks of {chunk} rays of frame "
+        f"3's views 0 and 6, both stages, largest rgb difference: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in worst.items()) + f" [{card}]",
+        flush=True)
+  _trained_report(card, "ladder at the trained weights, both stages", stats,
+                  beyond)
+  print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+  return conv_launches, per_view
 
 
 def _footprints(card):
@@ -2759,7 +3006,7 @@ def main() -> int:
 
   # ---- 1: build -----------------------------------------------------------
   # K4s's library (dynamic_agg_bwd1) takes twice as long as any other: it
-  # builds beside the others and on through phase 14 and phases 2 and 2b,
+  # builds beside the others and on through phases 14, 15, 2 and 2b,
   # which launch no K4s, until its first launch in 2b
   t_build = time.perf_counter()
   pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
@@ -2773,6 +3020,10 @@ def main() -> int:
   conv_launches = _mono_convergence_phase(card, dev)
   torch.cuda.empty_cache()
 
+  # ---- 15: the FF ladder at trained weights (no K4s either) --------------
+  ff_conv_launches, ladder_launches = _ff_ladder_phase(card, dev)
+  torch.cuda.empty_cache()
+
   h, w, chunk = 288, 512, 1024
   cfg = RenderSettings(n_samples=64, n_importance=64, num_views_dy=7,
                        num_views_anchor=0, num_views_static=11, num_basis=6,
@@ -2784,29 +3035,8 @@ def main() -> int:
   with torch.no_grad():
     coarse, fine = model.encode_featmaps(rb["src_rgbs"], rb["static_src_rgbs"])
 
-  def stage_ins(rb, coarse, fine):
-    """Both stages' aggregator inputs, from the plain path: the coarse
-    stage's projections and gathers, then importance-resampled depths from
-    the plain coarse pass and the fine stage's own projections and
-    gathers."""
-    with torch.no_grad():
-      pts, z_vals, _ = rr.sampling.sample_along_ray(
-          rb["ray_o"], rb["ray_d"], rb["depth_range"], cfg.n_samples,
-          cfg.inv_uniform, det=True)
-      ins_c = rr.stage_inputs(model, rb, coarse, cfg, "coarse", pts,
-                              kernels=False)
-      out_c = rr._render_stage_ff(model, rb, coarse, cfg, "coarse", pts,
-                                  z_vals, kernels=False)["outputs"]
-      z_all = rr.sampling.importance_resample_z(
-          z_vals, out_c["weights"], cfg.n_importance, cfg.inv_uniform,
-          det=True)
-      pts_f = z_all[..., None] * rb["ray_d"][:, None] + rb["ray_o"][:, None]
-      ins = rr.stage_inputs(model, rb, fine, cfg, "fine", pts_f,
-                            kernels=False)
-    return ins_c, ins, pts_f
-
   # ---- 2: each kernel vs its plain twin at the main path's shapes ---------
-  ins_c, ins, pts_f = stage_ins(rb, coarse, fine)
+  ins_c, ins, pts_f = _ff_stage_inputs(model, cfg, rb, coarse, fine)
   results = {}
 
   # K1 at the fine stage's static views (11 views, 1024 x 128 points,
@@ -2878,7 +3108,7 @@ def main() -> int:
   with torch.no_grad():
     maps_t = model.encode_featmaps(rb_t["src_rgbs"],
                                    rb_t["static_src_rgbs"])
-  ins_t = stage_ins(rb_t, *maps_t)[1]
+  ins_t = _ff_stage_inputs(model, cfg, rb_t, *maps_t)[1]
   del rb_t, maps_t
   g_cot = torch.Generator(device=dev).manual_seed(SEED + 1)
   st_args, dy_args = ins_t["st"], ins_t["dy"]
@@ -2981,7 +3211,6 @@ def main() -> int:
   from dynibar_tpu_torch.train import losses as ff_losses
   from dynibar_tpu_torch.train import trainer
   del model, rb, frame_rb, ins, ins_c, coarse, fine, out, ret, plain, one_frame
-  del stage_ins
   torch.cuda.empty_cache()
   tr_cfg = RenderSettings(n_samples=64, n_importance=64, num_views_dy=7,
                           num_views_anchor=6, num_views_static=11,
@@ -3133,6 +3362,8 @@ def main() -> int:
     res["preprocess_cli_launches"] = pre_launches[key]
     res["mesh_launches"] = mesh_launches[key]
     res["mono_convergence_launches"] = conv_launches[key]
+    res["ff_convergence_launches"] = ff_conv_launches[key]
+    res["ladder_launches"] = ladder_launches[key]
     kernels.append(res)
   for key in ("K2r", "K5a", "K5b", "K3r", "K4a", "K4b", "K5c", "K5d"):
     res = dict(train_results[key] if key in train_results
@@ -3147,6 +3378,7 @@ def main() -> int:
     res["preprocess_cli_launches"] = pre_launches[key]
     res["mesh_launches"] = mesh_launches[key]
     res["mono_convergence_launches"] = conv_launches[key]
+    res["ff_convergence_launches"] = ff_conv_launches[key]
     kernels.append(res)
   # K3p/K4s at the mono step's shapes (V = 9), their launches on the mono
   # step's "pallas" route; also their times at the FF step's (V = 7, S =
@@ -3165,6 +3397,7 @@ def main() -> int:
     res["preprocess_cli_launches"] = pre_launches[key]
     res["mesh_launches"] = mesh_launches[key]
     res["mono_convergence_launches"] = conv_launches[key]
+    res["ff_convergence_launches"] = ff_conv_launches[key]
     kernels.append(res)
   print(f"mono step per route: {mono_stats} [{card}]", flush=True)
   print(f"FF coarse step per route: {coarse_stats}; chain: "

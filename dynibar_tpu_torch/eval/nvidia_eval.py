@@ -25,7 +25,7 @@ from dynibar_tpu_torch.data.nvidia import NUM_VIEWPOINTS, NvidiaSceneData
 from dynibar_tpu_torch.data.resize import imread_color, resize_area
 from dynibar_tpu_torch.eval.lpips import LPIPSMetric
 from dynibar_tpu_torch.eval.metrics import masked_psnr, masked_ssim
-from dynibar_tpu_torch.models.dynibar import FFModel
+from dynibar_tpu_torch.models.dynibar import FFModel, Kernels
 from dynibar_tpu_torch.render.render_image import (full_image_ray_batch,
                                                    render_image_ff)
 from dynibar_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -72,11 +72,14 @@ def evaluate_scene(
     log_fn: Callable[[str], None] = print,
     device: DeviceLike = None,
     mesh=None,
+    kernels: Kernels = True,
 ) -> Optional[Dict[str, Dict[str, float]]]:
   """Run the whole benchmark protocol on one scene with `model`'s
   weights; returns the full / dynamic / static metric tables (under
   ``mesh``, None on ranks other than 0).  `device` None means the CUDA
-  card."""
+  card.  `kernels` is ``render_image_ff``'s: the CUDA kernels (True),
+  the plain f32 modules (False) or the aggregators' bf16 twin
+  (``BF16_TWIN``)."""
   dev = resolve_device(device)
   is_main = mesh is None or mesh.is_main
   if not is_main:
@@ -115,7 +118,7 @@ def evaluate_scene(
       h = int(batch["camera"][0])
       w = int(batch["camera"][1])
       ret = render_image_ff(model, rb, coarse, fine, cfg, config.chunk_size,
-                            h, w, device=dev, mesh=mesh)
+                            h, w, device=dev, kernels=kernels, mesh=mesh)
       if ret is None:             # rank 0 scores the frame
         continue
       pred = ret["outputs_fine_ref"]["rgb"]

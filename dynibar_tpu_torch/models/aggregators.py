@@ -4,7 +4,11 @@ The reference's ``DynibarDynamic`` (ibrnet/mlp_network.py:129-316) and
 ``DynibarStatic`` (:319-527) as ``nn.Module``s with its parameter names.
 Their ``forward`` is the plain f32 twin of the CUDA kernels K2/K3
 (ops/agg.py): it runs on CPU tensors, and on the card it is what the
-kernels are held against.  Inputs use the [rays, samples, views, ·] layout.
+kernels are held against.  Under ``torch.autocast`` to bf16 it is their
+bf16 twin (``utils/kernel_check.bf16_twin``): the density heads and the
+static blend logits leave it in f32, as the flax modules cast them
+(dynibar_tpu/models/aggregators.py), so the -1e9 fills and the dynamic
+shift stay exact.  Inputs use the [rays, samples, views, ·] layout.
 """
 
 from __future__ import annotations
@@ -89,7 +93,7 @@ class DynamicAggregator(_Trunk):
                               mask=(num_valid > 1).float())
     pts_pe = periodic_embed(pts, 5, 5, linspace=False)
     glob = self.ref_pts_fc(torch.cat([glob, pts_pe], dim=-1))
-    sigma = self.out_geometry_fc(glob) - self.shift
+    sigma = self.out_geometry_fc(glob).float() - self.shift
     sigma = torch.where(num_valid < 1, torch.full_like(sigma, -1e9), sigma)
     dir_pe = periodic_embed(glb_ray_dir, 4, 4, linspace=False)  # [R,27]
     h = torch.cat([glob, dir_pe[:, None, :].expand(-1, s, -1)], dim=-1)
@@ -143,11 +147,11 @@ class StaticAggregator(_Trunk):
     num_valid = torch.sum(mask, dim=2)
     glob = self.ray_attention(glob, glob, glob,
                               mask=(num_valid > 1).float())
-    sigma = self.out_geometry_fc(glob)
+    sigma = self.out_geometry_fc(glob).float()
     sigma = torch.where(num_valid < 1, torch.full_like(sigma, -1e9), sigma)
     h = torch.cat([glob[:, :, None, :].expand(-1, -1, num_views, -1), x, vis,
                    ray_diff], dim=-1)
-    logits = self.rgb_fc(h)
+    logits = self.rgb_fc(h).float()
     logits = torch.where(mask == 0, torch.full_like(logits, -1e9), logits)
     blend = torch.softmax(logits, dim=2)
     rgb = torch.sum(rgb_in * blend, dim=2)

@@ -7,7 +7,11 @@ top-level names (``net_coarse_st``, ``feature_net_fine``, ``traj_basis``,
 ...), so ``utils/convert.py`` maps one onto the other.  ``apply_*`` go
 through the kernel wrappers (CUDA kernels for CUDA tensors, plain twins on
 CPU; with grad enabled the kernels' autograd Functions) unless
-``kernels=False`` asks for the plain modules.  ``train_fine()`` is the
+``kernels=False`` asks for the plain f32 modules or ``kernels=BF16_TWIN``
+for their bf16 twin (``utils/kernel_check.bf16_twin``: the module under
+autocast around the aggregator call alone, the counterpart of the JAX
+package's flax aggregators at ``compute_dtype="bfloat16"`` with
+``fused_aggregators=False``).  ``train_fine()`` is the
 fine-stage training mode: only the fine groups require grad, the coarse
 stage stays frozen (reference model.py:106-118).  ``train_coarse()`` is
 the coarse-stage mode that produces that frozen stage
@@ -26,7 +30,7 @@ wrappers.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -40,6 +44,31 @@ from dynibar_tpu_torch.models.motion_mlp import MotionMLP
 from dynibar_tpu_torch.ops.agg import (fused_dynamic_aggregator,
                                        fused_static_aggregator)
 from dynibar_tpu_torch.utils.device import DeviceLike, resolve_device
+from dynibar_tpu_torch.utils.kernel_check import bf16_twin
+
+# what a render's aggregators (and its no-grad sampler) run: True the CUDA
+# kernels (K1-K3, their plain twins on the CPU), False the f32 modules and
+# F.grid_sample, BF16_TWIN the modules' bf16 twin and F.grid_sample
+BF16_TWIN = "bf16_twin"
+Kernels = Union[bool, str]
+
+
+def launches_kernels(kernels: Kernels) -> bool:
+  """Whether ``kernels`` asks for the CUDA kernels."""
+  if kernels not in (True, False, BF16_TWIN):
+    raise ValueError(f"kernels={kernels!r}: True, False or {BF16_TWIN!r}")
+  return kernels != BF16_TWIN and bool(kernels)
+
+
+def aggregate(net: nn.Module, static: bool, args, kernels: Kernels,
+              bwd: str) -> torch.Tensor:
+  """One aggregator call as ``kernels`` chooses (backward route ``bwd``)."""
+  if launches_kernels(kernels):
+    fused = fused_static_aggregator if static else fused_dynamic_aggregator
+    return fused(net, *args, bwd=bwd)
+  if kernels == BF16_TWIN:
+    return bf16_twin(net, static, args)
+  return net(*args)
 
 # the groups the fine-stage train step updates, and the frozen coarse stage
 # (dynibar_tpu/train/trainer.py:94-120, :189-190)
@@ -88,21 +117,16 @@ class FFModel(nn.Module):
     return self.traj_basis.device
 
   def apply_dy(self, stage: str, pts, rgb_feat, ray_dir, mask, time,
-               kernels: bool = True):
-    net = getattr(self, f"net_{stage}_dy")
-    if kernels:
-      return fused_dynamic_aggregator(net, pts, rgb_feat, ray_dir, mask, time,
-                                      bwd=self.cfg.fused_bwd_impl)
-    return net(pts, rgb_feat, ray_dir, mask, time)
+               kernels: Kernels = True):
+    return aggregate(getattr(self, f"net_{stage}_dy"), False,
+                     (pts, rgb_feat, ray_dir, mask, time), kernels,
+                     self.cfg.fused_bwd_impl)
 
   def apply_st(self, stage: str, pts, ref_pl, src_pl, rgb_feat, ray_diff,
-               mask, kernels: bool = True):
-    net = getattr(self, f"net_{stage}_st")
-    args = (pts, ref_pl, src_pl, rgb_feat, ray_diff, mask)
-    if not kernels:
-      return net(*args)
-    return fused_static_aggregator(net, *args,
-                                   bwd=self.cfg.fused_st_bwd_impl)
+               mask, kernels: Kernels = True):
+    return aggregate(getattr(self, f"net_{stage}_st"), True,
+                     (pts, ref_pl, src_pl, rgb_feat, ray_diff, mask), kernels,
+                     self.cfg.fused_st_bwd_impl)
 
   def apply_motion(self, stage: str, xyzt: torch.Tensor) -> torch.Tensor:
     return (self.motion_mlp_fine if stage == "fine" else self.motion_mlp)(xyzt)
@@ -206,20 +230,16 @@ class MonoModel(nn.Module):
 
   # `stage` is FFModel's argument: the mono model has one stage (None)
   def apply_dy(self, stage: Optional[str], pts, rgb_feat, ray_dir, mask,
-               time, kernels: bool = True):
-    net = self.net_coarse_dy
-    if kernels:
-      return fused_dynamic_aggregator(net, pts, rgb_feat, ray_dir, mask, time,
-                                      bwd=self.cfg.fused_bwd_impl)
-    return net(pts, rgb_feat, ray_dir, mask, time)
+               time, kernels: Kernels = True):
+    return aggregate(self.net_coarse_dy, False,
+                     (pts, rgb_feat, ray_dir, mask, time), kernels,
+                     self.cfg.fused_bwd_impl)
 
   def apply_st(self, stage: Optional[str], pts, ref_pl, src_pl, rgb_feat,
-               ray_diff, mask, kernels: bool = True):
-    args = (pts, ref_pl, src_pl, rgb_feat, ray_diff, mask)
-    if not kernels:
-      return self.net_coarse_st(*args)
-    return fused_static_aggregator(self.net_coarse_st, *args,
-                                   bwd=self.cfg.fused_st_bwd_impl)
+               ray_diff, mask, kernels: Kernels = True):
+    return aggregate(self.net_coarse_st, True,
+                     (pts, ref_pl, src_pl, rgb_feat, ray_diff, mask), kernels,
+                     self.cfg.fused_st_bwd_impl)
 
   def apply_motion(self, stage: Optional[str], xyzt: torch.Tensor
                    ) -> torch.Tensor:

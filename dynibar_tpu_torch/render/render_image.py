@@ -24,6 +24,7 @@ import torch
 
 from dynibar_tpu_torch.config import RenderSettings
 from dynibar_tpu_torch.core.cameras import pixel_rays, split_camera
+from dynibar_tpu_torch.models.dynibar import Kernels
 from dynibar_tpu_torch.parallel.mesh import (RAY_SHARDED_AXIS1_KEYS,
                                              RAY_SHARDED_KEYS)
 from dynibar_tpu_torch.render.render_rays import (render_rays_mono,
@@ -152,7 +153,7 @@ def render_image_mono(model, rb: Dict[str, Any], featmaps,
 def render_image_ff(model, rb: Dict[str, Any], coarse_featmaps,
                     fine_featmaps, cfg: RenderSettings, chunk_size: int,
                     height: int, width: int,
-                    device: DeviceLike = None, kernels: bool = True,
+                    device: DeviceLike = None, kernels: Kernels = True,
                     mesh=None
                     ) -> Optional[Dict[str, Dict[str, np.ndarray]]]:
   """Render a full target view with the forward-facing model.
@@ -161,7 +162,8 @@ def render_image_ff(model, rb: Dict[str, Any], coarse_featmaps,
   [H, W, ·] numpy arrays (rgb, depth, mask); rgb is zeroed where the mask
   says no source view saw the ray (reference render_image.py:384-411).
   ``kernels=False`` renders through the plain twins (a comparison on the
-  card).  Under ``mesh``, None on ranks other than 0."""
+  card), ``kernels=BF16_TWIN`` through the aggregators' bf16 twin
+  (models/dynibar.py).  Under ``mesh``, None on ranks other than 0."""
   dev = resolve_device(device)
   rb = to_device(rb, dev)
   n_rays = rb["ray_o"].shape[0]

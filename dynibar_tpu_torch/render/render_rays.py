@@ -11,7 +11,10 @@ stage and its cross-time (anchor) branch with autograd on: the sampler is
 ``F.grid_sample`` (the JAX grad path's routing, render_rays.py:112-122)
 and the aggregators go through their autograd Functions (K2r/K3r forward,
 K5a/K5b and K4a/K4b backward).  ``kernels=False`` runs the plain twins
-instead, which is how the kernels are held against them on the card.
+instead, which is how the kernels are held against them on the card;
+``kernels=BF16_TWIN`` (models/dynibar.py) samples as False does and runs
+the aggregators' bf16 twin: the JAX package's flax aggregators at
+``compute_dtype="bfloat16"``.
 ``render_rays_mono`` runs its one stage the same way: no autograd unless
 ``needs_grad`` (by default ``is_train``) asks for it, so the bootstrap
 step renders with ``is_train=False`` and still differentiates.  The mono
@@ -31,6 +34,7 @@ from dynibar_tpu_torch.core import composite as comp
 from dynibar_tpu_torch.core import motion
 from dynibar_tpu_torch.core import projection as proj
 from dynibar_tpu_torch.core import sampling
+from dynibar_tpu_torch.models.dynibar import Kernels, launches_kernels
 from dynibar_tpu_torch.ops.sample import sample_views, sample_views_plain
 from dynibar_tpu_torch.utils.device import (DeviceLike, resolve_device,
                                             to_device)
@@ -49,9 +53,10 @@ def _sampling_cast(cfg: RenderSettings, imgs, feats):
   return imgs, feats
 
 
-def _sample_fn(kernels: bool):
-  """K1 for the no-grad passes; F.grid_sample wherever autograd records."""
-  if kernels and not torch.is_grad_enabled():
+def _sample_fn(kernels: Kernels):
+  """K1 for the no-grad kernel passes; F.grid_sample wherever autograd
+  records, and for the twins."""
+  if launches_kernels(kernels) and not torch.is_grad_enabled():
     return sample_views
   return sample_views_plain
 
@@ -69,7 +74,7 @@ def _motion_window(model, stage, pts, time_emb, frame_idx, window):
 
 
 def stage_inputs(model, rb, featmaps, cfg: RenderSettings,
-                 stage: Optional[str], pts, kernels: bool = True
+                 stage: Optional[str], pts, kernels: Kernels = True
                  ) -> Dict[str, Any]:
   """Everything one stage hands its aggregators: trajectories, displaced
   points, sampled features (through K1 for no-grad kernel passes), masks
@@ -100,7 +105,7 @@ def stage_inputs(model, rb, featmaps, cfg: RenderSettings,
 
 
 def _render_stage_ff(model, rb, featmaps, cfg: RenderSettings,
-                     stage: Optional[str], pts, z_vals, kernels: bool
+                     stage: Optional[str], pts, z_vals, kernels: Kernels
                      ) -> Dict[str, Any]:
   """One stage's forward (FF coarse/fine, or mono with stage None): stage
   inputs -> K3/K2 -> composite."""
@@ -121,7 +126,7 @@ def _render_stage_ff(model, rb, featmaps, cfg: RenderSettings,
 
 def _cross_time_branch(model, rb, cfg: RenderSettings, stage: Optional[str],
                        anchor_featmaps, stage_out: Dict[str, Any], pts_ref,
-                       z_vals, kernels: bool):
+                       z_vals, kernels: Kernels):
   """Cross-time (anchor) rendering for the temporal-consistency losses
   (dynibar_tpu render_rays.py:272-363) of the model's `stage` (FF "fine",
   mono None): the reference points displaced to the anchor time along
@@ -194,7 +199,7 @@ def _cross_time_branch(model, rb, cfg: RenderSettings, stage: Optional[str],
 
 def render_rays_mv(model, rb: Dict[str, Any], coarse_featmaps,
                    fine_featmaps, cfg: RenderSettings, *,
-                   device: DeviceLike = None, kernels: bool = True,
+                   device: DeviceLike = None, kernels: Kernels = True,
                    is_train: bool = False, det: bool = True,
                    generator: Optional[torch.Generator] = None
                    ) -> Dict[str, Any]:
@@ -246,7 +251,7 @@ def render_rays_mv(model, rb: Dict[str, Any], coarse_featmaps,
 
 
 def _render_one_stage(model, rb, featmaps, cfg: RenderSettings,
-                      stage: Optional[str], *, kernels: bool, is_train: bool,
+                      stage: Optional[str], *, kernels: Kernels, is_train: bool,
                       det: bool, generator: Optional[torch.Generator],
                       needs_grad: bool, flow_views: Optional[int],
                       sf_step: int, static_composite: bool
@@ -283,7 +288,7 @@ def _render_one_stage(model, rb, featmaps, cfg: RenderSettings,
 
 def render_rays_mono(model, rb: Dict[str, Any], featmaps,
                      cfg: RenderSettings, *, device: DeviceLike = None,
-                     kernels: bool = True, is_train: bool = False,
+                     kernels: Kernels = True, is_train: bool = False,
                      det: bool = True,
                      generator: Optional[torch.Generator] = None,
                      needs_grad: Optional[bool] = None) -> Dict[str, Any]:
@@ -311,7 +316,7 @@ def render_rays_mono(model, rb: Dict[str, Any], featmaps,
 
 def render_rays_ff_coarse(model, rb: Dict[str, Any], coarse_featmaps,
                           cfg: RenderSettings, *, device: DeviceLike = None,
-                          kernels: bool = True, is_train: bool = True,
+                          kernels: Kernels = True, is_train: bool = True,
                           det: bool = False,
                           generator: Optional[torch.Generator] = None,
                           needs_grad: Optional[bool] = None

@@ -1,13 +1,22 @@
-"""Holding the aggregator kernels' gradients against their plain twins.
+"""Holding the aggregator kernels against their plain twins.
 
 Used on the card by ``tests/test_torch_port_cuda.py`` and ``chip_smoke.py``.
-The bar is the JAX package's own (tests/test_pallas_agg.py:370-377): per
-tensor, ``max|g_kernel - g_f32| / max|g_f32|`` must stay within twice the
-same ratio of the bf16 twin plus 0.02.  The f32 twin is the module under
-autograd; the bf16 twin is the module under
-``torch.autocast("cuda", torch.bfloat16)`` with ``rgb_feat`` and
-``ray_diff`` rounded to bf16 on the way in, as the JAX package's bf16 twin
-casts them (``compute_dtype``, dynibar_tpu/models/aggregators.py).
+The f32 twin is the module; the bf16 twin (:func:`bf16_twin`) is the
+module under ``torch.autocast`` to bf16 on the inputs' device, with
+``rgb_feat`` and ``ray_diff`` rounded to bf16 on the way in, as the JAX
+package's bf16 twin casts them (``compute_dtype``,
+dynibar_tpu/models/aggregators.py).  It runs on the CPU too, where the
+renders' ``kernels=BF16_TWIN`` choose it (models/dynibar.py).
+
+Forwards: the bar is the JAX package's (tests/test_pallas_agg.py:93-104,
+``test_fused_no_worse_than_flax_bf16``): ``max|kernel - f32| <=
+2 max|twin_bf16 - f32| + 1e-3``, apart for the colours and for the
+densities that are not -1e9 fills (:func:`forward_errors`).
+
+Gradients: the bar is the JAX package's own
+(tests/test_pallas_agg.py:370-377): per tensor, ``max|g_kernel - g_f32| /
+max|g_f32|`` must stay within twice the same ratio of the bf16 twin plus
+0.02; the twins run under autograd.
 
 The twins run in slices of rays (the aggregators treat rays independently:
 input cotangents are cut along rays, weight gradients add up), so the
@@ -64,6 +73,39 @@ def random_inputs(dev, r: int, s: int, v: int, seed: int,
   return {k: t.to(dev) for k, t in d.items()}
 
 
+def bf16_twin(net: nn.Module, static: bool, args: Sequence[torch.Tensor]
+              ) -> torch.Tensor:
+  """The aggregator's bf16 twin: ``net`` under ``torch.autocast`` to bf16
+  on the inputs' device (CPU or CUDA), ``rgb_feat`` and ``ray_diff``
+  rounded to bf16 first; raw [R,S,4] in f32.  Records for autograd when
+  grad is enabled."""
+  names = STATIC_INPUTS if static else DYNAMIC_INPUTS
+  args = [a.to(torch.bfloat16) if n in ("rgb_feat", "ray_diff") else a
+          for n, a in zip(names, args)]
+  with torch.autocast(args[0].device.type, dtype=torch.bfloat16):
+    return net(*args).float()
+
+
+def forward_errors(got: torch.Tensor, want: torch.Tensor,
+                   twin: torch.Tensor) -> Dict[str, Tuple[float, float, float]]:
+  """{"colours" | "densities": (max|kernel - f32|, max|twin - f32|, bar)}
+  of raw outputs [R,S,4]: the kernel's, the f32 twin's and the bf16
+  twin's; the densities where the f32 twin has no -1e9 fill; bar ``2
+  twin + 1e-3`` (tests/test_pallas_agg.py:93-104)."""
+  keep = want[..., 3] > -1e8
+  out = {}
+  for part, sel in (("colours", lambda t: t[..., :3]),
+                    ("densities", lambda t: t[..., 3][keep])):
+    w = sel(want.float())
+    if w.numel() == 0:
+      out[part] = (0.0, 0.0, 1e-3)
+      continue
+    ek = float((sel(got.float()) - w).abs().max())
+    eb = float((sel(twin.float()) - w).abs().max())
+    out[part] = (ek, eb, 2.0 * eb + 1e-3)
+  return out
+
+
 def _has_s(net: nn.Module, static: bool) -> bool:
   return static and net.anti_alias_pooling
 
@@ -77,7 +119,7 @@ def aggregator_grads(net: nn.Module, static: bool,
 
   mode: "kernel" (the CUDA kernels through the autograd Function, all rays
   in one call, the backward on route `bwd`), "f32" (the module)
-  or "bf16" (the module under autocast, bf16 inputs); the twins run
+  or "bf16" (:func:`bf16_twin`); the twins run
   ``rays`` rays at a time.  Returns raw and
   the gradients of the differentiable inputs (``input.<name>``) and of
   every parameter (its name in ``net``); for the twins of a static net
@@ -111,14 +153,8 @@ def aggregator_grads(net: nn.Module, static: bool,
             r_, s_ = part[0].shape[:2]
             net.s = nn.Parameter(
                 s_param.detach().expand(r_, s_, 1, 1).clone())
-          if mode == "bf16":
-            part = [a.to(torch.bfloat16) if n in ("rgb_feat", "ray_diff")
-                    else a for n, a in zip(names, part)]
-            with torch.autocast("cuda", dtype=torch.bfloat16):
-              o = net(*part)
-          else:
-            o = net(*part)
-          o = o.float()
+          o = (bf16_twin(net, static, part) if mode == "bf16"
+               else net(*part).float())
           (o * cot[i:i + rays]).sum().backward()
           outs.append(o.detach())
           if s_param is not None:

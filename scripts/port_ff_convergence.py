@@ -26,6 +26,7 @@ Renders and the JSON go under ``--outdir`` only.
 
 ``--quick`` runs a tiny configuration on the CPU (plain twins, f32) and
 reports the gate without enforcing it; otherwise a failed gate exits 1.
+``run`` is the run without the exit, for a caller that reads the gate.
 """
 
 from __future__ import annotations
@@ -121,8 +122,19 @@ def _round(curve):
            for k, v in r.items()} for r in curve]
 
 
-def main(argv=None) -> dict:
-  args = parse_args(argv)
+def enforce_gate(result: dict, quick: bool) -> None:
+  """Exit 1 on a failed gate, unless ``quick``."""
+  if result["gate_passed"] or quick:
+    return
+  print(f"GATE FAILED: fine rise {result['fine_rise_db']} dB (gate "
+        f"{result['gate_db']}), fine - frozen coarse "
+        f"{result['fine_minus_frozen_coarse_db']} dB", file=sys.stderr)
+  sys.exit(1)
+
+
+def run(args) -> dict:
+  """The run of ``args`` (``parse_args``): returns the result that it
+  writes to the JSON; the gate is reported, not enforced."""
   os.makedirs(args.outdir, exist_ok=True)
   from dynibar_tpu_torch.config import INIT_SEED
   from dynibar_tpu_torch.data.pipeline import PrefetchPipeline
@@ -277,11 +289,14 @@ def main(argv=None) -> dict:
     json.dump(result, fh, indent=2)
   print(json.dumps({k: v for k, v in result.items() if k != "curve"}),
         flush=True)
-  if not result["gate_passed"] and not args.quick:
-    print(f"GATE FAILED: fine rise {result['fine_rise_db']} dB (gate "
-          f"{args.gate_db}), fine - frozen coarse "
-          f"{result['fine_minus_frozen_coarse_db']} dB", file=sys.stderr)
-    sys.exit(1)
+  return result
+
+
+def main(argv=None) -> dict:
+  """Run, then exit 1 on a failed gate unless ``--quick``."""
+  args = parse_args(argv)
+  result = run(args)
+  enforce_gate(result, args.quick)
   return result
 
 

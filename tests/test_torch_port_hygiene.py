@@ -56,8 +56,9 @@ ABSENT_ON_CARD = ("cv2", "imageio", "PIL", "skimage")
 
 # the port's scripts: each imports only dynibar_tpu_torch, numpy, torch
 # and the standard library
-PORT_SCRIPTS = ("port_ff_convergence.py", "port_mono_convergence.py",
-                "port_pipeline_ab.py", "port_profile.py")
+PORT_SCRIPTS = ("port_eval_ff_synthetic.py", "port_ff_convergence.py",
+                "port_mono_convergence.py", "port_pipeline_ab.py",
+                "port_profile.py")
 
 
 def _sources():
