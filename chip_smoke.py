@@ -18,9 +18,9 @@ is non-zero and the last line below is never printed):
 
   0. the card's name and power limit (nvidia-smi); TF32 off;
   1. build the seven CUDA libraries from csrc/ (one nvcc each, all at
-     once); K4s's, the longest, goes on building through phases 14 and
-     15 (run here, below) and phases 2 and 2b until K4s's first launch in
-     2b,
+     once); phase 16 runs while they build; K4s's, the longest, goes on
+     building through phases 14 and 15 (run here, below) and phases 2 and
+     2b until K4s's first launch in 2b,
      where each kernel's footprint and blocks per SM are printed;
   2. hold each eval kernel against its plain PyTorch twin at the main
      path's shapes (K2/K3 at both the coarse and the fine stage) and time
@@ -247,7 +247,19 @@ is non-zero and the last line below is never printed):
      twins' to the plain path's, printed), and K2 and K3 alone at both
      stages on each chunk's inputs as in 14 (finite, fills exact, the
      bf16-twin bar gated, the phase 2 bars counted); the phase's seconds;
-  7. print the kernels line (13 kernels; K1 with its single-map times, K2
+  16. the host decoder and flow IO (run while nvcc builds in phase 1; no
+     hand kernel): build csrc/image_loader.cc with the host compiler;
+     write 48 288×512 frames as PNG and as JPEG (data/jpeg.py's writer);
+     every frame from llff.read_image equal byte for byte to
+     decoder="numpy"; the native batch at 4 threads equal to the
+     single-file path broadcast and scaled; a 144×256 batch finite, in
+     [0, 1] and equal to _resize_to_float; a missing file raising IOError
+     naming it; warp_flow on the card within 1e-6 of the CPU's at 288×512
+     with a fractional flow; decode ms per frame of each decoder and
+     format on 1 and 4 threads (nvcc runs beside it) and the phase's
+     seconds.  Phase 8 prints its pipeline wait per step over the CLI's
+     first 10 steps, its frames now decoded natively;
+  7. print the total seconds, the kernels line (13 kernels; K1 with its single-map times, K2
      and K3 with their forward reports of 2, 2b and 6a; K1-K3 with their
      launches per eval viewpoint frame and per served frame, K2 with its
      mask_rgb = 0 and anti-alias-off errors; each training kernel with its
@@ -1417,6 +1429,7 @@ def _cli_phase(card, dev, h, w, root, frames=48, n_rand=3072, chunk=4096):
   launches of the first run and the last snapshot's path."""
   from dynibar_tpu_torch.cli import train as cli_train
   from dynibar_tpu_torch.data.factory import create_training_dataset
+  from dynibar_tpu_torch.data.pipeline import PrefetchPipeline
   from dynibar_tpu_torch.data.synthetic_scene import write_synthetic_scene
   from dynibar_tpu_torch.models.dynibar import MonoModel
   from dynibar_tpu_torch.render import render_rays as rr
@@ -1441,8 +1454,21 @@ def _cli_phase(card, dev, h, w, root, frames=48, n_rand=3072, chunk=4096):
           "--init_decay_epoch", "2", "--compute_dtype", "bfloat16",
           "--i_img", str(2 * frames), "--i_weights", str(mid),
           "--i_print", "24", "--workers", "4", "--chunk_size", str(chunk)]
+  # the pipeline's wait per step, from each __next__ of the first run
+  waits, plain_next = [], PrefetchPipeline.__next__
+
+  def timed_next(pipe):
+    before = pipe.wait_s
+    item = plain_next(pipe)
+    waits.append(pipe.wait_s - before)
+    return item
+
+  PrefetchPipeline.__next__ = timed_next
   _zero_counts()
-  first = cli_train.main(args + ["--n_iters", str(frames)])
+  try:
+    first = cli_train.main(args + ["--n_iters", str(frames)])
+  finally:
+    PrefetchPipeline.__next__ = plain_next
   torch.cuda.synchronize()
   launches = _read_counts()
   out = first["out_folder"]
@@ -1461,6 +1487,10 @@ def _cli_phase(card, dev, h, w, root, frames=48, n_rand=3072, chunk=4096):
                                             "K5b", "K3p", "K4s"))):
     raise AssertionError(f"cli: phases {phases}, snapshots {snaps}, "
                          f"{len(panels)} panels, launches {launches}")
+  print(f"cli pipeline wait per step: {np.mean(waits[:10]):.4f} s over "
+        f"the first 10 steps, {np.mean(waits[10:]):.4f} s over the next "
+        f"{len(waits) - 10} (frames decoded by the C++ host decoder; "
+        f"{len(os.sched_getaffinity(0))} cores) [{card}]", flush=True)
   for name, rec in phases:
     print(f"cli {name}: {rec['seconds'] / rec['steps']:.4f} s/step over "
           f"{rec['steps']:.0f} steps, {rec['wait_s']:.2f} s getting "
@@ -2968,6 +2998,162 @@ def _ff_ladder_phase(card, dev, frames=24, steps=100, chunk=1024):
   return conv_launches, per_view
 
 
+def _resize_to_float(img, oh: int, ow: int) -> np.ndarray:
+  """runtime/image_loader.cc's ResizeToFloat in numpy float32, operation
+  for operation: uint8 [h, w(, c)] -> [oh, ow, 3] in [0, 1], gray (and
+  gray+alpha) as its gray three times, alpha dropped, bilinear with
+  half-pixel centres and clamped corners when the size changes."""
+  img = np.asarray(img)
+  if img.ndim == 2:
+    img = img[..., None]
+  src = (img[..., [0, 0, 0]] if img.shape[2] < 3 else img[..., :3]).astype(
+      np.float32)
+  h, w = src.shape[:2]
+  one, half = np.float32(1.0), np.float32(0.5)
+  inv255 = one / np.float32(255.0)
+  if (oh, ow) == (h, w):
+    return src * inv255
+
+  def axis(n_out, n_in):
+    scale = np.float32(n_in) / np.float32(n_out)
+    f = (np.arange(n_out, dtype=np.float32) + half) * scale - half
+    i0 = np.where(f < 0, 0, f.astype(np.int64))   # truncation, as C casts
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    wt = np.maximum(f - i0.astype(np.float32), np.float32(0.0))
+    return i0, i1, wt
+
+  y0, y1, wy = axis(oh, h)
+  x0, x1, wx = axis(ow, w)
+  wy, wx = wy[:, None, None], wx[None, :, None]
+  v00, v01 = src[y0][:, x0], src[y0][:, x1]
+  v10, v11 = src[y1][:, x0], src[y1][:, x1]
+  v = ((one - wy) * ((one - wx) * v00 + wx * v01)
+       + wy * ((one - wx) * v10 + wx * v11))
+  return v * inv255
+
+
+def _decode_frames(root: str, frames: int, h: int, w: int):
+  """`frames` frames of a moving blob over texture with sensor-like noise
+  (sigma 6 of 255, seeded), written as PNG (data/png.py) and as JPEG
+  (data/jpeg.py's writer: quality 75, 4:2:0; the card's machine has no
+  PIL); returns the two lists of paths."""
+  from dynibar_tpu_torch.data import jpeg, png
+  rng = np.random.RandomState(SEED)
+  yy, xx = np.mgrid[0:h, 0:w]
+  bg = np.stack([0.5 + 0.4 * np.sin(xx / 7.0), 0.5 + 0.4 * np.cos(yy / 5.0),
+                 0.5 + 0.4 * np.sin((xx + yy) / 9.0)], -1)
+  pngs, jpegs = [], []
+  for i in range(frames):
+    blob = np.exp(-((xx - w * (0.3 + 0.4 * i / frames)) ** 2
+                    + (yy - h / 2) ** 2) / 400.0)
+    img = np.clip(bg + blob[..., None] * np.array([0.5, -0.2, 0.1]), 0, 1)
+    img = img * 255 + rng.normal(0.0, 6.0, img.shape)
+    img8 = np.clip(np.round(img), 0, 255).astype(np.uint8)
+    pngs.append(os.path.join(root, f"{i:05d}.png"))
+    jpegs.append(os.path.join(root, f"{i:05d}.jpg"))
+    png.write(pngs[-1], img8)
+    jpeg.write(jpegs[-1], img8)
+  return pngs, jpegs
+
+
+def _decode_ms(fn, files, threads):
+  """(results, ms per file) of fn over files on a pool of `threads`."""
+  t0 = time.perf_counter()
+  with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+    out = list(pool.map(fn, files))
+  return out, (time.perf_counter() - t0) / len(files) * 1e3
+
+
+def _decode_phase(card, dev, root, frames=48, h=288, w=512):
+  """Phase 16: the host decoder (csrc/image_loader.cc) and flow IO on the
+  card's machine, while nvcc builds the kernels (no hand kernel here):
+  build the library; write a 48-frame 288x512 scene as PNG and JPEG; every
+  frame from read_image equal, byte for byte, to decoder="numpy"; the
+  batch entry at 4 threads equal to the single-file path broadcast and
+  scaled; a 144x256 batch finite, in [0, 1] and equal to
+  _resize_to_float; a missing file raising IOError naming it; warp_flow on
+  the card equal to warp_flow on the CPU within 1e-6 at 288x512 with a
+  fractional flow.  Prints the decode ms per frame of each decoder and
+  format at 1 and 4 threads (contended: nvcc runs beside it) and the
+  phase's seconds."""
+  from dynibar_tpu_torch.data import flow_io, llff, native_loader
+  from dynibar_tpu_torch.ops import build
+  t_phase = time.perf_counter()
+  secs = build.build_host("image_loader")
+  print(f"host decoder build: {secs:.1f} s ({build.HOST_FLAGS})",
+        flush=True)
+  t0 = time.perf_counter()
+  pngs, jpegs = _decode_frames(root, frames, h, w)
+  print(f"decode: wrote {frames} {h}x{w} frames as PNG and JPEG in "
+        f"{time.perf_counter() - t0:.1f} s", flush=True)
+  cores = len(os.sched_getaffinity(0))
+  inv255 = np.float32(1.0) / np.float32(255.0)
+  report = {"cores": cores}
+  for kind, files in (("png", pngs), ("jpeg", jpegs)):
+    decoded = {}
+    for decoder in llff.DECODERS:
+      for threads in (1, 4):
+        out, ms = _decode_ms(
+            lambda p, d=decoder: llff.read_image(p, decoder=d), files,
+            threads)
+        report[f"{kind}_{decoder}_{threads}t_ms"] = ms
+        decoded.setdefault(decoder, out)
+    for i, (a, b) in enumerate(zip(decoded["native"], decoded["numpy"])):
+      if a.dtype != np.uint8 or a.shape != (h, w, 3) or not np.array_equal(
+          a, b):
+        raise AssertionError(f"decode: {files[i]} differs from the numpy "
+                             f"decoder ({a.dtype} {a.shape})")
+    want = np.stack(decoded["native"]).astype(np.float32) * inv255
+    for threads in (1, 4):
+      loader = native_loader.NativeImageLoader(threads)
+      t0 = time.perf_counter()
+      batch = loader.decode(files)
+      report[f"{kind}_batch_{threads}t_ms"] = ((time.perf_counter() - t0)
+                                               / frames * 1e3)
+      if not np.array_equal(batch, want):
+        raise AssertionError(f"decode: the {kind} batch at {threads} "
+                             "threads differs from the single-file path")
+      if threads == 4:
+        small = loader.decode(files, h // 2, w // 2)
+      loader.close()
+    ref = np.stack([_resize_to_float(img, h // 2, w // 2)
+                    for img in decoded["native"]])
+    if not (np.isfinite(small).all() and small.min() >= 0
+            and small.max() <= 1 and np.array_equal(small, ref)):
+      raise AssertionError(f"decode: the resized {kind} batch vs numpy: "
+                           f"max abs {float(np.abs(small - ref).max())}")
+    print(f"decode {kind}: ms per {h}x{w} frame, numpy "
+          f"{report[kind + '_numpy_1t_ms']:.2f} / "
+          f"{report[kind + '_numpy_4t_ms']:.2f}, native "
+          f"{report[kind + '_native_1t_ms']:.2f} / "
+          f"{report[kind + '_native_4t_ms']:.2f} on 1 / 4 threads, native "
+          f"batch {report[kind + '_batch_1t_ms']:.2f} / "
+          f"{report[kind + '_batch_4t_ms']:.2f} on 1 / 4 C++ threads "
+          f"({cores} cores, nvcc running beside it) [{card}]", flush=True)
+  missing = os.path.join(root, "no_such_frame.png")
+  try:
+    native_loader.NativeImageLoader(1).decode([pngs[0], missing], 8, 8)
+  except IOError as exc:
+    if missing not in str(exc):
+      raise AssertionError(f"decode: the error names no file: {exc}")
+  else:
+    raise AssertionError("decode: a missing file raised nothing")
+  rng = np.random.RandomState(SEED + 16)
+  img = torch.from_numpy(want[0])
+  flow = torch.from_numpy((rng.randn(h, w, 2) * 6).astype(np.float32))
+  on_cpu = flow_io.warp_flow(img, flow)
+  on_card = flow_io.warp_flow(img.to(dev), flow.to(dev)).cpu()
+  err = float((on_card - on_cpu).abs().max())
+  if not (on_card.shape == (h, w, 3) and err <= 1e-6):
+    raise AssertionError(f"warp_flow: card vs CPU {err}")
+  seconds = time.perf_counter() - t_phase
+  print(f"warp_flow {h}x{w}, fractional flow: card vs CPU max abs "
+        f"{err:.3g}; phase 16: {seconds:.1f} s", flush=True)
+  report["warp_flow_max_abs_err"] = err
+  report["seconds"] = seconds
+  return report
+
+
 def _footprints(card):
   """Each aggregator kernel's footprint; the forward trunk keeps two
   blocks per SM at every view count of the main paths (FF 7 and 11, mono
@@ -3009,9 +3195,16 @@ def main() -> int:
   # builds beside the others and on through phases 14, 15, 2 and 2b,
   # which launch no K4s, until its first launch in 2b
   t_build = time.perf_counter()
-  pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+  pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
   k4s_build = pool.submit(build.build, [K4S_LIB])
-  secs = build.build([n for n in build.KERNEL_SOURCES if n != K4S_LIB])
+  kernels_build = pool.submit(build.build, [
+      n for n in build.KERNEL_SOURCES if n != K4S_LIB])
+
+  # ---- 16: the host decoder and flow IO, while nvcc builds -------------
+  import tempfile
+  with tempfile.TemporaryDirectory() as decode_root:
+    _decode_phase(card, dev, decode_root)
+  secs = kernels_build.result()
   print(f"build: {time.perf_counter() - t_build:.1f} s "
         f"({ {k: round(v, 1) for k, v in secs.items()} }; {K4S_LIB} goes "
         f"on)", flush=True)
@@ -3311,7 +3504,6 @@ def main() -> int:
   mono_results, mono_launches, mono_stats, mono_fwd = _mono_phases(
       card, dev, h, w, n_rand, t_cfg)
 
-  import tempfile
   with tempfile.TemporaryDirectory() as cli_root:
     # ---- 8: the training CLI from an on-disk scene ------------------------
     cli_launches, snapshot = _cli_phase(card, dev, h, w, cli_root)
@@ -3403,6 +3595,8 @@ def main() -> int:
   print(f"FF coarse step per route: {coarse_stats}; chain: "
         f"{ {k: v for k, v in chain.items() if k != 'cli_launches'} } "
         f"[{card}]", flush=True)
+  print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
+        flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)
   print(card, flush=True)
   print(json.dumps({"ok": True, "device": {

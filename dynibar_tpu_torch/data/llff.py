@@ -1,8 +1,9 @@
 """LLFF-format pose I/O, recentering, and render-path generation.
 
 Port of the parts of ``dynibar_tpu.data.llff`` that ``load_scene_poses``
-needs (numpy only; the image-shape probe reads the PNG or JPEG header
-through ``data/png.py`` or ``data/jpeg.py``).  Behavioral parity targets
+needs (numpy only; frames and their header's shape are read by the C++
+host decoder, ``data/native_loader.py``, or by its numpy twins
+``data/png.py`` and ``data/jpeg.py``).  Behavioral parity targets
 (reference ibrnet/data_loaders/llff_data_utils.py):
   * ``parse_llff_pose`` axis-swap conventions (:14-25)
   * ``_load_data`` poses_bounds_cvd.npy layout (:57-123)
@@ -20,7 +21,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from dynibar_tpu_torch.data import jpeg, png
+from dynibar_tpu_torch.data import jpeg, native_loader, png
+
+# read_image's decoders: the C++ host decoder, and its numpy twins
+DECODERS = ("native", "numpy")
 
 
 def _normalize(x):
@@ -78,13 +82,27 @@ def _image_reader(path: str):
     return jpeg if fh.read(2) == jpeg.SOI else png
 
 
-def read_image(path: str) -> np.ndarray:
-  """A PNG or JPEG frame as imageio reads it (uint8 [H, W(, C)])."""
+def _check_decoder(decoder: str) -> None:
+  if decoder not in DECODERS:
+    raise ValueError(f"decoder {decoder!r}: one of {DECODERS}")
+
+
+def read_image(path: str, decoder: str = "native") -> np.ndarray:
+  """A PNG or JPEG frame as imageio reads it (uint8 [H, W(, C)]), decoded
+  by the C++ host decoder (data/native_loader.py), or with
+  ``decoder="numpy"`` by its twins data/png.py and data/jpeg.py: the same
+  bytes either way."""
+  _check_decoder(decoder)
+  if decoder == "native":
+    return native_loader.decode_file(path)
   return _image_reader(path).read(path)
 
 
-def read_image_shape(path: str):
+def read_image_shape(path: str, decoder: str = "native"):
   """(height, width[, channels]) of a PNG or JPEG from its header."""
+  _check_decoder(decoder)
+  if decoder == "native":
+    return native_loader.read_shape(path)
   return _image_reader(path).read_shape(path)
 
 

@@ -2,8 +2,10 @@
 
 Port of ``dynibar_tpu.data.monocular``: the same draws from the same
 ``RandomState`` give the same arrays.  The machine with the card has no
-image library, so images and masks are read by ``data/png.py`` (frames
-also by ``data/jpeg.py``, by their magic bytes: ``llff.read_image``) and the
+image library, so images and masks (PNG, and JPEG frames, by their magic
+bytes) are read by the port's C++ host decoder through
+``llff.read_image``, which returns what ``data/png.py`` and
+``data/jpeg.py`` decode, and the
 two OpenCV calls become numpy / scipy with the same results: the
 nearest-neighbour resize takes source index ``floor(dst * src / dst)``
 with OpenCV's rounding of the factor (``cv2.INTER_NEAREST``) and the
@@ -41,7 +43,7 @@ from scipy import ndimage
 
 from dynibar_tpu_torch.config import DynibarConfig, RenderSettings
 from dynibar_tpu_torch.core.cameras import make_camera
-from dynibar_tpu_torch.data import llff
+from dynibar_tpu_torch.data import flow_io, llff
 from dynibar_tpu_torch.data.ray_batch import (ANCHOR_CAND_OFFSETS,
                                               MONO_SRC_OFFSETS)
 from dynibar_tpu_torch.data.view_selection import mono_static_pose_ids
@@ -152,12 +154,8 @@ class MonocularSceneData:
     return np.float32(m > 1e-3)
 
   def _load_flow(self, idx: int, offset: int):
-    interval = abs(offset)
-    tag = "fwd" if offset > 0 else "bwd"
-    path = os.path.join(self.scene_path, f"flow_i{interval}",
-                        f"{idx:05d}_{tag}.npz")
-    data = np.load(path)
-    return data["flow"], np.float32(data["mask"])
+    return flow_io.read_optical_flow(self.scene_path, idx, offset > 0,
+                                     abs(offset))
 
   def _load_vv(self, frame_idx: int, vv_idx: int):
     vv_dir = os.path.dirname(

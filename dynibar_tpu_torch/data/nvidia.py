@@ -7,7 +7,8 @@ for a render frame it selects the 7 temporal source views (offsets
 per-viewpoint frame closest in time, skipping the viewpoint that
 coincides with the render index (11 static views).  The same draws from
 the same ``RandomState`` give the same arrays.  Images and masks are read
-by ``llff.read_image`` (``data/png.py``, ``data/jpeg.py``) and the masks'
+by ``llff.read_image`` (the C++ host decoder, byte for byte as
+``data/png.py`` and ``data/jpeg.py``) and the masks'
 ``cv2.INTER_NEAREST`` resize is ``monocular.resize_nearest``.
 """
 

@@ -11,11 +11,18 @@ A library named in :func:`use_phase_clocks` loads from its phase-clock
 build instead (``PHASE_FLAGS``, ``<name>-phases-<hash>.so``): the same
 sources with per-phase clock64 sums compiled in (csrc/phase_clock.cuh),
 for ``scripts/port_profile.py --phases`` only.
+
+The host decoder (``csrc/image_loader.cc``, C++ for the CPU) builds the
+same way with the host C++ compiler (``$CXX``, else ``g++``) into
+``build/host/``, at its first use (:func:`load_host`), under a file lock so
+that processes starting together compile it once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -32,6 +39,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 PHASE_FLAGS = ("-DAGG_PHASE_CLOCKS",)
 KERNEL_SOURCES = ("sample", "static_agg", "dynamic_agg", "static_agg_bwd",
                   "static_agg_bwd3", "dynamic_agg_bwd", "dynamic_agg_bwd1")
+
+# no -march: the resize rounds alike on every host; no contraction into
+# fused multiply-adds, which aarch64 hosts would otherwise make
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
+              "-ffp-contract=off")
+HOST_DIR = BUILD_DIR.parent / "host"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _PHASES: Set[str] = set()
@@ -125,3 +138,67 @@ def check(err: int, what: str) -> None:
   """Raise on a non-zero cudaError_t returned by a kernel's C entry."""
   if err != 0:
     raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def _cxx() -> str:
+  cxx = os.environ.get("CXX") or "g++"
+  found = shutil.which(cxx)
+  if found is None:
+    raise RuntimeError(f"{cxx} not found: the host decoder "
+                       "(csrc/image_loader.cc) builds with the host C++ "
+                       "compiler ($CXX, else g++)")
+  return found
+
+
+def host_library_path(name: str) -> Path:
+  """build/host/<name>-<hash>.so: the hash covers csrc/<name>.cc, the
+  compiler and the flags (and none of the CUDA sources)."""
+  digest = hashlib.sha256(" ".join((_cxx(),) + HOST_FLAGS).encode())
+  digest.update((CSRC / f"{name}.cc").read_bytes())
+  return HOST_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+@contextlib.contextmanager
+def _file_lock(path: Path):
+  with open(path, "w") as fh:
+    fcntl.flock(fh, fcntl.LOCK_EX)
+    try:
+      yield
+    finally:
+      fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+def build_host(name: str) -> float:
+  """Compile csrc/<name>.cc for the host unless it is built; return the
+  seconds spent (0.0 if it was).  Raises with the compiler's output."""
+  out = host_library_path(name)
+  if out.exists():
+    return 0.0
+  HOST_DIR.mkdir(parents=True, exist_ok=True)
+  t0 = time.perf_counter()
+  with _file_lock(HOST_DIR / f"{name}.lock"):
+    if out.exists():                  # another process built it meanwhile
+      return time.perf_counter() - t0
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    proc = subprocess.run([_cxx(), *HOST_FLAGS, "-o", str(tmp),
+                           str(CSRC / f"{name}.cc")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+      raise RuntimeError(f"{_cxx()} failed for {name}.cc (rc "
+                         f"{proc.returncode}):\n"
+                         + (proc.stdout + proc.stderr)[-4000:])
+    os.replace(tmp, out)
+  return time.perf_counter() - t0
+
+
+def load_host(name: str) -> ctypes.CDLL:
+  """The loaded host library of csrc/<name>.cc, built on first use."""
+  key = f"host:{name}"
+  lib = _LIBS.get(key)
+  if lib is not None:
+    return lib
+  with _LOAD_LOCK:
+    if key not in _LIBS:
+      build_host(name)
+      _LIBS[key] = ctypes.CDLL(str(host_library_path(name)))
+    return _LIBS[key]

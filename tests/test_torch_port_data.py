@@ -1,8 +1,9 @@
 """The port's data path vs the JAX package and the image libraries, CPU.
 
-  * ``data/png.py`` decodes what imageio writes (gray, gray+alpha, RGB,
-    RGBA) and rows under each of the five PNG filters exactly, and
-    round-trips what it writes;
+  * ``data/png.py`` and the C++ host decoder (``data/native_loader.py``)
+    decode what imageio writes (gray, gray+alpha, RGB, RGBA) and rows
+    under each of the five PNG filters exactly, and refuse 16-bit files
+    with one message; ``data/png.py`` round-trips what it writes;
   * ``utils/viz.py``'s numpy colormaps equal matplotlib's ``jet`` and
     ``gray``, and ``colorize_np`` / ``flow_to_image`` the JAX package's;
   * the scene writer writes the JAX writer's arrays; ``load_scene_poses``
@@ -37,7 +38,7 @@ from dynibar_tpu.data.monocular import MonocularSceneData as JMono
 from dynibar_tpu.data.pipeline import PrefetchPipeline as JPipeline
 from dynibar_tpu.utils import viz as jviz
 from dynibar_tpu_torch.config import DynibarConfig
-from dynibar_tpu_torch.data import llff, png, synthetic_scene
+from dynibar_tpu_torch.data import llff, native_loader, png, synthetic_scene
 from dynibar_tpu_torch.data.factory import (MixtureDataset,
                                             create_training_dataset)
 from dynibar_tpu_torch.data.monocular import (MonocularSceneData, _disk_kernel,
@@ -67,16 +68,30 @@ def _image(shape, seed):
 
 # ---------------------------------------------------------------- png
 
+DECODERS = pytest.mark.parametrize("decoder", llff.DECODERS)
+
+
+def _png_decode(data: bytes, decoder: str, tmp_path) -> np.ndarray:
+  """PNG bytes decoded by `decoder` (the native decoder reads a file)."""
+  if decoder == "numpy":
+    return png.decode(data)
+  path = tmp_path / "frame.png"
+  path.write_bytes(data)
+  return native_loader.decode_file(str(path))
+
 
 @pytest.mark.parametrize("shape", [(37, 53), (37, 53, 2), (37, 53, 3),
                                    (37, 53, 4)])
-def test_png_decodes_what_imageio_writes(tmp_path, shape):
+@DECODERS
+def test_png_decodes_what_imageio_writes(tmp_path, shape, decoder):
   img = _image(shape, 0)
   path = str(tmp_path / "a.png")
   imageio.imwrite(path, img)
-  got = png.read(path)
+  got = llff.read_image(path, decoder)
   np.testing.assert_array_equal(got, imageio.imread(path))
+  assert got.dtype == np.uint8
   assert png.read_shape(path) == got.shape
+  assert llff.read_image_shape(path, decoder) == got.shape
 
 
 def _filtered_png(img, kind):
@@ -118,10 +133,11 @@ def _filtered_png(img, kind):
 
 @pytest.mark.parametrize("kind", [0, 1, 2, 3, 4])
 @pytest.mark.parametrize("channels", [1, 3, 4])
-def test_png_row_filters(kind, channels):
+@DECODERS
+def test_png_row_filters(kind, channels, decoder, tmp_path):
   img = _image((11, 13, channels), kind)
   data = _filtered_png(img, kind)
-  got = png.decode(data)
+  got = _png_decode(data, decoder, tmp_path)
   np.testing.assert_array_equal(got.reshape(img.shape), img)
   np.testing.assert_array_equal(imageio.imread(io.BytesIO(data)), got)
 
@@ -135,11 +151,12 @@ def test_png_round_trip(tmp_path, shape):
   np.testing.assert_array_equal(imageio.imread(path), img)
 
 
-def test_png_refuses_what_it_does_not_read():
+@DECODERS
+def test_png_refuses_what_it_does_not_read(decoder, tmp_path):
   buf = io.BytesIO()
   imageio.imwrite(buf, np.zeros((4, 4), np.uint16), format="png")
   with pytest.raises(ValueError, match="bit depth 16"):
-    png.decode(buf.getvalue())
+    _png_decode(buf.getvalue(), decoder, tmp_path)
   with pytest.raises(ValueError, match="uint8"):
     png.encode(np.zeros((4, 4), np.float32))
 

@@ -1,12 +1,16 @@
 """Package rules of the PyTorch/CUDA port:
 
   * no module of dynibar_tpu_torch (and not chip_smoke.py, nor the port's
-    scripts, scripts/port_*.py) imports jax, flax, optax, orbax or
+    scripts, scripts/port_*.py and scripts/data_pipeline_cost.py) imports
+    jax, flax, optax, orbax or
     anything of dynibar_tpu, checked statically and
     by importing every module in a subprocess with those names blocked
     (this pytest process has imported JAX already), and with cv2, imageio,
     PIL and skimage blocked too: the machine with the card has none of
     them;
+  * the host decoder's C++ source (csrc/image_loader.cc) includes the C++
+    standard library's headers only: it builds on a machine with no
+    image, compression or other third-party library;
   * kernel wrappers given CPU tensors take the plain twins;
   * entry points called without device="cpu" on a host without CUDA raise,
     and chip_smoke.py exits non-zero without printing a result.
@@ -14,6 +18,7 @@
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -48,7 +53,8 @@ NEW_MODULES = ("cli/train.py", "data/png.py", "data/llff.py",
                "serve/server.py", "cli/train_ff.py", "eval/held_out.py",
                "ops/splat.py", "cli/save_monocular_cameras.py",
                "cli/render_source_vv.py", "utils/profiling.py",
-               "parallel/mesh.py")
+               "parallel/mesh.py", "data/native_loader.py",
+               "data/flow_io.py")
 # image and video libraries the card's machine lacks: no module may need
 # one to import (serve/video.py imports cv2 only to encode an mp4)
 ABSENT_ON_CARD = ("cv2", "imageio", "PIL", "skimage")
@@ -61,9 +67,20 @@ PORT_SCRIPTS = ("port_eval_ff_synthetic.py", "port_ff_convergence.py",
                 "port_profile.py")
 
 
+# the port's host C++ sources (built by ops/build.load_host)
+HOST_SOURCES = ("csrc/image_loader.cc",)
+# what a host source may include: the C++ standard library's headers
+STD_HEADERS = {
+    "algorithm", "array", "atomic", "cerrno", "chrono", "cmath",
+    "condition_variable", "cstddef", "cstdint", "cstdio", "cstdlib",
+    "cstring", "functional", "limits", "memory", "mutex", "queue",
+    "stdexcept", "string", "thread", "utility", "vector"}
+
+
 def _sources():
   return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-          + sorted((ROOT / "scripts").glob("port_*.py")))
+          + sorted((ROOT / "scripts").glob("port_*.py"))
+          + [ROOT / "scripts" / "data_pipeline_cost.py"])
 
 
 def _imported_roots(path):
@@ -90,6 +107,20 @@ def test_scan_covers_every_subpackage():
   assert set(NEW_MODULES) <= names
   scripts = {p.name for p in _sources() if p.parent == ROOT / "scripts"}
   assert set(PORT_SCRIPTS) <= scripts
+
+
+@pytest.mark.parametrize("name", HOST_SOURCES)
+def test_host_sources_include_the_standard_library_only(name):
+  """No third-party header (png.h, jpeglib.h, zlib.h, ...): the card's
+  machine promises none, and ops/build.py links nothing but libstdc++ and
+  pthreads."""
+  text = (PKG / name).read_text()
+  included = re.findall(r"^\s*#\s*include\s*[<\"]([^>\"]+)[>\"]", text,
+                        re.MULTILINE)
+  assert included and set(included) <= STD_HEADERS, sorted(
+      set(included) - STD_HEADERS)
+  assert sorted(p.relative_to(PKG).as_posix()
+                for p in (PKG / "csrc").glob("*.cc")) == sorted(HOST_SOURCES)
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)

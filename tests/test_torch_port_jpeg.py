@@ -8,9 +8,12 @@ usually meets the bar with no difference at all.)  Files are written by
 PIL and OpenCV at several qualities and chroma subsamplings, with odd
 sizes and restart markers, sequential and progressive; the kinds neither
 package writes (lossless, arithmetic-coded, hierarchical, 12-bit, CMYK)
-raise, naming the file.  A monocular scene whose frames are JPEGs
-(sequential or progressive) gives the JAX package's poses and batches
-(rgb within the bar, everything else exactly).
+raise, naming the file.  Each decode and refusal case runs on both
+decoders: data/jpeg.py ("numpy") and the C++ host decoder
+(data/native_loader.py, "native"), which must also return data/jpeg.py's
+bytes exactly and refuse with its message.  A monocular scene whose frames
+are JPEGs (sequential or progressive) gives the JAX package's poses and
+batches (rgb within the bar, everything else exactly).
 """
 
 import io
@@ -25,7 +28,7 @@ from dynibar_tpu.config import DynibarConfig as JConfig
 from dynibar_tpu.data import llff as jllff
 from dynibar_tpu.data.monocular import MonocularSceneData as JMono
 from dynibar_tpu_torch.config import DynibarConfig
-from dynibar_tpu_torch.data import jpeg, llff, synthetic_scene
+from dynibar_tpu_torch.data import jpeg, llff, native_loader, synthetic_scene
 from dynibar_tpu_torch.data.monocular import MonocularSceneData
 from torch_port_threads import one_torch_thread  # noqa: F401
 
@@ -50,6 +53,28 @@ def _pil_jpeg(img, **kw) -> bytes:
   return buf.getvalue()
 
 
+DECODERS = pytest.mark.parametrize("decoder", llff.DECODERS)
+
+
+def _decode(data: bytes, decoder: str, tmp_path) -> np.ndarray:
+  """JPEG bytes decoded by `decoder`; the native decoder reads a file and
+  must return data/jpeg.py's bytes."""
+  want = jpeg.decode(data)
+  if decoder == "numpy":
+    return want
+  path = tmp_path / "frame.jpg"
+  path.write_bytes(data)
+  got = native_loader.decode_file(str(path))
+  np.testing.assert_array_equal(got, want)
+  assert got.dtype == want.dtype
+  return got
+
+
+def _read(path: str, decoder: str) -> np.ndarray:
+  return (jpeg.read(path) if decoder == "numpy"
+          else native_loader.decode_file(path))
+
+
 def _check(got, want):
   assert got.shape == want.shape and got.dtype == np.uint8
   diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
@@ -60,61 +85,69 @@ def _check(got, want):
 @pytest.mark.parametrize("quality", [30, 75, 95])
 @pytest.mark.parametrize("subsampling", [0, 1, 2])    # 4:4:4, 4:2:2, 4:2:0
 @pytest.mark.parametrize("size", [(61, 93), (16, 16), (33, 8)])
-def test_decodes_what_pil_writes(quality, subsampling, size):
+@DECODERS
+def test_decodes_what_pil_writes(quality, subsampling, size, decoder,
+                                 tmp_path):
   img = _image(*size, 3, seed=quality + subsampling)
   buf = io.BytesIO()
   Image.fromarray(img).save(buf, format="JPEG", quality=quality,
                             subsampling=subsampling)
-  _check(jpeg.decode(buf.getvalue()), imageio.imread(io.BytesIO(
-      buf.getvalue())))
+  _check(_decode(buf.getvalue(), decoder, tmp_path),
+         imageio.imread(io.BytesIO(buf.getvalue())))
 
 
 @pytest.mark.parametrize("quality", [50, 90])
-def test_decodes_grayscale(quality):
+@DECODERS
+def test_decodes_grayscale(quality, decoder, tmp_path):
   img = _image(45, 70, 1, seed=quality)
   buf = io.BytesIO()
   Image.fromarray(img).save(buf, format="JPEG", quality=quality)
-  got = jpeg.decode(buf.getvalue())
+  got = _decode(buf.getvalue(), decoder, tmp_path)
   assert got.ndim == 2
   _check(got, imageio.imread(io.BytesIO(buf.getvalue())))
 
 
 @pytest.mark.parametrize("interval", [1, 5, 16])
-def test_decodes_restart_markers(interval):
+@DECODERS
+def test_decodes_restart_markers(interval, decoder, tmp_path):
   img = _image(72, 101, 3, seed=interval)
   ok, enc = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 85,
                                        cv2.IMWRITE_JPEG_RST_INTERVAL,
                                        interval])
   data = enc.tobytes()
   assert ok and any(bytes([0xFF, 0xD0 + i]) in data for i in range(8))
-  _check(jpeg.decode(data), imageio.imread(io.BytesIO(data)))
+  _check(_decode(data, decoder, tmp_path), imageio.imread(io.BytesIO(data)))
 
 
 @pytest.mark.parametrize("quality", [30, 75, 95])
 @pytest.mark.parametrize("subsampling", [0, 1, 2])    # 4:4:4, 4:2:2, 4:2:0
 @pytest.mark.parametrize("size", [(61, 93), (16, 16), (33, 8)])
-def test_decodes_progressive(quality, subsampling, size):
+@DECODERS
+def test_decodes_progressive(quality, subsampling, size, decoder, tmp_path):
   """Progressive files (SOF2: DC and AC first and refinement scans,
   spectral selection, EOB runs), as PIL writes them."""
   img = _image(*size, 3, seed=quality + subsampling + 7)
   data = _pil_jpeg(img, quality=quality, subsampling=subsampling,
                    progressive=True)
   assert b"\xff\xc2" in data
-  _check(jpeg.decode(data), imageio.imread(io.BytesIO(data)))
+  _check(_decode(data, decoder, tmp_path), imageio.imread(io.BytesIO(data)))
 
 
 @pytest.mark.parametrize("quality", [50, 90])
-def test_decodes_progressive_grayscale(quality):
+@DECODERS
+def test_decodes_progressive_grayscale(quality, decoder, tmp_path):
   img = _image(45, 70, 1, seed=quality + 3)
   data = _pil_jpeg(img, quality=quality, progressive=True)
-  got = jpeg.decode(data)
+  got = _decode(data, decoder, tmp_path)
   assert got.ndim == 2
   _check(got, imageio.imread(io.BytesIO(data)))
 
 
 @pytest.mark.parametrize("encoder", ["pil", "cv2"])
 @pytest.mark.parametrize("interval", [1, 5, 16])
-def test_decodes_progressive_restart_markers(encoder, interval):
+@DECODERS
+def test_decodes_progressive_restart_markers(encoder, interval, decoder,
+                                             tmp_path):
   """Restart markers reset the DC predictors and the EOB runs."""
   img = _image(72, 101, 3, seed=interval + 11)
   if encoder == "pil":
@@ -128,10 +161,11 @@ def test_decodes_progressive_restart_markers(encoder, interval):
     data = enc.tobytes()
   assert b"\xff\xc2" in data
   assert any(bytes([0xFF, 0xD0 + i]) in data for i in range(8))
-  _check(jpeg.decode(data), imageio.imread(io.BytesIO(data)))
+  _check(_decode(data, decoder, tmp_path), imageio.imread(io.BytesIO(data)))
 
 
-def test_reads_files_and_refuses_progressive(tmp_path):
+@DECODERS
+def test_reads_files_and_refuses_progressive(tmp_path, decoder):
   """Files read from disk, sequential and progressive (Huffman, 8-bit),
   and their shapes from the frame header; refused are what is not a JPEG
   and the progressive kinds neither package writes (arithmetic-coded,
@@ -140,17 +174,18 @@ def test_reads_files_and_refuses_progressive(tmp_path):
   img = _image(40, 64, 3, seed=1)
   path = str(tmp_path / "frame.jpg")
   imageio.imwrite(path, img, quality=90)
-  _check(jpeg.read(path), imageio.imread(path))
+  _check(_read(path, decoder), imageio.imread(path))
   assert jpeg.read_shape(path) == (40, 64, 3)
-  assert llff.read_image_shape(path) == (40, 64, 3)
+  assert llff.read_image_shape(path, decoder) == (40, 64, 3)
   prog = str(tmp_path / "prog.jpg")
   Image.fromarray(img).save(prog, format="JPEG", progressive=True)
-  _check(jpeg.read(prog), imageio.imread(prog))
+  _check(_read(prog, decoder), imageio.imread(prog))
   assert jpeg.read_shape(prog) == (40, 64, 3)
-  assert llff.read_image_shape(prog) == (40, 64, 3)
+  assert llff.read_image_shape(prog, decoder) == (40, 64, 3)
   gray = str(tmp_path / "gray.jpg")
   Image.fromarray(img[..., 0]).save(gray, format="JPEG", progressive=True)
   assert jpeg.read_shape(gray) == (40, 64)
+  assert llff.read_image_shape(gray, decoder) == (40, 64)
   with pytest.raises(ValueError, match="not a JPEG"):
     jpeg.decode(b"\x89PNG\r\n\x1a\n")
   for marker, bits, kind in ((0xCA, 8, "arithmetic-coded"),
@@ -158,7 +193,7 @@ def test_reads_files_and_refuses_progressive(tmp_path):
     odd = tmp_path / f"prog_{marker:x}_{bits}.jpg"
     odd.write_bytes(_frame_header(marker, bits) + b"\xff\xd9")
     with pytest.raises(ValueError, match=f"{odd.name}: {kind}"):
-      jpeg.read(str(odd))
+      _read(str(odd), decoder)
 
 
 def _frame_header(marker: int, bits: int = 8) -> bytes:
@@ -171,28 +206,32 @@ def _frame_header(marker: int, bits: int = 8) -> bytes:
 @pytest.mark.parametrize("marker,kind", [
     (0xC3, "lossless"), (0xC5, "hierarchical"), (0xC9, "arithmetic-coded"),
     (0xCA, "arithmetic-coded")])
-def test_refuses_what_neither_package_writes(tmp_path, marker, kind):
+@DECODERS
+def test_refuses_what_neither_package_writes(tmp_path, marker, kind,
+                                             decoder):
   path = tmp_path / "odd.jpg"
   path.write_bytes(_frame_header(marker) + b"\xff\xd9")
   with pytest.raises(ValueError, match=f"odd.jpg: {kind}"):
-    jpeg.read(str(path))
+    _read(str(path), decoder)
 
 
 @pytest.mark.parametrize("marker", [0xC1, 0xC2])
-def test_refuses_12_bit_samples(tmp_path, marker):
+@DECODERS
+def test_refuses_12_bit_samples(tmp_path, marker, decoder):
   path = tmp_path / "deep.jpg"
   path.write_bytes(_frame_header(marker, bits=12) + b"\xff\xd9")
   with pytest.raises(ValueError, match="deep.jpg: 12-bit"):
-    jpeg.read(str(path))
+    _read(str(path), decoder)
 
 
 @pytest.mark.parametrize("progressive", [False, True])
-def test_refuses_cmyk(tmp_path, progressive):
+@DECODERS
+def test_refuses_cmyk(tmp_path, progressive, decoder):
   path = str(tmp_path / "cmyk.jpg")
   Image.fromarray(_image(16, 24, 3, seed=5)).convert("CMYK").save(
       path, format="JPEG", progressive=progressive)
   with pytest.raises(ValueError, match="cmyk.jpg: 4-component"):
-    jpeg.read(path)
+    _read(path, decoder)
 
 
 def _jpeg_scene(tmp_path_factory, progressive):
